@@ -1,0 +1,254 @@
+// K2 forward: the ConvNeXt MLP tail fused over a tile of rows,
+//   out = (GELU(LN(y) @ W1^T + b1) @ W2^T + b2) * gamma  [+ residual].
+//
+// Replaces the Pallas kernel linnaeus_tpu/ops/fused_mlp.py `_body` (through
+// `_kernel` / `_kernel_nores`, launched by `_pallas_fused`). Same casts: the
+// LayerNorm (eps given, statistics in float32) is rounded to the input dtype
+// before the first product, the GELU output is rounded to the input dtype
+// before the second, both products accumulate in float32, and the bias,
+// layer scale and residual are applied in float32 before the one cast of
+// the result.
+//
+// Layout: y, residual and out are (M, C) row-major. W1 is (4C, C) and W2 is
+// (C, 4C), the torch Linear layout of pwconv1 / pwconv2, in the input
+// dtype. The LN weight and bias, b1, b2 and gamma are float32 vectors.
+//
+// What bounds it on the H100: the unfused chain writes and reads an
+// (M, 4C) intermediate, 8x the bytes of y, while the fused form moves only
+// y, the residual and the output; at C = 96 and 192 the two products do
+// 16 C operations per element moved, so once the intermediate stays on the
+// chip the kernel is bound by arithmetic. This first version keeps it
+// simple: one block per 64-row tile normalises its rows into shared memory,
+// then walks the hidden dim in 64-column chunks, each chunk's GELU tile
+// living in shared memory only; the products run as float32 FMAs on the
+// CUDA cores from shared-memory tiles (each thread owns a 4-row strip of
+// the output tile in registers). Tensor cores (wgmma) come in a later
+// change.
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // a 16 x 16 grid of threads
+constexpr int kBM = 64;        // rows per block: 4 per thread row
+constexpr int kHC = 64;        // hidden columns per chunk: 4 per thread column
+constexpr int kMaxC = 256;     // widest C the column split below covers
+
+__device__ __forceinline__ float gelu(float x, bool approximate) {
+  if (approximate) {
+    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    return 0.5f * x * (1.f + tanhf(inner));
+  }
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+// Shared memory: the normalised tile (kBM x C+1), one chunk of GELU output
+// (kBM x kHC+1) and one staged weight chunk, W1's (C x kHC+1) or W2's
+// (kHC x C+1). The +1 pads keep the column walks free of bank conflicts.
+__host__ __device__ inline size_t smem_floats(int C) {
+  const size_t w1 = static_cast<size_t>(C) * (kHC + 1);
+  const size_t w2 = static_cast<size_t>(kHC) * (C + 1);
+  return static_cast<size_t>(kBM) * (C + 1) + kBM * (kHC + 1) + (w1 > w2 ? w1 : w2);
+}
+
+// CPT: output columns per thread; thread column tx owns columns tx + 16 j.
+template <typename T, int CPT>
+__global__ void __launch_bounds__(kThreads)
+    fused_mlp_kernel(const T* __restrict__ y, const T* __restrict__ x,
+                     const float* __restrict__ ln_w,
+                     const float* __restrict__ ln_b, const T* __restrict__ w1,
+                     const float* __restrict__ b1, const T* __restrict__ w2,
+                     const float* __restrict__ b2,
+                     const float* __restrict__ gamma, T* __restrict__ out,
+                     long long M, int C, int Hd, float eps, bool approximate) {
+  extern __shared__ float smem[];
+  const int ldh = C + 1;
+  constexpr int lda = kHC + 1;
+  float* h0 = smem;               // kBM x ldh
+  float* act = h0 + kBM * ldh;    // kBM x lda
+  float* wt = act + kBM * lda;    // a staged chunk of W1 or W2
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
+
+  // 1. LayerNorm, one warp per row; rows past M are zeros
+  for (int r = warp; r < kBM; r += kThreads / 32) {
+    float* hr = h0 + r * ldh;
+    const long long gr = row0 + r;
+    if (gr >= M) {
+      for (int c = lane; c < C; c += 32) hr[c] = 0.f;
+      continue;
+    }
+    const T* yr = y + gr * C;
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float t = lt::to_float(yr[c]);
+      hr[c] = t;
+      sum += t;
+    }
+    const float mean = lt::warp_sum(sum) / C;
+    float sq = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = hr[c] - mean;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(lt::warp_sum(sq) / C + eps);
+    for (int c = lane; c < C; c += 32)
+      hr[c] = lt::round_to<T>((hr[c] - mean) * rstd * ln_w[c] + ln_b[c]);
+  }
+
+  float acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  for (int hc = 0; hc < Hd; hc += kHC) {
+    const int nh = min(kHC, Hd - hc);
+    __syncthreads();  // h0 is written; the last chunk's act and wt are used
+    // stage W1[hc : hc + nh, :] as wt[c][hh] (global reads run along c)
+    for (int i = tid; i < kHC * C; i += kThreads) {
+      const int hh = i / C;
+      const int c = i % C;
+      wt[c * lda + hh] =
+          hh < nh ? lt::to_float(w1[static_cast<long long>(hc + hh) * C + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // 2. act = round(GELU(h0 @ W1c^T + b1c)): thread owns 4 rows x 4 columns
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      float a[4], bw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = h0[(ty * 4 + i) * ldh + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bw[j] = wt[c * lda + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bw[j], s[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int hh = tx + 16 * j;
+      const float bias = hh < nh ? b1[hc + hh] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        act[(ty * 4 + i) * lda + hh] =
+            hh < nh ? lt::round_to<T>(gelu(s[i][j] + bias, approximate)) : 0.f;
+    }
+    __syncthreads();  // act is complete and wt's W1 chunk is used
+
+    // stage W2[:, hc : hc + nh] as wt[hh][c] (global reads run along hh)
+    for (int i = tid; i < C * kHC; i += kThreads) {
+      const int c = i / kHC;
+      const int hh = i % kHC;
+      wt[hh * ldh + c] =
+          hh < nh ? lt::to_float(w2[static_cast<long long>(c) * Hd + hc + hh]) : 0.f;
+    }
+    __syncthreads();
+
+    // 3. acc += act @ W2c^T: thread owns 4 rows x CPT columns
+    for (int hh = 0; hh < nh; ++hh) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = act[(ty * 4 + i) * lda + hh];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = tx + 16 * j;
+        const float bw = c < C ? wt[hh * ldh + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bw, acc[i][j]);
+      }
+    }
+  }
+
+  // 4. (acc + b2) * gamma [+ residual], one cast to T
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long gr = row0 + ty * 4 + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = tx + 16 * j;
+      if (c >= C) continue;
+      float t = (acc[i][j] + b2[c]) * gamma[c];
+      if (x != nullptr) t += lt::to_float(x[gr * C + c]);
+      out[gr * C + c] = lt::from_float<T>(t);
+    }
+  }
+}
+
+template <typename T, int CPT>
+cudaError_t launch(const void* y, const void* x, const float* ln_w,
+                   const float* ln_b, const void* w1, const float* b1,
+                   const void* w2, const float* b2, const float* gamma,
+                   void* out, long long M, int C, int Hd, float eps,
+                   bool approximate, cudaStream_t stream) {
+  auto kernel = fused_mlp_kernel<T, CPT>;
+  const size_t bytes = smem_floats(C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const long long blocks = (M + kBM - 1) / kBM;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(x), ln_w, ln_b,
+      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, gamma,
+      static_cast<T*>(out), M, C, Hd, eps, approximate);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* y, const void* x, const float* ln_w,
+                     const float* ln_b, const void* w1, const float* b1,
+                     const void* w2, const float* b2, const float* gamma,
+                     void* out, long long M, int C, int Hd, float eps,
+                     bool approximate, cudaStream_t s) {
+  const int cpt = (C + 15) / 16;
+#define LT_LAUNCH(N)                                                          \
+  return launch<T, N>(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, Hd, \
+                      eps, approximate, s)
+  if (cpt <= 2) LT_LAUNCH(2);
+  if (cpt <= 4) LT_LAUNCH(4);
+  if (cpt <= 6) LT_LAUNCH(6);
+  if (cpt <= 8) LT_LAUNCH(8);
+  if (cpt <= 12) LT_LAUNCH(12);
+  LT_LAUNCH(16);
+#undef LT_LAUNCH
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success). `x` may be null (no
+// residual). Hd is the hidden width (4C for ConvNeXt).
+extern "C" int lt_fused_mlp_fwd(const void* y, const void* x, const void* ln_w,
+                                const void* ln_b, const void* w1,
+                                const void* b1, const void* w2, const void* b2,
+                                const void* gamma, void* out, long long M,
+                                int C, int Hd, float eps, int approximate,
+                                int dtype, void* stream) {
+  if (M < 1 || C < 1 || C > kMaxC || Hd < 1) return cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case lt::kFloat32:
+      return dispatch<float>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2, f(b2),
+                             f(gamma), out, M, C, Hd, eps, approximate != 0, s);
+    case lt::kBFloat16:
+      return dispatch<__nv_bfloat16>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2,
+                                     f(b2), f(gamma), out, M, C, Hd, eps,
+                                     approximate != 0, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

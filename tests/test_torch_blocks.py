@@ -1,0 +1,147 @@
+"""The port's blocks against their Flax modules at tiny widths, in fp32.
+
+Each Flax module is initialised from a fixed key, its params are perturbed
+with seeded numpy noise (so a 1e-6 layer scale or a unit LayerNorm cannot
+hide a wrong path), copied into the port's module, and both run on the same
+numpy inputs. Tolerance 1e-5 (float32, tiny widths).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import linnaeus_tpu.ops.fused_mlp as jfm
+from linnaeus_tpu.models.blocks.common import MetaHead as JMetaHead
+from linnaeus_tpu.models.blocks.convnext import ConvNeXtBlock as JConvNeXtBlock
+from linnaeus_tpu.models.blocks.rope_mhsa import RoPE2DMHSABlock as JRoPEBlock
+from linnaeus_tpu_torch.models.blocks.common import MetaHead
+from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
+from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
+
+ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(
+        jfm.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _init(module, x, seed=0):
+    params = module.init(jax.random.PRNGKey(0), x)["params"]
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: np.asarray(a) + 0.1 * rng.normal(size=a.shape).astype(np.float32), params
+    )
+
+
+def _load(module, pairs):
+    """pairs: {port key: (numpy value, transpose axes or None)}."""
+    state = {
+        k: torch.tensor(v if axes is None else np.transpose(v, axes))
+        for k, (v, axes) in pairs.items()
+    }
+    module.load_state_dict(state, strict=True)
+    return module.eval()
+
+
+def _dense(p, key):
+    return {f"{key}.weight": (p["kernel"], (1, 0)), f"{key}.bias": (p["bias"], None)}
+
+
+def _ln(p, key):
+    return {f"{key}.weight": (p["scale"], None), f"{key}.bias": (p["bias"], None)}
+
+
+@pytest.mark.parametrize("act_exact", [False, True])
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_convnext_block(act_exact, fused):
+    x = np.random.default_rng(1).normal(size=(2, 6, 6, 8)).astype(np.float32)
+    jm = JConvNeXtBlock(dim=8, act_exact=act_exact, fused_mlp=fused)
+    p = _init(jm, jnp.asarray(x))
+    ref = jm.apply({"params": p}, jnp.asarray(x))
+    tm = _load(ConvNeXtBlock(8, act_exact=act_exact, fused_mlp=fused), {
+        "dwconv.weight": (p["Conv_0"]["kernel"], (3, 2, 0, 1)),
+        "dwconv.bias": (p["Conv_0"]["bias"], None),
+        **_ln(p["LayerNorm_0"], "norm"),
+        **_dense(p["Dense_0"], "pwconv1"),
+        **_dense(p["Dense_1"], "pwconv2"),
+        "gamma": (p["gamma"], None),
+    })
+    with torch.no_grad():
+        out = tm(torch.tensor(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+@pytest.mark.parametrize("fidelity", ["rotate", "reference_cos"])
+@pytest.mark.parametrize("flash", [False, True])
+def test_rope_block(mixed, fidelity, flash):
+    # 2 extra tokens + a 4x3 grid; large inputs make the rotation matter
+    x = 3.0 * np.random.default_rng(2).normal(size=(2, 14, 16)).astype(np.float32)
+    kw = dict(img_grid_size=(4, 3), extra_token_num=2, num_heads=2,
+              rope_mixed=mixed, rope_fidelity=fidelity)
+    jm = JRoPEBlock(dim=16, **kw)
+    p = _init(jm, jnp.asarray(x))
+    ref = jm.apply({"params": p}, jnp.asarray(x))
+    pairs = {
+        **_ln(p["norm1"], "norm1"),
+        **_dense(p["attn"]["qkv"], "attn.qkv"),
+        **_dense(p["attn"]["proj"], "attn.proj"),
+        **_ln(p["norm2"], "norm2"),
+        **_dense(p["mlp"]["Dense_0"], "mlp.fc1"),
+        **_dense(p["mlp"]["Dense_1"], "mlp.fc2"),
+    }
+    if mixed:
+        pairs["attn.freqs"] = (p["attn"]["freqs"], None)
+    tm = _load(RoPE2DMHSABlock(16, use_flash_attn=flash, **kw), pairs)
+    with torch.no_grad():
+        out = tm(torch.tensor(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_meta_head():
+    x = np.random.default_rng(3).normal(size=(3, 5)).astype(np.float32)
+    jm = JMetaHead(out_dim=16)
+    p = _init(jm, jnp.asarray(x))
+    ref = jm.apply({"params": p}, jnp.asarray(x))
+    r = p["ResNormLayer_0"]
+    tm = _load(MetaHead(5, 16), {
+        **_dense(p["Dense_0"], "0"),
+        **_ln(p["LayerNorm_0"], "2"),
+        **_dense(r["Dense_0"], "3.w1"),
+        **_ln(r["LayerNorm_0"], "3.norm_fn1"),
+        **_dense(r["Dense_1"], "3.w2"),
+        **_ln(r["LayerNorm_1"], "3.norm_fn2"),
+    })
+    with torch.no_grad():
+        out = tm(torch.tensor(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_convnext_block_drop_path_in_training():
+    """In training an active drop-path must scale the MLP branch alone: the
+    K2 route then skips the kernel's residual add. Both routes draw the same
+    per-sample mask from the same seed."""
+    x = torch.tensor(np.random.default_rng(4).normal(size=(4, 5, 5, 8)).astype(np.float32))
+    fused = ConvNeXtBlock(8, drop_path=0.5, layer_scale_init_value=0.5, fused_mlp=True)
+    plain = ConvNeXtBlock(8, drop_path=0.5, layer_scale_init_value=0.5, fused_mlp=False)
+    plain.load_state_dict(fused.state_dict())
+    outs = []
+    for block in (fused, plain):
+        block.train()
+        torch.manual_seed(0)
+        with torch.no_grad():
+            outs.append(block(x))
+        torch.manual_seed(0)
+        kept = torch.rand(4) < 0.5  # the mask DropPath drew
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), atol=ATOL)
+    assert kept.any() and not kept.all()
+    for i, k in enumerate(kept.tolist()):
+        assert torch.equal(outs[0][i], x[i]) != k  # dropped samples are the residual

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: these skip without a CUDA device (the kernels have no
+interpret mode). On a GPU machine, from the repository root:
+
+    python -m pytest -q -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest configures JAX, which the port does
+not need.) Tolerances are the TPU kernel tests' bars: K1 fp32 2e-5, bf16
+3e-2; K2 fp32 1e-5, bf16 5e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from linnaeus_tpu_torch.models.build import build_model
+from linnaeus_tpu_torch.ops import flash_attention as fa
+from linnaeus_tpu_torch.ops import fused_mlp as fm
+
+pytestmark = pytest.mark.cuda
+
+K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 37, 130])
+def test_k1_matches_plain_on_strided_views(dev, dtype, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    q, k, v = torch.randn(2, n, 3, 3, 64, generator=g, device=dev).to(dtype).unbind(2)
+    before = fa.LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=0.2)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, scale=0.2)
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    assert _max_err(out, ref) <= K1_TOL[dtype]
+    assert _max_err(lse, ref_lse) <= K1_TOL[dtype]
+
+
+def test_k1_rejects_what_it_does_not_take(dev):
+    q = torch.randn(1, 8, 2, 32, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)  # head dim 32
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, q.bfloat16(), q)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_fwd(q.requires_grad_(), q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 40, 96, 192])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k2_matches_plain(dev, dtype, C, residual, approximate):
+    g = torch.Generator(device=dev).manual_seed(C)
+    M = 70
+    y, x = (torch.randn(M, C, generator=g, device=dev).to(dtype) for _ in range(2))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dtype)
+    w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dtype)
+    args = (y, x if residual else None, vec(C, 0.1, 1.0), vec(C, 0.1), w1,
+            vec(4 * C, 0.1), w2, vec(C, 0.1), vec(C, 0.1, 0.5))
+    before = fm.LAUNCHES
+    out = fm.fused_convnext_mlp(*args, approximate_gelu=approximate)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == before + 1
+    ref = fm.fused_convnext_mlp_reference(*args, 1e-6, approximate)
+    assert _max_err(out, ref) <= K2_TOL[dtype]
+
+
+def test_k2_rejects_what_it_does_not_take(dev):
+    C = fm.MAX_WIDTH + 8
+    y = torch.randn(4, C, device=dev)
+    w = torch.randn(4 * C, C, device=dev)
+    with pytest.raises(ValueError):
+        fm.fused_convnext_mlp(y, None, torch.ones(C, device=dev), torch.zeros(C, device=dev),
+                              w, torch.zeros(4 * C, device=dev), w.t().contiguous(),
+                              torch.zeros(C, device=dev), None)
+
+
+def test_tiny_model_kernels_on_vs_off(dev):
+    spec = {
+        "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [16, 32, 128, 256]},
+        "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
+        "DROP_PATH_RATE": 0.0,
+    }
+    nc = {"taxa_L10": 11, "taxa_L20": 5}
+    meta = (("TEMPORAL", 2), ("SPATIAL", 3))
+    on = build_model(spec, 64, nc, meta, use_flash_attn=True, device=dev)
+    off = build_model(spec, 64, nc, meta, use_flash_attn=False, fused_convnext_mlp=False,
+                      device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(3, 64, 64, 3)).astype(np.float32), device=dev)
+    m = torch.tensor(rng.normal(size=(3, 5)).astype(np.float32), device=dev)
+    k1, k2 = fa.LAUNCHES, fm.LAUNCHES
+    with torch.inference_mode():
+        a, b = on(x, m), off(x, m)
+    assert (fa.LAUNCHES - k1, fm.LAUNCHES - k2) == (2, 3)
+    for t in nc:
+        assert _max_err(a[t], b[t]) <= 1e-4

@@ -1,0 +1,157 @@
+"""The port's inference handler against the TPU package's on one bundle.
+
+Both handlers serve the tiny mFormerV1 of tests/bundle_utils.py in fp32 on
+the same weights (bridged with ``state_dict_from_jax``), with the
+hierarchical-consistency pass off on both sides (the port has no taxonomy
+tree yet). Top-k class ids must agree and probabilities to 1e-5.
+"""
+
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from linnaeus_tpu.inference import InferenceRequestMetadata as JOpts
+from linnaeus_tpu.inference import LinnaeusInferenceHandler as JHandler
+from linnaeus_tpu.inference import preprocessing as jpre
+from linnaeus_tpu_torch.inference import preprocessing as tpre
+from linnaeus_tpu_torch.inference.artifacts import load_class_index_maps_artifact
+from linnaeus_tpu_torch.inference.config import load_inference_config
+from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+from linnaeus_tpu_torch.inference.model_utils import build_model_for_inference
+from linnaeus_tpu_torch.inference.schemas import InferenceRequestMetadata
+from linnaeus_tpu_torch.utils.convert import state_dict_from_jax
+
+TASKS = ["taxa_L10", "taxa_L20"]
+TINY = {
+    "CONVNEXT": {"DEPTHS": [1, 1, 1, 1], "DIMS": [8, 16, 32, 64]},
+    "ROPE": {"DEPTHS": [1, 1], "DIMS": [32, 64], "NUM_HEADS": [2, 2]},
+    "DROP_PATH_RATE": 0.0,
+}
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def handlers(tmp_path_factory):
+    from tests.bundle_utils import make_test_bundle
+
+    bundle = make_test_bundle(tmp_path_factory.mktemp("bundle"))
+    loaded = JHandler.load_from_artifacts(bundle / "config.yaml")
+    jcfg = loaded.config.model_copy(deep=True)
+    jcfg.inference_options.enable_hierarchical_consistency_check = False
+    jcfg.inference_options.data_parallel = 1
+    jax_handler = JHandler(
+        jcfg, loaded.model.clone(dtype=jnp.float32), loaded.variables,
+        loaded.taxonomy, loaded.class_maps,
+    )
+
+    cfg = load_inference_config(bundle / "config.yaml")
+    cfg.inference_options.enable_hierarchical_consistency_check = False
+    model = build_model_for_inference(cfg, arch=TINY)
+    params = jax.tree.map(np.asarray, loaded.variables["params"])
+    model.load_state_dict(
+        state_dict_from_jax(params, (1, 1, 1, 1), (1, 1),
+                            ("TEMPORAL", "SPATIAL", "ELEVATION"), tuple(TASKS)),
+        strict=True,
+    )
+    m = cfg.model
+    class_maps = load_class_index_maps_artifact(
+        bundle / "class_map.json", m.model_task_keys_ordered,
+        m.num_classes_per_task, m.null_class_indices,
+    )
+    return jax_handler, LinnaeusInferenceHandler(cfg, model, class_maps)
+
+
+def _requests(n, seed):
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(n)]
+    metas = [
+        {"lat": 40.0, "lon": -105.0, "datetime": "2024-06-15T12:00:00", "elevation_m": 1600.0},
+        None,
+        {"lat": -10.0, "lon": 30.0},
+    ]
+    return images, [metas[i % 3] for i in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 5])  # buckets 1 and 4; 5 spans two chunks
+def test_predictions_match_jax_handler(handlers, n):
+    jax_handler, handler = handlers
+    images, metas = _requests(n, seed=n)
+    ours = handler.predict(images, metas, InferenceRequestMetadata(top_k=5))
+    theirs = jax_handler.predict(images, metas, JOpts(top_k=5))
+    assert len(ours) == len(theirs) == n
+    for a, b in zip(ours, theirs):
+        assert [t.task_key for t in a.tasks] == TASKS
+        for ta, tb in zip(a.tasks, b.tasks):
+            assert ta.rank_level == tb.rank_level
+            assert [tid for tid, _ in ta.predictions] == [tid for tid, _ in tb.predictions]
+            np.testing.assert_allclose(
+                [p for _, p in ta.predictions], [p for _, p in tb.predictions], atol=1e-5)
+
+
+def test_buckets_topk_padding_and_info(handlers):
+    _, handler = handlers
+    assert [handler._bucket(n) for n in range(1, 6)] == [1, 2, 4, 4, 4]
+    assert handler.warmup() == 3
+    # k=6 > 3 classes of taxa_L20: that task pads, the result keeps 3
+    res = handler.predict([np.zeros((32, 32, 3), np.uint8)], None,
+                          InferenceRequestMetadata(top_k=6))[0]
+    assert [len(t.predictions) for t in res.tasks] == [5, 3]
+    probs = [p for _, p in res.tasks[0].predictions]
+    assert probs == sorted(probs, reverse=True) and 0.99 < sum(probs) < 1.01
+    assert {tid for t in res.tasks for tid, _ in t.predictions} <= {
+        0, 5001, 5002, 5003, 5004, 61, 62}
+    info = handler.info()
+    assert info.task_keys == TASKS and info.num_classes_per_task == [5, 3]
+
+
+def test_preprocessing_matches_jax(handlers):
+    jax_handler, handler = handlers
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    hot = u8.astype(np.int32)
+    hot[5, 5, 0] = 300
+    mask = np.zeros((32, 32, 3), bool)
+    mask[8:24, 8:24] = True
+    for image in (u8, u8.astype(np.float32) / 255.0, u8.astype(np.uint16) * 257,
+                  hot, mask, u8.tolist(), rng.integers(0, 256, (40, 48, 3), np.uint8)):
+        np.testing.assert_array_equal(
+            tpre.preprocess_image_u8(image, handler.config),
+            jpre.preprocess_image_u8(image, jax_handler.config),
+        )
+    for meta in _requests(3, seed=0)[1] + [{"latitude": 1.0, "longitude": 2.0, "elevation": 5.0}]:
+        np.testing.assert_array_equal(
+            tpre.preprocess_metadata(meta, handler.config),
+            jpre.preprocess_metadata(meta, jax_handler.config),
+        )
+
+
+def test_unported_serving_options_raise(handlers):
+    _, handler = handlers
+    for opts in (
+        replace(handler.config.inference_options, enable_hierarchical_consistency_check=True),
+        replace(handler.config.inference_options, data_parallel=2),
+    ):
+        with pytest.raises(NotImplementedError):
+            LinnaeusInferenceHandler(
+                replace(handler.config, inference_options=opts), handler.model,
+                handler.class_maps,
+            )
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import linnaeus_tpu_torch.inference.handler, linnaeus_tpu_torch.inference.model_utils\n"
+        "import linnaeus_tpu_torch.utils.convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'linnaeus_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,168 @@
+"""The port's mFormerV1 against the TPU package's on the same weights.
+
+The tiny model of tests/test_parity_reference.py (DIMS [8, 16, 32, 64],
+RoPE [32, 64], 2 heads, 64 px, metadata TEMPORAL(2) + SPATIAL(3)) is
+initialised in JAX from PRNGKey(0), its params are perturbed with seeded
+numpy noise so every branch contributes, bridged with
+``state_dict_from_jax`` and loaded strict. fp32 logits agree to 1e-4.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import linnaeus_tpu.ops.fused_mlp as jfm
+from linnaeus_tpu.models import MFormerV1 as JMFormerV1
+from linnaeus_tpu.utils.pretrained import export_reference_mformer_v1
+from linnaeus_tpu_torch.models.build import build_model
+from linnaeus_tpu_torch.models.mformer_v1 import MFormerV1
+from linnaeus_tpu_torch.utils.convert import state_dict_from_jax
+
+TASKS = ("taxa_L10", "taxa_L20")
+NC = {"taxa_L10": 7, "taxa_L20": 3}
+META = (("TEMPORAL", 2), ("SPATIAL", 3))
+DEPTHS, ROPE_DEPTHS = (1, 1, 1, 1), (1, 1)
+SPEC = {
+    "CONVNEXT": {"DEPTHS": list(DEPTHS), "DIMS": [8, 16, 32, 64]},
+    "ROPE": {"DEPTHS": list(ROPE_DEPTHS), "DIMS": [32, 64], "NUM_HEADS": [2, 2]},
+    "DROP_PATH_RATE": 0.0,
+}
+ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(
+        jfm.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    meta = rng.normal(size=(2, 5)).astype(np.float32)
+    return images, meta
+
+
+def _jax_model(**kw):
+    return JMFormerV1(
+        img_size=(64, 64), convnext_depths=DEPTHS, convnext_dims=(8, 16, 32, 64),
+        rope_depths=ROPE_DEPTHS, rope_dims=(32, 64), rope_num_heads=(2, 2),
+        drop_path_rate=0.0, meta_components=META, task_keys=TASKS,
+        num_classes=NC, head_configs={t: {"TYPE": "Linear"} for t in TASKS}, **kw,
+    )
+
+
+def _perturbed_params(model, images, meta):
+    params = model.init(
+        jax.random.PRNGKey(0), jnp.asarray(images), jnp.asarray(meta))["params"]
+    rng = np.random.default_rng(1)
+    return jax.tree.map(
+        lambda a: np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(np.float32), params
+    )
+
+
+def _port_logits(params, images, meta, **kw):
+    model = build_model(SPEC, 64, NC, META, **kw)
+    model.load_state_dict(
+        state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS),
+        strict=True,
+    )
+    with torch.no_grad():
+        out = model(torch.tensor(images), torch.tensor(meta))
+    assert all(out[t].dtype == torch.float32 for t in TASKS)
+    return {t: out[t].numpy() for t in TASKS}
+
+
+@pytest.mark.parametrize("act_exact", [False, True])
+def test_logits_match_jax(act_exact):
+    images, meta = _inputs()
+    jm = _jax_model(act_exact=act_exact)
+    params = _perturbed_params(jm, images, meta)
+    ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta))
+    # every port route: plain modules, K1's and K2's plain versions
+    for flash, fused in ((False, False), (True, None), (True, True)):
+        out = _port_logits(params, images, meta, act_exact=act_exact,
+                           use_flash_attn=flash, fused_convnext_mlp=fused)
+        for t in TASKS:
+            np.testing.assert_allclose(out[t], np.asarray(ref[t]), atol=ATOL,
+                                       err_msg=f"{t} flash={flash} fused={fused}")
+
+
+def test_logits_match_jax_fused_kernel_route():
+    """JAX with its Pallas fused MLP (interpret mode) against the port's K2
+    route, and absent metadata on both sides."""
+    images, meta = _inputs()
+    jm = _jax_model(fused_convnext_mlp=True)
+    params = _perturbed_params(jm, images, meta)
+    for m in (meta, None):
+        ref = jm.apply({"params": params}, jnp.asarray(images),
+                       None if m is None else jnp.asarray(m))
+        model = build_model(SPEC, 64, NC, META, fused_convnext_mlp=True)
+        model.load_state_dict(
+            state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS))
+        with torch.no_grad():
+            out = model(torch.tensor(images), None if m is None else torch.tensor(m))
+        for t in TASKS:
+            np.testing.assert_allclose(out[t].numpy(), np.asarray(ref[t]), atol=ATOL)
+
+
+def test_state_dict_from_jax_equals_reference_export():
+    images, meta = _inputs()
+    jm = _jax_model()
+    params = jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(images), jnp.asarray(meta))["params"]
+    ours = state_dict_from_jax(
+        jax.tree.map(np.asarray, params), DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS)
+    theirs = export_reference_mformer_v1(
+        params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS)
+    assert set(ours) == set(theirs)
+    for key, value in theirs.items():
+        np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
+    # and it is exactly the port's own layout
+    port = build_model(SPEC, 64, NC, META)
+    assert set(port.state_dict()) == set(ours)
+    port.load_state_dict(ours, strict=True)
+
+
+@pytest.mark.parametrize("kw", [
+    {"moe_num_experts": 4}, {"ring_attention": True}, {"pipeline_stages": 2},
+    {"gradient_checkpointing": True}, {"aggregation": "Concatenation"},
+    {"task_keys": TASKS, "num_classes": NC,
+     "head_configs": {"taxa_L10": {"TYPE": "HierarchicalSoftmax"}}},
+])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        MFormerV1(img_size=(64, 64), convnext_dims=(8, 16, 32, 64), rope_dims=(32, 64), **kw)
+
+
+def test_conv1d_head_and_only_last_cls_match_jax():
+    images, meta = _inputs()
+    heads = {"taxa_L10": {"TYPE": "Conv1d", "KERNEL_SIZE": 3}, "taxa_L20": {"TYPE": "Linear"}}
+    jm = JMFormerV1(
+        img_size=(64, 64), convnext_depths=DEPTHS, convnext_dims=(8, 16, 32, 64),
+        rope_depths=ROPE_DEPTHS, rope_dims=(32, 64), rope_num_heads=(2, 2),
+        drop_path_rate=0.0, meta_components=META, task_keys=TASKS, num_classes=NC,
+        head_configs=heads, only_last_cls=True,
+    )
+    params = _perturbed_params(jm, images, meta)
+    ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta))
+    model = MFormerV1(
+        img_size=(64, 64), convnext_depths=DEPTHS, convnext_dims=(8, 16, 32, 64),
+        rope_depths=ROPE_DEPTHS, rope_dims=(32, 64), rope_num_heads=(2, 2),
+        meta_components=META, task_keys=TASKS, num_classes=NC, head_configs=heads,
+        only_last_cls=True,
+    ).eval()
+    model.load_state_dict(
+        state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS),
+        strict=True,
+    )
+    with torch.no_grad():
+        out = model(torch.tensor(images), torch.tensor(meta))
+    for t in TASKS:
+        np.testing.assert_allclose(out[t].numpy(), np.asarray(ref[t]), atol=ATOL)

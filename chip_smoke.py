@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
-nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/, holds each
-one against its plain PyTorch version at the serving shapes, then serves
-mFormerV1_sm at 384 px in bf16 (seeded random weights) through
-LinnaeusInferenceHandler: three predict requests of 1, 7 and 64 images,
-with launch counters proving every forward went through both kernels. It
-compares the whole forward with the kernels on and off, reports serving
-throughput, and prints as its last line
+nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
+each one (K1 and K2, forward and backward) against its plain PyTorch
+version at the shapes the model gives it. Then it serves mFormerV1_sm at
+384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler:
+three predict requests of 1, 7 and 64 images, with launch counters proving
+every forward went through both forward kernels; it compares the whole
+forward with the kernels on and off and reports serving throughput. Then it
+trains: a few steps of make_train_step through tools/train_bench at the
+same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
+schedule, clip 5.0), with launch counters proving every step went through
+all four kernels, against the same steps from the same seed with the
+kernels off. It prints one JSON line about the kernels, and as its last
+line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -41,6 +47,21 @@ K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 K1_PER_FORWARD = 5 + 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
 K2_PER_FORWARD = 3 + 3  # ConvNeXt blocks of stages 1 and 2
+# backward kernels against their plain versions, relative to each gradient's
+# largest magnitude: fp32 runs the same math in another summation order (dQ
+# through float32 atomics); in bf16 a rounding of P, dS, h1 or da1 that
+# falls the other way moves a sum by a bf16 step (2**-8) or two
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TRAIN_STEPS = 3
+# first train step, kernels on vs off, same seed and draws: the loss is a
+# float32 mean over 64 samples of logits that differ by bf16 roundings; the
+# gradient norm sums 22 blocks of bf16 backward, rounded at other places by
+# the two routes
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_NORM_RTOL = 1e-2
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
 # whole-forward bars for kernels on vs off (random-init logits stay below
 # ~1 in magnitude): fp32 runs the same math in another summation order;
 # bf16 (8-bit mantissa, 2**-8 relative) rounds at other places (p per
@@ -71,9 +92,41 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: the larger of the operations over
+    its peak rate for ``dtype`` and the bytes (each input read once, each
+    output written once) over its memory rate."""
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def k1_bound(shape, dtype, backward: bool) -> dict:
+    B, N, H, D = shape
+    elems, size = B * N * H * D, torch.finfo(dtype).bits // 8
+    if backward:  # S, dP, dV, dQ, dK; reads q k v o dO lse, writes dq dk dv
+        return bound(10 * B * H * N * N * D, 8 * elems * size + B * H * N * 4, dtype)
+    return bound(4 * B * H * N * N * D, 4 * elems * size + B * H * N * 4, dtype)
+
+
+def k2_bound(shape, dtype, backward: bool) -> dict:
+    M, C = shape
+    size = torch.finfo(dtype).bits // 8
+    weights = 2 * 4 * C * C
+    vectors = (4 * C + 4 * C) * 4
+    if backward:  # the forward's two products again and four for the gradients;
+        # reads y dout and the parameters, writes dy and float32 gradients
+        return bound(6 * 2 * M * C * 4 * C,
+                     3 * M * C * size + weights * size + vectors + weights * 4 + vectors, dtype)
+    return bound(2 * 2 * M * C * 4 * C, 3 * M * C * size + weights * size + vectors, dtype)
+
+
 def check_kernels(dev, fa, fm) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     g = torch.Generator(device=dev).manual_seed(SEED)
+    import torch.nn.functional as F
+
     rec = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
     for dt in (torch.float32, torch.bfloat16):
         for B, N, H, D in K1_SHAPES:
@@ -91,7 +144,14 @@ def check_kernels(dev, fa, fm) -> dict:
             if dt == torch.bfloat16:
                 rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], err)
                 if N == 580:
-                    rec["K1"].update(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D])
+                    # the one PyTorch call for the same function: the yardstick,
+                    # used nowhere in the port
+                    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                    print(f"   F.scaled_dot_product_attention on the same operands: "
+                          f"{lib_ms:.3f} ms", flush=True)
+                    rec["K1"].update(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                                     library_ms=lib_ms, **k1_bound((B, N, H, D), dt, False))
         for M, C in K2_SHAPES:
             y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
             vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
@@ -113,8 +173,156 @@ def check_kernels(dev, fa, fm) -> dict:
                 if dt == torch.bfloat16:
                     rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], err)
                     if C == 96 and M > 70 and residual is not None and approx:
-                        rec["K2"].update(ms=ms, plain_ms=plain_ms, shape=[M, C])
+                        rec["K2"].update(ms=ms, plain_ms=plain_ms, shape=[M, C],
+                                         library_ms=None, **k2_bound((M, C), dt, False))
     return rec
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return max_err(a, b) / max(b.float().abs().max().item(), 1e-12)
+
+
+def check_backward_kernels(dev, fa, fm) -> dict:
+    """Each backward kernel against its plain version at the training shapes
+    (and a ragged small one); returns per-kernel records."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rec = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
+    for dt in (torch.float32, torch.bfloat16):
+        for B, N, H, D in K1_SHAPES:
+            q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
+            do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            got = fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5)
+            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            abs_err = max(max_err(a, b) for a, b in zip(got, want))
+            ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5), iters=5)
+            plain_ms = cuda_ms(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do), iters=5)
+            print(f"K1 flash_attention_bwd {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: "
+                  f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err| {abs_err:.3e}, "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+            check(all(torch.isfinite(t).all().item() for t in got), f"K1 bwd {dt} finite")
+            check(err <= BWD_TOL[dt], f"K1 bwd {dt} {(B, N, H, D)} error {err}")
+            if dt == torch.bfloat16:
+                rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], abs_err)
+                if N == 580:
+                    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                    out = F.scaled_dot_product_attention(qh, kh, vh)
+                    doh = do.transpose(1, 2)
+                    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                        out, (qh, kh, vh), doh, retain_graph=True), iters=5)
+                    both_ms = cuda_ms(lambda: torch.autograd.grad(
+                        F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh), iters=5)
+                    print(f"   F.scaled_dot_product_attention on the same operands: backward "
+                          f"{lib_ms:.3f} ms, forward+backward {both_ms:.3f} ms", flush=True)
+                    rec["K1"].update(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                                     library_ms=lib_ms, **k1_bound((B, N, H, D), dt, True))
+        for M, C in K2_SHAPES:
+            y, dout = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
+            vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+            ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
+            w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
+            w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
+            for approx in (True, False):
+                args = (y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, approx)
+                got = fm._launch_bwd(*args)
+                want = fm.fused_convnext_mlp_bwd_reference(*args)
+                torch.cuda.synchronize()
+                err = max(rel_err(a, b) for a, b in zip(got, want))
+                abs_err = max_err(got[0], want[0])  # dy; the sums over M rows are large
+                del want
+                ms = cuda_ms(lambda: fm._launch_bwd(*args), iters=3)
+                plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_bwd_reference(*args), iters=3)
+                print(f"K2 fused_convnext_mlp_bwd {str(dt)[6:]} (M,C)={(M, C)} "
+                      f"gelu={'tanh' if approx else 'erf'}: max rel err {err:.3e} "
+                      f"(tol {BWD_TOL[dt]:g}), max|err dy| {abs_err:.3e}, kernel {ms:.3f} ms, "
+                      f"plain {plain_ms:.3f} ms", flush=True)
+                check(all(torch.isfinite(t).all().item() for t in got), f"K2 bwd {dt} finite")
+                check(err <= BWD_TOL[dt], f"K2 bwd {dt} {(M, C)} error {err}")
+                if dt == torch.bfloat16:
+                    rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], abs_err)
+                    if C == 96 and M > 70 and approx:
+                        rec["K2"].update(ms=ms, plain_ms=plain_ms, shape=[M, C],
+                                         library_ms=None, **k2_bound((M, C), dt, True))
+    return rec
+
+
+def train_phase(dev, card, fa, fm) -> dict:
+    """A few train steps of mFormerV1_sm with the kernels on, then the same
+    steps from the same seed with them off; returns the launch counts."""
+    from linnaeus_tpu_torch.tools import train_bench
+
+    def counts():
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES,
+                "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+
+    results = {}
+    for name, kernels in (("on", True), ("off", False)):
+        run, state = train_bench.build_step(BATCH, IMG, kernels, "mFormerV1_sm", TASKS,
+                                            device=dev, seed=SEED)
+        check(all(p.dtype == torch.float32 for p in state.model.parameters())
+              and state.model.dtype == torch.bfloat16, "bf16 compute over float32 parameters")
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES = fa.BWD_LAUNCHES = fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+        first = run()  # also warms up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        history = [first] + [run() for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launched = counts()
+        ms = start.elapsed_time(end) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [float(m["loss"]) for m in history]
+        pre = [float(m["grad_norm_pre_clip"]) for m in history]
+        post = [float(m["grad_norm_post_clip"]) for m in history]
+        per_task = {t: float(history[0][f"loss/{t}"]) for t in TASKS}
+        # a tensor without weight decay may stand still over a few steps: a
+        # bias that a LayerNorm cancels has a zero gradient, and behind the
+        # 1e-6 layer scale a LayerNorm weight's gradient is far below AdamW's
+        # eps, so its update at the warm-up's rate is lost beside 1.0
+        still = [n for n, p in state.model.named_parameters() if torch.equal(before[n], p.detach())]
+        stuck = [n for n in still if state.model.get_parameter(n).grad is None
+                 or state.model.get_parameter(n).dim() > 1]
+        changed = len(before) - len(still)
+        print(f"train, kernels {name}: {len(history)} steps, loss "
+              + " ".join(f"{v:.4f}" for v in losses) + "; grad norm before clip "
+              + " ".join(f"{v:.3f}" for v in pre) + "; after clip "
+              + " ".join(f"{v:.3f}" for v in post) + f"; {changed}/{len(before)} parameter "
+              f"tensors changed (still: {still}); launches {launched}", flush=True)
+        print(f"[{card}] mFormerV1_sm {IMG}px B={BATCH} bf16 train step, kernels {name}: "
+              f"{ms:.2f} ms per step (CUDA events over {TRAIN_STEPS} steps), peak memory "
+              f"{peak:.2f} GiB", flush=True)
+        check(all(np.isfinite(v) for v in losses + pre + post + list(per_task.values())),
+              f"finite losses and gradient norms, kernels {name}")
+        check(all(v <= 5.0 + 1e-3 for v in post), "gradient norm after the clip is at most 5.0")
+        check(not stuck and changed >= 0.95 * len(before),
+              f"{changed} of {len(before)} parameter tensors changed; stuck: {stuck}")
+        check(state.step == len(history), f"step counter {state.step}")
+        n = len(history)
+        want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * K1_PER_FORWARD,
+                 "K2": n * K2_PER_FORWARD, "K2_bwd": n * K2_PER_FORWARD} if kernels
+                else dict.fromkeys(launched, 0))
+        check(launched == want, f"train launch counts {launched}, expected {want}")
+        results[name] = {"loss": losses[0], "grad_norm": pre[0], "launches": launched,
+                         "ms": ms, "peak_gib": peak}
+        del run, state, before, history, first
+        torch.cuda.empty_cache()
+    on, off = results["on"], results["off"]
+    d_loss = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    d_norm = abs(on["grad_norm"] - off["grad_norm"]) / abs(off["grad_norm"])
+    print(f"first train step, kernels on vs off: loss {on['loss']:.5f} vs {off['loss']:.5f} "
+          f"(rel {d_loss:.2e}, tol {TRAIN_LOSS_RTOL:g}); grad norm {on['grad_norm']:.4f} vs "
+          f"{off['grad_norm']:.4f} (rel {d_norm:.2e}, tol {TRAIN_GRAD_NORM_RTOL:g})", flush=True)
+    check(d_loss <= TRAIN_LOSS_RTOL, f"first-step loss, kernels on vs off: rel {d_loss}")
+    check(d_norm <= TRAIN_GRAD_NORM_RTOL, f"first-step grad norm, kernels on vs off: rel {d_norm}")
+    return results
 
 
 def serving_config():
@@ -206,8 +414,9 @@ def main() -> int:
           f"library ready in {time.perf_counter() - start:.1f} s: {_kernels.library_path()}",
           flush=True)
 
-    # 2. each kernel against its plain version at the serving shapes
+    # 2. each kernel against its plain version at the model's shapes
     rec = check_kernels(dev, fa, fm)
+    rec_bwd = check_backward_kernels(dev, fa, fm)
 
     # 3. serve mFormerV1_sm through the handler, kernels on
     cfg = serving_config()
@@ -270,17 +479,28 @@ def main() -> int:
           f"with kernels, {fwd['off']:.2f} ms without; serving {img_s:.1f} img/s "
           f"(predict of 64 uint8 images, host preprocessing included)", flush=True)
 
+    # 6. train: a few steps with the kernels on, the same steps with them off
+    del model, off, handler
+    torch.cuda.empty_cache()
+    trained = train_phase(dev, card, fa, fm)["on"]["launches"]
+
     kernels = []
-    for key, name, src, replaces in (
-        ("K1", "flash_attention_fwd", "linnaeus_tpu_torch/csrc/flash_attention_fwd.cu",
-         "linnaeus_tpu/ops/flash_attention.py:57"),
-        ("K2", "fused_convnext_mlp_fwd", "linnaeus_tpu_torch/csrc/fused_mlp_fwd.cu",
-         "linnaeus_tpu/ops/fused_mlp.py:39"),
+    for r, key, name, src, replaces in (
+        (rec["K1"], "K1", "flash_attention_fwd",
+         "linnaeus_tpu_torch/csrc/flash_attention_fwd.cu", "linnaeus_tpu/ops/flash_attention.py:57"),
+        (rec_bwd["K1"], "K1_bwd", "flash_attention_bwd",
+         "linnaeus_tpu_torch/csrc/flash_attention_bwd.cu", "linnaeus_tpu/ops/flash_attention.py:156"),
+        (rec["K2"], "K2", "fused_convnext_mlp_fwd",
+         "linnaeus_tpu_torch/csrc/fused_mlp_fwd.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
+        (rec_bwd["K2"], "K2_bwd", "fused_convnext_mlp_bwd",
+         "linnaeus_tpu_torch/csrc/fused_mlp_bwd.cu", "linnaeus_tpu/ops/fused_mlp.py:155"),
     ):
-        r = rec[key]
+        # launches: over the train steps; the forwards also served the requests
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[key], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "shape": r["shape"],
+                        "launches": trained[key], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "serving_launches": launches.get(key), "shape": r["shape"],
                         "dtype": "bfloat16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, and loaded with
-ctypes. The library is written to ``build/linnaeus_tpu_torch/`` in the
-checkout, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+compiler process per source, all started together) and the objects are
+linked into one shared library with a plain C interface, at first use,
+loaded with ctypes. The library is written to ``build/linnaeus_tpu_torch/``
+in the checkout, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a
+failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "linnaeus_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of the C interface (csrc/common.cuh)
@@ -43,6 +44,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lt_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "lt_fused_mlp_fwd": [_P] * 10 + [_L, _I, _I, _F, _I, _I, _P],
+    "lt_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_P, _F, _I, _P],
+    "lt_fused_mlp_bwd": [_P] * 3 + [_L, _I, _I, _F, _I, _I, _I, _I, _P],
 }
 
 
@@ -69,25 +72,58 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> None:
+def _run(cmd: list[str], proc: subprocess.Popen | None = None) -> str:
+    """Wait for ``proc`` (or run ``cmd``) and return its output; raise on failure."""
+    if proc is None:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{output}"
+        )
+    return output
+
+
+def _build(out: Path, extra_flags: tuple[str, ...] = ()) -> str:
+    """Compile every source (in parallel) and link ``out``; returns nvcc's output."""
     global build_seconds
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-        *(str(p) for p in sorted(CSRC.glob("*.cu"))),
-    ]
+    tag = f"{out.stem}.{os.getpid()}"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, proc, obj))
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        log = "".join(_run(cmd, proc) for cmd, proc, _ in jobs)
+        _run([nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, _, obj in jobs)])
+        os.replace(tmp, out)
+    finally:
+        for _, proc, obj in jobs:
+            proc.kill()  # no-op for a compiler that has exited
+            proc.wait()
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
     build_seconds = time.perf_counter() - start
+    return log
+
+
+def resource_usage() -> str:
+    """Build the sources once more with ``-Xptxas -v`` into a scratch
+    library and return nvcc's report (registers, shared memory and spills
+    of every kernel)."""
+    global build_seconds
+    scratch = BUILD_DIR / "libkernels-ptxas-report.so"
+    kept = build_seconds  # the report's build is not the library's
+    try:
+        return _build(scratch, ("-Xptxas", "-v"))
+    finally:
+        build_seconds = kept
+        scratch.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

@@ -1,0 +1,108 @@
+"""Training presets as data, and the small attribute-dict they live in.
+
+``TRAINRUN_SYNTH_384`` carries what the train step, the loss, the schedule
+and the optimizer read from configs/experiments/tpu_trainrun_synth_384.yaml
+merged over the TPU package's defaults: mFormerV1_sm at 384 px, batch 64,
+bfloat16 compute, AdamW with weight decay 0.05, a cosine schedule from
+1.5e-4 to 1.5e-5 after 150 linear warm-up steps, global-norm clip 5.0,
+drop-path 0.05, mixup alpha 1.0 and the start values of the mix and
+meta-masking schedules. Data paths, samplers, checkpoints and logging are
+not part of it: their modules are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+
+class ConfigNode(dict):
+    """A dict whose keys also read and write as attributes, nested. It
+    copies the mappings and lists it is built from."""
+
+    def __init__(self, data: Mapping[str, Any] | None = None):
+        super().__init__()
+        for key, value in (data or {}).items():
+            if isinstance(value, Mapping):
+                value = ConfigNode(value)
+            elif isinstance(value, list):
+                value = list(value)
+            self[key] = value
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+
+_TASKS = ["taxa_L10", "taxa_L20", "taxa_L30", "taxa_L40"]
+
+TRAINRUN_SYNTH_384 = {
+    "MODEL": {
+        "ARCH": "mFormerV1_sm",
+        "IMG_SIZE": 384,
+        "USE_FLASH_ATTN": True,
+        "DROP_PATH_RATE": 0.05,
+        "LABEL_SMOOTHING": 0.1,
+    },
+    "DATA": {
+        "IMG_SIZE": 384,
+        "BATCH_SIZE": 64,
+        "BATCH_SIZE_VAL": 64,
+        "TASK_KEYS_H5": _TASKS,
+    },
+    "TRAIN": {
+        "EPOCHS": 8,
+        "CLIP_GRAD": 5.0,
+        "ACCUMULATION_STEPS": 0,
+        "PHASE1_MASK_NULL_LOSS": False,
+        "MIXED_PRECISION": {"ENABLED": True, "DTYPE": "bfloat16"},
+    },
+    "LOSS": {
+        "TAXONOMY_SMOOTHING": {"ENABLED": [], "ALPHA": 0.1, "BETA": 1.0,
+                               "UNIFORM_ROOTS": True, "FALLBACK_TO_UNIFORM": True},
+        "TASK_SPECIFIC": {
+            "TRAIN": {"FUNCS": ["CrossEntropyLoss"] * 4},
+            "VAL": {"FUNCS": ["CrossEntropyLoss"] * 4},
+        },
+    },
+    "OPTIMIZER": {
+        "NAME": "adamw",
+        "WEIGHT_DECAY": 0.05,
+        "BETAS": (0.9, 0.999, 0.9999),
+        "EPS": 1e-8,
+        "PARAMETER_GROUPS": {"ENABLED": False},
+    },
+    "LR_SCHEDULER": {
+        "NAME": "cosine",
+        "BASE_LR": 1.5e-4,
+        "MIN_LR": 1.5e-5,
+        "WARMUP_LR": 5e-7,
+        "WARMUP_EPOCHS": 0,
+        "WARMUP_STEPS": 150,
+        "WARMUP_FRACTION": None,
+        "REFERENCE_BS": 64,
+        "REFERENCE_LR": 5e-5,
+    },
+    "SCHEDULE": {
+        "META_MASKING": {"ENABLED": True, "START_PROB": 1.0, "END_PROB": 0.1,
+                         "END_FRACTION": 0.5},
+        "MIX": {
+            "PROB": {"ENABLED": True, "START_PROB": 0.2, "END_PROB": 0.1,
+                     "END_FRACTION": 0.8},
+            "MIXUP": {"ENABLED": True, "ALPHA": 1.0},
+            "CUTMIX": {"ENABLED": False, "ALPHA": 1.0},
+            "GROUP_LEVELS": ["taxa_L20", "taxa_L10"],
+        },
+        "NULL_MASKING": {"ENABLED": False, "START_PROB": 0.0, "END_PROB": 1.0},
+    },
+}
+
+
+
+def train_preset() -> ConfigNode:
+    """A fresh, editable copy of ``TRAINRUN_SYNTH_384``."""
+    return ConfigNode(TRAINRUN_SYNTH_384)

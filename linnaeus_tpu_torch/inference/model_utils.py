@@ -37,10 +37,13 @@ def build_model_for_inference(
 ) -> MFormerV1:
     """mFormerV1 for ``cfg`` with seeded random weights; ``arch`` defaults to
     ``cfg.model.architecture_name``; ``kwargs`` go to ``build_model``
-    (dtype, device, use_flash_attn, fused_convnext_mlp, seed, ...)."""
+    (dtype, device, use_flash_attn, fused_convnext_mlp, seed, ...). The
+    device defaults to ``cfg.inference_options.device``, whose "auto" is the
+    CUDA device: without one this raises unless the CPU is asked for."""
     c, h, w = cfg.input_preprocessing.image_size
     if h != w:
         raise ValueError(f"square images only, got {h}x{w}")
+    kwargs.setdefault("device", cfg.inference_options.device)
     return build_model(
         arch if arch is not None else cfg.model.architecture_name,
         img_size=h,

@@ -55,18 +55,23 @@ def gelu(x: torch.Tensor, exact: bool) -> torch.Tensor:
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth in training; identity in eval."""
+    """Per-sample stochastic depth in training; identity in eval. The keep
+    mask is drawn from ``generator`` (on the input's device) when one is
+    set, as ``create_train_state`` does with the step's generator, so a
+    step is reproducible from its seed; without one it draws from torch's
+    global generator."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float = 0.0, generator: torch.Generator | None = None):
         super().__init__()
         self.rate = rate
+        self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device, generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -13,6 +13,7 @@ import torch
 
 from linnaeus_tpu_torch.configuration.archs import MFORMER_V1_ARCHS
 from linnaeus_tpu_torch.models.mformer_v1 import MFormerV1
+from linnaeus_tpu_torch.utils.device import resolve_device
 
 
 def build_model(
@@ -29,8 +30,11 @@ def build_model(
     head_configs: Mapping[str, Mapping[str, Any]] | None = None,
     device: torch.device | str | None = None,
     seed: int = 0,
+    drop_path_rate: float | None = None,
 ) -> MFormerV1:
-    """mFormerV1 for ``arch`` with seeded random weights, in eval mode.
+    """mFormerV1 for ``arch`` with seeded random weights, in eval mode, on
+    the CUDA device: ``device=None`` (or ``"auto"``) means the card and
+    raises where there is none; the CPU is used only for ``device="cpu"``.
 
     ``num_classes`` maps each task key, in order, to its class count.
     ``meta_components`` are ordered (name, dim) pairs, e.g.
@@ -39,6 +43,7 @@ def build_model(
     None routes the ConvNeXt MLP tails of stages 1-2 through K2 on CUDA
     (None keeps plain modules for CPU tensors), False keeps plain modules.
     """
+    device = resolve_device(device)
     spec = MFORMER_V1_ARCHS[arch] if isinstance(arch, str) else arch
     model = MFormerV1(
         img_size=(img_size, img_size),
@@ -48,7 +53,8 @@ def build_model(
         rope_depths=tuple(spec["ROPE"]["DEPTHS"]),
         rope_dims=tuple(spec["ROPE"]["DIMS"]),
         rope_num_heads=tuple(spec["ROPE"]["NUM_HEADS"]),
-        drop_path_rate=float(spec.get("DROP_PATH_RATE", 0.2)),
+        drop_path_rate=float(
+            spec.get("DROP_PATH_RATE", 0.2) if drop_path_rate is None else drop_path_rate),
         rope_fidelity=rope_fidelity,
         act_exact=act_exact,
         use_flash_attn=use_flash_attn,

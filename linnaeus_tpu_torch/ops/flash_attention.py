@@ -1,27 +1,36 @@
-"""K1 forward: fused softmax attention as one hand-written CUDA kernel.
+"""K1: fused softmax attention, forward and backward as hand-written CUDA
+kernels.
 
-Port of linnaeus_tpu/ops/flash_attention.py (``_flash_fwd_kernel`` via
-``_flash_forward_padded`` and ``_flash_fwd_rule``). The kernel is
-``csrc/flash_attention_fwd.cu``; it reads token-major (B, N, H, D) operands
-through their strides, so the q/k/v views out of a qkv projection need no
-transpose, and never writes the (N, N) scores to device memory.
+Port of linnaeus_tpu/ops/flash_attention.py: ``_flash_fwd_kernel`` (via
+``_flash_forward_padded`` and ``_flash_fwd_rule``) and the fused backward
+``_flash_bwd_fused_kernel`` with the host part of ``_flash_bwd_rule``. The
+kernels are ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``;
+they read token-major (B, N, H, D) operands through their strides, so the
+q/k/v views out of a qkv projection need no transpose, and never write the
+(N, N) scores to device memory.
 
-``flash_attention_fwd`` launches the kernel for CUDA tensors and runs
-:func:`flash_attention_reference`, the plain PyTorch version of the same
-math, for CPU tensors. There is no backward yet: asking for gradients
-through the CUDA path raises.
+``flash_attention_fwd`` and ``flash_attention`` are differentiable: a
+``torch.autograd.Function`` saves q, k, v, O and the log-sum-exp, and its
+backward produces dq, dk and dv from one recomputed P. CUDA tensors launch
+the kernels or raise; CPU tensors run :func:`flash_attention_reference` and
+:func:`flash_attention_bwd_reference`, the plain PyTorch versions of the
+same math.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from linnaeus_tpu_torch import _kernels
 
-HEAD_DIM = 64  # the only head dim compiled into the kernel
+HEAD_DIM = 64  # the only head dim compiled into the kernels
 
-# kernel launches in this process; the serving path's proof of use
+# kernel launches in this process (forward, backward): the proof that a path
+# went through the kernels
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def flash_attention_reference(
@@ -30,7 +39,7 @@ def flash_attention_reference(
     v: torch.Tensor,
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel on (B, N, H, D) operands.
+    """Plain version of the forward kernel on (B, N, H, D) operands.
 
     Follows the TPU kernel with its whole padded row in one block (its
     auto block size for N <= 1024): float32 scores times ``scale``, the row
@@ -50,6 +59,64 @@ def flash_attention_reference(
     return o.transpose(1, 2).to(q.dtype), lse
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel on (B, N, H, D) operands.
+
+    Follows the TPU package's fused backward cast for cast: delta =
+    rowsum(dO * O) in float32, P = exp(S * scale - lse) from the forward's
+    lse, P cast to dO's dtype before dV = P^T dO, dP = dO V^T, dS =
+    P * (dP - delta) cast to k's dtype before dQ = dS K * scale and
+    dK = dS^T Q * scale, products accumulated in float32. Returns
+    (dq, dk, dv) as (B, N, H, D) in the operands' dtypes.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.transpose(1, 2).float() for t in (q, k, v, o, do))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.unsqueeze(-1))
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).to(k.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return (
+        dq.transpose(1, 2).to(q.dtype),
+        dk.transpose(1, 2).to(k.dtype),
+        dv.transpose(1, 2).to(v.dtype),
+    )
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(q, k, v, scale) -> (O, lse); lse carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, scale)
+        else:
+            o, lse = _launch_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do, ctx.scale)
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -59,13 +126,16 @@ def flash_attention_fwd(
     """Attention on token-major (B, N, H, D) operands -> (O, lse).
 
     O is a new contiguous (B, N, H, D) tensor in the inputs' dtype; lse is
-    (B, H, N) float32 (kept for the backward pass). CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
+    (B, H, N) float32 (saved for the backward pass; it carries no
+    gradient). Differentiable in q, k and v. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, float(scale))
+
+
+def _launch_fwd(q, k, v, scale):
     _check_operands(q, k, v)
     B, N, H, D = q.shape
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
@@ -82,6 +152,38 @@ def flash_attention_fwd(
     global LAUNCHES
     LAUNCHES += 1
     return o, lse
+
+
+def _launch_bwd(q, k, v, o, lse, do, scale):
+    """dq, dk, dv from the backward kernel, as the three slices of one
+    (B, N, 3, H, D) buffer: the layout of the qkv projection they flow
+    back into."""
+    B, N, H, D = q.shape
+    if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
+        raise ValueError(
+            f"flash_attention backward: dO is {tuple(do.shape)} {do.dtype} on {do.device}; "
+            f"expected {tuple(q.shape)} {q.dtype} on {q.device}"
+        )
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    grads = torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grads.unbind(2)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
+    lib = _kernels.library()
+    err = lib.lt_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, N, H, D, (ctypes.c_longlong * len(strides))(*strides),
+        float(scale), _kernels.DTYPE_CODES[q.dtype],
+        _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_attention_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
 
 
 def flash_attention(
@@ -110,10 +212,6 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             )
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be unit-stride")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "flash_attention: the CUDA backward kernel is not ported yet"
-            )
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(
             f"flash_attention: head dim {q.shape[-1]} is not the compiled {HEAD_DIM}"

@@ -1,27 +1,38 @@
-"""K2 forward: the fused ConvNeXt MLP tail as one hand-written CUDA kernel.
+"""K2: the fused ConvNeXt MLP tail, forward and backward as hand-written CUDA
+kernels.
 
-Port of linnaeus_tpu/ops/fused_mlp.py (``_body`` via ``_pallas_fused``):
-LN -> Linear(4C) -> GELU (tanh or erf) -> Linear(C) -> x gamma
-[-> + residual], tiled over rows so the (M, 4C) intermediate never reaches
-device memory. The kernel is ``csrc/fused_mlp_fwd.cu``.
+Port of linnaeus_tpu/ops/fused_mlp.py: the forward ``_body`` (via
+``_pallas_fused``), LN -> Linear(4C) -> GELU (tanh or erf) -> Linear(C) ->
+x gamma [-> + residual], and the backward ``_bwd_kernel`` (via
+``_pallas_bwd``), which recomputes the forward in the tile. Both are tiled
+over rows so the (M, 4C) intermediates never reach device memory. The
+kernels are ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``.
 
 Weights use the torch Linear layout of the block's ``pwconv1`` (4C, C) and
-``pwconv2`` (C, 4C). ``fused_convnext_mlp`` launches the kernel for CUDA
-tensors and runs :func:`fused_convnext_mlp_reference` for CPU tensors. There
-is no backward yet: asking for gradients through the CUDA path raises.
+``pwconv2`` (C, 4C). ``fused_convnext_mlp`` is differentiable: a
+``torch.autograd.Function`` saves y and the parameters, and its backward
+returns dy, the residual's gradient (dout itself) and the seven parameter
+gradients. CUDA tensors launch the kernels or raise; CPU tensors run
+:func:`fused_convnext_mlp_reference` and
+:func:`fused_convnext_mlp_bwd_reference`, the plain PyTorch versions.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from linnaeus_tpu_torch import _kernels
 
-MAX_WIDTH = 256  # widest C the kernel's column split covers
+MAX_WIDTH = 256  # widest C the forward kernel's column split covers
+MAX_WIDTH_BWD = 192  # widest C whose backward tiles fit an SM's shared memory
 
-# kernel launches in this process; the serving path's proof of use
+# kernel launches in this process (forward, backward): the proof that a path
+# went through the kernels
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def fused_convnext_mlp_reference(
@@ -56,6 +67,93 @@ def fused_convnext_mlp_reference(
     return out.to(dt)
 
 
+def _gelu_grad(a: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """d gelu(a) / d a, elementwise in float32: the tanh and the erf form."""
+    if approximate:
+        c = 0.7978845608028654  # sqrt(2 / pi)
+        k = 0.044715
+        t = torch.tanh(c * (a + k * a * a * a))
+        return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * c * (1.0 + 3.0 * k * a * a)
+    phi = torch.exp(-0.5 * a * a) * 0.3989422804014327  # N(0, 1) density
+    return 0.5 * (1.0 + torch.erf(a * 0.7071067811865476)) + a * phi
+
+
+def fused_convnext_mlp_bwd_reference(
+    y2: torch.Tensor,
+    dout: torch.Tensor,
+    ln_w: torch.Tensor,
+    ln_b: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float,
+    approximate: bool,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel on (M, C) rows, cast for cast as
+    the TPU package's ``_bwd_kernel``: the forward recomputed with h0 and h1
+    rounded to y's dtype, da2 = dout * gamma and da1 = dh1 * gelu'(a1)
+    rounded to y's dtype before the products they enter, every product
+    accumulated in float32, the vector gradients summed from the unrounded
+    values. Returns (dy in y's dtype, then float32 d ln_w, d ln_b,
+    dw1 (4C, C), db1, dw2 (C, 4C), db2, dgamma). The residual's gradient is
+    dout itself and is not computed here."""
+    dt = y2.dtype
+    yf = y2.float()
+    mean = yf.mean(dim=-1, keepdim=True)
+    var = (yf - mean).square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    n = (yf - mean) * r
+    h0b = (n * ln_w + ln_b).to(dt).float()
+    w1f, w2f = w1.float(), w2.float()
+    a1 = torch.matmul(h0b, w1f.t()) + b1
+    h1b = F.gelu(a1, approximate="tanh" if approximate else "none").to(dt).float()
+    a2 = torch.matmul(h1b, w2f.t()) + b2
+
+    do = dout.float()
+    dg = (do * a2).sum(dim=0)
+    da2 = do * gamma
+    da2b = da2.to(dt).float()
+    db2 = da2.sum(dim=0)
+    dw2 = torch.matmul(da2b.t(), h1b)
+    da1 = torch.matmul(da2b, w2f) * _gelu_grad(a1, approximate)
+    da1b = da1.to(dt).float()
+    db1 = da1.sum(dim=0)
+    dw1 = torch.matmul(da1b.t(), h0b)
+    dh0 = torch.matmul(da1b, w1f)
+    dls = (dh0 * n).sum(dim=0)
+    dlb = dh0.sum(dim=0)
+    dn = dh0 * ln_w
+    dy = r * (dn - dn.mean(dim=-1, keepdim=True) - n * (dn * n).mean(dim=-1, keepdim=True))
+    return dy.to(dt), dls, dlb, dw1, db1, dw2, db2, dg
+
+
+class _FusedConvNeXtMlp(torch.autograd.Function):
+    """(y2, x2 or None, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate)
+    -> out, on (M, C) rows with float32 vectors."""
+
+    @staticmethod
+    def forward(ctx, y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
+        run = fused_convnext_mlp_reference if y2.device.type == "cpu" else _launch
+        out = run(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate)
+        ctx.save_for_backward(y2, ln_w, ln_b, w1, b1, w2, b2, gamma)
+        ctx.eps, ctx.approximate, ctx.has_residual = eps, approximate, x2 is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y2, ln_w, ln_b, w1, b1, w2, b2, gamma = ctx.saved_tensors
+        run = fused_convnext_mlp_bwd_reference if y2.device.type == "cpu" else _launch_bwd
+        dout = dout.contiguous()
+        dy, dls, dlb, dw1, db1, dw2, db2, dg = run(
+            y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, ctx.eps, ctx.approximate
+        )
+        dx = dout if ctx.has_residual else None
+        return (dy, dx, dls, dlb, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg,
+                None, None)
+
+
 def fused_convnext_mlp(
     y: torch.Tensor,
     residual: torch.Tensor | None,
@@ -73,8 +171,9 @@ def fused_convnext_mlp(
     """LN -> Linear(4C) -> GELU -> Linear(C) -> x gamma [-> + residual] over
     ``y`` of shape (..., C); ``residual=None`` skips the add. ``w1`` is
     (4C, C) and ``w2`` (C, 4C) in y's dtype; the vectors are cast to
-    float32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    float32. Differentiable in every tensor operand; the weight gradients
+    are computed in float32 and returned in the weights' dtype. CPU tensors
+    take the plain versions; CUDA tensors launch the kernels or raise."""
     shape = y.shape
     C = shape[-1]
     y2 = y.reshape(-1, C)
@@ -82,12 +181,9 @@ def fused_convnext_mlp(
     if gamma is None:
         gamma = torch.ones(C, dtype=torch.float32, device=y.device)
     ln_w, ln_b, b1f, b2f, g = (t.float() for t in (ln_scale, ln_bias, b1, b2, gamma))
-    if y.device.type == "cpu":
-        out = fused_convnext_mlp_reference(
-            y2, x2, ln_w, ln_b, w1, b1f, w2, b2f, g, eps, approximate_gelu
-        )
-    else:
-        out = _launch(y2, x2, ln_w, ln_b, w1, b1f, w2, b2f, g, eps, approximate_gelu)
+    out = _FusedConvNeXtMlp.apply(
+        y2, x2, ln_w, ln_b, w1, b1f, w2, b2f, g, float(eps), bool(approximate_gelu)
+    )
     return out.reshape(shape)
 
 
@@ -108,6 +204,41 @@ def _launch(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
+    M, C = y2.shape
+    Hd = w1.shape[0]
+    if C > MAX_WIDTH_BWD:
+        raise ValueError(
+            f"fused_convnext_mlp backward: width C={C} is outside 1..{MAX_WIDTH_BWD}"
+        )
+    _check_operands(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    dev = y2.device
+    f32 = {"dtype": torch.float32, "device": dev}
+    dy = torch.empty_like(y2)
+    dls, dlb, db2, dg = (torch.empty(C, **f32) for _ in range(4))
+    dw1, db1, dw2 = torch.empty((Hd, C), **f32), torch.empty(Hd, **f32), torch.empty((C, Hd), **f32)
+    # one persistent block per SM in the row pass; in the weight pass the
+    # SMs are shared out among the 64-column hidden chunks
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = (M + 63) // 64
+    chunks = (Hd + 63) // 64
+    row_blocks = min(tiles, sms)
+    slabs = max(1, min(tiles, sms // chunks))
+    workspace = torch.empty(row_blocks * 4 * C + slabs * (2 * Hd * C + Hd), **f32)
+    pointers = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
+    lib = _kernels.library()
+    err = lib.lt_fused_mlp_bwd(
+        pointers((y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)),
+        pointers((dy, dls, dlb, dw1, db1, dw2, db2, dg)),
+        workspace.data_ptr(), M, C, Hd, float(eps), int(approximate),
+        row_blocks, slabs, _kernels.DTYPE_CODES[y2.dtype], _kernels.stream_handle(dev),
+    )
+    _kernels.check(err, "fused_convnext_mlp_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dy, dls, dlb, dw1, db1, dw2, db2, dg
 
 
 def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
@@ -143,7 +274,3 @@ def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"fused_convnext_mlp: {name} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "fused_convnext_mlp: the CUDA backward kernel is not ported yet"
-            )

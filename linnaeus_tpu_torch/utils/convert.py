@@ -11,6 +11,12 @@ arrays (``jax.tree.map(np.asarray, params)``), and the layouts convert as
   Conv1d-head kernel (k, in, out) -> (out, in, k).
 The result loads into :class:`linnaeus_tpu_torch.models.mformer_v1.MFormerV1`
 with ``strict=True``.
+
+The map only renames and transposes, so ``state_dict_from_jax`` carries any
+tree shaped like the params just as well, a JAX gradient tree for one, and
+:func:`adamw_moments_from_optax` applies it to the first and second moments
+of an optax AdamW state, so a test can compare gradients and one optimizer
+update parameter by parameter.
 """
 
 from __future__ import annotations
@@ -125,9 +131,10 @@ def state_dict_from_jax(
     meta_names: tuple[str, ...] = (),
     task_keys: tuple[str, ...] = (),
 ) -> dict[str, torch.Tensor]:
-    """Map a Flax mFormerV1 ``params`` tree (nested dicts of arrays) onto the
-    port's state_dict keys, converting layouts; every listed leaf must exist
-    (a missing one raises KeyError)."""
+    """Map a Flax mFormerV1 ``params`` tree (nested dicts of arrays), or any
+    tree of its shape such as its gradients, onto the port's state_dict
+    keys, converting layouts; every listed leaf must exist (a missing one
+    raises KeyError)."""
     state: dict[str, torch.Tensor] = {}
     for key, path, convert in _entries(
         params, convnext_depths, rope_depths, tuple(meta_names), tuple(task_keys)
@@ -140,3 +147,33 @@ def state_dict_from_jax(
             value = convert(value)
         state[key] = torch.tensor(value, dtype=torch.float32)
     return state
+
+
+def adamw_moments_from_optax(
+    opt_state: Any,
+    convnext_depths: tuple[int, ...],
+    rope_depths: tuple[int, int],
+    meta_names: tuple[str, ...] = (),
+    task_keys: tuple[str, ...] = (),
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], int]:
+    """(exp_avg, exp_avg_sq, count) of an optax AdamW state by the port's
+    parameter names: the ``mu`` and ``nu`` trees and the step count of the
+    ``ScaleByAdamState`` found in ``opt_state`` (a nested tuple of states,
+    with the trees already brought to numpy)."""
+
+    def find(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                found = find(child)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no state with mu and nu trees in this optax state")
+    args = (convnext_depths, rope_depths, meta_names, task_keys)
+    return (state_dict_from_jax(adam.mu, *args), state_dict_from_jax(adam.nu, *args),
+            int(np.asarray(adam.count)))

@@ -145,3 +145,32 @@ def test_convnext_block_drop_path_in_training():
     assert kept.any() and not kept.all()
     for i, k in enumerate(kept.tolist()):
         assert torch.equal(outs[0][i], x[i]) != k  # dropped samples are the residual
+
+
+def test_convnext_block_fused_tail_under_grad_with_drop_path():
+    """Active drop-path: the fused tail runs without the in-kernel residual
+    and the block adds the dropped branch itself. Same keep masks (same
+    generator seed) through the fused and the plain tail give the same
+    output and the same gradients."""
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.normal(size=(6, 5, 5, 8)).astype(np.float32))
+    results = []
+    for fused in (True, False):
+        blk = ConvNeXtBlock(8, drop_path=0.5, layer_scale_init_value=0.5, fused_mlp=fused).train()
+        with torch.no_grad():
+            for i, p in enumerate(blk.parameters()):
+                p.copy_(torch.tensor(
+                    np.random.default_rng(10 + i).normal(size=tuple(p.shape)).astype(np.float32)
+                ) * 0.3)
+        blk.drop_path.generator = torch.Generator().manual_seed(1)
+        x = x0.clone().requires_grad_()
+        out = blk(x)
+        out.square().sum().backward()
+        results.append((out.detach(), x.grad, [p.grad for p in blk.parameters()]))
+    (o1, g1, p1), (o2, g2, p2) = results
+    dropped = (o1 - x0).flatten(1).abs().amax(1) == 0
+    assert 0 < int(dropped.sum()) < 6  # some samples kept, some dropped
+    np.testing.assert_allclose(o1.numpy(), o2.numpy(), atol=1e-5)
+    np.testing.assert_allclose(g1.numpy(), g2.numpy(), atol=1e-4)
+    for a, b in zip(p1, p2):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4)

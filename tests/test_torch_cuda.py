@@ -6,8 +6,12 @@ interpret mode). On a GPU machine, from the repository root:
     python -m pytest -q -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest configures JAX, which the port does
-not need.) Tolerances are the TPU kernel tests' bars: K1 fp32 2e-5, bf16
-3e-2; K2 fp32 1e-5, bf16 5e-2.
+not need.) Forward tolerances are the TPU kernel tests' bars: K1 fp32 2e-5,
+bf16 3e-2; K2 fp32 1e-5, bf16 5e-2. The backward kernels are held to their
+plain versions relative to each gradient's largest magnitude: fp32 2e-5
+(another summation order; dQ through float32 atomics), bf16 2e-2 (a
+rounding of P, dS, h1 or da1 that falls the other way moves a sum by a
+bf16 step or two).
 """
 
 import numpy as np
@@ -59,8 +63,6 @@ def test_k1_rejects_what_it_does_not_take(dev):
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q, q.bfloat16(), q)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_fwd(q.requires_grad_(), q, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -92,6 +94,115 @@ def test_k2_rejects_what_it_does_not_take(dev):
         fm.fused_convnext_mlp(y, None, torch.ones(C, device=dev), torch.zeros(C, device=dev),
                               w, torch.zeros(4 * C, device=dev), w.t().contiguous(),
                               torch.zeros(C, device=dev), None)
+
+
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _rel_err(a, b):
+    return _max_err(a, b) / max(b.float().abs().max().item(), 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 1), (2, 37, 3), (2, 130, 3), (4, 580, 6), (4, 148, 12)])
+def test_k1_backward_matches_plain_on_strided_views(dev, dtype, shape):
+    B, n, H = shape
+    g = torch.Generator(device=dev).manual_seed(n)
+    qkv = torch.randn(B, n, 3, H, 64, generator=g, device=dev).to(dtype).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(B, n, H, 64, generator=g, device=dev).to(dtype)
+    before = fa.BWD_LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=0.2)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    ref = fa.flash_attention_bwd_reference(q, k, v, out.detach(), lse, do, 0.2)
+    assert qkv.grad.shape == qkv.shape and qkv.grad.dtype == dtype
+    for name, got, want in zip("qkv", qkv.grad.unbind(2), ref):
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, want) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", [(70, 16), (70, 40), (1000, 96), (300, 192), (64 * 150, 96)])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k2_backward_matches_plain(dev, dtype, M, C, residual, approximate):
+    g = torch.Generator(device=dev).manual_seed(C)
+    y, x, dout = (torch.randn(M, C, generator=g, device=dev).to(dtype) for _ in range(3))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dtype)
+    w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dtype)
+    params = [vec(C, 0.1, 1.0), vec(C, 0.1), w1, vec(4 * C, 0.1), w2, vec(C, 0.1),
+              vec(C, 0.1, 0.5)]
+    leaves = [t.requires_grad_() for t in [y, x] + params]
+    before = fm.BWD_LAUNCHES
+    out = fm.fused_convnext_mlp(leaves[0], leaves[1] if residual else None, *leaves[2:],
+                                approximate_gelu=approximate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fm.BWD_LAUNCHES == before + 1
+    want = fm.fused_convnext_mlp_bwd_reference(
+        y.detach(), dout, *(t.detach() for t in params), 1e-6, approximate)
+    got = [leaves[0].grad] + [t.grad for t in leaves[2:]]
+    names = ("dy", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        # the weight gradients come back in the weights' dtype
+        assert _rel_err(a, b.to(a.dtype)) <= BWD_TOL[dtype], name
+    if residual:
+        assert torch.equal(leaves[1].grad, dout)
+    else:
+        assert leaves[1].grad is None
+
+
+def test_k2_backward_rejects_wide_rows(dev):
+    C = fm.MAX_WIDTH_BWD + 16
+    y = torch.randn(4, C, device=dev, requires_grad=True)
+    w = torch.randn(4 * C, C, device=dev)
+    out = fm.fused_convnext_mlp(y, None, torch.ones(C, device=dev), torch.zeros(C, device=dev),
+                                w, torch.zeros(4 * C, device=dev), w.t().contiguous(),
+                                torch.zeros(C, device=dev), None)
+    with pytest.raises(ValueError):
+        out.sum().backward()
+
+
+def test_tiny_model_trains_kernels_on_vs_off(dev):
+    """Loss and every parameter gradient of a tiny model, kernels on vs off."""
+    spec = {
+        "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [16, 32, 128, 256]},
+        "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
+        "DROP_PATH_RATE": 0.0,
+    }
+    nc = {"taxa_L10": 11, "taxa_L20": 5}
+    meta = (("TEMPORAL", 2), ("SPATIAL", 3))
+    on = build_model(spec, 64, nc, meta, use_flash_attn=True, device=dev).train()
+    off = build_model(spec, 64, nc, meta, use_flash_attn=False, fused_convnext_mlp=False,
+                      device=dev).train()
+    with torch.no_grad():  # the layer scale's 1e-6 would hide the MLP tail
+        for net in (on, off):
+            for blk in list(net.stages[0]) + list(net.stages[1]):
+                blk.gamma.fill_(0.5)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(3, 64, 64, 3)).astype(np.float32), device=dev)
+    m = torch.tensor(rng.normal(size=(3, 5)).astype(np.float32), device=dev)
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
+    losses = []
+    for net in (on, off):
+        out = net(x, m)
+        loss = sum(out[t].square().mean() for t in nc)
+        loss.backward()
+        losses.append(loss.item())
+    after = (fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (2, 2, 3, 3)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * max(1.0, abs(losses[1]))
+    # a gradient that is zero in exact arithmetic (the bias in front of the
+    # aggregation's softmax) is float32 noise on both routes: hold each
+    # parameter to 1e-3 of its own scale plus 1e-6 of the largest gradient
+    floor = 1e-6 * max(r.grad.abs().max().item() for r in off.parameters())
+    for (name, p), (_, r) in zip(on.named_parameters(), off.named_parameters()):
+        assert p.grad is not None, name
+        assert _max_err(p.grad, r.grad) <= 1e-3 * r.grad.abs().max().item() + floor, name
 
 
 def test_tiny_model_kernels_on_vs_off(dev):

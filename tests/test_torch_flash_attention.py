@@ -8,6 +8,7 @@ numpy with a fixed seed. Tolerances are the TPU kernel tests' own: fp32
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,3 +72,60 @@ def test_dispatch_routes_both_layouts_to_k1():
     head_major = scaled_dot_product_attention(qh, kh, vh, use_flash=True, layout="bhnd")
     np.testing.assert_allclose(_np(head_major.transpose(1, 2)), _np(plain), atol=2e-5)
     assert tfa.LAUNCHES == 0
+
+
+# ------------------------------------------------------------------ backward
+# fp32: the TPU kernel tests' own bar for gradients (1e-3 to 2e-3 relative,
+# tests/test_flash_attention.py); the port's plain backward follows the fused
+# Pallas kernel cast for cast, so it sits far inside it. bf16: P and dS are
+# rounded to 8 mantissa bits on both sides, but the JAX forward's lse comes
+# from an online softmax over padded blocks and the output gradients are
+# rounded once more, so two bf16 steps relative to the largest gradient.
+GRAD_RTOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+def _jax_grads(jq, jk, jv, jg):
+    def loss(q, k, v):
+        out = jfa.flash_attention(
+            *(jnp.swapaxes(t, 1, 2) for t in (q, k, v)), bwd="kernel")
+        return jnp.sum(jnp.swapaxes(out, 1, 2).astype(jnp.float32) * jg)
+
+    return jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 148])
+def test_plain_k1_backward_matches_pallas_fused_backward(dtype, n):
+    """dq, dk, dv of the port's Function (plain route) against jax.grad
+    through the fused Pallas backward kernel (interpret mode), on strided
+    q/k/v views of one qkv tensor."""
+    rng = np.random.default_rng(n)
+    B, H, D = 2, 3, 64
+    qkv = rng.normal(size=(B, n, 3, H, D)).astype(np.float32)
+    g = rng.normal(size=(B, n, H, D)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i], dtype) for i in range(3))
+    assert jfa._auto_blocks(n)[0] >= n  # one block: the fused kernel runs
+    want = _jax_grads(jq, jk, jv, jnp.asarray(g))
+
+    t = torch.tensor(np.asarray(jnp.asarray(qkv, dtype), np.float32)).to(getattr(torch, dtype))
+    t.requires_grad_()
+    q, k, v = t.unbind(2)  # strided views, as out of the qkv projection
+    out = tfa.flash_attention(q, k, v)
+    (out.float() * torch.tensor(g)).sum().backward()
+    assert t.grad.dtype == t.dtype
+    for name, got, ref in zip("qkv", t.grad.unbind(2), want):
+        ref = _np(ref)
+        np.testing.assert_allclose(
+            _np(got), ref, rtol=0, atol=GRAD_RTOL[dtype] * np.abs(ref).max(), err_msg=name)
+    assert tfa.LAUNCHES == 0 and tfa.BWD_LAUNCHES == 0
+
+
+def test_plain_k1_backward_reference_equals_autograd_of_plain_forward():
+    _, (q, k, v) = _qkv(37, 64, "float32", seed=3)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    out, lse = tfa.flash_attention_reference(q, k, v, 0.2)
+    want = torch.autograd.grad((out * g).sum(), (q, k, v))
+    got = tfa.flash_attention_bwd_reference(q, k, v, out, lse, g, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a.detach()), _np(b), atol=2e-6)

@@ -6,6 +6,7 @@ Tolerances are the TPU kernel tests' own: fp32 1e-5, bf16 5e-2.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,3 +84,77 @@ def test_plain_k2_keeps_leading_dims():
     )
     assert out.shape == (2, 5, 7, 8)
     torch.testing.assert_close(out.reshape(-1, 8), flat, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------ backward
+# fp32: the TPU kernel test's own bar (2e-4, tests/test_fused_mlp.py). bf16:
+# h0, h1, da2 and da1 are rounded to 8 mantissa bits on both sides; a
+# rounding that falls the other way after a differently ordered float32 sum
+# moves a gradient by a bf16 step, so 2e-2 of each gradient's largest value.
+BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+GRAD_NAMES = ("dy", "dx", "dls", "dlb", "dw1", "db1", "dw2", "db2", "dg")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("residual,with_gamma", [(True, True), (False, True), (True, False)])
+@pytest.mark.parametrize("M,C", [(70, 16), (300, 136)])
+def test_plain_k2_backward_matches_pallas_backward(monkeypatch, dtype, approximate, residual,
+                                                   with_gamma, M, C):
+    """dy, dresidual and the seven parameter gradients of the port's
+    Function (plain route) against jax.grad through the Pallas backward
+    kernel in interpret mode. (300, 136): a C > 128 row, the JAX wide
+    tiling, with rows that are no multiple of its 256-row tile."""
+    monkeypatch.setattr(jfm, "_FORCE_KERNEL_BWD", True)
+    a = _inputs(M, C, dtype, seed=C)
+    cot = np.random.default_rng(1).normal(size=(M, C)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+
+    def loss(y, x, ls, lb, w1, b1, w2, b2, g):
+        out = jfm.fused_convnext_mlp(
+            y, x if residual else None, ls, lb, w1, b1, w2, b2, g if with_gamma else None,
+            approximate_gelu=approximate)
+        return jnp.sum(out.astype(jnp.float32) * cot)
+
+    jargs = [jnp.asarray(a[k], jdt if k in ("y", "x", "w1", "w2") else jnp.float32)
+             for k in ("y", "x", "ls", "lb", "w1", "b1", "w2", "b2", "g")]
+    want = jax.grad(loss, argnums=tuple(range(9)))(*jargs)
+
+    cast = lambda k: _torch(a[k], dtype) if k in ("y", "x", "w1", "w2") else torch.tensor(a[k])  # noqa: E731
+    t = {k: cast(k) for k in a}
+    t["w1"], t["w2"] = t["w1"].t().contiguous(), t["w2"].t().contiguous()
+    for v in t.values():
+        v.requires_grad_()
+    out = tfm.fused_convnext_mlp(
+        t["y"], t["x"] if residual else None, t["ls"], t["lb"], t["w1"], t["b1"], t["w2"],
+        t["b2"], t["g"] if with_gamma else None, approximate_gelu=approximate)
+    (out.float() * torch.tensor(cot)).sum().backward()
+
+    got = [t[k].grad for k in ("y", "x", "ls", "lb", "w1", "b1", "w2", "b2", "g")]
+    for name, g_t, g_j in zip(GRAD_NAMES, got, want):
+        ref = np.asarray(g_j, np.float32)
+        if name in ("dw1", "dw2"):
+            ref = ref.T  # JAX keeps (in, out), torch Linear (out, in)
+        if (name == "dx" and not residual) or (name == "dg" and not with_gamma):
+            assert g_t is None and not ref.any(), name
+            continue
+        assert g_t.dtype == (getattr(torch, dtype) if name in ("dy", "dx", "dw1", "dw2")
+                             else torch.float32), name
+        tol = BWD_TOL[dtype] * max(np.abs(ref).max(), 1.0 if dtype == "float32" else 0.0)
+        np.testing.assert_allclose(g_t.float().numpy(), ref, rtol=0, atol=tol, err_msg=name)
+    assert tfm.LAUNCHES == 0 and tfm.BWD_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+def test_plain_k2_backward_reference_equals_autograd_of_plain_forward(approximate):
+    a = {k: torch.tensor(v) for k, v in _inputs(70, 24, "float32", seed=2).items()}
+    w1, w2 = a["w1"].t().contiguous(), a["w2"].t().contiguous()
+    leaves = [t.requires_grad_() for t in (a["y"], a["ls"], a["lb"], w1, a["b1"], w2, a["b2"], a["g"])]
+    y, ls, lb, w1, b1, w2, b2, g = leaves
+    cot = torch.randn(70, 24, generator=torch.Generator().manual_seed(0))
+    out = tfm.fused_convnext_mlp_reference(y, a["x"], ls, lb, w1, b1, w2, b2, g, 1e-6, approximate)
+    want = torch.autograd.grad((out * cot).sum(), leaves)
+    got = tfm.fused_convnext_mlp_bwd_reference(
+        y.detach(), cot, *(t.detach() for t in leaves[1:]), 1e-6, approximate)
+    for name, p, q in zip(("dy", "dls", "dlb", "dw1", "db1", "dw2", "db2", "dg"), got, want):
+        np.testing.assert_allclose(p.numpy(), q.numpy(), atol=5e-6, err_msg=name)

@@ -52,7 +52,7 @@ def handlers(tmp_path_factory):
 
     cfg = load_inference_config(bundle / "config.yaml")
     cfg.inference_options.enable_hierarchical_consistency_check = False
-    model = build_model_for_inference(cfg, arch=TINY)
+    model = build_model_for_inference(cfg, arch=TINY, device="cpu")
     params = jax.tree.map(np.asarray, loaded.variables["params"])
     model.load_state_dict(
         state_dict_from_jax(params, (1, 1, 1, 1), (1, 1),
@@ -155,3 +155,20 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_inference_build_defaults_to_the_card_and_honours_the_config_device(tmp_path):
+    """``inference_options.device`` "auto" is the GPU and raises without one;
+    "cpu" in the config, or as an argument, is honoured."""
+    import torch
+
+    from tests.bundle_utils import make_test_bundle
+
+    cfg = load_inference_config(make_test_bundle(tmp_path) / "config.yaml")
+    assert cfg.inference_options.device == "auto"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model_for_inference(cfg, arch=TINY)
+    cfg.inference_options.device = "cpu"
+    model = build_model_for_inference(cfg, arch=TINY)
+    assert next(model.parameters()).device.type == "cpu"

@@ -68,7 +68,7 @@ def _perturbed_params(model, images, meta):
 
 
 def _port_logits(params, images, meta, **kw):
-    model = build_model(SPEC, 64, NC, META, **kw)
+    model = build_model(SPEC, 64, NC, META, device="cpu", **kw)
     model.load_state_dict(
         state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS),
         strict=True,
@@ -103,7 +103,7 @@ def test_logits_match_jax_fused_kernel_route():
     for m in (meta, None):
         ref = jm.apply({"params": params}, jnp.asarray(images),
                        None if m is None else jnp.asarray(m))
-        model = build_model(SPEC, 64, NC, META, fused_convnext_mlp=True)
+        model = build_model(SPEC, 64, NC, META, fused_convnext_mlp=True, device="cpu")
         model.load_state_dict(
             state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS))
         with torch.no_grad():
@@ -125,7 +125,7 @@ def test_state_dict_from_jax_equals_reference_export():
     for key, value in theirs.items():
         np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
     # and it is exactly the port's own layout
-    port = build_model(SPEC, 64, NC, META)
+    port = build_model(SPEC, 64, NC, META, device="cpu")
     assert set(port.state_dict()) == set(ours)
     port.load_state_dict(ours, strict=True)
 
@@ -166,3 +166,14 @@ def test_conv1d_head_and_only_last_cls_match_jax():
         out = model(torch.tensor(images), torch.tensor(meta))
     for t in TASKS:
         np.testing.assert_allclose(out[t].numpy(), np.asarray(ref[t]), atol=ATOL)
+
+
+def test_default_device_is_the_card_and_raises_without_one():
+    """The entry points run on the GPU unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the default then succeeds")
+    for device in (None, "auto"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(SPEC, 64, NC, META, device=device)
+    model = build_model(SPEC, 64, NC, META, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"

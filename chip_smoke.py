@@ -5,8 +5,9 @@
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
-each one (K1 and K2, forward and backward) against its plain PyTorch
-version at the shapes the model gives it. Then it serves mFormerV1_sm at
+each one (K1 forward, fused backward and the split dQ and dK/dV backward
+pair; K2 forward and backward; K3, the fused ConvNeXt block) against its
+plain PyTorch version at the shapes its path gives it. Then it serves mFormerV1_sm at
 384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler:
 three predict requests of 1, 7 and 64 images, with launch counters proving
 every forward went through both forward kernels; it compares the whole
@@ -15,8 +16,11 @@ trains: a few steps of make_train_step through tools/train_bench at the
 same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
 schedule, clip 5.0), with launch counters proving every step went through
 all four kernels, against the same steps from the same seed with the
-kernels off. It prints one JSON line about the kernels, and as its last
-line
+kernels off. Then it trains the same model at 512 px, where stage 3 holds
+1028 tokens and K1's backward takes the split dQ and dK/dV kernels, and
+runs tools/fused_block_ab (K3 against the library convolution + K2 and
+against the plain chain, forward and train). It prints one JSON line about
+the seven kernels, and as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -40,12 +44,18 @@ BATCH = 64
 TASKS = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 # K1: stage 3 (24x24 + 4 extra tokens, 6 heads) and stage 4 (12x12 + 4, 12 heads)
 K1_SHAPES = [(BATCH, 580, 6, 64), (BATCH, 148, 12, 64), (2, 37, 3, 64)]
+# at 512 px: stage 3 (32x32 + 4, past 1024: the split backward) and stage 4 (16x16 + 4)
+IMG_LARGE = 512
+K1_SHAPES_LARGE = [(BATCH, 1028, 6, 64), (BATCH, 260, 12, 64)]
+# K3: stage 1 and stage 2 of the 384 px model, and a small odd image
+K3_SHAPES = [(BATCH, 96, 96, 96), (BATCH, 48, 48, 192), (2, 9, 11, 96)]
 # K2: stage 1 (B*96*96 rows, C=96) and stage 2 (B*48*48 rows, C=192)
 K2_SHAPES = [(BATCH * 96 * 96, 96), (BATCH * 48 * 48, 192), (70, 96)]
 # the TPU kernel tests' bars against their own plain versions
 K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
-K1_PER_FORWARD = 5 + 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
+K1_STAGE3, K1_STAGE4 = 5, 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
+K1_PER_FORWARD = K1_STAGE3 + K1_STAGE4
 K2_PER_FORWARD = 3 + 3  # ConvNeXt blocks of stages 1 and 2
 # backward kernels against their plain versions, relative to each gradient's
 # largest magnitude: fp32 runs the same math in another summation order (dQ
@@ -102,12 +112,19 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
             "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
 
 
-def k1_bound(shape, dtype, backward: bool) -> dict:
+def k1_bound(shape, dtype, kind) -> dict:
+    """``kind``: False/"fwd", True/"bwd" (the fused backward), "dq" or "dkv"."""
     B, N, H, D = shape
     elems, size = B * N * H * D, torch.finfo(dtype).bits // 8
-    if backward:  # S, dP, dV, dQ, dK; reads q k v o dO lse, writes dq dk dv
-        return bound(10 * B * H * N * N * D, 8 * elems * size + B * H * N * 4, dtype)
-    return bound(4 * B * H * N * N * D, 4 * elems * size + B * H * N * 4, dtype)
+    product = 2 * B * H * N * N * D  # one N x N x D matrix product per head
+    stats = B * H * N * 4
+    if kind in (True, "bwd"):  # S, dP, dV, dQ, dK; reads q k v o dO lse, writes dq dk dv
+        return bound(5 * product, 8 * elems * size + stats, dtype)
+    if kind == "dq":  # S, dP, dQ; reads q k v dO lse delta, writes dq
+        return bound(3 * product, 5 * elems * size + 2 * stats, dtype)
+    if kind == "dkv":  # S, dP, dV, dK; reads q k v dO lse delta, writes dk dv
+        return bound(4 * product, 6 * elems * size + 2 * stats, dtype)
+    return bound(2 * product, 4 * elems * size + stats, dtype)
 
 
 def k2_bound(shape, dtype, backward: bool) -> dict:
@@ -122,14 +139,37 @@ def k2_bound(shape, dtype, backward: bool) -> dict:
     return bound(2 * 2 * M * C * 4 * C, 3 * M * C * size + weights * size + vectors, dtype)
 
 
+def k3_bound(shape, dtype) -> dict:
+    """The two products and the 49 taps; x read once, out written once, the
+    parameters once."""
+    B, H, W, C = shape
+    M, size = B * H * W, torch.finfo(dtype).bits // 8
+    params = 2 * 4 * C * C * size + (49 * C + 5 * C + 4 * C) * 4
+    return bound(2 * 2 * M * C * 4 * C + 2 * 49 * M * C, 2 * M * C * size + params, dtype)
+
+
+def sdpa_ms(q, k, v, do=None) -> float:
+    """Time of the one PyTorch call for K1's function on the same operands,
+    forward, or backward through torch.autograd.grad when ``do`` is given:
+    the yardstick, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    if do is None:
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh)
+    doh = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                   iters=5)
+
+
 def check_kernels(dev, fa, fm) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     g = torch.Generator(device=dev).manual_seed(SEED)
-    import torch.nn.functional as F
-
-    rec = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
+    rec = {"K1": {"max_abs_err": 0.0, "other_shapes": []}, "K2": {"max_abs_err": 0.0}}
     for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in K1_SHAPES:
+        for B, N, H, D in K1_SHAPES + K1_SHAPES_LARGE:
             # q, k, v as strided views of one qkv projection output
             q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
             out, lse = fa.flash_attention_fwd(q, k, v)
@@ -143,15 +183,16 @@ def check_kernels(dev, fa, fm) -> dict:
             check(err <= K1_TOL[dt], f"K1 {dt} {(B, N, H, D)} error {err}")
             if dt == torch.bfloat16:
                 rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], err)
-                if N == 580:
-                    # the one PyTorch call for the same function: the yardstick,
-                    # used nowhere in the port
-                    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                if B == BATCH:
+                    lib_ms = sdpa_ms(q, k, v)
                     print(f"   F.scaled_dot_product_attention on the same operands: "
                           f"{lib_ms:.3f} ms", flush=True)
-                    rec["K1"].update(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
-                                     library_ms=lib_ms, **k1_bound((B, N, H, D), dt, False))
+                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                                 library_ms=lib_ms, **k1_bound((B, N, H, D), dt, False))
+                    if N == 580:
+                        rec["K1"].update(timed)
+                    else:
+                        rec["K1"]["other_shapes"].append(timed)
         for M, C in K2_SHAPES:
             y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
             vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
@@ -185,12 +226,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def check_backward_kernels(dev, fa, fm) -> dict:
     """Each backward kernel against its plain version at the training shapes
     (and a ragged small one); returns per-kernel records."""
-    import torch.nn.functional as F
-
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    rec = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
+    rec = {"K1": {"max_abs_err": 0.0, "other_shapes": []}, "K2": {"max_abs_err": 0.0}}
     for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in K1_SHAPES:
+        for B, N, H, D in K1_SHAPES + K1_SHAPES_LARGE[1:]:
             q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
             do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
             o, lse = fa.flash_attention_fwd(q, k, v)
@@ -209,18 +248,16 @@ def check_backward_kernels(dev, fa, fm) -> dict:
             check(err <= BWD_TOL[dt], f"K1 bwd {dt} {(B, N, H, D)} error {err}")
             if dt == torch.bfloat16:
                 rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], abs_err)
-                if N == 580:
-                    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-                    out = F.scaled_dot_product_attention(qh, kh, vh)
-                    doh = do.transpose(1, 2)
-                    lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                        out, (qh, kh, vh), doh, retain_graph=True), iters=5)
-                    both_ms = cuda_ms(lambda: torch.autograd.grad(
-                        F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh), iters=5)
+                if B == BATCH:
+                    lib_ms = sdpa_ms(q, k, v, do)
                     print(f"   F.scaled_dot_product_attention on the same operands: backward "
-                          f"{lib_ms:.3f} ms, forward+backward {both_ms:.3f} ms", flush=True)
-                    rec["K1"].update(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
-                                     library_ms=lib_ms, **k1_bound((B, N, H, D), dt, True))
+                          f"{lib_ms:.3f} ms", flush=True)
+                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                                 library_ms=lib_ms, **k1_bound((B, N, H, D), dt, True))
+                    if N == 580:
+                        rec["K1"].update(timed)
+                    else:
+                        rec["K1"]["other_shapes"].append(timed)
         for M, C in K2_SHAPES:
             y, dout = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
             vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
@@ -251,25 +288,173 @@ def check_backward_kernels(dev, fa, fm) -> dict:
     return rec
 
 
-def train_phase(dev, card, fa, fm) -> dict:
-    """A few train steps of mFormerV1_sm with the kernels on, then the same
-    steps from the same seed with them off; returns the launch counts."""
+def check_split_backward(dev, fa) -> dict:
+    """The split backward's dQ and dK/dV kernels against their plain versions
+    at the 512 px stage-3 shape; the split route forced at two shapes the
+    fused kernel serves, against its plain versions and against the fused
+    kernel; dQ bit-identical over two launches. Returns per-kernel records."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rec = {"dq": {"max_abs_err": 0.0}, "dkv": {"max_abs_err": 0.0}}
+    shape = K1_SHAPES_LARGE[0]
+    for dt in (torch.float32, torch.bfloat16):
+        for B, N, H, D in (shape, K1_SHAPES[0], K1_SHAPES[2]):
+            scale = D ** -0.5
+            q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
+            do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            delta = fa._launch_delta(o, do)
+            dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
+            dq_again = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
+            dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
+            torch.cuda.synchronize()
+            same = torch.equal(dq, dq_again)
+            want_delta = fa.attention_delta(o, do)
+            want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, want_delta, scale)
+            want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, want_delta, scale)
+            errs = {"delta": rel_err(delta, want_delta), "dq": rel_err(dq, want_dq),
+                    "dk": rel_err(dk, want_dk), "dv": rel_err(dv, want_dv)}
+            abs_dq = max_err(dq, want_dq)
+            abs_dkv = max(max_err(dk, want_dk), max_err(dv, want_dv))
+            del want_dq, want_dk, want_dv
+            print(f"K1 split backward {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: max rel err "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (tol {BWD_TOL[dt]:g}); dQ bit-identical over two launches: {same}",
+                  flush=True)
+            check(all(torch.isfinite(t).all().item() for t in (dq, dk, dv)),
+                  f"K1 split bwd {dt} finite")
+            check(max(errs.values()) <= BWD_TOL[dt],
+                  f"K1 split bwd {dt} {(B, N, H, D)} errors {errs}")
+            check(same, f"dQ of the split route differs between two launches, {dt} N={N}")
+            if N == 580:
+                # the whole split route through autograd, against the fused kernel
+                got = fa._launch_bwd_split(q, k, v, o, lse, do, scale)
+                fused = fa._launch_bwd(q, k, v, o, lse, do, scale)
+                torch.cuda.synchronize()
+                err = max(rel_err(a, b) for a, b in zip(got, fused))
+                print(f"   split route vs fused kernel at N=580: max rel err {err:.3e}",
+                      flush=True)
+                check(err <= BWD_TOL[dt], f"split vs fused backward {dt}: {err}")
+            if (B, N, H, D) != shape or dt != torch.bfloat16:
+                continue
+            lib_ms = sdpa_ms(q, k, v, do)
+            print(f"   F.scaled_dot_product_attention backward (dq, dk and dv in one call) "
+                  f"on the same operands: {lib_ms:.3f} ms", flush=True)
+            for key, abs_err, run, plain in (
+                ("dq", abs_dq,
+                 lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, scale),
+                 lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)),
+                ("dkv", abs_dkv,
+                 lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale),
+                 lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)),
+            ):
+                ms, plain_ms = cuda_ms(run, iters=5), cuda_ms(plain, iters=3)
+                print(f"   {key} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                rec[key].update(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                shape=[B, N, H, D], library_ms=lib_ms,
+                                **k1_bound((B, N, H, D), dt, key))
+            fused_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, scale), iters=5)
+            split_ms = cuda_ms(lambda: fa._launch_bwd_split(q, k, v, o, lse, do, scale), iters=5)
+            print(f"   whole backward at this shape: split route {split_ms:.3f} ms (delta, dQ, "
+                  f"dK/dV), fused kernel {fused_ms:.3f} ms", flush=True)
+    return rec
+
+
+def check_block_kernel(dev, fb) -> dict:
+    """K3 against its plain version at the two ConvNeXt stages' shapes and a
+    small odd one, the residual always on, both GELUs."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rec = {"max_abs_err": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, W, C in K3_SHAPES:
+            randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+            x = randn(B, H, W, C).to(dt)
+            args = (0.2 * randn(C, 1, 7, 7), 0.1 * randn(C), 1.0 + 0.1 * randn(C),
+                    0.1 * randn(C), (0.1 * randn(4 * C, C)).to(dt), 0.1 * randn(4 * C),
+                    (0.1 * randn(C, 4 * C)).to(dt), 0.1 * randn(C), 0.5 + 0.1 * randn(C))
+            for approx in (True, False):
+                out = fb.fused_convnext_block(x, *args, approximate_gelu=approx)
+                torch.cuda.synchronize()
+                ref = fb.fused_convnext_block_reference(x, *args, 1e-6, approx)
+                err = max_err(out, ref)
+                del ref
+                ms = cuda_ms(lambda: fb.fused_convnext_block(x, *args, approximate_gelu=approx),
+                             iters=5)
+                plain_ms = cuda_ms(
+                    lambda: fb.fused_convnext_block_reference(x, *args, 1e-6, approx), iters=2)
+                print(f"K3 fused_convnext_block {str(dt)[6:]} (B,H,W,C)={(B, H, W, C)} "
+                      f"gelu={'tanh' if approx else 'erf'}: max|err| {err:.3e} "
+                      f"(tol {K2_TOL[dt]:g}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+                      flush=True)
+                check(torch.isfinite(out).all().item(), f"K3 {dt} finite")
+                check(err <= K2_TOL[dt], f"K3 {dt} {(B, H, W, C)} error {err}")
+                if dt == torch.bfloat16:
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, H, W, C],
+                                 library_ms=None, **k3_bound((B, H, W, C), dt))
+                    if approx and (B, H, W, C) == K3_SHAPES[0]:
+                        rec.update(timed)
+                    elif approx and B == BATCH:
+                        rec.setdefault("other_shapes", []).append(timed)
+    return rec
+
+
+def block_ab_phase(dev, fm, fb) -> int:
+    """tools/fused_block_ab at its default geometry, one pair, forward and
+    train; returns K3's launch count over the tool's run."""
+    from linnaeus_tpu_torch.tools import fused_block_ab as ab
+
+    fb.LAUNCHES = fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    n = 5
+    for train in (False, True):
+        before = (fb.LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
+        summary = ab.run_ab(train=train, pairs=1, n=n, device=dev)
+        check(set(summary["ms_median"]) == set(ab.MODES), "fused_block_ab ran its three modes")
+        check(all(np.isfinite(v) and v > 0 for v in summary["ms_median"].values()),
+              f"fused_block_ab times {summary['ms_median']}")
+        k3, k2, k2_bwd = (a - b for a, b in zip((fb.LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES),
+                                                before))
+        # each mode runs one warm-up iteration and n timed ones
+        check(k3 == n + 1, f"fused_block_ab block mode launched K3 {k3} times, not {n + 1}")
+        check(k2 == n + 1 and k2_bwd == (n + 1 if train else 0),
+              f"fused_block_ab mlp mode launched K2 {k2} + {k2_bwd} times")
+    launches = fb.LAUNCHES
+    B, H, W, C = 64, 96, 96, 96
+    outs = {m: ab.build(m, False, B, H, W, C, device=dev)[0](1) for m in ab.MODES}
+    torch.cuda.synchronize()
+    errs = {m: max_err(outs[m], outs["plain"]) for m in ("block", "mlp")}
+    errs["block vs mlp"] = max_err(outs["block"], outs["mlp"])
+    tol = K2_TOL[torch.bfloat16]
+    print("fused_block_ab, one block forward in bf16, max|diff| " +
+          ", ".join(f"{m} {e:.3e}" for m, e in errs.items()) + f" (tol {tol:g})", flush=True)
+    check(max(errs.values()) <= tol, f"fused_block_ab modes disagree: {errs}")
+    return launches
+
+
+def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
+    """A few train steps of mFormerV1_sm at ``img`` px with the kernels on,
+    then the same steps from the same seed with them off; returns the launch
+    counts. K1's backward takes the fused kernel for a stage of at most 1024
+    tokens and the split pair past that (stage 3 at 512 px)."""
     from linnaeus_tpu_torch.tools import train_bench
 
     def counts():
-        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES,
-                "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
+                "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
 
+    split = [fa.backward_route((img // px) ** 2 + 4) == "split" for px in (16, 32)]
+    n_split = K1_STAGE3 * split[0] + K1_STAGE4 * split[1]
     results = {}
     for name, kernels in (("on", True), ("off", False)):
-        run, state = train_bench.build_step(BATCH, IMG, kernels, "mFormerV1_sm", TASKS,
+        run, state = train_bench.build_step(BATCH, img, kernels, "mFormerV1_sm", TASKS,
                                             device=dev, seed=SEED)
         check(all(p.dtype == torch.float32 for p in state.model.parameters())
               and state.model.dtype == torch.bfloat16, "bf16 compute over float32 parameters")
         before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        fa.LAUNCHES = fa.BWD_LAUNCHES = fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+        fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        fm.LAUNCHES = fm.BWD_LAUNCHES = 0
         first = run()  # also warms up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -296,7 +481,7 @@ def train_phase(dev, card, fa, fm) -> dict:
               + " ".join(f"{v:.3f}" for v in pre) + "; after clip "
               + " ".join(f"{v:.3f}" for v in post) + f"; {changed}/{len(before)} parameter "
               f"tensors changed (still: {still}); launches {launched}", flush=True)
-        print(f"[{card}] mFormerV1_sm {IMG}px B={BATCH} bf16 train step, kernels {name}: "
+        print(f"[{card}] mFormerV1_sm {img}px B={BATCH} bf16 train step, kernels {name}: "
               f"{ms:.2f} ms per step (CUDA events over {TRAIN_STEPS} steps), peak memory "
               f"{peak:.2f} GiB", flush=True)
         check(all(np.isfinite(v) for v in losses + pre + post + list(per_task.values())),
@@ -306,7 +491,8 @@ def train_phase(dev, card, fa, fm) -> dict:
               f"{changed} of {len(before)} parameter tensors changed; stuck: {stuck}")
         check(state.step == len(history), f"step counter {state.step}")
         n = len(history)
-        want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * K1_PER_FORWARD,
+        want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * (K1_PER_FORWARD - n_split),
+                 "K1_dq": n * n_split, "K1_dkv": n * n_split,
                  "K2": n * K2_PER_FORWARD, "K2_bwd": n * K2_PER_FORWARD} if kernels
                 else dict.fromkeys(launched, 0))
         check(launched == want, f"train launch counts {launched}, expected {want}")
@@ -317,7 +503,7 @@ def train_phase(dev, card, fa, fm) -> dict:
     on, off = results["on"], results["off"]
     d_loss = abs(on["loss"] - off["loss"]) / abs(off["loss"])
     d_norm = abs(on["grad_norm"] - off["grad_norm"]) / abs(off["grad_norm"])
-    print(f"first train step, kernels on vs off: loss {on['loss']:.5f} vs {off['loss']:.5f} "
+    print(f"first train step at {img} px, kernels on vs off: loss {on['loss']:.5f} vs {off['loss']:.5f} "
           f"(rel {d_loss:.2e}, tol {TRAIN_LOSS_RTOL:g}); grad norm {on['grad_norm']:.4f} vs "
           f"{off['grad_norm']:.4f} (rel {d_norm:.2e}, tol {TRAIN_GRAD_NORM_RTOL:g})", flush=True)
     check(d_loss <= TRAIN_LOSS_RTOL, f"first-step loss, kernels on vs off: rel {d_loss}")
@@ -394,6 +580,7 @@ def main() -> int:
     from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
     from linnaeus_tpu_torch.inference.model_utils import build_model_for_inference
     from linnaeus_tpu_torch.ops import flash_attention as fa
+    from linnaeus_tpu_torch.ops import fused_dwconv_mlp as fb
     from linnaeus_tpu_torch.ops import fused_mlp as fm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -417,6 +604,8 @@ def main() -> int:
     # 2. each kernel against its plain version at the model's shapes
     rec = check_kernels(dev, fa, fm)
     rec_bwd = check_backward_kernels(dev, fa, fm)
+    rec_split = check_split_backward(dev, fa)
+    rec_block = check_block_kernel(dev, fb)
 
     # 3. serve mFormerV1_sm through the handler, kernels on
     cfg = serving_config()
@@ -484,6 +673,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = train_phase(dev, card, fa, fm)["on"]["launches"]
 
+    # 7. train at 512 px: stage 3 holds 1028 tokens, so K1's backward takes
+    # the split dQ and dK/dV kernels there and the fused kernel at stage 4
+    trained_large = train_phase(dev, card, fa, fm, IMG_LARGE)["on"]["launches"]
+    trained["K1_dq"], trained["K1_dkv"] = trained_large["K1_dq"], trained_large["K1_dkv"]
+
+    # 8. K3's path: the fused-block A/B tool, forward and train
+    trained["K3"] = block_ab_phase(dev, fm, fb)
+
     kernels = []
     for r, key, name, src, replaces in (
         (rec["K1"], "K1", "flash_attention_fwd",
@@ -494,14 +691,27 @@ def main() -> int:
          "linnaeus_tpu_torch/csrc/fused_mlp_fwd.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
         (rec_bwd["K2"], "K2_bwd", "fused_convnext_mlp_bwd",
          "linnaeus_tpu_torch/csrc/fused_mlp_bwd.cu", "linnaeus_tpu/ops/fused_mlp.py:155"),
+        (rec_split["dq"], "K1_dq", "flash_attention_bwd_dq",
+         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
+         "linnaeus_tpu/ops/flash_attention.py:112"),
+        (rec_split["dkv"], "K1_dkv", "flash_attention_bwd_dkv",
+         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
+         "linnaeus_tpu/ops/flash_attention.py:207"),
+        (rec_block, "K3", "fused_convnext_block_fwd",
+         "linnaeus_tpu_torch/csrc/fused_dwconv_mlp_fwd.cu",
+         "linnaeus_tpu/ops/fused_dwconv_mlp.py:50"),
     ):
-        # launches: over the train steps; the forwards also served the requests
+        # launches: over its path's run (the 384 px train steps; the 512 px
+        # train steps for the split backward; the A/B tool for K3), counted
+        # from zero; the forwards also served the requests
+        check(trained[key] > 0, f"kernel {name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": trained[key], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "serving_launches": launches.get(key), "shape": r["shape"],
-                        "dtype": "bfloat16"})
+                        "serving_launches": launches.get(key),
+                        "launches_512px": trained_large.get(key), "shape": r["shape"],
+                        "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,17 @@ and the optimizer read from configs/experiments/tpu_trainrun_synth_384.yaml
 merged over the TPU package's defaults: mFormerV1_sm at 384 px, batch 64,
 bfloat16 compute, AdamW with weight decay 0.05, a cosine schedule from
 1.5e-4 to 1.5e-5 after 150 linear warm-up steps, global-norm clip 5.0,
-drop-path 0.05, mixup alpha 1.0 and the start values of the mix and
-meta-masking schedules. Data paths, samplers, checkpoints and logging are
-not part of it: their modules are not ported yet.
+drop-path 0.05, mixup alpha 1.0, the start values of the mix and
+meta-masking schedules, and the defaults' ``MODEL.ATTN_FP32_SOFTMAX: False``
+(the plain attention path stores its scores in the compute dtype), which
+the yaml does not override. Data paths, samplers, checkpoints and logging
+are not part of it: their modules are not ported yet.
+
+``TRAINRUN_SYNTH_512`` is the same run with ``MODEL.IMG_SIZE`` and
+``DATA.IMG_SIZE`` set to 512. The TPU package ships no 512 px yaml; both
+keys are free knobs of its config. At 512 px stage 3 of mFormerV1_sm holds
+32 x 32 + 4 = 1028 tokens, the first size past 1024, where K1's backward
+takes its split dQ and dK/dV kernels (ops/flash_attention.py).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ TRAINRUN_SYNTH_384 = {
         "ARCH": "mFormerV1_sm",
         "IMG_SIZE": 384,
         "USE_FLASH_ATTN": True,
+        "ATTN_FP32_SOFTMAX": False,
         "DROP_PATH_RATE": 0.05,
         "LABEL_SMOOTHING": 0.1,
     },
@@ -101,8 +110,19 @@ TRAINRUN_SYNTH_384 = {
     },
 }
 
+TRAINRUN_SYNTH_512 = {
+    **TRAINRUN_SYNTH_384,
+    "MODEL": {**TRAINRUN_SYNTH_384["MODEL"], "IMG_SIZE": 512},
+    "DATA": {**TRAINRUN_SYNTH_384["DATA"], "IMG_SIZE": 512},
+}
+
+TRAIN_PRESETS = {
+    "tpu_trainrun_synth_384": TRAINRUN_SYNTH_384,
+    "tpu_trainrun_synth_512": TRAINRUN_SYNTH_512,
+}
 
 
-def train_preset() -> ConfigNode:
-    """A fresh, editable copy of ``TRAINRUN_SYNTH_384``."""
-    return ConfigNode(TRAINRUN_SYNTH_384)
+def train_preset(name: str = "tpu_trainrun_synth_384") -> ConfigNode:
+    """A fresh, editable copy of the preset ``name`` (a key of
+    ``TRAIN_PRESETS``)."""
+    return ConfigNode(TRAIN_PRESETS[name])

@@ -23,34 +23,18 @@
 // living in shared memory only; the products run as float32 FMAs on the
 // CUDA cores from shared-memory tiles (each thread owns a 4-row strip of
 // the output tile in registers). Tensor cores (wgmma) come in a later
-// change.
+// change. The tile's LayerNorm and MLP tail are device code shared with K3
+// (fused_mlp_body.cuh).
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "fused_mlp_body.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kBM = 64;        // rows per block: 4 per thread row
-constexpr int kHC = 64;        // hidden columns per chunk: 4 per thread column
-constexpr int kMaxC = 256;     // widest C the column split below covers
-
-__device__ __forceinline__ float gelu(float x, bool approximate) {
-  if (approximate) {
-    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.f + tanhf(inner));
-  }
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-
-// Shared memory: the normalised tile (kBM x C+1), one chunk of GELU output
-// (kBM x kHC+1) and one staged weight chunk, W1's (C x kHC+1) or W2's
-// (kHC x C+1). The +1 pads keep the column walks free of bank conflicts.
+// Shared memory: the normalised tile and the MLP tail's chunk buffers.
 __host__ __device__ inline size_t smem_floats(int C) {
-  const size_t w1 = static_cast<size_t>(C) * (kHC + 1);
-  const size_t w2 = static_cast<size_t>(kHC) * (C + 1);
-  return static_cast<size_t>(kBM) * (C + 1) + kBM * (kHC + 1) + (w1 > w2 ? w1 : w2);
+  return tile_floats(C) + mlp_chunk_floats(C);
 }
 
 // CPT: output columns per thread; thread column tx owns columns tx + 16 j.
@@ -65,10 +49,9 @@ __global__ void __launch_bounds__(kThreads)
                      long long M, int C, int Hd, float eps, bool approximate) {
   extern __shared__ float smem[];
   const int ldh = C + 1;
-  constexpr int lda = kHC + 1;
-  float* h0 = smem;               // kBM x ldh
-  float* act = h0 + kBM * ldh;    // kBM x lda
-  float* wt = act + kBM * lda;    // a staged chunk of W1 or W2
+  float* h0 = smem;                  // kBM x ldh
+  float* act = h0 + tile_floats(C);  // kBM x (kHC + 1)
+  float* wt = act + kBM * (kHC + 1); // a staged chunk of W1 or W2
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -76,102 +59,19 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int rows = static_cast<int>(min(static_cast<long long>(kBM), M - row0));
 
-  // 1. LayerNorm, one warp per row; rows past M are zeros
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    float* hr = h0 + r * ldh;
-    const long long gr = row0 + r;
-    if (gr >= M) {
-      for (int c = lane; c < C; c += 32) hr[c] = 0.f;
-      continue;
-    }
-    const T* yr = y + gr * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float t = lt::to_float(yr[c]);
-      hr[c] = t;
-      sum += t;
-    }
-    const float mean = lt::warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = hr[c] - mean;
-      sq += d * d;
-    }
-    const float rstd = rsqrtf(lt::warp_sum(sq) / C + eps);
-    for (int c = lane; c < C; c += 32)
-      hr[c] = lt::round_to<T>((hr[c] - mean) * rstd * ln_w[c] + ln_b[c]);
+  // 1. the tile's rows into shared memory, one warp per row, then LayerNorm
+  // over them by the same lanes; rows past M become zeros
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const T* yr = y + (row0 + r) * C;
+    for (int c = lane; c < C; c += 32) h0[r * ldh + c] = lt::to_float(yr[c]);
   }
+  layer_norm_rows<T>(h0, ldh, C, rows, ln_w, ln_b, eps);
 
+  // 2, 3. the hidden dim in chunks: GEMM1 -> GELU -> GEMM2
   float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int hc = 0; hc < Hd; hc += kHC) {
-    const int nh = min(kHC, Hd - hc);
-    __syncthreads();  // h0 is written; the last chunk's act and wt are used
-    // stage W1[hc : hc + nh, :] as wt[c][hh] (global reads run along c)
-    for (int i = tid; i < kHC * C; i += kThreads) {
-      const int hh = i / C;
-      const int c = i % C;
-      wt[c * lda + hh] =
-          hh < nh ? lt::to_float(w1[static_cast<long long>(hc + hh) * C + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // 2. act = round(GELU(h0 @ W1c^T + b1c)): thread owns 4 rows x 4 columns
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      float a[4], bw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = h0[(ty * 4 + i) * ldh + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bw[j] = wt[c * lda + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bw[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int hh = tx + 16 * j;
-      const float bias = hh < nh ? b1[hc + hh] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        act[(ty * 4 + i) * lda + hh] =
-            hh < nh ? lt::round_to<T>(gelu(s[i][j] + bias, approximate)) : 0.f;
-    }
-    __syncthreads();  // act is complete and wt's W1 chunk is used
-
-    // stage W2[:, hc : hc + nh] as wt[hh][c] (global reads run along hh)
-    for (int i = tid; i < C * kHC; i += kThreads) {
-      const int c = i / kHC;
-      const int hh = i % kHC;
-      wt[hh * ldh + c] =
-          hh < nh ? lt::to_float(w2[static_cast<long long>(c) * Hd + hc + hh]) : 0.f;
-    }
-    __syncthreads();
-
-    // 3. acc += act @ W2c^T: thread owns 4 rows x CPT columns
-    for (int hh = 0; hh < nh; ++hh) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = act[(ty * 4 + i) * lda + hh];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        const float bw = c < C ? wt[hh * ldh + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bw, acc[i][j]);
-      }
-    }
-  }
+  mlp_tail<T, CPT>(h0, act, wt, w1, b1, w2, C, Hd, approximate, acc);
 
   // 4. (acc + b2) * gamma [+ residual], one cast to T
 #pragma unroll

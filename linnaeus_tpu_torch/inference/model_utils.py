@@ -39,11 +39,15 @@ def build_model_for_inference(
     ``cfg.model.architecture_name``; ``kwargs`` go to ``build_model``
     (dtype, device, use_flash_attn, fused_convnext_mlp, seed, ...). The
     device defaults to ``cfg.inference_options.device``, whose "auto" is the
-    CUDA device: without one this raises unless the CPU is asked for."""
+    CUDA device: without one this raises unless the CPU is asked for. The
+    plain attention path computes its scores in the compute dtype, the TPU
+    package's serving default (``MODEL.ATTN_FP32_SOFTMAX: False``), unless
+    ``attn_fp32_softmax=True`` is passed."""
     c, h, w = cfg.input_preprocessing.image_size
     if h != w:
         raise ValueError(f"square images only, got {h}x{w}")
     kwargs.setdefault("device", cfg.inference_options.device)
+    kwargs.setdefault("attn_fp32_softmax", False)
     return build_model(
         arch if arch is not None else cfg.model.architecture_name,
         img_size=h,

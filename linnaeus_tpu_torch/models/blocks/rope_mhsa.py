@@ -25,13 +25,15 @@ class RoPE2DAttention(nn.Module):
     """``rope_fidelity``: 'rotate' is true 2D RoPE; 'reference_cos' zeroes
     sin, reproducing the upstream implementation's complex-to-real cast
     (checkpoints trained with it). ``use_flash_attn`` sends the attention
-    through K1. The qkv projection has a bias and the scale is
+    through K1; ``attn_fp32_softmax`` False lets the plain path compute its
+    scores in the compute dtype (ops/attention.py). The qkv projection has a bias and the scale is
     head_dim**-0.5, as in every mFormerV1; dropout is not ported."""
 
     def __init__(self, dim: int, img_grid_size: tuple[int, int],
                  extra_token_num: int = 1, num_heads: int = 8,
                  rope_theta: float = 10000.0, rope_mixed: bool = True,
                  rope_fidelity: str = "rotate", use_flash_attn: bool = False,
+                 attn_fp32_softmax: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
         if rope_fidelity not in ROPE_FIDELITIES:
@@ -43,6 +45,7 @@ class RoPE2DAttention(nn.Module):
         self.scale = self.head_dim**-0.5
         self.rope_fidelity = rope_fidelity
         self.use_flash_attn = use_flash_attn
+        self.attn_fp32_softmax = attn_fp32_softmax
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
         H_grid, W_grid = self.grid
@@ -78,6 +81,7 @@ class RoPE2DAttention(nn.Module):
         q, k = rope.apply_rotary_emb_bnhd(q, k, cos, sin, n_extra=self.extra_token_num)
         out = scaled_dot_product_attention(
             q, k, v, scale=self.scale, use_flash=self.use_flash_attn, layout="bnhd",
+            fp32_softmax=self.attn_fp32_softmax,
         )
         return self.proj(out.reshape(B, N, C))
 
@@ -90,7 +94,7 @@ class RoPE2DMHSABlock(nn.Module):
                  mlp_ratio: float = 4.0, rope_theta: float = 10000.0,
                  rope_mixed: bool = True, drop_path: float = 0.0,
                  use_flash_attn: bool = False, rope_fidelity: str = "rotate",
-                 act_exact: bool = False,
+                 act_exact: bool = False, attn_fp32_softmax: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
@@ -98,7 +102,7 @@ class RoPE2DMHSABlock(nn.Module):
             dim, img_grid_size, extra_token_num=extra_token_num,
             num_heads=num_heads, rope_theta=rope_theta, rope_mixed=rope_mixed,
             rope_fidelity=rope_fidelity, use_flash_attn=use_flash_attn,
-            generator=generator,
+            attn_fp32_softmax=attn_fp32_softmax, generator=generator,
         )
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act_exact=act_exact)

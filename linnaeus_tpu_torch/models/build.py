@@ -24,6 +24,7 @@ def build_model(
     in_chans: int = 3,
     dtype: torch.dtype = torch.float32,
     use_flash_attn: bool = False,
+    attn_fp32_softmax: bool = True,
     fused_convnext_mlp: bool | None = None,
     act_exact: bool = False,
     rope_fidelity: str = "rotate",
@@ -39,7 +40,9 @@ def build_model(
     ``num_classes`` maps each task key, in order, to its class count.
     ``meta_components`` are ordered (name, dim) pairs, e.g.
     (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6)). ``use_flash_attn``
-    routes every RoPE attention through K1; ``fused_convnext_mlp`` True or
+    routes every RoPE attention through K1; ``attn_fp32_softmax`` False
+    lets the plain attention path compute its scores in ``dtype`` (the TPU
+    package's ``MODEL.ATTN_FP32_SOFTMAX``); ``fused_convnext_mlp`` True or
     None routes the ConvNeXt MLP tails of stages 1-2 through K2 on CUDA
     (None keeps plain modules for CPU tensors), False keeps plain modules.
     """
@@ -58,6 +61,7 @@ def build_model(
         rope_fidelity=rope_fidelity,
         act_exact=act_exact,
         use_flash_attn=use_flash_attn,
+        attn_fp32_softmax=attn_fp32_softmax,
         fused_convnext_mlp=fused_convnext_mlp,
         meta_components=tuple(meta_components),
         task_keys=tuple(num_classes),

@@ -12,8 +12,9 @@ downsample_layers, norm_1/2, cls_token_1/2, meta_*_head_*, cl_1_fc,
 aggregate, final_norm, head), so a converted TPU checkpoint loads strict.
 Images are NHWC, as in the TPU package. Parameters are float32; ``dtype``
 is the compute dtype. MoE, ring attention, pipelining and rematerialisation
-are not ported yet and raise; dropout (0 in every preset) and the
-bf16-score attention option are not ported.
+are not ported yet and raise; dropout (0 in every preset) is not ported.
+``attn_fp32_softmax`` False lets the plain attention path compute its scores
+in the compute dtype (ops/attention.py); it has no effect on the K1 route.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class MFormerV1(nn.Module):
         act_exact: bool = False,
         fused_convnext_mlp: bool | None = None,
         use_flash_attn: bool = False,
+        attn_fp32_softmax: bool = True,
         drop_path_rate: float = 0.1,
         only_last_cls: bool = False,
         aggregation: str = "Conv1d",
@@ -123,7 +125,7 @@ class MFormerV1(nn.Module):
                     rope_theta=rope_theta, rope_mixed=rope_mixed,
                     drop_path=next(dpr), use_flash_attn=use_flash_attn,
                     rope_fidelity=rope_fidelity, act_exact=act_exact,
-                    generator=generator,
+                    attn_fp32_softmax=attn_fp32_softmax, generator=generator,
                 )
                 for _ in range(rope_depths[s])
             )

@@ -2,19 +2,26 @@
 kernels.
 
 Port of linnaeus_tpu/ops/flash_attention.py: ``_flash_fwd_kernel`` (via
-``_flash_forward_padded`` and ``_flash_fwd_rule``) and the fused backward
-``_flash_bwd_fused_kernel`` with the host part of ``_flash_bwd_rule``. The
-kernels are ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``;
+``_flash_forward_padded`` and ``_flash_fwd_rule``), the fused backward
+``_flash_bwd_fused_kernel`` and the split backward pair
+``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``, with the host part of
+``_flash_bwd_rule``. The kernels are ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_split.cu``;
 they read token-major (B, N, H, D) operands through their strides, so the
 q/k/v views out of a qkv projection need no transpose, and never write the
 (N, N) scores to device memory.
 
 ``flash_attention_fwd`` and ``flash_attention`` are differentiable: a
 ``torch.autograd.Function`` saves q, k, v, O and the log-sum-exp, and its
-backward produces dq, dk and dv from one recomputed P. CUDA tensors launch
-the kernels or raise; CPU tensors run :func:`flash_attention_reference` and
-:func:`flash_attention_bwd_reference`, the plain PyTorch versions of the
-same math.
+backward produces dq, dk and dv either from one recomputed P (the fused
+kernel, whose dQ goes through float32 atomics) or from the split pair (a dQ
+kernel that owns query tiles and a dK/dV kernel that owns key tiles, each
+recomputing P: more arithmetic, no atomics, dQ the same from run to run).
+:func:`backward_route` holds the rule that chooses. CUDA tensors launch the
+kernels or raise; CPU tensors run the plain PyTorch versions of the same
+math: :func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`,
+:func:`flash_attention_bwd_dq_reference` and
+:func:`flash_attention_bwd_dkv_reference`.
 """
 
 from __future__ import annotations
@@ -27,10 +34,26 @@ from linnaeus_tpu_torch import _kernels
 
 HEAD_DIM = 64  # the only head dim compiled into the kernels
 
-# kernel launches in this process (forward, backward): the proof that a path
-# went through the kernels
+# kernel launches in this process (forward, fused backward, split backward's
+# dQ and dK/dV kernels): the proof that a path went through the kernels
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
+
+# longest sequence whose backward takes the fused kernel under bwd="auto"
+FUSED_BWD_MAX_SEQ = 1024
+BWD_ROUTES = ("auto", "fused", "split")
+
+
+def backward_route(n: int) -> str:
+    """"fused" or "split": the backward that ``bwd="auto"`` takes at sequence
+    length ``n``. The split pair runs where the TPU package runs it, past
+    1024 tokens (there the padded row no longer fits one block and its fused
+    kernel does not apply). Both routes of this port take any length, so
+    where the line belongs on this card is a question of speed that has not
+    been measured into the rule."""
+    return "split" if n > FUSED_BWD_MAX_SEQ else "fused"
 
 
 def flash_attention_reference(
@@ -93,28 +116,92 @@ def flash_attention_bwd_reference(
     )
 
 
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in float32, (B, H, N): the plain version of the
+    split backward's prologue kernel."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _p_and_ds(q, k, v, do, lse, delta, scale):
+    """Float32 P = exp(S * scale - lse) and dS = P * (dP - delta), unrounded,
+    (B, H, N, N), with the head-major float32 q, k and dO they came from."""
+    qf, kf, vf, dof = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.unsqueeze(-1))
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta.unsqueeze(-1))
+    return p, ds, qf, kf, dof
+
+
+def flash_attention_bwd_dq_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of the split backward's dQ kernel on (B, N, H, D)
+    operands, cast for cast as the TPU package's ``_flash_bwd_dq_kernel``:
+    only dS is cast (to k's dtype) before dQ = dS K * scale, accumulated in
+    float32. ``lse`` and ``delta`` are (B, H, N) float32. Returns dq in q's
+    dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _, ds, _, kf, _ = _p_and_ds(q, k, v, do, lse, delta, scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), kf) * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split backward's dK/dV kernel, cast for cast as
+    the TPU package's ``_flash_bwd_dkv_kernel``: P cast to dO's dtype before
+    dV = P^T dO, dS cast to q's dtype before dK = dS^T Q * scale, both
+    accumulated in float32. Returns (dk, dv) in k's and v's dtypes."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    p, ds, qf, _, dof = _p_and_ds(q, k, v, do, lse, delta, scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf) * scale
+    return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """(q, k, v, scale) -> (O, lse); lse carries no gradient."""
+    """(q, k, v, scale, bwd) -> (O, lse); lse carries no gradient. ``bwd`` is
+    the backward's route, "fused" or "split"."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, bwd):
         if q.device.type == "cpu":
             o, lse = flash_attention_reference(q, k, v, scale)
         else:
             o, lse = _launch_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.bwd = scale, bwd
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do, ctx.scale)
+        on_cpu = q.device.type == "cpu"
+        if ctx.bwd == "fused":
+            run = flash_attention_bwd_reference if on_cpu else _launch_bwd
+            dq, dk, dv = run(q, k, v, o, lse, do, ctx.scale)
+        elif on_cpu:
+            delta = attention_delta(o, do)
+            dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, ctx.scale)
+            dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, ctx.scale)
         else:
-            dq, dk, dv = _launch_bwd(q, k, v, o, lse, do, ctx.scale)
-        return dq, dk, dv, None
+            dq, dk, dv = _launch_bwd_split(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_fwd(
@@ -122,17 +209,23 @@ def flash_attention_fwd(
     k: torch.Tensor,
     v: torch.Tensor,
     scale: float | None = None,
+    bwd: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention on token-major (B, N, H, D) operands -> (O, lse).
 
     O is a new contiguous (B, N, H, D) tensor in the inputs' dtype; lse is
     (B, H, N) float32 (saved for the backward pass; it carries no
-    gradient). Differentiable in q, k and v. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels or raise.
+    gradient). Differentiable in q, k and v; ``bwd`` chooses the backward:
+    "fused", "split", or "auto" for :func:`backward_route` of N. CPU tensors
+    take the plain versions; CUDA tensors launch the kernels or raise.
     """
+    if bwd not in BWD_ROUTES:
+        raise ValueError(f"flash_attention: bwd {bwd!r} not in {BWD_ROUTES}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, float(scale))
+    if bwd == "auto":
+        bwd = backward_route(q.shape[1])
+    return _FlashAttention.apply(q, k, v, float(scale), bwd)
 
 
 def _launch_fwd(q, k, v, scale):
@@ -154,29 +247,42 @@ def _launch_fwd(q, k, v, scale):
     return o, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, scale):
-    """dq, dk, dv from the backward kernel, as the three slices of one
-    (B, N, 3, H, D) buffer: the layout of the qkv projection they flow
-    back into."""
-    B, N, H, D = q.shape
+def _check_dout(q, do):
+    """dO as the backward kernels take it: q's shape, dtype and device, the
+    head dim unit-stride (a copy is made where it is not)."""
     if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
         raise ValueError(
             f"flash_attention backward: dO is {tuple(do.shape)} {do.dtype} on {do.device}; "
             f"expected {tuple(q.shape)} {q.dtype} on {q.device}"
         )
-    if do.stride(-1) != 1:
-        do = do.contiguous()
-    grads = torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device)
-    dq, dk, dv = grads.unbind(2)
+    return do if do.stride(-1) == 1 else do.contiguous()
+
+
+def _strides(*tensors):
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _grad_buffer(q):
+    """dq, dk, dv as the three slices of one (B, N, 3, H, D) buffer: the
+    layout of the qkv projection they flow back into."""
+    B, N, H, D = q.shape
+    return torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device).unbind(2)
+
+
+def _launch_bwd(q, k, v, o, lse, do, scale):
+    """dq, dk, dv from the fused backward kernel."""
+    B, N, H, D = q.shape
+    do = _check_dout(q, do)
+    dq, dk, dv = _grad_buffer(q)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
     lib = _kernels.library()
     err = lib.lt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, N, H, D, (ctypes.c_longlong * len(strides))(*strides),
+        B, N, H, D, _strides(q, k, v, do, dq, dk, dv),
         float(scale), _kernels.DTYPE_CODES[q.dtype],
         _kernels.stream_handle(q.device),
     )
@@ -186,14 +292,73 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     return dq, dk, dv
 
 
+def _launch_delta(o, do):
+    """delta (B, H, N) float32 from the split backward's prologue kernel."""
+    B, N, H, D = o.shape
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=o.device)
+    err = _kernels.library().lt_flash_attention_bwd_delta(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, N, H, D, _strides(do),
+        _kernels.DTYPE_CODES[o.dtype], _kernels.stream_handle(o.device),
+    )
+    _kernels.check(err, "flash_attention_bwd_delta")
+    return delta
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=None):
+    """dq from the split backward's dQ kernel, written into ``out`` (any
+    (B, N, H, D) view with a unit-stride head dim) or a new tensor."""
+    B, N, H, D = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
+    err = _kernels.library().lt_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, N, H, D, _strides(q, k, v, do, dq),
+        float(scale), _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_attention_bwd_dq")
+    global DQ_LAUNCHES
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=None):
+    """(dk, dv) from the split backward's dK/dV kernel, written into the pair
+    ``out`` or new tensors."""
+    B, N, H, D = q.shape
+    if out is None:
+        out = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
+    dk, dv = out
+    err = _kernels.library().lt_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, D,
+        _strides(q, k, v, do, dk, dv),
+        float(scale), _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_attention_bwd_dkv")
+    global DKV_LAUNCHES
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def _launch_bwd_split(q, k, v, o, lse, do, scale):
+    """dq, dk, dv from the split backward: the delta prologue, the dQ kernel
+    and the dK/dV kernel, three launches and no workspace."""
+    do = _check_dout(q, do)
+    dq, dk, dv = _grad_buffer(q)
+    delta = _launch_delta(o, do)
+    _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=dq)
+    _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=(dk, dv))
+    return dq, dk, dv
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     scale: float | None = None,
+    bwd: str = "auto",
 ) -> torch.Tensor:
     """Attention output only, (B, N, H, D); see :func:`flash_attention_fwd`."""
-    return flash_attention_fwd(q, k, v, scale)[0]
+    return flash_attention_fwd(q, k, v, scale, bwd)[0]
 
 
 def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -47,13 +47,15 @@ def fused_convnext_mlp_reference(
     gamma: torch.Tensor,
     eps: float,
     approximate: bool,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain version on (M, C) rows, cast for cast as the TPU package's
     ``_xla_reference``: LN in float32 rounded to y's dtype, both products
     accumulated in float32, GELU in float32 rounded to y's dtype, then bias,
     gamma and the residual in float32 and one cast to y's dtype. The
-    vectors are float32."""
-    dt = y2.dtype
+    vectors are float32. ``dtype`` takes the place of y's dtype where y is
+    an unrounded float32 intermediate of a wider fusion (K3)."""
+    dt = y2.dtype if dtype is None else dtype
     yf = y2.float()
     mean = yf.mean(dim=-1, keepdim=True)
     var = (yf - mean).square().mean(dim=-1, keepdim=True)

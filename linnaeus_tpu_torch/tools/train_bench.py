@@ -6,14 +6,19 @@ collate, forward in bfloat16 over float32 parameters, float32 loss,
 backward, global-norm clip, AdamW update on a cosine schedule) on a seeded
 synthetic batch, takes a few steps and times them with CUDA events. The
 optimizer, schedule, clip and drop-path rate come from the training preset
-``tpu_trainrun_synth_384`` (configuration/train_presets.py); the per-step
-schedule scalars are the TPU package's bench values (mix probability 0.5,
-meta-mask probability 0.3).
+``tpu_trainrun_synth_384`` (configuration/train_presets.py; at ``--img 512``
+its 512 px twin, whose stage 3 holds 1028 tokens and so sends K1's backward
+through the split dQ and dK/dV kernels); the per-step schedule scalars are
+the TPU package's bench values (mix probability 0.5, meta-mask probability
+0.3). With the kernels off the plain attention stores its scores in the
+compute dtype, the TPU tool's default; ``--fp32-scores`` computes them in
+float32.
 
 It runs on the CUDA device unless the caller passes ``device="cpu"``; with
 no card and no such request it raises.
 
     python -m linnaeus_tpu_torch.tools.train_bench --batch 64 --img 384
+    python -m linnaeus_tpu_torch.tools.train_bench --img 512
     python -m linnaeus_tpu_torch.tools.train_bench --no-kernels
     python -m linnaeus_tpu_torch.tools.train_bench --profile 3
 """
@@ -40,6 +45,12 @@ from linnaeus_tpu_torch.utils.device import resolve_device
 NUM_CLASSES = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
 TOTAL_STEPS = 8 * 115  # the preset's 8 epochs of 7372 training samples at batch 64
+# the port's own kernels, by the names the profiler shows them under
+PORT_KERNELS = (
+    "flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+    "delta_kernel", "dq_finish_kernel", "fused_mlp_kernel", "mlp_bwd_rows_kernel",
+    "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
+)
 
 
 def synthetic_batch(batch: int, img: int, num_classes: Mapping[str, int], meta_dim: int,
@@ -69,17 +80,21 @@ def build_step(
     device: torch.device | str | None = None,
     seed: int = 0,
     accumulation_steps: int = 1,
+    fp32_scores: bool = False,
 ) -> tuple[Callable[[], dict], TrainState]:
     """Model, state and step on a synthetic batch. ``kernels`` routes the
     attention of stages 3-4 through K1 and the ConvNeXt MLP tails of stages
     1-2 through K2, forward and backward; off, both take the plain PyTorch
-    modules. Returns ``(run, state)``: ``run()`` takes one optimizer step on
-    the batch and returns its metrics."""
+    modules, and the attention's scores are float32 if ``fp32_scores`` or
+    the preset's ``MODEL.ATTN_FP32_SOFTMAX`` says so, else ``dtype``.
+    Returns ``(run, state)``: ``run()`` takes one optimizer step on the batch
+    and returns its metrics."""
     device = resolve_device(device)
-    cfg = train_preset()
+    cfg = train_preset("tpu_trainrun_synth_512" if img == 512 else "tpu_trainrun_synth_384")
     model = build_model(
         arch, img, dict(num_classes), tuple(meta_components), dtype=dtype,
         use_flash_attn=kernels, fused_convnext_mlp=kernels,
+        attn_fp32_softmax=fp32_scores or bool(cfg.MODEL.ATTN_FP32_SOFTMAX),
         drop_path_rate=float(cfg.MODEL.DROP_PATH_RATE), device=device, seed=seed,
     )
     schedule = build_schedule(cfg, TOTAL_STEPS)
@@ -138,6 +153,7 @@ def measure(batch: int = 64, img: int = 384, kernels: bool = True, warmup: int =
         peak, kind = None, "cpu"
     return {
         "device": kind, "batch": batch, "img": img, "kernels": kernels,
+        "fp32_scores": bool(build_kw.get("fp32_scores", False)),
         "warmup": warmup, "steps": steps,
         "train_ms_per_step": ms, "train_images_per_sec": batch / (ms / 1000.0),
         "peak_memory_bytes": peak,
@@ -152,8 +168,10 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
             top: int = 25, trace_path: str | None = None, **build_kw) -> dict:
     """Device time by kernel name over ``steps`` train steps after two
     warm-up steps (torch.profiler, CPU + CUDA activities): per-step wall
-    time under the profiler, device-busy time, the idle share and the
-    ``top`` kernels. Tracing the host slows it, so the wall time and the
+    time under the profiler, device-busy time, the idle share, the ``top``
+    kernels, and under ``port_kernels`` every row of the port's own kernels
+    (K1 forward, fused backward, the split dQ and dK/dV backward, K2) however
+    small. Tracing the host slows it, so the wall time and the
     idle share here are the profiled run's: for the idle share of a plain
     run, hold ``device_busy_ms_per_step`` against ``measure``'s step time."""
     from torch.profiler import ProfilerActivity
@@ -185,12 +203,15 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
             rows.append((e.key, device_us / 1000.0 / steps, e.count / steps))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    as_dict = lambda r: {"name": r[0][:100], "ms_per_step": r[1],  # noqa: E731
+                         "launches_per_step": r[2]}
     return {
         "kernels": kernels, "steps": steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "top": [{"name": n[:100], "ms_per_step": ms, "launches_per_step": c}
-                for n, ms, c in rows[:top]],
+        "top": [as_dict(r) for r in rows[:top]],
+        "port_kernels": [as_dict(r) for r in rows
+                         if any(f"{name}<" in r[0] or f"{name}(" in r[0] for name in PORT_KERNELS)],
     }
 
 
@@ -200,6 +221,8 @@ def main(argv=None) -> None:
     p.add_argument("--img", type=int, default=384)
     p.add_argument("--no-kernels", action="store_true",
                    help="plain PyTorch attention and MLP instead of K1 and K2")
+    p.add_argument("--fp32-scores", action="store_true",
+                   help="float32 scores in the plain attention (default: the compute dtype)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--accum", type=int, default=1, help="gradient accumulation microbatches")
     p.add_argument("--device", default=None, help='"cpu" to run without a card')
@@ -210,10 +233,11 @@ def main(argv=None) -> None:
     if args.profile:
         out = profile(args.batch, args.img, not args.no_kernels, steps=args.profile,
                       trace_path=args.trace, device=args.device,
-                      accumulation_steps=args.accum)
+                      accumulation_steps=args.accum, fp32_scores=args.fp32_scores)
     else:
         out = measure(args.batch, args.img, not args.no_kernels, steps=args.steps,
-                      device=args.device, accumulation_steps=args.accum)
+                      device=args.device, accumulation_steps=args.accum,
+                      fp32_scores=args.fp32_scores)
     print(json.dumps(out))
 
 

@@ -16,7 +16,8 @@ The map only renames and transposes, so ``state_dict_from_jax`` carries any
 tree shaped like the params just as well, a JAX gradient tree for one, and
 :func:`adamw_moments_from_optax` applies it to the first and second moments
 of an optax AdamW state, so a test can compare gradients and one optimizer
-update parameter by parameter.
+update parameter by parameter. :func:`convnext_block_args_from_jax` does the
+same for the argument tuple of one fused ConvNeXt block (K3).
 """
 
 from __future__ import annotations
@@ -177,3 +178,32 @@ def adamw_moments_from_optax(
     args = (convnext_depths, rope_depths, meta_names, task_keys)
     return (state_dict_from_jax(adam.mu, *args), state_dict_from_jax(adam.nu, *args),
             int(np.asarray(adam.count)))
+
+
+def convnext_block_args_from_jax(
+    x: np.ndarray,
+    dw_kernel: np.ndarray,
+    dw_bias: np.ndarray,
+    ln_scale: np.ndarray,
+    ln_bias: np.ndarray,
+    w1: np.ndarray,
+    b1: np.ndarray,
+    w2: np.ndarray,
+    b2: np.ndarray,
+    gamma: np.ndarray,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, ...]:
+    """The TPU package's ``fused_convnext_block`` arguments, as numpy arrays,
+    in the layouts of :func:`linnaeus_tpu_torch.ops.fused_dwconv_mlp.fused_convnext_block`:
+    the depthwise taps (7, 7, C) or HWIO (7, 7, 1, C) -> (C, 1, 7, 7), the
+    Dense kernels (C, 4C) and (4C, C) -> Linear weights (4C, C) and (C, 4C).
+    x and the two weights come back in ``dtype``, the taps and the vectors
+    in float32."""
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    C = np.shape(x)[-1]
+    taps = torch.tensor(_conv(f32(dw_kernel).reshape(7, 7, 1, C)))
+    vectors = [torch.tensor(f32(a)) for a in (dw_bias, ln_scale, ln_bias, b1, b2, gamma)]
+    kb, ls, lb, b1t, b2t, g = vectors
+    cast = lambda a: torch.tensor(a).to(dtype)  # noqa: E731
+    return (cast(f32(x)), taps, kb, ls, lb, cast(_dense(f32(w1))).contiguous(), b1t,
+            cast(_dense(f32(w2))).contiguous(), b2t, g)

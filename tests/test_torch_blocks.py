@@ -174,3 +174,67 @@ def test_convnext_block_fused_tail_under_grad_with_drop_path():
     np.testing.assert_allclose(g1.numpy(), g2.numpy(), atol=1e-4)
     for a, b in zip(p1, p2):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4)
+
+
+# ------------------------------------------------- where the scores are stored
+# fp32: both settings are the same float32 math. bf16: with fp32_softmax=False
+# both sides round q * scale and the scores to bf16 at the same places, so the
+# outputs differ by a bf16 step of the output (|out| < 2: 2**-7) at most.
+SDPA_ATOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fp32_softmax", [True, False])
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+def test_plain_attention_score_dtype_matches_jax(dtype, fp32_softmax, layout):
+    from linnaeus_tpu.ops.attention import scaled_dot_product_attention as jax_sdpa
+    from linnaeus_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    rng = np.random.default_rng(5)
+    shape = (2, 19, 3, 32) if layout == "bnhd" else (2, 3, 19, 32)
+    arrays = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in arrays)
+    q, k, v = (torch.tensor(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+               for a in (jq, jk, jv))
+    ref = jax_sdpa(jq, jk, jv, layout=layout, fp32_softmax=fp32_softmax)
+    out = scaled_dot_product_attention(q, k, v, layout=layout, fp32_softmax=fp32_softmax)
+    assert out.dtype == q.dtype and tuple(out.shape) == shape
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=SDPA_ATOL[dtype])
+    if dtype == "bfloat16":
+        # the knob is not a no-op: bf16 scores move the result
+        other = scaled_dot_product_attention(q, k, v, layout=layout,
+                                             fp32_softmax=not fp32_softmax)
+        assert not torch.equal(out, other)
+
+
+# bf16 block: the two frameworks round LayerNorm, GELU and the residual adds
+# at other places; |out| reaches ~10 here, where a bf16 step is 2**-4
+ROPE_BLOCK_ATOL = {"float32": ATOL, "bfloat16": 0.15}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fp32_softmax", [True, False])
+def test_rope_block_attn_fp32_softmax(dtype, fp32_softmax):
+    x = 3.0 * np.random.default_rng(6).normal(size=(2, 14, 16)).astype(np.float32)
+    kw = dict(img_grid_size=(4, 3), extra_token_num=2, num_heads=2,
+              attn_fp32_softmax=fp32_softmax)
+    jm = JRoPEBlock(dim=16, dtype=getattr(jnp, dtype), **kw)
+    p = _init(JRoPEBlock(dim=16, **kw), jnp.asarray(x))
+    jx = jnp.asarray(x, dtype)
+    ref = jm.apply({"params": p}, jx)
+    tm = _load(RoPE2DMHSABlock(16, **kw), {
+        **_ln(p["norm1"], "norm1"),
+        **_dense(p["attn"]["qkv"], "attn.qkv"),
+        **_dense(p["attn"]["proj"], "attn.proj"),
+        **_ln(p["norm2"], "norm2"),
+        **_dense(p["mlp"]["Dense_0"], "mlp.fc1"),
+        **_dense(p["mlp"]["Dense_1"], "mlp.fc2"),
+        "attn.freqs": (p["attn"]["freqs"], None),
+    })
+    assert tm.attn.attn_fp32_softmax is fp32_softmax
+    with torch.no_grad():
+        out = tm(torch.tensor(np.asarray(jx, np.float32)).to(getattr(torch, dtype)))
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=ROPE_BLOCK_ATOL[dtype])

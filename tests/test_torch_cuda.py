@@ -11,7 +11,8 @@ bf16 3e-2; K2 fp32 1e-5, bf16 5e-2. The backward kernels are held to their
 plain versions relative to each gradient's largest magnitude: fp32 2e-5
 (another summation order; dQ through float32 atomics), bf16 2e-2 (a
 rounding of P, dS, h1 or da1 that falls the other way moves a sum by a
-bf16 step or two).
+bf16 step or two). The split backward's dQ and dK/dV kernels and K3 (the
+fused ConvNeXt block, held to K2's bars) are checked the same way.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ import torch
 
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch.ops import flash_attention as fa
+from linnaeus_tpu_torch.ops import fused_dwconv_mlp as fb
 from linnaeus_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -124,6 +126,109 @@ def test_k1_backward_matches_plain_on_strided_views(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 1), (2, 37, 3), (2, 130, 3), (3, 1028, 2), (1, 1100, 1)])
+def test_k1_split_backward_matches_plain_on_strided_views(dev, dtype, shape):
+    """bwd="split" through autograd: the delta prologue, the dQ kernel and
+    the dK/dV kernel against their plain versions; dQ the same bits twice."""
+    B, n, H = shape
+    g = torch.Generator(device=dev).manual_seed(n)
+    qkv = torch.randn(B, n, 3, H, 64, generator=g, device=dev).to(dtype).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(B, n, H, 64, generator=g, device=dev).to(dtype)
+    before = (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=0.2, bwd="split")
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (
+        before[0], before[1] + 1, before[2] + 1)
+    delta = fa.attention_delta(out.detach(), do)
+    assert _rel_err(fa._launch_delta(out.detach(), do), delta) <= BWD_TOL[dtype]
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, 0.2)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, 0.2)
+    assert qkv.grad.shape == qkv.shape and qkv.grad.dtype == dtype
+    for name, got, want in zip("qkv", qkv.grad.unbind(2), (want_dq, want_dk, want_dv)):
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, want) <= BWD_TOL[dtype], name
+    again = fa._launch_bwd_dq(q.detach(), k.detach(), v.detach(), do, lse, delta, 0.2)
+    assert torch.equal(again, fa._launch_bwd_dq(q.detach(), k.detach(), v.detach(), do, lse,
+                                                delta, 0.2))
+
+
+def test_k1_auto_route_takes_the_split_kernels_past_1024_tokens(dev):
+    counts = []
+    for n in (1024, 1025):
+        qkv = torch.randn(1, n, 3, 1, 64, device=dev, requires_grad=True)
+        before = (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        fa.flash_attention(*qkv.unbind(2)).sum().backward()
+        after = (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        counts.append(tuple(a - b for a, b in zip(after, before)))
+    assert counts == [(1, 0, 0), (0, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 7, 16), (2, 9, 11, 40), (1, 8, 8, 96), (3, 13, 17, 96),
+                                   (2, 10, 23, 192)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k3_matches_plain(dev, dtype, shape, approximate):
+    B, H, W, C = shape
+    g = torch.Generator(device=dev).manual_seed(C + H)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    x = randn(B, H, W, C).to(dtype)
+    args = (0.2 * randn(C, 1, 7, 7), 0.1 * randn(C), 1.0 + 0.1 * randn(C), 0.1 * randn(C),
+            (0.1 * randn(4 * C, C)).to(dtype), 0.1 * randn(4 * C),
+            (0.1 * randn(C, 4 * C)).to(dtype), 0.1 * randn(C), 0.5 + 0.1 * randn(C))
+    before = fb.LAUNCHES
+    out = fb.fused_convnext_block(x, *args, approximate_gelu=approximate)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    ref = fb.fused_convnext_block_reference(x, *args, 1e-6, approximate)
+    assert out.shape == x.shape and out.dtype == dtype
+    assert _max_err(out, ref) <= K2_TOL[dtype]
+    # the production route computes the same block: library conv, then K2
+    chain = fb.convnext_block_chain(x, *args, 1e-6, approximate)
+    assert _max_err(out, chain) <= 2 * K2_TOL[dtype] + 1e-4
+
+
+def test_k3_backward_recomputes_the_plain_chain(dev):
+    B, H, W, C = 2, 9, 8, 16
+    g = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    leaves = [t.requires_grad_() for t in (
+        randn(B, H, W, C), 0.2 * randn(C, 1, 7, 7), 0.1 * randn(C), 1.0 + 0.1 * randn(C),
+        0.1 * randn(C), 0.1 * randn(4 * C, C), 0.1 * randn(4 * C), 0.1 * randn(C, 4 * C),
+        0.1 * randn(C), 0.5 + 0.1 * randn(C))]
+    before = fb.LAUNCHES
+    fb.fused_convnext_block(*leaves).square().sum().backward()
+    assert fb.LAUNCHES == before + 1
+    got = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    fb.convnext_block_chain(*leaves, 1e-6, True).square().sum().backward()
+    for i, (a, t) in enumerate(zip(got, leaves)):
+        assert _rel_err(a, t.grad) <= 1e-4, i
+
+
+def test_k3_rejects_what_it_does_not_take(dev):
+    def args(C, H=8, W=8, dtype=torch.float32):
+        return (torch.randn(1, H, W, C, device=dev, dtype=dtype),
+                torch.randn(C, 1, 7, 7, device=dev), torch.zeros(C, device=dev),
+                torch.ones(C, device=dev), torch.zeros(C, device=dev),
+                torch.randn(4 * C, C, device=dev, dtype=dtype), torch.zeros(4 * C, device=dev),
+                torch.randn(C, 4 * C, device=dev, dtype=dtype), torch.zeros(C, device=dev), None)
+
+    with pytest.raises(ValueError, match="width"):
+        fb.fused_convnext_block(*args(fb.MAX_WIDTH + 8))
+    with pytest.raises(ValueError, match="at least 7"):
+        fb.fused_convnext_block(*args(16, H=6))
+    with pytest.raises(TypeError):
+        fb.fused_convnext_block(*args(16, dtype=torch.float16))
+    mixed = list(args(16))
+    mixed[5] = mixed[5].bfloat16()
+    with pytest.raises(ValueError, match="w1"):
+        fb.fused_convnext_block(*mixed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,C", [(70, 16), (70, 40), (1000, 96), (300, 192), (64 * 150, 96)])
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("approximate", [True, False])
@@ -167,8 +272,13 @@ def test_k2_backward_rejects_wide_rows(dev):
         out.sum().backward()
 
 
-def test_tiny_model_trains_kernels_on_vs_off(dev):
-    """Loss and every parameter gradient of a tiny model, kernels on vs off."""
+@pytest.mark.parametrize("bwd", ["auto", "split"])
+def test_tiny_model_trains_kernels_on_vs_off(dev, bwd, monkeypatch):
+    """Loss and every parameter gradient of a tiny model, kernels on vs off,
+    with K1's backward on its own route (fused at these lengths) and forced
+    onto the split dQ and dK/dV kernels."""
+    if bwd == "split":
+        monkeypatch.setattr(fa, "backward_route", lambda n: "split")
     spec = {
         "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [16, 32, 128, 256]},
         "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
@@ -186,15 +296,19 @@ def test_tiny_model_trains_kernels_on_vs_off(dev):
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.normal(size=(3, 64, 64, 3)).astype(np.float32), device=dev)
     m = torch.tensor(rng.normal(size=(3, 5)).astype(np.float32), device=dev)
-    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
+    def counters():
+        return (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES,
+                fm.LAUNCHES, fm.BWD_LAUNCHES)
+
+    counts = counters()
     losses = []
     for net in (on, off):
         out = net(x, m)
         loss = sum(out[t].square().mean() for t in nc)
         loss.backward()
         losses.append(loss.item())
-    after = (fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
-    assert tuple(a - b for a, b in zip(after, counts)) == (2, 2, 3, 3)
+    launched = tuple(a - b for a, b in zip(counters(), counts))
+    assert launched == ((2, 2, 0, 0, 3, 3) if bwd == "auto" else (2, 0, 2, 2, 3, 3))
     assert abs(losses[0] - losses[1]) <= 1e-5 * max(1.0, abs(losses[1]))
     # a gradient that is zero in exact arithmetic (the bias in front of the
     # aggregation's softmax) is float32 noise on both routes: hold each

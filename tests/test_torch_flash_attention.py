@@ -129,3 +129,88 @@ def test_plain_k1_backward_reference_equals_autograd_of_plain_forward():
     got = tfa.flash_attention_bwd_reference(q, k, v, out, lse, g, 0.2)
     for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a.detach()), _np(b), atol=2e-6)
+
+
+# ------------------------------------------------------------ split backward
+def _split_inputs(dtype, seed=7, B=1, H=2, N=300, D=32):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(B, N, 3, H, D)).astype(np.float32)
+    g = rng.normal(size=(B, N, H, D)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i], dtype) for i in range(3))
+    t = torch.tensor(np.asarray(jnp.asarray(qkv, dtype), np.float32)).to(getattr(torch, dtype))
+    return (jq, jk, jv), t, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_split_backward_matches_pallas_split_kernels(dtype):
+    """dq, dk and dv of the port's Function with bwd="split" (plain route)
+    against jax.grad through the Pallas dQ and dK/dV kernels (interpret
+    mode, 128 x 128 blocks over 300 tokens: three blocks a side, the last
+    one ragged), at (1, 2, 300, 32). fp32: atol 2e-3, the TPU kernel test's
+    bar; bf16: two bf16 steps of the largest gradient, as for the fused
+    kernel."""
+    (jq, jk, jv), t, g = _split_inputs(dtype)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(
+            *(jnp.swapaxes(a, 1, 2) for a in (q, k, v)), bwd="kernel",
+            block_q=128, block_k=128, auto_blocks=False)
+        return jnp.sum(jnp.swapaxes(out, 1, 2).astype(jnp.float32) * jnp.asarray(g))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    t.requires_grad_()
+    q, k, v = t.unbind(2)
+    out = tfa.flash_attention(q, k, v, bwd="split")
+    (out.float() * torch.tensor(g)).sum().backward()
+    assert t.grad.dtype == t.dtype
+    for name, got, ref in zip("qkv", t.grad.unbind(2), want):
+        ref = _np(ref)
+        atol = 2e-3 if dtype == "float32" else GRAD_RTOL[dtype] * np.abs(ref).max()
+        np.testing.assert_allclose(_np(got), ref, rtol=0, atol=atol, err_msg=name)
+    assert tfa.DQ_LAUNCHES == 0 and tfa.DKV_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_split_backward_equals_plain_fused_backward(dtype):
+    """All the operands share one dtype, so the two routes' casts fall on
+    the same values: the plain versions agree to float32 rounding."""
+    _, t, g = _split_inputs(dtype, seed=8, B=2, H=3, N=70, D=64)
+    q, k, v = t.unbind(2)
+    do = torch.tensor(g).to(t.dtype)
+    o, lse = tfa.flash_attention_reference(q, k, v, 0.2)
+    fused = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, 0.2)
+    delta = tfa.attention_delta(o, do)
+    assert delta.shape == lse.shape and delta.dtype == torch.float32
+    dq = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, 0.2)
+    dk, dv = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, 0.2)
+    for name, a, b in zip("qkv", (dq, dk, dv), fused):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-6 * float(b.abs().max()),
+                                   err_msg=name)
+
+
+def _jax_takes_split_backward(n: int) -> bool:
+    """The TPU package's own condition (its ``_flash_bwd_rule``): the fused
+    kernel runs only where the padded row is one block."""
+    block_q, block_k = jfa._auto_blocks(n)
+    nq_pad = -(-n // block_q) * block_q
+    nk_pad = -(-n // block_k) * block_k
+    return not (nq_pad == block_q and nk_pad == block_k)
+
+
+@pytest.mark.parametrize("n", [148, 580, 1024, 1025, 1028, 4100])
+def test_backward_route_follows_the_tpu_package(n):
+    assert tfa.backward_route(n) == ("split" if _jax_takes_split_backward(n) else "fused")
+
+
+def test_backward_route_can_be_forced_and_is_checked():
+    _, t, g = _split_inputs("float32", seed=9, B=1, H=1, N=9, D=64)
+    q, k, v = t.requires_grad_().unbind(2)
+    grads = {}
+    for bwd in ("auto", "fused", "split"):
+        out = tfa.flash_attention(q, k, v, bwd=bwd)
+        grads[bwd] = torch.autograd.grad((out * torch.tensor(g)).sum(), t)[0]
+    np.testing.assert_allclose(_np(grads["auto"]), _np(grads["fused"]), atol=0)
+    np.testing.assert_allclose(_np(grads["split"]), _np(grads["fused"]), atol=1e-6)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, v, bwd="kernel")

@@ -94,6 +94,41 @@ def test_logits_match_jax(act_exact):
                                        err_msg=f"{t} flash={flash} fused={fused}")
 
 
+@pytest.mark.parametrize("fp32_softmax", [True, False])
+def test_logits_match_jax_attn_fp32_softmax(fp32_softmax):
+    """``attn_fp32_softmax`` goes from build_model down to the plain
+    attention of both RoPE stages, as in the TPU package; in float32 both
+    settings are the same math. The K1 route ignores it."""
+    images, meta = _inputs()
+    jm = _jax_model(attn_fp32_softmax=fp32_softmax)
+    params = _perturbed_params(jm, images, meta)
+    ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta))
+    for flash in (False, True):
+        out = _port_logits(params, images, meta, attn_fp32_softmax=fp32_softmax,
+                           use_flash_attn=flash, fused_convnext_mlp=False)
+        for t in TASKS:
+            np.testing.assert_allclose(out[t], np.asarray(ref[t]), atol=ATOL)
+    model = build_model(SPEC, 64, NC, META, device="cpu", attn_fp32_softmax=fp32_softmax)
+    flags = [blk.attn.attn_fp32_softmax for stage in model.stages[2:] for blk in stage]
+    assert flags == [fp32_softmax] * sum(ROPE_DEPTHS)
+
+
+def test_bf16_logits_follow_the_score_dtype_as_in_jax():
+    """bf16 compute over float32 parameters, plain attention: the port with
+    bf16 scores is held to JAX with bf16 scores, and likewise with float32
+    scores. Tolerance 0.05: random-init logits below 1 in magnitude after a
+    dozen bf16 layers rounded at other places by the two frameworks."""
+    images, meta = _inputs()
+    for fp32_softmax in (False, True):
+        jm = _jax_model(attn_fp32_softmax=fp32_softmax, dtype=jnp.bfloat16)
+        params = _perturbed_params(_jax_model(), images, meta)
+        ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta))
+        out = _port_logits(params, images, meta, attn_fp32_softmax=fp32_softmax,
+                           dtype=torch.bfloat16, fused_convnext_mlp=False)
+        for t in TASKS:
+            np.testing.assert_allclose(out[t], np.asarray(ref[t], np.float32), atol=0.05)
+
+
 def test_logits_match_jax_fused_kernel_route():
     """JAX with its Pallas fused MLP (interpret mode) against the port's K2
     route, and absent metadata on both sides."""

@@ -182,6 +182,27 @@ def _compare_metrics(t_m, j_m, loss_atol, norm_rtol):
 
 @pytest.mark.parametrize("case", ["plain", "mixed_masked"])
 def test_three_train_steps_match_jax(case):
+    _three_train_steps(case)
+
+
+def test_three_train_steps_match_jax_with_the_split_backward(monkeypatch):
+    """The same three steps with K1's backward forced onto its split route
+    (dQ and dK/dV plain versions) in both RoPE stages of the port. A stage
+    past 1024 tokens, where the route is taken by itself, is too slow for the
+    CPU; the JAX side takes its plain attention backward either way."""
+    import linnaeus_tpu_torch.ops.flash_attention as tfa
+
+    calls = []
+    plain_dq = tfa.flash_attention_bwd_dq_reference
+    monkeypatch.setattr(tfa, "backward_route", lambda n: "split")
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq_reference",
+                        lambda *a: calls.append(a[0].shape[1]) or plain_dq(*a))
+    _three_train_steps("mixed_masked")
+    # three steps x (two stage-3 blocks at 16 + 3 tokens, one stage-4 block at 4 + 3)
+    assert sorted(calls) == [7] * 3 + [19] * 6
+
+
+def _three_train_steps(case):
     j_step, j_state, t_step, t_state = _setup()
     batch = _batch()
     j_batch, t_batch = _tree(batch, jnp.asarray), _tree(batch, torch.tensor)

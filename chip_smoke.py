@@ -7,7 +7,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
 each one (K1 forward, fused backward and the split dQ and dK/dV backward
 pair; K2 forward and backward; K3, the fused ConvNeXt block) against its
-plain PyTorch version at the shapes its path gives it. Then it serves mFormerV1_sm at
+plain PyTorch version at the shapes its path gives it, in float32 and in
+bfloat16 (K1's forward, fused backward and dK/dV kernel then run on the
+tensor cores, in float32 on the CUDA cores; K1's times are medians of three
+repeats of 50 calls, with the spread). Then it serves mFormerV1_sm at
 384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler:
 three predict requests of 1, 7 and 64 images, with launch counters proving
 every forward went through both forward kernels; it compares the whole
@@ -85,17 +88,29 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
+def cuda_ms_median(fn, iters: int = 50, repeats: int = 3) -> tuple[float, float]:
+    """(median, spread) of ``repeats`` mean device times of ``fn`` over
+    ``iters`` calls each, after one warm-up: the timing of K1's kernels and
+    of the library call beside them, which take well under a millisecond.
+    The spread is the largest repeat minus the smallest."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    times.sort()
+    return times[len(times) // 2], times[-1] - times[0]
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
+    return cuda_ms_median(fn, iters, repeats=1)[0]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -151,17 +166,17 @@ def k3_bound(shape, dtype) -> dict:
 def sdpa_ms(q, k, v, do=None) -> float:
     """Time of the one PyTorch call for K1's function on the same operands,
     forward, or backward through torch.autograd.grad when ``do`` is given:
-    the yardstick, used nowhere in the port."""
+    the yardstick, used nowhere in the port. Timed as K1's kernels are."""
     import torch.nn.functional as F
 
     if do is None:
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        return cuda_ms_median(lambda: F.scaled_dot_product_attention(qh, kh, vh))[0]
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qh, kh, vh)
     doh = do.transpose(1, 2)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
-                   iters=5)
+    return cuda_ms_median(
+        lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))[0]
 
 
 def check_kernels(dev, fa, fm) -> dict:
@@ -175,19 +190,20 @@ def check_kernels(dev, fa, fm) -> dict:
             out, lse = fa.flash_attention_fwd(q, k, v)
             ref, ref_lse = fa.flash_attention_reference(q, k, v)
             err = max(max_err(out, ref), max_err(lse, ref_lse))
-            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v))
+            ms, spread = cuda_ms_median(lambda: fa.flash_attention_fwd(q, k, v))
             plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
             print(f"K1 flash_attention_fwd {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: "
-                  f"max|err| {err:.3e} (tol {K1_TOL[dt]:g}), kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+                  f"max|err| {err:.3e} (tol {K1_TOL[dt]:g}), kernel {ms:.4f} ms "
+                  f"(median of 3 x 50 calls, spread {spread:.4f}), plain {plain_ms:.3f} ms",
+                  flush=True)
             check(err <= K1_TOL[dt], f"K1 {dt} {(B, N, H, D)} error {err}")
             if dt == torch.bfloat16:
                 rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], err)
                 if B == BATCH:
                     lib_ms = sdpa_ms(q, k, v)
                     print(f"   F.scaled_dot_product_attention on the same operands: "
-                          f"{lib_ms:.3f} ms", flush=True)
-                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                          f"{lib_ms:.4f} ms", flush=True)
+                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
                                  library_ms=lib_ms, **k1_bound((B, N, H, D), dt, False))
                     if N == 580:
                         rec["K1"].update(timed)
@@ -238,12 +254,14 @@ def check_backward_kernels(dev, fa, fm) -> dict:
             torch.cuda.synchronize()
             err = max(rel_err(a, b) for a, b in zip(got, want))
             abs_err = max(max_err(a, b) for a, b in zip(got, want))
-            ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5), iters=5)
+            ms, spread = cuda_ms_median(
+                lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5))
             plain_ms = cuda_ms(
                 lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do), iters=5)
             print(f"K1 flash_attention_bwd {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: "
                   f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err| {abs_err:.3e}, "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                  f"kernel {ms:.4f} ms (median of 3 x 50 calls, spread {spread:.4f}), "
+                  f"plain {plain_ms:.3f} ms", flush=True)
             check(all(torch.isfinite(t).all().item() for t in got), f"K1 bwd {dt} finite")
             check(err <= BWD_TOL[dt], f"K1 bwd {dt} {(B, N, H, D)} error {err}")
             if dt == torch.bfloat16:
@@ -251,8 +269,8 @@ def check_backward_kernels(dev, fa, fm) -> dict:
                 if B == BATCH:
                     lib_ms = sdpa_ms(q, k, v, do)
                     print(f"   F.scaled_dot_product_attention on the same operands: backward "
-                          f"{lib_ms:.3f} ms", flush=True)
-                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, N, H, D],
+                          f"{lib_ms:.4f} ms", flush=True)
+                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
                                  library_ms=lib_ms, **k1_bound((B, N, H, D), dt, True))
                     if N == 580:
                         rec["K1"].update(timed)
@@ -292,7 +310,9 @@ def check_split_backward(dev, fa) -> dict:
     """The split backward's dQ and dK/dV kernels against their plain versions
     at the 512 px stage-3 shape; the split route forced at two shapes the
     fused kernel serves, against its plain versions and against the fused
-    kernel; dQ bit-identical over two launches. Returns per-kernel records."""
+    kernel; dQ bit-identical over two launches; dK and dV bit-identical to
+    the fused kernel's (both come from one key-tile body). Returns
+    per-kernel records."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     rec = {"dq": {"max_abs_err": 0.0}, "dkv": {"max_abs_err": 0.0}}
     shape = K1_SHAPES_LARGE[0]
@@ -306,8 +326,12 @@ def check_split_backward(dev, fa) -> dict:
             dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
             dq_again = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
             dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
+            _, fused_dk, fused_dv = fa._launch_bwd(q, k, v, o, lse, do, scale)
             torch.cuda.synchronize()
             same = torch.equal(dq, dq_again)
+            # one key-tile body serves the dK/dV kernel and the fused kernel
+            same_dkv = torch.equal(dk, fused_dk) and torch.equal(dv, fused_dv)
+            del fused_dk, fused_dv
             want_delta = fa.attention_delta(o, do)
             want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, want_delta, scale)
             want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
@@ -319,13 +343,15 @@ def check_split_backward(dev, fa) -> dict:
             del want_dq, want_dk, want_dv
             print(f"K1 split backward {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: max rel err "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                  + f" (tol {BWD_TOL[dt]:g}); dQ bit-identical over two launches: {same}",
-                  flush=True)
+                  + f" (tol {BWD_TOL[dt]:g}); dQ bit-identical over two launches: {same}; "
+                  f"dK and dV bit-identical to the fused kernel's: {same_dkv}", flush=True)
             check(all(torch.isfinite(t).all().item() for t in (dq, dk, dv)),
                   f"K1 split bwd {dt} finite")
             check(max(errs.values()) <= BWD_TOL[dt],
                   f"K1 split bwd {dt} {(B, N, H, D)} errors {errs}")
             check(same, f"dQ of the split route differs between two launches, {dt} N={N}")
+            check(same_dkv, f"dK or dV of the dK/dV kernel differ from the fused kernel's, "
+                            f"{dt} N={N}")
             if N == 580:
                 # the whole split route through autograd, against the fused kernel
                 got = fa._launch_bwd_split(q, k, v, o, lse, do, scale)
@@ -339,7 +365,7 @@ def check_split_backward(dev, fa) -> dict:
                 continue
             lib_ms = sdpa_ms(q, k, v, do)
             print(f"   F.scaled_dot_product_attention backward (dq, dk and dv in one call) "
-                  f"on the same operands: {lib_ms:.3f} ms", flush=True)
+                  f"on the same operands: {lib_ms:.4f} ms", flush=True)
             for key, abs_err, run, plain in (
                 ("dq", abs_dq,
                  lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, scale),
@@ -348,15 +374,19 @@ def check_split_backward(dev, fa) -> dict:
                  lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale),
                  lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)),
             ):
-                ms, plain_ms = cuda_ms(run, iters=5), cuda_ms(plain, iters=3)
-                print(f"   {key} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-                rec[key].update(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                (ms, spread), plain_ms = cuda_ms_median(run), cuda_ms(plain, iters=3)
+                print(f"   {key} kernel {ms:.4f} ms (median of 3 x 50 calls, spread "
+                      f"{spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
+                rec[key].update(max_abs_err=abs_err, ms=ms, ms_spread=spread, plain_ms=plain_ms,
                                 shape=[B, N, H, D], library_ms=lib_ms,
                                 **k1_bound((B, N, H, D), dt, key))
-            fused_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, scale), iters=5)
-            split_ms = cuda_ms(lambda: fa._launch_bwd_split(q, k, v, o, lse, do, scale), iters=5)
-            print(f"   whole backward at this shape: split route {split_ms:.3f} ms (delta, dQ, "
-                  f"dK/dV), fused kernel {fused_ms:.3f} ms", flush=True)
+            fused_ms, _ = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, o, lse, do, scale))
+            split_ms, _ = cuda_ms_median(
+                lambda: fa._launch_bwd_split(q, k, v, o, lse, do, scale))
+            print(f"   whole backward at this shape: split route {split_ms:.4f} ms (delta, dQ, "
+                  f"dK/dV), fused kernel {fused_ms:.4f} ms", flush=True)
+            rec["dkv"]["fused_ms_at_this_shape"] = fused_ms
+            rec["dkv"]["split_route_ms"] = split_ms
     return rec
 
 
@@ -709,6 +739,7 @@ def main() -> int:
                         "launches": trained[key], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "ms_spread": r.get("ms_spread"),
                         "serving_launches": launches.get(key),
                         "launches_512px": trained_large.get(key), "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})

@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: conversions between the storage
-// type T (float or __nv_bfloat16) and the float32 the kernels compute in.
+// type T (float or __nv_bfloat16) and the float32 the kernels compute in,
+// and the launch of a kernel with a large dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory (more than
+// the 48 KB a kernel may use unasked) and returns the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -22,41 +22,83 @@
 // backward kernels lives in flash_attention_bwd.cuh):
 //   1. `delta_kernel`: one warp per (b, n, h) row computes delta in float32
 //      and zeroes that row of the float32 dQ workspace.
-//   2. `flash_bwd_kernel`: a block owns one 64-key tile of one (b, h), keeps
+//   2. the key-tile kernel: a block owns one 64-key tile of one (b, h), keeps
 //      K and V of the tile in shared memory and its dK, dV sums in
-//      registers, and walks the query tiles. For each it computes S and dP
-//      (each thread a 4 x 4 patch), writes the rounded P and dS to shared
-//      memory, adds P^T dO and dS^T Q to its sums and adds the tile's
-//      dS K to the dQ workspace with float32 atomicAdd: dQ of one query row
-//      is a sum over key tiles that different blocks own. The atomics land
-//      in no fixed order, so dQ can differ from run to run in its last
+//      registers, and walks the query tiles. For each it computes S and dP,
+//      rounds P and dS, adds P^T dO and dS^T Q to its sums and adds the
+//      tile's dS K to the dQ workspace with float32 atomics: dQ of one query
+//      row is a sum over key tiles that different blocks own. The atomics
+//      land in no fixed order, so dQ can differ from run to run in its last
 //      float32 bits; dK and dV are deterministic.
 //   3. `dq_finish_kernel`: dQ = workspace * scale, cast to the input dtype.
 //
 // What bounds it on the H100: 10 N^2 D operations for 8 N D elements moved,
-// so arithmetic. This first version runs float32 FMAs on the CUDA cores
-// from shared-memory tiles (about two FMAs per shared-memory load); the
-// tensor cores (wgmma) are the work of a later change.
+// so arithmetic. The key-tile kernel is chosen by dtype in
+// `lt_flash_attention_bwd`: bfloat16 takes `flash_bwd_wgmma_kernel`, one
+// warpgroup a block with all five products on the tensor cores (wgmma from
+// swizzled tiles filled by cp.async; `key_tile_backward_wgmma` in the
+// header says how, and what is left); float32 takes `flash_bwd_fp32_kernel`
+// on the CUDA cores (about two FMAs per shared-memory load), because no
+// tensor-core product keeps float32's 2e-5 agreement with the plain version.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_attention_bwd.cuh"
 
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, T* __restrict__ dk,
-                     T* __restrict__ dv, int N, int H, Strides sq, Strides sk,
-                     Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     float scale) {
+    flash_bwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq_acc, float* __restrict__ dk,
+                          float* __restrict__ dv, int N, int H, Strides sq, Strides sk,
+                          Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                          float scale) {
   extern __shared__ float smem[];
-  key_tile_backward<T, true>(smem, q, k, v, dout, lse, delta, dq_acc, dk, dv,
-                             N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+  key_tile_backward_fp32<true>(smem, q, k, v, dout, lse, delta, dq_acc, dk, dv, N, H,
+                               sq, sk, sv, sdo, sdk, sdv, scale);
+}
+
+__global__ void __launch_bounds__(hp::kWarpgroup, kWgmmaKeyTileBlocksPerSM)
+    flash_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int N, int H, Strides sq,
+                           Strides sk, Strides sv, Strides sdo, Strides sdk,
+                           Strides sdv, float scale) {
+  extern __shared__ uint8_t smem_bytes[];
+  key_tile_backward_wgmma<true>(smem_bytes, q, k, v, dout, lse, delta, dq_acc, dk, dv,
+                                N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+}
+
+// The key-tile kernel of T with its launch shape. The tensor-core kernel
+// puts the key tiles of one (b, h) next to each other in the grid: they
+// share Q and dO.
+template <typename T>
+cudaError_t launch_key_tiles(const T* q, const T* k, const T* v, const T* dout,
+                             const float* lse, const float* delta, float* dq_acc,
+                             T* dk, T* dv, int B, int N, int H, Strides sq, Strides sk,
+                             Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                             float scale, cudaStream_t stream) {
+  const int key_tiles = (N + kBK - 1) / kBK;
+  if constexpr (std::is_same<T, float>::value) {
+    return lt::launch_with_smem(flash_bwd_fp32_kernel, dim3(B * H, key_tiles), kThreads,
+                                kKeyTileSmemBytes, stream, q, k, v, dout, lse, delta,
+                                dq_acc, dk, dv, N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+  } else {
+    return lt::launch_with_smem(flash_bwd_wgmma_kernel, dim3(key_tiles, B * H),
+                                hp::kWarpgroup, kWgmmaKeyTileSmemBytes, stream, q, k, v,
+                                dout, lse, delta, dq_acc, dk, dv, N, H, sq, sk, sv, sdo,
+                                sdk, sdv, scale);
+  }
 }
 
 template <typename T>
@@ -87,17 +129,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       launch_delta<T, true>(dout, o, delta, dq_acc, B, N, H, sdo, stream);
   if (err != cudaSuccess) return err;
 
-  auto kernel = flash_bwd_kernel<T>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kKeyTileSmemBytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (N + kBK - 1) / kBK);
-  kernel<<<grid, kThreads, kKeyTileSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dq_acc,
-      static_cast<T*>(dk), static_cast<T*>(dv), N, H, sq, sk, sv, sdo, sdk, sdv,
-      scale);
-  err = cudaGetLastError();
+  err = launch_key_tiles<T>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), B, N, H, sq, sk, sv, sdo, sdk, sdv, scale, stream);
   if (err != cudaSuccess) return err;
 
   const unsigned elem_blocks =
@@ -112,7 +147,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 // Returns the first non-zero cudaError_t of its launches (0 on success).
 // `strides` holds 7 x 3 element strides (batch, token, head) in the order
 // q, k, v, dO, dQ, dK, dV. `delta` is a (B, H, N) and `dq_acc` a
-// (B, N, H, D) float32 workspace; neither needs initialising.
+// (B, N, H, D) float32 workspace; neither needs initialising. For bfloat16
+// every pointer and stride is 16-byte aligned.
 extern "C" int lt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,

@@ -26,16 +26,24 @@
 //      patch (4 x 4 per thread) in registers, walks the key tiles in order,
 //      and writes dQ * scale once, cast to the input dtype. No atomics and no
 //      float32 workspace: dQ is the same from run to run.
-//   3. `flash_bwd_dkv_kernel`: a block owns one 64-key tile and walks the
-//      query tiles (`key_tile_backward` without its dQ part, the device code
-//      the fused kernel shares).
+//   3. the dK/dV kernel: a block owns one 64-key tile and walks the query
+//      tiles: the key-tile body of the fused kernel without its dQ part
+//      (flash_attention_bwd.cuh), so dK and dV of the two are the same bits.
 //
 // What bounds them on the H100: 6 N^2 D (dQ) and 8 N^2 D (dK/dV) operations
-// for a few N D elements moved, so arithmetic. These first versions run
-// float32 FMAs on the CUDA cores from shared-memory tiles; the tensor cores
-// (wgmma) are the work of a later change.
+// for a few N D elements moved, so arithmetic. The dK/dV kernel is chosen by
+// dtype in `lt_flash_attention_bwd_dkv`: bfloat16 takes
+// `flash_bwd_dkv_wgmma_kernel`, one warpgroup a block with its four products
+// on the tensor cores (`key_tile_backward_wgmma` in the header says how);
+// float32 takes `flash_bwd_dkv_fp32_kernel` on the CUDA cores, because no
+// tensor-core product keeps float32's 2e-5 agreement with the plain version.
+// The dQ kernel still runs float32 FMAs on the CUDA cores from padded
+// float32 shared-memory tiles for both dtypes; its tensor-core design is
+// the work of a later change.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_attention_bwd.cuh"
 
@@ -108,18 +116,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int N, int H, Strides sq,
-                         Strides sk, Strides sv, Strides sdo, Strides sdk,
-                         Strides sdv, float scale) {
+    flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta, float* __restrict__ dk,
+                              float* __restrict__ dv, int N, int H, Strides sq,
+                              Strides sk, Strides sv, Strides sdo, Strides sdk,
+                              Strides sdv, float scale) {
   extern __shared__ float smem[];
-  key_tile_backward<T, false>(smem, q, k, v, dout, lse, delta, nullptr, dk, dv,
-                              N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+  key_tile_backward_fp32<false>(smem, q, k, v, dout, lse, delta, nullptr, dk, dv, N, H,
+                                sq, sk, sv, sdo, sdk, sdv, scale);
+}
+
+__global__ void __launch_bounds__(hp::kWarpgroup, kWgmmaKeyTileBlocksPerSM)
+    flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int N, int H,
+                               Strides sq, Strides sk, Strides sv, Strides sdo,
+                               Strides sdk, Strides sdv, float scale) {
+  extern __shared__ uint8_t smem_bytes[];
+  key_tile_backward_wgmma<false>(smem_bytes, q, k, v, dout, lse, delta, nullptr, dk, dv,
+                                 N, H, sq, sk, sv, sdo, sdk, sdv, scale);
 }
 
 template <typename T>
@@ -128,37 +152,35 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int B, int N, int H, Strides sq, Strides sk,
                       Strides sv, Strides sdo, Strides sdq, float scale,
                       cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kQueryTileSmemBytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (N + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, kQueryTileSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  return lt::launch_with_smem(
+      flash_bwd_dq_kernel<T>, dim3(B * H, (N + kBQ - 1) / kBQ), kThreads,
+      kQueryTileSmemBytes, stream, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), N, H, sq, sk, sv, sdo, sdq, scale);
-  return cudaGetLastError();
 }
 
+// The tensor-core kernel puts the key tiles of one (b, h) next to each other
+// in the grid: they share Q and dO.
 template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int N, int H, Strides sq,
                        Strides sk, Strides sv, Strides sdo, Strides sdk,
                        Strides sdv, float scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kKeyTileSmemBytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (N + kBK - 1) / kBK);
-  kernel<<<grid, kThreads, kKeyTileSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), N, H, sq, sk, sv, sdo, sdk, sdv,
-      scale);
-  return cudaGetLastError();
+  const int key_tiles = (N + kBK - 1) / kBK;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(dout);
+  T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
+  if constexpr (std::is_same<T, float>::value) {
+    return lt::launch_with_smem(flash_bwd_dkv_fp32_kernel, dim3(B * H, key_tiles),
+                                kThreads, kKeyTileSmemBytes, stream, qt, kt, vt, dot, lse,
+                                delta, dkt, dvt, N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+  } else {
+    return lt::launch_with_smem(flash_bwd_dkv_wgmma_kernel, dim3(key_tiles, B * H),
+                                hp::kWarpgroup, kWgmmaKeyTileSmemBytes, stream, qt, kt, vt,
+                                dot, lse, delta, dkt, dvt, N, H, sq, sk, sv, sdo, sdk, sdv,
+                                scale);
+  }
 }
 
 Strides strides_at(const long long* strides, int i) {
@@ -215,7 +237,8 @@ extern "C" int lt_flash_attention_bwd_dq(
   }
 }
 
-// `strides` holds 6 x 3 strides in the order q, k, v, dO, dK, dV.
+// `strides` holds 6 x 3 strides in the order q, k, v, dO, dK, dV. For
+// bfloat16 every pointer and stride is 16-byte aligned.
 extern "C" int lt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int N,

@@ -9,7 +9,12 @@ Port of linnaeus_tpu/ops/flash_attention.py: ``_flash_fwd_kernel`` (via
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_split.cu``;
 they read token-major (B, N, H, D) operands through their strides, so the
 q/k/v views out of a qkv projection need no transpose, and never write the
-(N, N) scores to device memory.
+(N, N) scores to device memory. In bfloat16 the forward, the fused backward
+and the split pair's dK/dV kernel run their matrix products on the tensor
+cores (``wgmma`` from shared-memory tiles filled by 16-byte asynchronous
+copies, so pointers and strides must be 16-byte aligned:
+:func:`misalignment`); in float32 all of K1, and in both dtypes the split
+pair's dQ kernel, run on the CUDA cores.
 
 ``flash_attention_fwd`` and ``flash_attention`` are differentiable: a
 ``torch.autograd.Function`` saves q, k, v, O and the log-sum-exp, and its
@@ -249,13 +254,17 @@ def _launch_fwd(q, k, v, scale):
 
 def _check_dout(q, do):
     """dO as the backward kernels take it: q's shape, dtype and device, the
-    head dim unit-stride (a copy is made where it is not)."""
+    head dim unit-stride and, in bfloat16, 16-byte aligned (a contiguous
+    copy is made where it is not)."""
     if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
         raise ValueError(
             f"flash_attention backward: dO is {tuple(do.shape)} {do.dtype} on {do.device}; "
             f"expected {tuple(q.shape)} {q.dtype} on {q.device}"
         )
-    return do if do.stride(-1) == 1 else do.contiguous()
+    if do.stride(-1) == 1 and misalignment(do) is None:
+        return do
+    # not .contiguous(): a dense tensor that starts off a 16-byte line is its own
+    return do.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*tensors):
@@ -274,6 +283,7 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     """dq, dk, dv from the fused backward kernel."""
     B, N, H, D = q.shape
     do = _check_dout(q, do)
+    _check_aligned(q=q, k=k, v=v)
     dq, dk, dv = _grad_buffer(q)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
@@ -327,6 +337,7 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=None):
     if out is None:
         out = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
     dk, dv = out
+    _check_aligned(q=q, k=k, v=v, dO=do, dk=dk, dv=dv)
     err = _kernels.library().lt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, D,
@@ -361,6 +372,34 @@ def flash_attention(
     return flash_attention_fwd(q, k, v, scale, bwd)[0]
 
 
+ALIGN_BYTES = 16  # one asynchronous copy of the tensor-core kernels
+
+
+def misalignment(t: torch.Tensor) -> str | None:
+    """What keeps the bfloat16 kernels from reading or writing the
+    (B, N, H, D) tensor ``t`` in 16-byte pieces, or None: its first element
+    and its batch, token and head strides must all lie on 16-byte
+    boundaries. float32 tensors go to kernels that have no such need. Reads
+    only the dtype, the strides and the address, so it serves CPU tensors too.
+    """
+    if t.dtype != torch.bfloat16:
+        return None
+    size = t.element_size()
+    if t.data_ptr() % ALIGN_BYTES:
+        return f"first element at byte {t.data_ptr() % ALIGN_BYTES} of a {ALIGN_BYTES}-byte line"
+    for name, stride in zip(("batch", "token", "head"), t.stride()[:3]):
+        if (stride * size) % ALIGN_BYTES:
+            return f"{name} stride of {stride} elements is not a multiple of {ALIGN_BYTES} bytes"
+    return None
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        fault = misalignment(t)
+        if fault is not None:
+            raise ValueError(f"flash_attention: {name} is misaligned for the bfloat16 kernels: {fault}")
+
+
 def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -383,3 +422,4 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
     if q.shape[1] < 1:
         raise ValueError("flash_attention: empty sequence")
+    _check_aligned(q=q, k=k, v=v)

@@ -47,9 +47,10 @@ META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
 TOTAL_STEPS = 8 * 115  # the preset's 8 epochs of 7372 training samples at batch 64
 # the port's own kernels, by the names the profiler shows them under
 PORT_KERNELS = (
-    "flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-    "delta_kernel", "dq_finish_kernel", "fused_mlp_kernel", "mlp_bwd_rows_kernel",
-    "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
+    "flash_fwd_wgmma_kernel", "flash_fwd_fp32_kernel", "flash_bwd_wgmma_kernel",
+    "flash_bwd_fp32_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_wgmma_kernel",
+    "flash_bwd_dkv_fp32_kernel", "delta_kernel", "dq_finish_kernel", "fused_mlp_kernel",
+    "mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
 )
 
 
@@ -165,8 +166,11 @@ def measure(batch: int = 64, img: int = 384, kernels: bool = True, warmup: int =
 
 
 def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 3,
-            top: int = 25, trace_path: str | None = None, **build_kw) -> dict:
-    """Device time by kernel name over ``steps`` train steps after two
+            top: int = 25, trace_path: str | None = None, forward_only: bool = False,
+            **build_kw) -> dict:
+    """Device time by kernel name over ``steps`` train steps (with
+    ``forward_only``: forwards of the same model in inference mode on a
+    random float batch) after two
     warm-up steps (torch.profiler, CPU + CUDA activities): per-step wall
     time under the profiler, device-busy time, the idle share, the ``top``
     kernels, and under ``port_kernels`` every row of the port's own kernels
@@ -177,7 +181,17 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
     from torch.profiler import ProfilerActivity
 
     device = resolve_device(build_kw.pop("device", None))
-    run, _ = build_step(batch, img, kernels, device=device, **build_kw)
+    run, state = build_step(batch, img, kernels, device=device, **build_kw)
+    if forward_only:
+        model = state.model.eval()
+        g = torch.Generator(device=device).manual_seed(2)
+        x = torch.randn(batch, img, img, 3, generator=g, device=device)
+        aux = torch.randn(batch, sum(d for _, d in META_COMPONENTS), generator=g, device=device)
+
+        def run() -> None:
+            with torch.inference_mode():
+                model(x, aux)
+
     for _ in range(2):
         run()
     torch.cuda.synchronize(device)
@@ -206,7 +220,8 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
     as_dict = lambda r: {"name": r[0][:100], "ms_per_step": r[1],  # noqa: E731
                          "launches_per_step": r[2]}
     return {
-        "kernels": kernels, "steps": steps, "wall_ms_per_step": wall_ms,
+        "kernels": kernels, "forward_only": forward_only, "steps": steps,
+        "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "top": [as_dict(r) for r in rows[:top]],
@@ -228,11 +243,13 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help='"cpu" to run without a card')
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="profile N steps with torch.profiler instead of timing them")
+    p.add_argument("--forward", action="store_true",
+                   help="with --profile: profile forwards in inference mode, not train steps")
     p.add_argument("--trace", default=None, help="write the profile's chrome trace here")
     args = p.parse_args(argv)
     if args.profile:
         out = profile(args.batch, args.img, not args.no_kernels, steps=args.profile,
-                      trace_path=args.trace, device=args.device,
+                      trace_path=args.trace, forward_only=args.forward, device=args.device,
                       accumulation_steps=args.accum, fp32_scores=args.fp32_scores)
     else:
         out = measure(args.batch, args.img, not args.no_kernels, steps=args.steps,

@@ -12,7 +12,10 @@ plain versions relative to each gradient's largest magnitude: fp32 2e-5
 (another summation order; dQ through float32 atomics), bf16 2e-2 (a
 rounding of P, dS, h1 or da1 that falls the other way moves a sum by a
 bf16 step or two). The split backward's dQ and dK/dV kernels and K3 (the
-fused ConvNeXt block, held to K2's bars) are checked the same way.
+fused ConvNeXt block, held to K2's bars) are checked the same way. In
+bfloat16 K1's forward, fused backward and dK/dV kernel run on the tensor
+cores and are held at every K1 shape of chip_smoke.py and around the tile
+edges; float32 stays on the CUDA cores at its 2e-5.
 """
 
 import numpy as np
@@ -152,6 +155,111 @@ def test_k1_split_backward_matches_plain_on_strided_views(dev, dtype, shape):
     again = fa._launch_bwd_dq(q.detach(), k.detach(), v.detach(), do, lse, delta, 0.2)
     assert torch.equal(again, fa._launch_bwd_dq(q.detach(), k.detach(), v.detach(), do, lse,
                                                 delta, 0.2))
+
+
+# ---------------------------------------------- K1 bf16 on the tensor cores
+# every K1 shape of chip_smoke.py (batch cut to 2: a block sees one (b, h))
+# and sequence lengths around the 64-row tile edges
+K1_SMOKE_SHAPES = [(2, 580, 6), (2, 148, 12), (2, 37, 3), (2, 1028, 6), (2, 260, 12)]
+K1_EDGE_SHAPES = [(2, n, 2) for n in (1, 63, 64, 65, 127, 129)]
+
+
+def _k1_operands(dev, shape, layout, dtype=torch.bfloat16):
+    """q, k, v as the three slices of one qkv tensor or as contiguous
+    tensors, and a contiguous dO."""
+    B, n, H = shape
+    g = torch.Generator(device=dev).manual_seed(n + H)
+    qkv = torch.randn(B, n, 3, H, 64, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    do = torch.randn(B, n, H, 64, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("layout", ["qkv_slices", "contiguous"])
+@pytest.mark.parametrize("shape", K1_SMOKE_SHAPES + K1_EDGE_SHAPES)
+def test_k1_bf16_tensor_core_forward_matches_plain(dev, shape, layout):
+    q, k, v, _ = _k1_operands(dev, shape, layout)
+    before = fa.LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _max_err(out, ref) <= K1_TOL[torch.bfloat16]
+    assert _max_err(lse, ref_lse) <= K1_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("layout", ["qkv_slices", "contiguous"])
+@pytest.mark.parametrize("shape", K1_SMOKE_SHAPES + K1_EDGE_SHAPES)
+def test_k1_bf16_tensor_core_backward_matches_plain(dev, shape, layout):
+    """The fused kernel and the dK/dV kernel against their plain versions;
+    dK and dV of the two the same bits (one key-tile body serves both)."""
+    q, k, v, do = _k1_operands(dev, shape, layout)
+    scale = 0.125
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    before = (fa.BWD_LAUNCHES, fa.DKV_LAUNCHES)
+    dq, dk, dv = fa._launch_bwd(q, k, v, o, lse, do, scale)
+    delta = fa._launch_delta(o, do)
+    dk_split, dv_split = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.BWD_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse, fa.attention_delta(o, do), scale)
+    # relative to each gradient's largest magnitude, but no less than 1e-3:
+    # with one key P is 1 and dQ and dK are zero in exact arithmetic
+    for name, got, ref in zip(("dq", "dk", "dv", "dk (dK/dV kernel)", "dv (dK/dV kernel)"),
+                              (dq, dk, dv, dk_split, dv_split), want + (want_dk, want_dv)):
+        assert torch.isfinite(got).all(), name
+        bar = BWD_TOL[torch.bfloat16] * max(ref.float().abs().max().item(), 1e-3)
+        assert _max_err(got, ref) <= bar, name
+    assert torch.equal(dk_split, dk) and torch.equal(dv_split, dv)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 3), (2, 130, 3), (2, 580, 6)])
+def test_k1_float32_stays_on_the_cuda_cores_at_its_bar(dev, shape):
+    """float32 takes kernels that compute in float32 throughout: a
+    tensor-core product (TF32 keeps ten mantissa bits) would miss 2e-5."""
+    q, k, v, do = _k1_operands(dev, shape, "qkv_slices", torch.float32)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert _max_err(out, ref) <= K1_TOL[torch.float32]
+    assert _max_err(lse, ref_lse) <= K1_TOL[torch.float32]
+    got = fa._launch_bwd(q, k, v, out, lse, do, 0.125)
+    delta = fa._launch_delta(out, do)
+    dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(a, b) <= BWD_TOL[torch.float32], name
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+def test_k1_bf16_rejects_misaligned_views_and_copies_a_misaligned_dout(dev):
+    B, n, H, D = 2, 70, 2, 64
+    flat = torch.randn(B * n * H * D + 4, device=dev).bfloat16()
+    bad = flat[4:].view(B, n, H, D)  # starts 8 bytes into a 16-byte line
+    good = bad.clone()
+    assert fa.misalignment(bad) is not None and fa.misalignment(good) is None
+    with pytest.raises(ValueError, match="misaligned"):
+        fa.flash_attention_fwd(bad, good, good)
+    with pytest.raises(ValueError, match="misaligned"):
+        fa.flash_attention_fwd(good, good, bad)
+    # float32 kernels read element by element: the same view is taken
+    out32, _ = fa.flash_attention_fwd(bad.float(), bad.float(), bad.float())
+    assert torch.isfinite(out32).all()
+    # a misaligned dO is copied onto a 16-byte line
+    x = good.clone().requires_grad_()
+    out = fa.flash_attention(x, x, x)
+    out.backward(bad)
+    aligned = good.clone().requires_grad_()
+    fa.flash_attention(aligned, aligned, aligned).backward(bad.clone())
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all()
+    assert _rel_err(x.grad, aligned.grad) <= BWD_TOL[torch.bfloat16]
 
 
 def test_k1_auto_route_takes_the_split_kernels_past_1024_tokens(dev):

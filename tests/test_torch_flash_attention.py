@@ -214,3 +214,153 @@ def test_backward_route_can_be_forced_and_is_checked():
     np.testing.assert_allclose(_np(grads["split"]), _np(grads["fused"]), atol=1e-6)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, k, v, bwd="kernel")
+
+
+# ------------------------------------------- the tensor-core kernels' arithmetic
+# Plain PyTorch emulations of what the bfloat16 kernels compute on the card,
+# tile by tile and cast for cast, held to the plain versions within the bars
+# the card run enforces (chip_smoke.py's K1_TOL and BWD_TOL): the tiling and
+# the cast points chosen for the kernels stay inside those bars whatever the
+# card does with them.
+K1_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LOG2E = 1.4426950408889634
+MASKED = -1e30
+
+
+def _pad_rows(t, rows):
+    """(B, H, n, D) -> (B, H, rows, D) with zero rows, as the kernels' copies
+    fill a tile past N."""
+    return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[2]))
+
+
+def _emulate_tiled_forward(q, k, v, scale, keys):
+    """The forward kernel's arithmetic: key tiles of ``keys``, float32 scores,
+    keys past N at -1e30, a running max of the raw scores, p = exp2(s c - m c)
+    with c = scale log2(e), p cast to the input dtype per tile for P V, the
+    denominator from the unrounded p, O = acc / max(l, 1e-30), lse =
+    m scale + log l."""
+    B, N, H, D = q.shape
+    qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k, v))
+    tiles = -(-N // keys)
+    kf, vf = _pad_rows(kf, tiles * keys), _pad_rows(vf, tiles * keys)
+    c = scale * LOG2E
+    m = torch.full((B, H, N, 1), MASKED)
+    l = torch.zeros(B, H, N, 1)
+    acc = torch.zeros(B, H, N, D)
+    for t in range(tiles):
+        cols = slice(t * keys, (t + 1) * keys)
+        s = qf @ kf[:, :, cols].transpose(-1, -2)
+        s[..., torch.arange(t * keys, (t + 1) * keys) >= N] = MASKED
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + p.to(q.dtype).float() @ vf[:, :, cols]
+        m = m_new
+    l = l.clamp_min(1e-30)
+    lse = (m * scale + torch.log(l)).squeeze(-1)
+    return (acc / l).transpose(1, 2).to(q.dtype), lse
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 148])
+@pytest.mark.parametrize("keys", [64, 128])
+def test_tiled_online_softmax_forward_stays_inside_the_kernel_bar(dtype, n, keys):
+    _, (q, k, v) = _qkv(n, 64, dtype, seed=n + keys)
+    want, want_lse = tfa.flash_attention_reference(q, k, v)
+    got, got_lse = _emulate_tiled_forward(q, k, v, 64 ** -0.5, keys)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all() and torch.isfinite(got_lse).all()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=K1_TOL[dtype])
+    np.testing.assert_allclose(_np(got_lse), _np(want_lse), rtol=0, atol=K1_TOL[dtype])
+
+
+def _emulate_transposed_backward(q, k, v, o, lse, do, scale, tile=64):
+    """The key-tile backward kernel's arithmetic: for each 64-key tile a walk
+    over the 64-query tiles with the scores transposed, S^T = K Q^T and
+    dP^T = V dO^T, P^T = exp2(S^T c - lse log2 e) and dS^T = P^T (dP^T -
+    delta) zero past N and cast to the input dtype per tile pair, dV += P^T dO
+    and dK += dS^T Q in float32, dQ summed over the key tiles in float32 (the
+    kernel's workspace), dK and dQ scaled at the end."""
+    B, N, H, D = q.shape
+    qf, kf, vf, of, dof = (t.transpose(1, 2).float() for t in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)  # (B, H, N)
+    tiles = -(-N // tile)
+    rows = tiles * tile
+    qf, kf, vf, dof = (_pad_rows(t, rows) for t in (qf, kf, vf, dof))
+    lse_p = torch.nn.functional.pad(lse, (0, rows - N))
+    delta_p = torch.nn.functional.pad(delta, (0, rows - N))
+    live = torch.arange(rows) < N
+    c = scale * LOG2E
+    dq = torch.zeros(B, H, rows, D)
+    dk = torch.zeros(B, H, rows, D)
+    dv = torch.zeros(B, H, rows, D)
+    for kt in range(tiles):
+        ks = slice(kt * tile, (kt + 1) * tile)
+        for qt in range(tiles):
+            qs = slice(qt * tile, (qt + 1) * tile)
+            st = kf[:, :, ks] @ qf[:, :, qs].transpose(-1, -2)  # [key][query]
+            dpt = vf[:, :, ks] @ dof[:, :, qs].transpose(-1, -2)
+            pair = live[ks, None] & live[None, qs]
+            pt = torch.where(pair, torch.exp2(st * c - lse_p[:, :, None, qs] * LOG2E),
+                             torch.zeros(()))
+            dst = (pt * (dpt - delta_p[:, :, None, qs])).to(q.dtype).float()
+            dv[:, :, ks] += pt.to(q.dtype).float() @ dof[:, :, qs]
+            dk[:, :, ks] += dst @ qf[:, :, qs]
+            dq[:, :, qs] += dst.transpose(-1, -2) @ kf[:, :, ks]
+    out = (dq * scale, dk * scale, dv)
+    return tuple(t[:, :, :N].transpose(1, 2).to(q.dtype) for t in out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 148])
+def test_transposed_score_backward_stays_inside_the_kernel_bar(dtype, n):
+    _, (q, k, v) = _qkv(n, 64, dtype, seed=n + 1)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(n)).to(q.dtype)
+    scale = 64 ** -0.5
+    o, lse = tfa.flash_attention_reference(q, k, v, scale)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+    got = _emulate_transposed_backward(q, k, v, o, lse, do, scale)
+    delta = tfa.attention_delta(o, do)
+    want_dkv = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    for name, a, b in zip(("dq", "dk", "dv", "dk (split)", "dv (split)"),
+                          got + got[1:], want + want_dkv):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), name
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=BWD_TOL[dtype] * float(b.float().abs().max()),
+                                   err_msg=name)
+
+
+# ------------------------------------------------------------------ alignment
+def test_qkv_slices_are_aligned_for_the_bfloat16_kernels():
+    for B, N, H in ((2, 37, 3), (1, 580, 6), (1, 148, 12)):
+        qkv = torch.zeros(B, N, 3, H, 64, dtype=torch.bfloat16)
+        for t in qkv.unbind(2):
+            assert tfa.misalignment(t) is None
+        tfa._check_aligned(q=qkv[:, :, 0], k=qkv[:, :, 1], v=qkv[:, :, 2])
+
+
+@pytest.mark.parametrize("fault", ["offset", "token stride", "head stride"])
+def test_a_misaligned_bfloat16_view_raises(fault):
+    B, N, H, D = 2, 6, 2, 64  # sizes that leave the other strides on 16-byte lines
+    if fault == "offset":  # starts 8 bytes into a 16-byte line
+        bad = torch.zeros(B * N * H * D + 4, dtype=torch.bfloat16)[4:].view(B, N, H, D)
+        match = "first element"
+    elif fault == "token stride":  # rows of H * D + 4 elements: 8 bytes over
+        bad = torch.zeros(B, N, H * D + 4, dtype=torch.bfloat16)[..., : H * D].unflatten(-1, (H, D))
+        match = "token stride"
+    else:  # heads D + 4 elements apart
+        bad = torch.zeros(B, N, H, D + 4, dtype=torch.bfloat16)[..., :D]
+        match = "head stride"
+    assert bad.shape == (B, N, H, D) and bad.stride(-1) == 1
+    assert match in tfa.misalignment(bad)
+    with pytest.raises(ValueError, match="misaligned"):
+        tfa._check_aligned(q=bad)
+    # the same view in float32 goes to kernels that read element by element
+    assert tfa.misalignment(bad.float()[:, :, :, :]) is None
+    # a misaligned dO is copied, not refused
+    good = torch.zeros(B, N, H, D, dtype=torch.bfloat16)
+    fixed = tfa._check_dout(good, bad)
+    assert tfa.misalignment(fixed) is None and torch.equal(fixed, bad)
+    assert tfa._check_dout(good, good) is good

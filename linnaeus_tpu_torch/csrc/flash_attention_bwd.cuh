@@ -11,7 +11,8 @@
 //   float32 shared memory, a 16 x 16 grid of threads that each own a 4 x 4
 //   patch of a tile product, float32 FMAs on the CUDA cores. float32 has no
 //   tensor-core product that keeps its 2e-5 agreement with the plain version.
-// The split pair's dQ kernel uses the CUDA-core helpers for both dtypes.
+// The split pair's float32 dQ kernel uses the CUDA-core helpers too; its
+// bfloat16 kernel is in flash_attention_bwd_split.cu.
 #pragma once
 
 #include "common.cuh"

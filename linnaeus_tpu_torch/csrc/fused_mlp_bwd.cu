@@ -23,61 +23,46 @@
 // dW1 + dW2 (295 KB at C = 96, 1.18 MB at C = 192 in float32) exceed an
 // SM's shared memory, while dy needs each row's sum over all 4C hidden
 // columns. No one loop order keeps both kinds of sum on the chip, so the
-// work is split into two persistent kernels and a reduction, all
+// work is split into two persistent passes and a reduction, all
 // deterministic (no atomics):
-//   1. `mlp_bwd_rows_kernel`: a block walks 64-row tiles; per tile it walks
-//      the hidden dim in 64-column chunks keeping a2 and dh0 (64 x C) in
+//   1. the row pass: a block walks 64-row tiles; per tile it walks the
+//      hidden dim in 64-column chunks keeping a2 and dh0 (64 x C) in
 //      registers, then forms dy and adds the tile's column sums for dgamma,
-//      db2 and the LN scale and bias into per-thread sums. At its end each
-//      block writes its four C-vectors into its own slab.
-//   2. `mlp_bwd_weights_kernel`: a block owns one 64-column hidden chunk and
-//      a share of the row tiles; it keeps that chunk of W1 and W2 in shared
-//      memory and its (64 x C) patches of dW1 and dW2 in registers across
-//      all its tiles, recomputing h1 and da1 for the chunk, and writes the
-//      patches and its db1 into its own slab.
-//   3. `mlp_bwd_reduce_kernel` sums the slabs in a fixed order into the
-//      outputs.
-// The price of the split is that h1 and dh1 are computed in both kernels:
+//      db2 and the LN scale and bias. At its end each block writes its four
+//      C-vectors into its own slab.
+//   2. the weight pass: a block owns one 64-column hidden chunk and a share
+//      of the row tiles; it keeps that chunk of W1 and W2 in shared memory
+//      and its (64 x C) patches of dW1 and dW2 in registers across all its
+//      tiles, recomputing h1 and da1 for the chunk, and writes the patches
+//      and its db1 into its own slab.
+//   3. `mlp_bwd_reduce_kernel` (fused_mlp_bwd.cuh) sums the slabs in a fixed
+//      order into the outputs.
+// The price of the split is that h1 and dh1 are computed in both passes:
 // eight (64 x C x 64) products per tile and chunk where the TPU kernel did
 // six.
 //
 // What bounds it on the H100: 32 M C^2 operations for 3 M C elements moved,
-// so arithmetic. This first version runs float32 FMAs on the CUDA cores
-// from shared-memory tiles, one block of 256 threads per SM at the widths
-// of the model; tensor cores (wgmma) come in a later change.
+// so arithmetic, and the card's arithmetic is in its tensor cores (989
+// TFLOP/s in bf16 against 67 on the CUDA cores). Two sets of kernels,
+// chosen by dtype and width in `lt_fused_mlp_bwd` (`lt::mlp_bwd_takes_wgmma`):
+// bfloat16 with C a multiple of 32 runs every product as `wgmma`
+// (fused_mlp_bwd_wgmma.cu says how). float32, which has no tensor-core
+// product that keeps its 2e-5 agreement with the plain version, and the
+// other widths run the kernels of this file: float32 FMAs on the CUDA cores
+// from padded float32 shared-memory tiles, a 16 x 16 grid of threads that
+// each own a 4 x 4 patch of a tile product, one block of 256 threads per SM
+// at the widths of the model (116 .. 215 KB of shared memory).
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "fused_mlp_bwd.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kBM = 64;        // rows per tile: 4 per thread row
 constexpr int kHC = 64;        // hidden columns per chunk: 4 per thread column
 constexpr int kMaxC = 192;     // widest C whose tiles fit shared memory
 constexpr int kLda = kHC + 1;  // padded row of the chunk-activation tile
-
-__device__ __forceinline__ float gelu(float x, bool approximate) {
-  if (approximate) {
-    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.f + tanhf(inner));
-  }
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-
-// d gelu(x) / dx, the two forms of the TPU package's `_gelu_grad`
-__device__ __forceinline__ float gelu_grad(float x, bool approximate) {
-  if (approximate) {
-    const float c = 0.7978845608028654f;
-    const float k = 0.044715f;
-    const float t = tanhf(c * (x + k * x * x * x));
-    return 0.5f * (1.f + t) +
-           0.5f * x * (1.f - t * t) * c * (1.f + 3.f * k * x * x);
-  }
-  const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;
-  return 0.5f * (1.f + erff(x * 0.7071067811865476f)) + x * phi;
-}
 
 // Shared memory of both kernels: h0 and d2 (kBM x C+1 each), one chunk of
 // activations (kBM x kHC+1), the W1 and W2 chunks (kHC x C+1 each, both
@@ -498,72 +483,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Sums the slabs, in order, into dW1 (Hd, C), dW2 (C, Hd), db1 (Hd) and the
-// four C-vectors.
-__global__ void __launch_bounds__(kThreads)
-    mlp_bwd_reduce_kernel(const float* __restrict__ ws_w1,
-                          const float* __restrict__ ws_w2,
-                          const float* __restrict__ ws_b1,
-                          const float* __restrict__ part, int slabs,
-                          int row_blocks, int C, int Hd, float* __restrict__ dw1,
-                          float* __restrict__ dw2, float* __restrict__ db1,
-                          float* __restrict__ dln_w, float* __restrict__ dln_b,
-                          float* __restrict__ db2, float* __restrict__ dgamma) {
-  const long long wsize = static_cast<long long>(Hd) * C;
-  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < wsize) {
-    float sum = 0.f;
-    for (int s = 0; s < slabs; ++s) sum += ws_w1[s * wsize + i];
-    dw1[i] = sum;
-    return;
-  }
-  i -= wsize;
-  if (i < wsize) {
-    const long long c = i / Hd;
-    const long long hh = i % Hd;
-    float sum = 0.f;
-    for (int s = 0; s < slabs; ++s) sum += ws_w2[s * wsize + hh * C + c];
-    dw2[i] = sum;
-    return;
-  }
-  i -= wsize;
-  if (i < Hd) {
-    float sum = 0.f;
-    for (int s = 0; s < slabs; ++s) sum += ws_b1[static_cast<long long>(s) * Hd + i];
-    db1[i] = sum;
-    return;
-  }
-  i -= Hd;
-  if (i < 4LL * C) {
-    const long long k = i / C;
-    const long long c = i % C;
-    float sum = 0.f;
-    for (int r = 0; r < row_blocks; ++r)
-      sum += part[(static_cast<long long>(r) * 4 + k) * C + c];
-    float* out = k == 0 ? dln_w : k == 1 ? dln_b : k == 2 ? db2 : dgamma;
-    out[c] = sum;
-  }
-}
-
-struct Args {
-  const void *y, *dout;
-  const float *ln_w, *ln_b;
-  const void* w1;
-  const float* b1;
-  const void* w2;
-  const float *b2, *gamma;
-  void* dy;
-  float *dln_w, *dln_b, *dw1, *db1, *dw2, *db2, *dgamma, *workspace;
-  long long M;
-  int C, Hd;
-  float eps;
-  bool approximate;
-  int row_blocks, slabs;
-  cudaStream_t stream;
-};
-
 template <typename T, int CPT>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const lt::MlpBwdArgs& a) {
   const size_t bytes = smem_floats(a.C) * sizeof(float);
   auto rows_kernel = mlp_bwd_rows_kernel<T, CPT>;
   auto weights_kernel = mlp_bwd_weights_kernel<T, CPT>;
@@ -608,7 +529,7 @@ cudaError_t launch(const Args& a) {
 }
 
 template <typename T>
-cudaError_t dispatch(const Args& a) {
+cudaError_t dispatch(const lt::MlpBwdArgs& a) {
   const int cpt = (a.C + 15) / 16;
   if (cpt <= 2) return launch<T, 2>(a);
   if (cpt <= 4) return launch<T, 4>(a);
@@ -624,8 +545,9 @@ cudaError_t dispatch(const Args& a) {
 // and `out` the 8 output pointers dy, dln_w, dln_b, dw1, db1, dw2, db2,
 // dgamma. `workspace` is float32 of at least
 //   row_blocks * 4 * C + slabs * (2 * Hd * C + Hd)
-// elements and needs no initialising: `row_blocks` blocks run the row pass
-// and `slabs` blocks per hidden chunk run the weight pass.
+// elements, and M * C + 2 * M more where `lt_fused_mlp_bwd_route` says 1,
+// and needs no initialising: `row_blocks` blocks run the row pass and
+// `slabs` blocks per hidden chunk run the weight pass.
 extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
                                 void* workspace, long long M, int C, int Hd,
                                 float eps, int approximate, int row_blocks,
@@ -634,7 +556,7 @@ extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
-  Args a;
+  lt::MlpBwdArgs a;
   a.y = in[0];
   a.dout = in[1];
   a.ln_w = f(in[2]);
@@ -661,6 +583,7 @@ extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
   a.row_blocks = row_blocks;
   a.slabs = slabs;
   a.stream = static_cast<cudaStream_t>(stream);
+  if (lt::mlp_bwd_takes_wgmma(C, Hd, dtype)) return lt::mlp_bwd_wgmma(a);
   switch (dtype) {
     case lt::kFloat32:
       return dispatch<float>(a);
@@ -669,4 +592,10 @@ extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Which kernels `lt_fused_mlp_bwd` launches for these operands: 1 for the
+// tensor-core kernels, 0 for the CUDA-core kernels.
+extern "C" int lt_fused_mlp_bwd_route(int C, int Hd, int dtype) {
+  return lt::mlp_bwd_takes_wgmma(C, Hd, dtype) ? 1 : 0;
 }

@@ -1,14 +1,20 @@
-// Hopper building blocks of K1's bf16 kernels, as inline PTX: 16-byte
-// asynchronous copies into 128-byte-swizzled shared-memory tiles, the
-// shared-memory matrix descriptor of `wgmma`, and the warpgroup matrix
-// products used by the flash-attention forward and key-tile backward.
+// Hopper building blocks of the bf16 tensor-core kernels (K1's flash
+// attention, K2's backward), as inline PTX: 16-byte asynchronous copies into
+// 128-byte-swizzled shared-memory tiles, the shared-memory matrix descriptor
+// of `wgmma`, and the warpgroup matrix products.
 //
 // Every tile here has rows of 64 bf16 = 128 bytes, one swizzle atom: row r
 // lies at byte r * 128 of a 1024-byte-aligned tile and its 16-byte chunk c
 // at chunk position c ^ (r % 8). The same bytes serve both readings of a
 // `wgmma` operand: "K-major" (the 64 values of a row run along the product's
 // inner dimension) and, through the descriptor's transpose bit, "MN-major"
-// (the rows run along the inner dimension, 16 rows a k-step).
+// (the rows run along the inner dimension, 16 rows a k-step). A tile may
+// have any number of rows that is a multiple of eight. An operand wider
+// than 64 columns (K2's C = 96 .. 192) is a "wide tile": 64-row atoms of 64
+// columns side by side, kTileBytes apart, each addressed by a descriptor of
+// its own; a width that is not a multiple of 64 is padded with zero columns
+// (`load_wide_rows_async`), which a product along the width skips k-step by
+// k-step and a product across it computes and throws away.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +81,24 @@ __device__ __forceinline__ void load_rows_async(uint32_t tile, const __nv_bfloat
   }
 }
 
+// Rows r0 .. r0 + 63 of a row-major (R, 8 * chunks) bf16 matrix, rows
+// `stride` elements apart, into a wide tile of kAtoms atoms, by all the
+// block's threads; rows past R and the 16-byte chunks past `chunks` arrive
+// as zeros.
+template <int kAtoms>
+__device__ __forceinline__ void load_wide_rows_async(uint32_t tile, const __nv_bfloat16* base,
+                                                     long long stride, long long r0,
+                                                     long long R, int chunks) {
+  constexpr int kPerRow = kAtoms * 8;
+  for (int i = threadIdx.x; i < 64 * kPerRow; i += blockDim.x) {
+    const int r = i / kPerRow;
+    const int c = i % kPerRow;
+    const bool live = r0 + r < R && c < chunks;
+    const __nv_bfloat16* src = base + (live ? (r0 + r) * stride + c * 8 : 0);
+    cp_async_16(tile + (c >> 3) * kTileBytes + swizzled(r, c & 7), src, live);
+  }
+}
+
 // A 64 x 64 tile of bf16 pairs held as a wgmma accumulator fragment, written
 // into a swizzled tile: `pairs[2 j + half]` holds columns 8 j + 2 (lane % 4)
 // + {0, 1} of row 16 warp + lane / 4 + 8 half. No bank conflicts: the eight
@@ -135,6 +159,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until all but the newest committed group have finished.
+__device__ __forceinline__ void wgmma_wait_all_but_newest() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the point where its wgmma group is known to have finished.
@@ -171,17 +199,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
 
 // d (64 x 64) += A B with A (64 x 16 bf16) from registers: a[0..3] are, pair
 // by pair, what two adjacent 8-column blocks of an accumulator fragment
-// hold after the cast to bf16 (a[2 (j % 2) + half]). B is an MN-major tile.
+// hold after the cast to bf16 (a[2 (j % 2) + half]). kTransB: 1 for an
+// MN-major tile of B, 0 for a K-major one.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_REGS_0_31
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
 }
 
 }  // namespace hp

@@ -9,12 +9,15 @@ Port of linnaeus_tpu/ops/flash_attention.py: ``_flash_fwd_kernel`` (via
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_split.cu``;
 they read token-major (B, N, H, D) operands through their strides, so the
 q/k/v views out of a qkv projection need no transpose, and never write the
-(N, N) scores to device memory. In bfloat16 the forward, the fused backward
-and the split pair's dK/dV kernel run their matrix products on the tensor
-cores (``wgmma`` from shared-memory tiles filled by 16-byte asynchronous
-copies, so pointers and strides must be 16-byte aligned:
-:func:`misalignment`); in float32 all of K1, and in both dtypes the split
-pair's dQ kernel, run on the CUDA cores.
+(N, N) scores to device memory. Attention at the model's shapes is bound by
+arithmetic on the H100 (4 N^2 D operations forward and 10 to 14 N^2 D
+backward for a few N D elements moved), and the card's arithmetic is in its
+tensor cores: in bfloat16 every kernel of K1 (forward, fused backward, the
+split pair's dQ and dK/dV kernels) runs its matrix products there (``wgmma``
+from shared-memory tiles filled by 16-byte asynchronous copies, so pointers
+and strides must be 16-byte aligned: :func:`misalignment`), with P and dS
+cast in registers as the next product's operand. In float32, where no
+tensor-core product keeps the 2e-5 bar, all of K1 runs on the CUDA cores.
 
 ``flash_attention_fwd`` and ``flash_attention`` are differentiable: a
 ``torch.autograd.Function`` saves q, k, v, O and the log-sum-exp, and its
@@ -55,9 +58,10 @@ def backward_route(n: int) -> str:
     """"fused" or "split": the backward that ``bwd="auto"`` takes at sequence
     length ``n``. The split pair runs where the TPU package runs it, past
     1024 tokens (there the padded row no longer fits one block and its fused
-    kernel does not apply). Both routes of this port take any length, so
-    where the line belongs on this card is a question of speed that has not
-    been measured into the rule."""
+    kernel does not apply). Both routes of this port take any length; the
+    line follows the TPU package, and it is what puts the split pair on a
+    path that training drives (512 px). PERF.md holds both routes' times at
+    1028 tokens."""
     return "split" if n > FUSED_BWD_MAX_SEQ else "fused"
 
 
@@ -319,6 +323,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=None):
     (B, N, H, D) view with a unit-stride head dim) or a new tensor."""
     B, N, H, D = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
+    _check_aligned(q=q, k=k, v=v, dO=do, dq=dq)
     err = _kernels.library().lt_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, N, H, D, _strides(q, k, v, do, dq),

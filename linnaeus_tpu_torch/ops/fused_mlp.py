@@ -6,7 +6,20 @@ Port of linnaeus_tpu/ops/fused_mlp.py: the forward ``_body`` (via
 x gamma [-> + residual], and the backward ``_bwd_kernel`` (via
 ``_pallas_bwd``), which recomputes the forward in the tile. Both are tiled
 over rows so the (M, 4C) intermediates never reach device memory. The
-kernels are ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``.
+kernels are ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu`` and
+``csrc/fused_mlp_bwd_wgmma.cu``.
+
+Both directions are bound by arithmetic on the H100 (8 M C^2 operations
+forward and 32 M C^2 backward for a few M C elements moved). The backward
+runs on the tensor cores where it can: in bfloat16 with C a multiple of 32
+every one of its products is a ``wgmma`` from swizzled shared-memory tiles
+filled by asynchronous copies, two warpgroups a block that split the work by
+side, after a prologue kernel that writes LN(y) and dout * gamma once as
+bfloat16 (M, C) into the workspace. float32 (no tensor-core product keeps
+its 2e-5 bar) and the other widths run float32 FMAs on the CUDA cores, as
+the forward does in both dtypes. :func:`backward_kernel` holds that rule;
+both routes sum in a fixed order, so the gradients are the same from run to
+run.
 
 Weights use the torch Linear layout of the block's ``pwconv1`` (4C, C) and
 ``pwconv2`` (C, 4C). ``fused_convnext_mlp`` is differentiable: a
@@ -67,6 +80,23 @@ def fused_convnext_mlp_reference(
     if x2 is not None:
         out = x2.float() + out
     return out.to(dt)
+
+
+BWD_KERNELS = ("wgmma", "cuda_cores")
+WGMMA_WIDTH_STEP = 32  # the tensor-core backward takes C = 32, 64, .. MAX_WIDTH_BWD
+
+
+def backward_kernel(C: int, dtype: torch.dtype, hidden: int | None = None) -> str:
+    """"wgmma" or "cuda_cores": the kernels that the backward launches for
+    width ``C``, hidden width ``hidden`` (4C if None) and ``dtype``. The
+    tensor-core kernels take bfloat16 at widths that fill whole 32-column
+    half atoms and whole 64-column hidden chunks; everything else keeps the
+    CUDA-core kernels. A rule on dtype and shape alone, the same as
+    ``lt::mlp_bwd_takes_wgmma`` in ``csrc/fused_mlp_bwd.cuh``."""
+    hidden = 4 * C if hidden is None else hidden
+    wide = (dtype == torch.bfloat16 and WGMMA_WIDTH_STEP <= C <= MAX_WIDTH_BWD
+            and C % WGMMA_WIDTH_STEP == 0 and hidden >= 64 and hidden % 64 == 0)
+    return "wgmma" if wide else "cuda_cores"
 
 
 def _gelu_grad(a: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -222,13 +252,18 @@ def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     dls, dlb, db2, dg = (torch.empty(C, **f32) for _ in range(4))
     dw1, db1, dw2 = torch.empty((Hd, C), **f32), torch.empty(Hd, **f32), torch.empty((C, Hd), **f32)
     # one persistent block per SM in the row pass; in the weight pass the
-    # SMs are shared out among the 64-column hidden chunks
+    # SMs are shared out among the 64-column hidden chunks. Both routes'
+    # blocks (256 threads, 97 .. 215 KB of shared memory, up to 255
+    # registers a thread) fit one to an SM.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = (M + 63) // 64
     chunks = (Hd + 63) // 64
     row_blocks = min(tiles, sms)
     slabs = max(1, min(tiles, sms // chunks))
-    workspace = torch.empty(row_blocks * 4 * C + slabs * (2 * Hd * C + Hd), **f32)
+    floats = row_blocks * 4 * C + slabs * (2 * Hd * C + Hd)
+    if backward_kernel(C, y2.dtype, Hd) == "wgmma":
+        floats += M * C + 2 * M  # LN(y) and dout * gamma in bfloat16, mean and rstd
+    workspace = torch.empty(floats, **f32)
     pointers = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
     lib = _kernels.library()
     err = lib.lt_fused_mlp_bwd(

@@ -48,9 +48,11 @@ TOTAL_STEPS = 8 * 115  # the preset's 8 epochs of 7372 training samples at batch
 # the port's own kernels, by the names the profiler shows them under
 PORT_KERNELS = (
     "flash_fwd_wgmma_kernel", "flash_fwd_fp32_kernel", "flash_bwd_wgmma_kernel",
-    "flash_bwd_fp32_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_wgmma_kernel",
-    "flash_bwd_dkv_fp32_kernel", "delta_kernel", "dq_finish_kernel", "fused_mlp_kernel",
-    "mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
+    "flash_bwd_fp32_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_fp32_kernel",
+    "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_fp32_kernel", "delta_kernel",
+    "dq_finish_kernel", "fused_mlp_kernel", "mlp_bwd_prologue_kernel",
+    "mlp_bwd_rows_wgmma_kernel", "mlp_bwd_weights_wgmma_kernel", "mlp_bwd_rows_kernel",
+    "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
 )
 
 

@@ -13,9 +13,11 @@ plain versions relative to each gradient's largest magnitude: fp32 2e-5
 rounding of P, dS, h1 or da1 that falls the other way moves a sum by a
 bf16 step or two). The split backward's dQ and dK/dV kernels and K3 (the
 fused ConvNeXt block, held to K2's bars) are checked the same way. In
-bfloat16 K1's forward, fused backward and dK/dV kernel run on the tensor
-cores and are held at every K1 shape of chip_smoke.py and around the tile
-edges; float32 stays on the CUDA cores at its 2e-5.
+bfloat16 all four K1 kernels run on the tensor cores and are held at every
+K1 shape of chip_smoke.py and around the tile edges; float32 stays on the
+CUDA cores at its 2e-5. K2's backward runs on the tensor cores in bfloat16
+at widths that are multiples of 32 and on the CUDA cores otherwise; the C
+side's report of that route is held against the Python rule.
 """
 
 import numpy as np
@@ -238,6 +240,44 @@ def test_k1_float32_stays_on_the_cuda_cores_at_its_bar(dev, shape):
     assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 
 
+K1_DQ_EDGE_SHAPES = [(2, n, 2) for n in (1, 63, 64, 65, 130, 580, 1028, 1100)]
+
+
+@pytest.mark.parametrize("layout", ["qkv_slices", "contiguous"])
+@pytest.mark.parametrize("shape", K1_DQ_EDGE_SHAPES)
+def test_k1_bf16_tensor_core_dq_matches_plain(dev, shape, layout):
+    """The split pair's dQ kernel around the 64-row tile edges, written into
+    the dq slice of a (B, N, 3, H, D) buffer or a contiguous tensor; the same
+    bits from two launches."""
+    q, k, v, do = _k1_operands(dev, shape, layout)
+    scale = 0.125
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    delta = fa._launch_delta(o, do)
+    out = fa._grad_buffer(q)[0] if layout == "qkv_slices" else None
+    before = fa.DQ_LAUNCHES
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale, out=out)
+    again = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert fa.DQ_LAUNCHES == before + 2
+    want = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, fa.attention_delta(o, do),
+                                               scale)
+    assert torch.isfinite(dq).all()
+    bar = BWD_TOL[torch.bfloat16] * max(want.float().abs().max().item(), 1e-3)
+    assert _max_err(dq, want) <= bar
+    assert torch.equal(dq, again)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 3), (2, 130, 3), (1, 1028, 2)])
+def test_k1_float32_dq_stays_on_the_cuda_cores_at_its_bar(dev, shape):
+    q, k, v, do = _k1_operands(dev, shape, "qkv_slices", torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    delta = fa._launch_delta(o, do)
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, 0.125)
+    assert _rel_err(dq, want) <= BWD_TOL[torch.float32]
+
+
 def test_k1_bf16_rejects_misaligned_views_and_copies_a_misaligned_dout(dev):
     B, n, H, D = 2, 70, 2, 64
     flat = torch.randn(B * n * H * D + 4, device=dev).bfloat16()
@@ -337,7 +377,9 @@ def test_k3_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,C", [(70, 16), (70, 40), (1000, 96), (300, 192), (64 * 150, 96)])
+@pytest.mark.parametrize("M,C", [(70, 16), (70, 40), (1000, 96), (300, 192), (64 * 150, 96),
+                                 (1000, 32), (64 * 150 + 7, 64), (64 * 150 + 7, 96),
+                                 (1000, 128), (64 * 150 + 7, 192), (1000, 160)])
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("approximate", [True, False])
 def test_k2_backward_matches_plain(dev, dtype, M, C, residual, approximate):
@@ -367,6 +409,33 @@ def test_k2_backward_matches_plain(dev, dtype, M, C, residual, approximate):
         assert torch.equal(leaves[1].grad, dout)
     else:
         assert leaves[1].grad is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 32, 40, 64, 96, 128, 160, 192])
+def test_k2_backward_route_reported_by_the_library_is_the_python_rule(dev, dtype, C):
+    from linnaeus_tpu_torch import _kernels
+
+    for hidden in (4 * C, 4 * C + 8):
+        reported = _kernels.library().lt_fused_mlp_bwd_route(C, hidden, _kernels.DTYPE_CODES[dtype])
+        assert fm.BWD_KERNELS[1 - reported] == fm.backward_kernel(C, dtype, hidden)
+    wide = dtype == torch.bfloat16 and C % 32 == 0
+    assert fm.backward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", [(1000, 96), (64 * 150 + 7, 192), (70, 40)])
+def test_k2_backward_is_the_same_bits_twice(dev, dtype, M, C):
+    g = torch.Generator(device=dev).manual_seed(C)
+    y, dout = (torch.randn(M, C, generator=g, device=dev).to(dtype) for _ in range(2))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dtype)
+    w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dtype)
+    args = (y, dout, vec(C, 0.1, 1.0), vec(C, 0.1), w1, vec(4 * C, 0.1), w2, vec(C, 0.1),
+            vec(C, 0.1, 0.5), 1e-6, True)
+    first, second = fm._launch_bwd(*args), fm._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_k2_backward_rejects_wide_rows(dev):

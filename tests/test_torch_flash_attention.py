@@ -332,6 +332,56 @@ def test_transposed_score_backward_stays_inside_the_kernel_bar(dtype, n):
                                    err_msg=name)
 
 
+def _emulate_tiled_dq(q, k, v, do, lse, delta, scale, tile=64):
+    """The tensor-core dQ kernel's arithmetic: 64-query tiles that walk the
+    64-key tiles in order; K and V rows past N are zeros; S and dP in
+    float32; P = exp2(S c - lse log2 e) with c = scale log2(e); dS =
+    P (dP - delta), zero for keys past N, cast once to the input dtype;
+    dQ += dS K in float32; query rows past N read lse = delta = 0 and are
+    dropped; dQ scaled at the end."""
+    B, N, H, D = q.shape
+    qf, kf, vf, dof = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    tiles = -(-N // tile)
+    rows = tiles * tile
+    qf, kf, vf, dof = (_pad_rows(t, rows) for t in (qf, kf, vf, dof))
+    lse_p = torch.nn.functional.pad(lse, (0, rows - N))
+    delta_p = torch.nn.functional.pad(delta, (0, rows - N))
+    key_live = torch.arange(rows) < N
+    c = scale * LOG2E
+    dq = torch.zeros(B, H, rows, D)
+    for qt in range(tiles):
+        qs = slice(qt * tile, (qt + 1) * tile)
+        shift = -lse_p[:, :, qs, None] * LOG2E
+        for kt in range(tiles):
+            ks = slice(kt * tile, (kt + 1) * tile)
+            s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+            dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+            ds = torch.exp2(s * c + shift) * (dp - delta_p[:, :, qs, None])
+            ds = torch.where(key_live[ks], ds, torch.zeros(()))
+            dq[:, :, qs] += ds.to(q.dtype).float() @ kf[:, :, ks]
+    return (dq * scale)[:, :, :N].transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 37, 64, 65, 300])
+def test_tiled_dq_stays_inside_the_kernel_bar(dtype, n):
+    _, (q, k, v) = _qkv(n, 64, dtype, seed=n + 2)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(n)).to(q.dtype)
+    scale = 64 ** -0.5
+    o, lse = tfa.flash_attention_reference(q, k, v, scale)
+    delta = tfa.attention_delta(o, do)
+    want = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    got = _emulate_tiled_dq(q, k, v, do, lse, delta, scale)
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got).all()
+    # with one key P is 1 and dQ is zero in exact arithmetic, and what is left
+    # is the rounding of O in delta (bf16) or float32 noise of a few 1e-7 on
+    # both sides (exp2 against exp, dP against delta): the gradient's scale
+    # counts as no less than 1e-3 / 5e-2
+    floor = {"bfloat16": 1e-3, "float32": 5e-2}[dtype]
+    bar = BWD_TOL[dtype] * max(float(want.float().abs().max()), floor)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=bar)
+
+
 # ------------------------------------------------------------------ alignment
 def test_qkv_slices_are_aligned_for_the_bfloat16_kernels():
     for B, N, H in ((2, 37, 3), (1, 580, 6), (1, 148, 12)):
@@ -364,3 +414,17 @@ def test_a_misaligned_bfloat16_view_raises(fault):
     fixed = tfa._check_dout(good, bad)
     assert tfa.misalignment(fixed) is None and torch.equal(fixed, bad)
     assert tfa._check_dout(good, good) is good
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "dO", "dq"])
+def test_the_dq_launch_refuses_a_misaligned_bfloat16_operand(operand):
+    """The tensor-core dQ kernel reads and writes in 16-byte pieces: the
+    launch checks every operand and its output before it reaches the
+    library."""
+    B, N, H, D = 1, 6, 2, 64
+    good = {n: torch.zeros(B, N, H, D, dtype=torch.bfloat16) for n in ("q", "k", "v", "dO", "dq")}
+    good[operand] = torch.zeros(B * N * H * D + 4, dtype=torch.bfloat16)[4:].view(B, N, H, D)
+    stats = torch.zeros(B, H, N)
+    with pytest.raises(ValueError, match=f"{operand} is misaligned"):
+        tfa._launch_bwd_dq(good["q"], good["k"], good["v"], good["dO"], stats, stats, 0.125,
+                           out=good["dq"])

@@ -158,3 +158,138 @@ def test_plain_k2_backward_reference_equals_autograd_of_plain_forward(approximat
         y.detach(), cot, *(t.detach() for t in leaves[1:]), 1e-6, approximate)
     for name, p, q in zip(("dy", "dls", "dlb", "dw1", "db1", "dw2", "db2", "dg"), got, want):
         np.testing.assert_allclose(p.numpy(), q.numpy(), atol=5e-6, err_msg=name)
+
+
+# ------------------------------------- the tensor-core backward's arithmetic
+# A plain PyTorch emulation of what the bfloat16 backward kernels compute on
+# the card, pass by pass, tile by tile and cast for cast, held to the plain
+# version within the bars the card run enforces: the decomposition, the
+# padding and the cast points chosen for the kernels stay inside those bars
+# whatever the card does with them.
+KERNEL_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _fast_tanh(x):
+    """The kernels' tanh is the card's one-instruction approximation, whose
+    relative error is at most 2**-11: taken here at that bound, with
+    alternating sign."""
+    sign = 1.0 - 2.0 * (torch.arange(x.numel()).reshape(x.shape) % 2)
+    return torch.tanh(x) * (1.0 + sign * 2.0 ** -11)
+
+
+def _kernel_gelu(a, approximate, tanh):
+    if not approximate:
+        return 0.5 * a * (1.0 + torch.erf(a * 0.7071067811865476))
+    return 0.5 * a * (1.0 + tanh(0.7978845608028654 * (a + 0.044715 * a * a * a)))
+
+
+def _kernel_gelu_grad(a, approximate, tanh):
+    if not approximate:
+        return tfm._gelu_grad(a, False)
+    c, k = 0.7978845608028654, 0.044715
+    t = tanh(c * (a + k * a * a * a))
+    return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * c * (1.0 + 3.0 * k * a * a)
+
+
+def _emulate_two_pass_backward(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate,
+                               row_blocks=3, slabs=2):
+    """The tensor-core route: a prologue that makes h0 = round(LN(y)) and
+    d2 = round(dout gamma) once; a row pass over 64-row tiles (zero rows past
+    M, C padded with zero columns to whole 64-column atoms for the products
+    across C) and 64-column hidden chunks, its four column sums kept per
+    block; a weight pass per hidden chunk on transposed chunk activations,
+    its patches kept per slab; slabs and blocks summed in order. The fast
+    tanh belongs to the bfloat16 kernels; float32 operands (which on the card
+    keep the CUDA-core kernels) take the exact one."""
+    dt = y.dtype
+    tanh = _fast_tanh if dt == torch.bfloat16 else torch.tanh
+    M, C = y.shape
+    Hd = w1.shape[0]
+    CP = -(-C // 64) * 64
+    rd = lambda t: t.to(dt).float()  # noqa: E731
+    yf = y.float()
+    mean = yf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((yf - mean).square().mean(-1, keepdim=True) + eps)
+    tiles = -(-M // 64)
+    pad_rows = lambda t: torch.nn.functional.pad(t, (0, 0, 0, tiles * 64 - M))  # noqa: E731
+    pad_cols = lambda t: torch.nn.functional.pad(t, (0, CP - C))  # noqa: E731
+    h0 = pad_rows(rd((yf - mean) * rstd * ln_w + ln_b))
+    d2 = pad_rows(rd(dout.float() * gamma))
+    yp, dop, mean, rstd = (pad_rows(t) for t in (yf, dout.float(), mean, rstd))
+    live = (torch.arange(tiles * 64) < M)[:, None]
+    w1f, w2f = w1.float(), w2.float()
+    w1p = pad_cols(w1f)                                              # [hidden][c]
+    w2p = torch.nn.functional.pad(w2f, (0, 0, 0, CP - C))            # [c][hidden]
+
+    dy = torch.zeros(tiles * 64, C)
+    part = torch.zeros(row_blocks, 4, C)
+    for t in range(tiles):
+        rows = slice(t * 64, (t + 1) * 64)
+        a2, dh0 = torch.zeros(64, CP), torch.zeros(64, CP)
+        for hc in range(0, Hd, 64):
+            ch = slice(hc, hc + 64)
+            a1 = h0[rows] @ w1f[ch].t() + b1[ch]                     # inner C, no padding
+            dh1 = d2[rows] @ w2f[:, ch]
+            a2 += rd(_kernel_gelu(a1, approximate, tanh)) @ w2p[:, ch].t()  # across the padded C
+            dh0 += rd(dh1 * _kernel_gelu_grad(a1, approximate, tanh)) @ w1p[ch]
+        a2, dh0 = a2[:, :C], dh0[:, :C]
+        n = (yp[rows] - mean[rows]) * rstd[rows]
+        block = part[t % row_blocks]
+        block[0] += (dh0 * n).sum(0)
+        block[1] += dh0.sum(0)
+        block[2] += (dop[rows] * gamma).sum(0)
+        block[3] += (dop[rows] * (a2 + b2)).sum(0)
+        dn = dh0 * ln_w
+        dy[rows] = rstd[rows] * (dn - dn.sum(-1, keepdim=True) / C
+                                 - n * ((dn * n).sum(-1, keepdim=True) / C))
+    assert bool((torch.where(live, 0.0, dy) == 0).all())  # zero rows give zero dy
+    dls, dlb, db2, dg = (sum(part[r, k] for r in range(row_blocks)) for k in range(4))
+
+    ws_w1, ws_w2 = torch.zeros(slabs, Hd, CP), torch.zeros(slabs, Hd, CP)
+    ws_b1 = torch.zeros(slabs, Hd)
+    for hc in range(0, Hd, 64):
+        ch = slice(hc, hc + 64)
+        for s in range(slabs):
+            for t in range(s, tiles, slabs):
+                rows = slice(t * 64, (t + 1) * 64)
+                a1t = w1f[ch] @ h0[rows].t() + b1[ch, None]          # [hidden][row]
+                dh1t = w2f[:, ch].t() @ d2[rows].t()
+                da1t = dh1t * _kernel_gelu_grad(a1t, approximate, tanh)
+                ws_w2[s, ch] += rd(_kernel_gelu(a1t, approximate, tanh)) @ pad_cols(d2[rows])
+                ws_w1[s, ch] += rd(da1t) @ pad_cols(h0[rows])
+                ws_b1[s, ch] += da1t.sum(1)
+    dw1 = sum(ws_w1[s] for s in range(slabs))[:, :C]
+    dw2 = sum(ws_w2[s] for s in range(slabs))[:, :C].t()
+    db1 = sum(ws_b1[s] for s in range(slabs))
+    return dy[:M].to(dt), dls, dlb, dw1, db1, dw2, db2, dg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("M,C", [(70, 32), (200, 96), (130, 192)])
+def test_two_pass_tensor_core_backward_stays_inside_the_kernel_bar(dtype, approximate, M, C):
+    a = _inputs(M, C, dtype, seed=M + C)
+    y, dout = _torch(a["y"], dtype), _torch(a["x"], dtype)
+    w1, w2 = _torch(a["w1"].T.copy(), dtype), _torch(a["w2"].T.copy(), dtype)
+    vectors = [torch.tensor(a[k]) for k in ("ls", "lb", "b1", "b2", "g")]
+    ls, lb, b1, b2, g = vectors
+    args = (y, dout, ls, lb, w1, b1, w2, b2, g, 1e-6, approximate)
+    want = tfm.fused_convnext_mlp_bwd_reference(*args)
+    got = _emulate_two_pass_backward(*args)
+    for name, p, q in zip(("dy", "dls", "dlb", "dw1", "db1", "dw2", "db2", "dg"), got, want):
+        assert p.shape == q.shape and p.dtype == q.dtype and torch.isfinite(p).all(), name
+        bar = KERNEL_BWD_TOL[dtype] * float(q.float().abs().max())
+        np.testing.assert_allclose(p.float().numpy(), q.float().numpy(), rtol=0, atol=bar,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", [16, 32, 40, 64, 96, 128, 160, 192, 224])
+def test_backward_kernel_rule(dtype, C):
+    """bfloat16 at multiples of 32 up to the widest backward takes the
+    tensor cores; float32, the odd widths and ragged hidden chunks do not."""
+    wide = dtype == torch.bfloat16 and C % 32 == 0 and C <= tfm.MAX_WIDTH_BWD
+    assert tfm.backward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
+    assert tfm.backward_kernel(C, dtype, 4 * C) == tfm.backward_kernel(C, dtype)
+    assert tfm.backward_kernel(C, dtype, 4 * C + 8) == "cuda_cores"
+    assert tfm.backward_kernel(C, dtype) in tfm.BWD_KERNELS

@@ -8,13 +8,20 @@ nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
 each one (K1 forward, fused backward and the split dQ and dK/dV backward
 pair; K2 forward and backward; K3, the fused ConvNeXt block) against its
 plain PyTorch version at the shapes its path gives it, in float32 and in
-bfloat16 (all of K1 and K2's backward then run on the tensor cores, in
-float32 on the CUDA cores; K1's and K2's backward times are medians of three
-repeats, with the spread; K2's backward must give the same bits twice).
-Then it serves mFormerV1_sm at
-384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler:
-three predict requests of 1, 7 and 64 images, with launch counters proving
-every forward went through both forward kernels; it compares the whole
+bfloat16 (all of K1, K2 and K3's MLP tail then run on the tensor cores, in
+float32 on the CUDA cores; K1's and K2's times are medians of three repeats,
+with the spread; K2 must give the same bits twice, forward and backward; the
+bf16 library chain LN -> linear -> GELU -> linear is timed beside K2 and K3
+as a yardstick of several calls). It checks the width rule of the ConvNeXt
+block: left to choose, a block runs at the lg and xl presets' widths through
+the route the rule names, and told to fuse past the kernels' widths it
+raises by name. Then it serves mFormerV1_sm at
+384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler with
+its default options but for the batch size, so with the
+hierarchical-consistency pass on against a seeded taxonomy tree over the
+four tasks: three predict requests of 1, 7 and 64 images, with launch
+counters proving every forward went through both forward kernels and every
+result held to the tree; it compares the whole
 forward with the kernels on and off and reports serving throughput. Then it
 trains: a few steps of make_train_step through tools/train_bench at the
 same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
@@ -180,8 +187,29 @@ def sdpa_ms(q, k, v, do=None) -> float:
         lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))[0]
 
 
+def mlp_chain_ms(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma) -> float:
+    """Time of K2's function as a chain of PyTorch's own operators in y's
+    dtype on the same operands (layer_norm, linear, gelu, linear, scale and
+    add: several calls and an (M, 4C) intermediate in device memory): the
+    yardstick where no single call exists, used nowhere in the port. Timed
+    as K2 is."""
+    import torch.nn.functional as F
+
+    dt = y.dtype
+    lw, lb, b1c, b2c, g = (t.to(dt) for t in (ln_w, ln_b, b1, b2, gamma))
+
+    def chain():
+        h = F.layer_norm(y, (y.shape[-1],), lw, lb, 1e-6)
+        h = F.linear(F.gelu(F.linear(h, w1, b1c), approximate="tanh"), w2, b2c)
+        return residual + h * g
+
+    return cuda_ms_median(chain, iters=20)[0]
+
+
 def check_kernels(dev, fa, fm) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
+    from linnaeus_tpu_torch import _kernels
+
     g = torch.Generator(device=dev).manual_seed(SEED)
     rec = {"K1": {"max_abs_err": 0.0, "other_shapes": []},
            "K2": {"max_abs_err": 0.0, "other_shapes": []}}
@@ -217,28 +245,105 @@ def check_kernels(dev, fa, fm) -> dict:
             ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
             w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
             w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
+            route = fm.forward_kernel(C, dt)
+            reported = _kernels.library().lt_fused_mlp_fwd_route(C, 4 * C, _kernels.DTYPE_CODES[dt])
+            check(fm.KERNELS[1 - reported] == route,
+                  f"K2 forward route: the library reports {reported}, the rule says {route}")
+            check(route == ("wgmma" if dt == torch.bfloat16 else "cuda_cores"),
+                  f"K2 forward {dt} C={C} takes {route}")
+            iters = 50 if route == "wgmma" else 5
             for residual, approx in ((x, True), (None, True), (x, False)):
                 args = (y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma)
                 out = fm.fused_convnext_mlp(*args, approximate_gelu=approx)
+                again = fm.fused_convnext_mlp(*args, approximate_gelu=approx)
                 ref = fm.fused_convnext_mlp_reference(*args, 1e-6, approx)
                 err = max_err(out, ref)
-                ms = cuda_ms(lambda: fm.fused_convnext_mlp(*args, approximate_gelu=approx))
+                same = torch.equal(out, again)
+                del again, ref
+                ms, spread = cuda_ms_median(
+                    lambda: fm.fused_convnext_mlp(*args, approximate_gelu=approx), iters=iters)
                 plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_reference(*args, 1e-6, approx))
                 print(f"K2 fused_convnext_mlp {str(dt)[6:]} (M,C)={(M, C)} "
-                      f"residual={residual is not None} gelu={'tanh' if approx else 'erf'}: "
-                      f"max|err| {err:.3e} (tol {K2_TOL[dt]:g}), kernel {ms:.3f} ms, "
-                      f"plain {plain_ms:.3f} ms", flush=True)
+                      f"residual={residual is not None} gelu={'tanh' if approx else 'erf'} "
+                      f"({route}): max|err| {err:.3e} (tol {K2_TOL[dt]:g}), bit-identical over "
+                      f"two launches: {same}, kernel {ms:.4f} ms (median of 3 x {iters} calls, "
+                      f"spread {spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
+                check(torch.isfinite(out).all().item(), f"K2 {dt} {(M, C)} finite")
                 check(err <= K2_TOL[dt], f"K2 {dt} {(M, C)} error {err}")
+                check(same, f"K2 {dt} {(M, C)} differs between two launches")
                 if dt == torch.bfloat16:
                     rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], err)
                     if M > 70 and residual is not None and approx:
-                        timed = dict(ms=ms, plain_ms=plain_ms, shape=[M, C], library_ms=None,
+                        chain_ms = mlp_chain_ms(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma)
+                        print(f"   the bf16 library chain (layer_norm, linear, gelu, linear, "
+                              f"scale and add: several calls) on the same operands: "
+                              f"{chain_ms:.4f} ms", flush=True)
+                        timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[M, C],
+                                     library_ms=None, library_chain_ms=chain_ms,
                                      **k2_bound((M, C), dt, False))
                         if C == 96:
                             rec["K2"].update(timed)
                         else:
                             rec["K2"]["other_shapes"].append(timed)
     return rec
+
+
+def check_width_rule(dev, fm) -> None:
+    """The widths on either side of the kernels' limits. bfloat16 C = 256:
+    the forward kernel takes it (on the tensor cores), the backward does
+    not. A ConvNeXt block left to choose (``fused_mlp=None``) runs forward
+    at 384 and 512 and forward and backward at 256, 384 and 512 through its
+    plain modules, and at 192 through both kernels; told to fuse at 288 it
+    raises a ValueError that names the width."""
+    from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dt = torch.bfloat16
+    for C, fwd, bwd in ((192, True, True), (256, True, False), (288, False, False)):
+        check((fm.kernel_takes(C, dt, False), fm.kernel_takes(C, dt, True)) == (fwd, bwd),
+              f"kernel_takes at C={C}")
+    M, C = 4096, 256
+    y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    args = (y, x, vec(C, 0.1, 1.0), vec(C, 0.1),
+            (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt), vec(4 * C, 0.1),
+            (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt), vec(C, 0.1),
+            vec(C, 0.1, 0.5))
+    err = max_err(fm.fused_convnext_mlp(*args), fm.fused_convnext_mlp_reference(*args, 1e-6, True))
+    print(f"K2 forward at its widest, bfloat16 (M,C)={(M, C)} ({fm.forward_kernel(C, dt)}): "
+          f"max|err| {err:.3e} (tol {K2_TOL[dt]:g})", flush=True)
+    check(err <= K2_TOL[dt] and fm.forward_kernel(C, dt) == "wgmma", f"K2 at C=256: {err}")
+    for dim in (192, 256, 384, 512):
+        for train in (False, True):
+            block = ConvNeXtBlock(dim, layer_scale_init_value=0.5).to(dev)
+            plain = ConvNeXtBlock(dim, layer_scale_init_value=0.5, fused_mlp=False).to(dev)
+            plain.load_state_dict(block.state_dict())
+            xb = torch.randn(2, 12, 12, dim, generator=g, device=dev).to(dt)
+            before = (fm.LAUNCHES, fm.BWD_LAUNCHES)
+            with torch.set_grad_enabled(train):
+                out, ref = block(xb), plain(xb)
+                if train:
+                    out.float().square().sum().backward()
+            torch.cuda.synchronize()
+            took = (fm.LAUNCHES - before[0], fm.BWD_LAUNCHES - before[1])
+            want = fm.kernel_takes(dim, dt, needs_grad=train)
+            err = max_err(out, ref)
+            print(f"ConvNeXtBlock({dim}, fused_mlp=None) bf16 {'forward + backward' if train else 'forward'}: "
+                  f"K2 launches {took} ({'kernels' if want else 'plain modules'}), max|diff| to "
+                  f"the plain modules {err:.3e}", flush=True)
+            check(took == (int(want), int(want and train)), f"block {dim} train={train}: {took}")
+            check(torch.isfinite(out).all().item() and err <= 2 * K2_TOL[dt], f"block {dim}: {err}")
+            check(not train or all(p.grad is not None and torch.isfinite(p.grad).all().item()
+                                   for p in block.parameters()), f"block {dim} gradients")
+    forced = ConvNeXtBlock(288, fused_mlp=True).to(dev)
+    try:
+        with torch.no_grad():
+            forced(torch.randn(1, 8, 8, 288, device=dev))
+    except ValueError as e:
+        print(f"ConvNeXtBlock(288, fused_mlp=True) raises: {e}", flush=True)
+        check("C=288" in str(e), f"the error names the width: {e}")
+    else:
+        check(False, "ConvNeXtBlock(288, fused_mlp=True) did not raise")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -413,6 +518,8 @@ def check_split_backward(dev, fa) -> dict:
 def check_block_kernel(dev, fb) -> dict:
     """K3 against its plain version at the two ConvNeXt stages' shapes and a
     small odd one, the residual always on, both GELUs."""
+    from linnaeus_tpu_torch import _kernels
+
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rec = {"max_abs_err": 0.0}
     for dt in (torch.float32, torch.bfloat16):
@@ -422,29 +529,48 @@ def check_block_kernel(dev, fb) -> dict:
             args = (0.2 * randn(C, 1, 7, 7), 0.1 * randn(C), 1.0 + 0.1 * randn(C),
                     0.1 * randn(C), (0.1 * randn(4 * C, C)).to(dt), 0.1 * randn(4 * C),
                     (0.1 * randn(C, 4 * C)).to(dt), 0.1 * randn(C), 0.5 + 0.1 * randn(C))
+            route = fb.forward_kernel(C, dt)
+            reported = _kernels.library().lt_fused_convnext_block_fwd_route(
+                C, 4 * C, _kernels.DTYPE_CODES[dt])
+            check(fb.fused_mlp.KERNELS[1 - reported] == route,
+                  f"K3 tail route: the library reports {reported}, the rule says {route}")
+            check(route == ("wgmma" if dt == torch.bfloat16 else "cuda_cores"),
+                  f"K3 {dt} C={C} runs its tail on {route}")
+            iters = 20 if route == "wgmma" else 5
             for approx in (True, False):
                 out = fb.fused_convnext_block(x, *args, approximate_gelu=approx)
                 torch.cuda.synchronize()
                 ref = fb.fused_convnext_block_reference(x, *args, 1e-6, approx)
                 err = max_err(out, ref)
                 del ref
-                ms = cuda_ms(lambda: fb.fused_convnext_block(x, *args, approximate_gelu=approx),
-                             iters=5)
+                ms, spread = cuda_ms_median(
+                    lambda: fb.fused_convnext_block(x, *args, approximate_gelu=approx),
+                    iters=iters)
                 plain_ms = cuda_ms(
                     lambda: fb.fused_convnext_block_reference(x, *args, 1e-6, approx), iters=2)
                 print(f"K3 fused_convnext_block {str(dt)[6:]} (B,H,W,C)={(B, H, W, C)} "
-                      f"gelu={'tanh' if approx else 'erf'}: max|err| {err:.3e} "
-                      f"(tol {K2_TOL[dt]:g}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-                      flush=True)
+                      f"gelu={'tanh' if approx else 'erf'} (tail on {route}): max|err| {err:.3e} "
+                      f"(tol {K2_TOL[dt]:g}), kernel {ms:.4f} ms (median of 3 x {iters} calls, "
+                      f"spread {spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
                 check(torch.isfinite(out).all().item(), f"K3 {dt} finite")
                 check(err <= K2_TOL[dt], f"K3 {dt} {(B, H, W, C)} error {err}")
                 if dt == torch.bfloat16:
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                    timed = dict(ms=ms, plain_ms=plain_ms, shape=[B, H, W, C],
-                                 library_ms=None, **k3_bound((B, H, W, C), dt))
-                    if approx and (B, H, W, C) == K3_SHAPES[0]:
+                    if not (approx and B == BATCH):
+                        continue
+                    # the block as a chain of PyTorch's own operators in bf16
+                    # (conv2d, layer norm by hand, linear, gelu, linear): the
+                    # yardstick of several calls, as tools/fused_block_ab times it
+                    chain_ms = cuda_ms_median(
+                        lambda: fb.convnext_block_chain(x, *args, 1e-6, approx), iters=10)[0]
+                    print(f"   the bf16 library chain (several calls) on the same operands: "
+                          f"{chain_ms:.4f} ms", flush=True)
+                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, H, W, C],
+                                 library_ms=None, library_chain_ms=chain_ms,
+                                 **k3_bound((B, H, W, C), dt))
+                    if (B, H, W, C) == K3_SHAPES[0]:
                         rec.update(timed)
-                    elif approx and B == BATCH:
+                    else:
                         rec.setdefault("other_shapes", []).append(timed)
     return rec
 
@@ -562,6 +688,9 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
 
 
 def serving_config():
+    """Every inference option at its default (the hierarchical-consistency
+    pass on, data_parallel "auto") but for the batch size, which is the
+    deployment's."""
     from linnaeus_tpu_torch.inference.config import InferenceConfig
 
     return InferenceConfig.from_dict({
@@ -578,9 +707,29 @@ def serving_config():
                                    "use_elevation": True},
         "taxonomy_data": {"taxonomy_tree_path": "-", "class_index_map_path": "-",
                           "source_name": "synthetic"},
-        "inference_options": {"default_top_k": 5, "batch_size": BATCH,
-                              "enable_hierarchical_consistency_check": False},
+        "inference_options": {"batch_size": BATCH},
     })
+
+
+def serving_taxonomy(cfg):
+    """A seeded random taxonomy over the four tasks (fine -> coarse): every
+    class but the null class 0 gets a parent among the next coarser rank's
+    classes; taxon ids are 100000 * rank + class index. Returns the
+    handler's taxonomy data and class maps."""
+    from linnaeus_tpu_torch.inference.artifacts import class_index_maps, taxonomy_data
+    from linnaeus_tpu_torch.utils.taxonomy import TaxonomyTree
+
+    rng = np.random.default_rng(SEED + 7)
+    keys = list(TASKS)
+    hierarchy = {child: {c: int(rng.integers(1, TASKS[parent])) for c in range(1, TASKS[child])}
+                 for child, parent in zip(keys[:-1], keys[1:])}
+    tree = TaxonomyTree(hierarchy, keys, dict(TASKS))
+    raw = {t: {str(i): 100000 * int(t.split("_L")[1]) + i for i in range(n)}
+           for t, n in TASKS.items()}
+    m = cfg.model
+    maps = class_index_maps(raw, m.model_task_keys_ordered, m.num_classes_per_task,
+                            m.null_class_indices)
+    return taxonomy_data(tree, cfg.taxonomy_data.source_name), maps
 
 
 def requests(n: int, rng: np.random.Generator):
@@ -591,15 +740,34 @@ def requests(n: int, rng: np.random.Generator):
     return images, metas
 
 
-def check_results(results, n: int) -> None:
+def check_results(results, n: int, taxonomy, maps) -> int:
+    """Shape and range of every result, and the tree: below the coarsest
+    rank a top taxon is null or a child of the coarser rank's top taxon.
+    Returns how many task results the consistency pass nulled."""
     check(len(results) == n, f"{len(results)} results for {n} images")
+    tree, nulled = taxonomy.taxonomy_tree, 0
     for r in results:
         check([t.task_key for t in r.tasks] == list(TASKS), "task keys")
+        check(r.taxonomy_context["source"] == taxonomy.source, "taxonomy context")
         for t in r.tasks:
             probs = [p for _, p in t.predictions]
-            check(len(probs) == min(5, TASKS[t.task_key]), f"top-k length {len(probs)}")
+            was_nulled = t.predictions == [(maps.null_taxon_ids[t.rank_level], 1.0)]
+            nulled += was_nulled
+            check(was_nulled or len(probs) == min(5, TASKS[t.task_key]),
+                  f"top-k length {len(probs)}")
             check(all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in probs), f"probabilities {probs}")
             check(probs == sorted(probs, reverse=True), "probabilities sorted")
+        for fine, coarse in zip(r.tasks[:-1], r.tasks[1:]):
+            top_f, top_c = fine.predictions[0][0], coarse.predictions[0][0]
+            if top_f == maps.null_taxon_ids[fine.rank_level]:
+                continue
+            check(top_c != maps.null_taxon_ids[coarse.rank_level],
+                  f"{fine.task_key} is not null under a null {coarse.task_key}")
+            child = (fine.task_key, maps.taxon_id_to_idx[fine.rank_level][top_f])
+            parent = (coarse.task_key, maps.taxon_id_to_idx[coarse.rank_level][top_c])
+            check(tree.get_parent(child) == parent,
+                  f"{child} on top under {parent}, whose child it is not")
+    return nulled
 
 
 def compare_forward(on, off, dt, n: int, dev) -> tuple[float, dict]:
@@ -626,7 +794,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from linnaeus_tpu_torch import _kernels
-    from linnaeus_tpu_torch.inference.artifacts import class_index_maps
     from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
     from linnaeus_tpu_torch.inference.model_utils import build_model_for_inference
     from linnaeus_tpu_torch.ops import flash_attention as fa
@@ -656,15 +823,18 @@ def main() -> int:
     rec_bwd = check_backward_kernels(dev, fa, fm)
     rec_split = check_split_backward(dev, fa)
     rec_block = check_block_kernel(dev, fb)
+    check_width_rule(dev, fm)
 
-    # 3. serve mFormerV1_sm through the handler, kernels on
+    # 3. serve mFormerV1_sm through the handler with its default options
+    # (the hierarchical-consistency pass on), kernels on
     cfg = serving_config()
+    opts = cfg.inference_options
+    check(opts.enable_hierarchical_consistency_check and opts.data_parallel == "auto",
+          "the serving phase runs with the default inference options")
     model = build_model_for_inference(cfg, dtype=torch.bfloat16, device=dev,
                                       use_flash_attn=True, fused_convnext_mlp=None, seed=SEED)
-    m = cfg.model
-    maps = class_index_maps({}, m.model_task_keys_ordered, m.num_classes_per_task,
-                            m.null_class_indices)
-    handler = LinnaeusInferenceHandler(cfg, model, maps)
+    taxonomy, maps = serving_taxonomy(cfg)
+    handler = LinnaeusInferenceHandler(cfg, model, taxonomy, maps)
     rng = np.random.default_rng(SEED)
     reqs = [requests(n, rng) for n in (1, 7, 64)]
     fa.LAUNCHES = fm.LAUNCHES = 0
@@ -672,8 +842,10 @@ def main() -> int:
     launches = {"K1": fa.LAUNCHES, "K2": fm.LAUNCHES}
     print(f"served requests of 1, 7, 64 images; launches K1 {launches['K1']}, "
           f"K2 {launches['K2']} over 3 forwards", flush=True)
-    for (images, _), results in zip(reqs, answers):
-        check_results(results, len(images))
+    nulled = sum(check_results(results, len(images), taxonomy, maps)
+                 for (images, _), results in zip(reqs, answers))
+    print(f"every result obeys the taxonomy tree; the consistency pass nulled {nulled} of "
+          f"{72 * len(TASKS)} task results (random weights)", flush=True)
     check(launches == {"K1": 3 * K1_PER_FORWARD, "K2": 3 * K2_PER_FORWARD},
           f"launch counts {launches}")
     again = handler.predict(*reqs[1])
@@ -738,7 +910,7 @@ def main() -> int:
         (rec_bwd["K1"], "K1_bwd", "flash_attention_bwd",
          "linnaeus_tpu_torch/csrc/flash_attention_bwd.cu", "linnaeus_tpu/ops/flash_attention.py:156"),
         (rec["K2"], "K2", "fused_convnext_mlp_fwd",
-         "linnaeus_tpu_torch/csrc/fused_mlp_fwd.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
+         "linnaeus_tpu_torch/csrc/fused_mlp_fwd_wgmma.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
         (rec_bwd["K2"], "K2_bwd", "fused_convnext_mlp_bwd",
          "linnaeus_tpu_torch/csrc/fused_mlp_bwd_wgmma.cu", "linnaeus_tpu/ops/fused_mlp.py:155"),
         (rec_split["dq"], "K1_dq", "flash_attention_bwd_dq",
@@ -760,6 +932,7 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "ms_spread": r.get("ms_spread"),
+                        "library_chain_ms": r.get("library_chain_ms"),
                         "serving_launches": launches.get(key),
                         "launches_512px": trained_large.get(key), "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})

@@ -44,6 +44,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lt_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "lt_fused_mlp_fwd": [_P] * 10 + [_L, _I, _I, _F, _I, _I, _P],
+    "lt_fused_mlp_fwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
     "lt_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_fused_mlp_bwd": [_P] * 3 + [_L, _I, _I, _F, _I, _I, _I, _I, _P],
     "lt_fused_mlp_bwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "lt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_fused_convnext_block_fwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    "lt_fused_convnext_block_fwd_route": [_I, _I, _I],  # returns 1 (wgmma tail) or 0
 }
 
 

@@ -172,30 +172,6 @@ __device__ __forceinline__ void load_w2_async(uint32_t tile, const bf16* w2, int
   }
 }
 
-// acc (64 x 64) = A B^T over an inner dimension of 16 * steps columns, A and
-// B wide tiles read K-major.
-__device__ __forceinline__ void product_along_width(float (&acc)[32], uint32_t a, uint32_t b,
-                                                    int steps) {
-  for (int ks = 0; ks < steps; ++ks) {
-    const uint32_t atom = (ks >> 2) * hp::kTileBytes;
-    hp::wgmma_ss_n64<0, 0>(acc, hp::descriptor(a + atom) + hp::k_major_step(ks & 3),
-                           hp::descriptor(b + atom) + hp::k_major_step(ks & 3), ks > 0);
-  }
-}
-
-// One accumulator fragment to bf16 pairs, the A fragments of the next
-// product: pairs[2 j + half] from elements 4 j + 2 half + {0, 1}.
-template <typename F>
-__device__ __forceinline__ void to_fragments(uint32_t (&pairs)[16], F value) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = 4 * j + 2 * half;
-      pairs[2 * j + half] = hp::pack_bf16(value(i, j, half, 0), value(i + 1, j, half, 1));
-    }
-}
-
 template <int kAtoms>
 struct RowPass {
   static constexpr int kTile = kAtoms * hp::kTileBytes;  // 64 x (64 kAtoms) bf16
@@ -284,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // a1[4 j + 2 half + e]: row + 8 half, hidden column hc + 8 j + col + e
       float a1[32], dh1[32];
       hp::wgmma_fence();
-      product_along_width(a1, h0_tile, w1_tile, steps);
+      hp::product_along_width(a1, h0_tile, w1_tile, steps);
       hp::wgmma_commit();
       if (group == 1) {
         // dh1 runs while GELU' of a1 is evaluated
@@ -305,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         bias[j] = *reinterpret_cast<const float2*>(b1 + hc + 8 * j + col);
       uint32_t frag[16];
       if (group == 0) {
-        to_fragments(frag, [&](int i, int j, int, int e) {
+        hp::to_fragments(frag, [&](int i, int j, int, int e) {
           return gelu<true>(a1[i] + (e ? bias[j].y : bias[j].x), approximate);
         });
         // a2 += h1 W2c^T: the W2 tile K-major, 64 of its rows a product
@@ -325,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             a1[i] = gelu_grad<true>(a1[i] + (i & 1 ? bias[j].y : bias[j].x), approximate);
         hp::wgmma_wait_all();
         hp::fence_registers(dh1);
-        to_fragments(frag, [&](int i, int, int, int) { return dh1[i] * a1[i]; });
+        hp::to_fragments(frag, [&](int i, int, int, int) { return dh1[i] * a1[i]; });
         // dh0 += da1 W1c: the W1 tile MN-major, one atom of its columns a product
         hp::wgmma_fence();
 #pragma unroll
@@ -531,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // a1t[4 j + 2 half + e]: hidden row + 8 half, row row0 + 8 j + col + e
     float a1t[32], dh1t[32];
     hp::wgmma_fence();
-    product_along_width(a1t, w1_tile, h0_tile, steps);
+    hp::product_along_width(a1t, w1_tile, h0_tile, steps);
     hp::wgmma_commit();
     if (group == 1) {
       // dh1^T = W2c^T d2^T, the W2 tile as a transposed A operand, runs
@@ -551,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t frag[16];
     uint32_t other;  // the tile whose rows the fragments meet
     if (group == 0) {
-      to_fragments(frag, [&](int i, int, int half, int) {
+      hp::to_fragments(frag, [&](int i, int, int half, int) {
         return gelu<true>(a1t[i] + bias[half], approximate);
       });
       other = d2_tile;  // dW2c^T += h1^T d2
@@ -561,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         a1t[i] = gelu_grad<true>(a1t[i] + bias[(i >> 1) & 1], approximate);
       hp::wgmma_wait_all();
       hp::fence_registers(dh1t);
-      to_fragments(frag, [&](int i, int, int half, int) {
+      hp::to_fragments(frag, [&](int i, int, int half, int) {
         const float da1 = dh1t[i] * a1t[i];
         db1[half] += da1;
         return da1;

@@ -17,18 +17,20 @@
 // (M, 4C) intermediate, 8x the bytes of y, while the fused form moves only
 // y, the residual and the output; at C = 96 and 192 the two products do
 // 16 C operations per element moved, so once the intermediate stays on the
-// chip the kernel is bound by arithmetic. This first version keeps it
-// simple: one block per 64-row tile normalises its rows into shared memory,
-// then walks the hidden dim in 64-column chunks, each chunk's GELU tile
-// living in shared memory only; the products run as float32 FMAs on the
-// CUDA cores from shared-memory tiles (each thread owns a 4-row strip of
-// the output tile in registers). Tensor cores (wgmma) come in a later
-// change. The tile's LayerNorm and MLP tail are device code shared with K3
-// (fused_mlp_body.cuh).
+// chip the kernel is bound by arithmetic. bfloat16 at the widths of
+// `lt::mlp_fwd_takes_wgmma` goes to the tensor-core kernel of
+// fused_mlp_fwd_wgmma.cu. This file holds the entry point and the kernel for
+// everything else (float32, whose 1e-5 bar no tensor-core product keeps, and
+// the odd widths): one block per 64-row tile normalises its rows into shared
+// memory, then walks the hidden dim in 64-column chunks, each chunk's GELU
+// tile living in shared memory only; the products run as float32 FMAs on the
+// CUDA cores from shared-memory tiles (each thread owns a 4-row strip of the
+// output tile in registers). The tile's LayerNorm and MLP tail are device
+// code shared with K3 (fused_mlp_body.cuh).
 
 #include <stdint.h>
 
-#include "fused_mlp_body.cuh"
+#include "fused_mlp_body_wgmma.cuh"
 
 namespace {
 
@@ -140,6 +142,26 @@ extern "C" int lt_fused_mlp_fwd(const void* y, const void* x, const void* ln_w,
   if (M < 1 || C < 1 || C > kMaxC || Hd < 1) return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
+  if (lt::mlp_fwd_takes_wgmma(C, Hd, dtype)) {
+    lt::MlpFwdArgs a;
+    a.y = y;
+    a.x = x;
+    a.ln_w = f(ln_w);
+    a.ln_b = f(ln_b);
+    a.w1 = w1;
+    a.b1 = f(b1);
+    a.w2 = w2;
+    a.b2 = f(b2);
+    a.gamma = f(gamma);
+    a.out = out;
+    a.M = M;
+    a.C = C;
+    a.Hd = Hd;
+    a.eps = eps;
+    a.approximate = approximate != 0;
+    a.stream = s;
+    return lt::mlp_fwd_wgmma(a);
+  }
   switch (dtype) {
     case lt::kFloat32:
       return dispatch<float>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2, f(b2),
@@ -151,4 +173,10 @@ extern "C" int lt_fused_mlp_fwd(const void* y, const void* x, const void* ln_w,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// 1 where lt_fused_mlp_fwd launches the tensor-core kernel for this width,
+// hidden width and dtype code, 0 where the CUDA-core kernel.
+extern "C" int lt_fused_mlp_fwd_route(int C, int Hd, int dtype) {
+  return lt::mlp_fwd_takes_wgmma(C, Hd, dtype) ? 1 : 0;
 }

@@ -1,7 +1,9 @@
 // Hopper building blocks of the bf16 tensor-core kernels (K1's flash
-// attention, K2's backward), as inline PTX: 16-byte asynchronous copies into
-// 128-byte-swizzled shared-memory tiles, the shared-memory matrix descriptor
-// of `wgmma`, and the warpgroup matrix products.
+// attention, K2's forward and backward, K3's MLP tail), as inline PTX:
+// 16-byte asynchronous copies into 128-byte-swizzled shared-memory tiles,
+// tiles brought by the Tensor Memory Accelerator behind shared-memory
+// barriers, the shared-memory matrix descriptor of `wgmma`, and the
+// warpgroup matrix products.
 //
 // Every tile here has rows of 64 bf16 = 128 bytes, one swizzle atom: row r
 // lies at byte r * 128 of a 1024-byte-aligned tile and its 16-byte chunk c
@@ -97,6 +99,81 @@ __device__ __forceinline__ void load_wide_rows_async(uint32_t tile, const __nv_b
     const __nv_bfloat16* src = base + (live ? (r0 + r) * stride + c * 8 : 0);
     cp_async_16(tile + (c >> 3) * kTileBytes + swizzled(r, c & 7), src, live);
   }
+}
+
+// Asks for the 128-byte line at `p` to be brought into L2; nothing waits.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Shared-memory barriers (`mbarrier`, 8 bytes each) between a thread that
+// asks the Tensor Memory Accelerator for tiles and the warpgroups that read
+// them. A barrier's phase flips when its count of arrivals and its count of
+// awaited bytes are both met; a wait names the parity of the phase it wants
+// over: a new barrier is in phase 0, so waiting with parity 1 returns at once.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+// Makes the initialised barriers visible to the asynchronous proxy.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival, and `bytes` more to await from the copies that name the barrier.
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of parity `parity` is over. A wait that would never
+// end (a fault in the protocol) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > (1 << 24)) __trap();
+  }
+}
+
+// One box of a tensor map (a 64 x 64 bf16 box, written with the 128-byte
+// swizzle of the tiles above; what lies outside the tensor arrives as
+// zeros) from device memory into the tile at `dst`, by the Tensor Memory
+// Accelerator: one thread asks, nothing waits, and the box's bytes are
+// counted off `bar`. c0 is the box's first column, c1 its first row.
+__device__ __forceinline__ void tma_load_box(uint32_t dst, const void* tensor_map, uint32_t bar,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Hands registers between the warpgroups of a block whose roles differ: a
+// warpgroup that needs few gives down to kRegs a thread, one that needs many
+// takes up to kRegs (a multiple of 8; all four warps execute it together).
+template <int kRegs>
+__device__ __forceinline__ void give_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void take_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// A barrier among `threads` threads of the block (a multiple of 32), apart
+// from __syncthreads' own: `id` in 1 .. 15.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A 64 x 64 tile of bf16 pairs held as a wgmma accumulator fragment, written
@@ -212,6 +289,127 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       "}\n"
       : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x kN, float32) += A B with A (64 x 16 bf16) from registers, as
+// wgmma_rs_n64, and B a K-major tile of kN rows (128 bytes each, one after
+// the other): one instruction for the whole width, so that a chain of
+// k-steps is a few long instructions and not many short ones. d holds
+// kN / 2 registers: d[4 j + 2 half + e] is row 16 warp + lane / 4 + 8 half,
+// column 8 j + 2 (lane % 4) + e, j < kN / 8. kN: 64, 96, 128, 192 or 256.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<64>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<96>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<192>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56), HP_ACC8(d, 64), HP_ACC8(d, 72), HP_ACC8(d, 80), HP_ACC8(d, 88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<256>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56), HP_ACC8(d, 64), HP_ACC8(d, 72), HP_ACC8(d, 80), HP_ACC8(d, 88), HP_ACC8(d, 96), HP_ACC8(d, 104), HP_ACC8(d, 112), HP_ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// acc (64 x 64) = A B^T over an inner dimension of 16 * steps columns, A and
+// B wide tiles read K-major.
+__device__ __forceinline__ void product_along_width(float (&acc)[32], uint32_t a, uint32_t b,
+                                                    int steps) {
+  for (int ks = 0; ks < steps; ++ks) {
+    const uint32_t atom = (ks >> 2) * kTileBytes;
+    wgmma_ss_n64<0, 0>(acc, descriptor(a + atom) + k_major_step(ks & 3),
+                       descriptor(b + atom) + k_major_step(ks & 3), ks > 0);
+  }
+}
+
+// One accumulator fragment to bf16 pairs, the A fragments of the next
+// product: pairs[2 j + half] from value(i, j, half, e) of elements
+// i = 4 j + 2 half + e, e in {0, 1}.
+template <typename F>
+__device__ __forceinline__ void to_fragments(uint32_t (&pairs)[16], F value) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 4 * j + 2 * half;
+      pairs[2 * j + half] = pack_bf16(value(i, j, half, 0), value(i + 1, j, half, 1));
+    }
 }
 
 }  // namespace hp

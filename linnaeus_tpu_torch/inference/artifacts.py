@@ -1,8 +1,8 @@
-"""Class-index map artifacts.
+"""Artifact loaders: the taxonomy tree and the class-index maps.
 
-Port of the class-map half of linnaeus_tpu/inference/artifacts.py: rank
-levels are the integer of 'taxa_L{n}', and each rank maps class indices to
-taxon ids. The taxonomy-tree loader waits for the port of utils/taxonomy.
+Port of linnaeus_tpu/inference/artifacts.py: rank levels are the integer of
+'taxa_L{n}', each rank maps class indices to taxon ids, and the taxonomy
+tree comes with the names the results quote (source, version, root).
 """
 
 from __future__ import annotations
@@ -10,12 +10,46 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Any
+
+from linnaeus_tpu_torch.utils.taxonomy import TaxonomyTree
 
 
 def rank_level_from_task_key(task_key: str) -> int:
     """'taxa_L10' -> 10."""
     numeric = task_key.split("_L")[-1].replace("_", "").replace(".", "")
     return int("".join(ch for ch in numeric if ch.isdigit()))
+
+
+@dataclass
+class TaxonomyData:
+    """The taxonomy tree and what a result says about it."""
+
+    taxonomy_tree: TaxonomyTree
+    source: str
+    linnaeus_task_keys: list[str]
+    version: str | None = None
+    root_id: Any | None = None
+
+
+def taxonomy_data(tree: TaxonomyTree, source: str = "unknown", version: str | None = None,
+                  root_id: Any | None = None) -> TaxonomyData:
+    return TaxonomyData(taxonomy_tree=tree, source=source, linnaeus_task_keys=list(tree.task_keys),
+                        version=version, root_id=root_id)
+
+
+def load_taxonomy_tree_artifact(
+    taxonomy_file_path: str | Path,
+    taxonomy_source_name: str = "unknown",
+    taxonomy_version_name: str | None = None,
+    taxonomy_root_identifier: Any | None = None,
+) -> TaxonomyData:
+    """Load a taxonomy-tree JSON file (``TaxonomyTree.save``'s format)."""
+    path = Path(taxonomy_file_path)
+    if not path.is_file():
+        raise FileNotFoundError(f"Taxonomy tree file not found: {path}")
+    return taxonomy_data(TaxonomyTree.load(str(path)), taxonomy_source_name,
+                         taxonomy_version_name, taxonomy_root_identifier)
 
 
 @dataclass

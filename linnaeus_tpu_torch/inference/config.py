@@ -63,8 +63,8 @@ class InferenceOptionsConfig:
     enable_hierarchical_consistency_check: bool = True
     handler_version: str = "0.1.0"
     artifacts_source_uri: str | None = None
-    # this port serves on one device: "auto", 1 or "off"
-    data_parallel: int | str = "auto"
+    # this port serves on one device: "auto", 1, "1", "off", False or None
+    data_parallel: int | str | bool | None = "auto"
 
     def __post_init__(self):
         if self.default_top_k <= 0 or self.batch_size <= 0:

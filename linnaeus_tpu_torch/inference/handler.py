@@ -8,9 +8,14 @@ a float32 softmax and per-task top-k, all packed into one (B, 2 * n_tasks,
 k) float32 tensor that is fetched with one copy to the host. At most two
 chunks are in flight. Results are ``HierarchicalClassificationResult``s.
 
+With ``enable_hierarchical_consistency_check`` on (the default) every
+result goes through :func:`enforce_hierarchical_consistency` against the
+taxonomy tree the handler was given. ``data_parallel`` 1, "1", "off", False
+or None is one device, and "auto" resolves to one: this handler serves on
+one device.
+
 Not ported yet: ``load_from_artifacts`` (the TPU package's weights are a
-Flax msgpack), data-parallel serving, and the hierarchical-consistency pass
-(it needs the taxonomy tree); asking for either of the last two raises.
+Flax msgpack) and data-parallel serving over several devices, which raises.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .artifacts import ClassIndexMapData, rank_level_from_task_key
+from .artifacts import ClassIndexMapData, TaxonomyData, rank_level_from_task_key
 from .config import InferenceConfig
+from .postprocessing import enforce_hierarchical_consistency
 from .preprocessing import preprocess_image_batch, preprocess_metadata_batch
 from .schemas import (
     HierarchicalClassificationResult,
@@ -37,19 +43,29 @@ _MAX_INFLIGHT_CHUNKS = 2
 RequestOptions = InferenceRequestMetadata | list[InferenceRequestMetadata | None] | None
 
 
+def _resolve_data_parallel(spec) -> int:
+    """1, "1", "off", False, None and "auto" -> one device; anything else
+    asks for data-parallel serving, which this handler does not do."""
+    if spec in (1, "1", "off", False, None, "auto"):
+        return 1
+    raise NotImplementedError(f"data_parallel={spec!r}: this handler serves on one device")
+
+
 class LinnaeusInferenceHandler:
+    """``taxonomy_data`` may be None only with
+    ``inference_options.enable_hierarchical_consistency_check`` off."""
+
     def __init__(self, config: InferenceConfig, model: nn.Module,
-                 class_maps: ClassIndexMapData):
+                 taxonomy_data: TaxonomyData | None, class_maps: ClassIndexMapData):
         opts = config.inference_options
-        if opts.data_parallel not in (1, "1", "auto", "off"):
-            raise NotImplementedError(
-                f"data_parallel={opts.data_parallel!r}: this handler serves on one device"
+        self._dp = _resolve_data_parallel(opts.data_parallel)
+        if opts.enable_hierarchical_consistency_check and taxonomy_data is None:
+            raise ValueError(
+                "enable_hierarchical_consistency_check is on but taxonomy_data is None: "
+                "pass the taxonomy tree (inference.artifacts.load_taxonomy_tree_artifact) "
+                "or set the option to false"
             )
-        if opts.enable_hierarchical_consistency_check:
-            raise NotImplementedError(
-                "enable_hierarchical_consistency_check needs the taxonomy tree, "
-                "which is not ported yet; set it to false"
-            )
+        self.taxonomy = taxonomy_data
         self.config = config
         self.model = model.eval()
         self.class_maps = class_maps
@@ -191,15 +207,17 @@ class LinnaeusInferenceHandler:
                 for v, ci in zip(vals[:k], idx[:k])
             ]
             tasks.append(TaskPrediction(rank_level=rank, task_key=task, predictions=preds))
-        tax = self.config.taxonomy_data
-        return HierarchicalClassificationResult(
-            taxonomy_context={
-                "source": tax.source_name,
-                "version": tax.version,
-                "root": tax.root_identifier,
-            },
-            tasks=tasks,
-        )
+        if self.taxonomy is not None:
+            context = {"source": self.taxonomy.source, "version": self.taxonomy.version,
+                       "root": self.taxonomy.root_id}
+        else:
+            tax = self.config.taxonomy_data
+            context = {"source": tax.source_name, "version": tax.version,
+                       "root": tax.root_identifier}
+        result = HierarchicalClassificationResult(taxonomy_context=context, tasks=tasks)
+        if self.config.inference_options.enable_hierarchical_consistency_check:
+            result = enforce_hierarchical_consistency(result, self.taxonomy, self.class_maps)
+        return result
 
     def info(self) -> ModelInformation:
         mc = self.config.metadata_preprocessing

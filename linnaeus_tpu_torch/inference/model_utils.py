@@ -42,7 +42,16 @@ def build_model_for_inference(
     CUDA device: without one this raises unless the CPU is asked for. The
     plain attention path computes its scores in the compute dtype, the TPU
     package's serving default (``MODEL.ATTN_FP32_SOFTMAX: False``), unless
-    ``attn_fp32_softmax=True`` is passed."""
+    ``attn_fp32_softmax=True`` is passed. A config that sets
+    ``model.architecture_variant_config_path`` raises: merging a variant
+    file over the preset is not ported, and building the preset without it
+    would be a different model."""
+    if cfg.model.architecture_variant_config_path:
+        raise NotImplementedError(
+            "model.architecture_variant_config_path="
+            f"{cfg.model.architecture_variant_config_path!r}: merging an architecture "
+            "variant file is not ported; pass the merged architecture as `arch`"
+        )
     c, h, w = cfg.input_preprocessing.image_size
     if h != w:
         raise ValueError(f"square images only, got {h}x{w}")

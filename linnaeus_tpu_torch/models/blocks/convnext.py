@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp
+from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp, kernel_takes
 
 from .common import Conv2d, DropPath, LayerNorm, Linear, gelu
 
@@ -25,8 +25,14 @@ def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class ConvNeXtBlock(nn.Module):
     """``fused_mlp``: True sends the LN -> MLP -> layer-scale tail through
-    K2, False through plain modules, None through K2 for CUDA tensors and
-    plain modules otherwise. The parameters are the same either way."""
+    K2, False through plain modules. None (the default) chooses by shape
+    before anything is launched: K2 for a CUDA tensor at a width its kernels
+    take (``ops.fused_mlp.kernel_takes``: float32 or bfloat16, ``dim`` up to
+    256, and up to 192 where a gradient is wanted, the widest backward whose
+    tiles fit an SM's shared memory), plain modules for a CPU tensor and
+    past those widths (the lg and xl presets' later stages). True at a
+    width the kernels do not take raises a ValueError that names the width.
+    The parameters are the same either way."""
 
     def __init__(self, dim: int, drop_path: float = 0.0,
                  layer_scale_init_value: float = 1e-6, act_exact: bool = False,
@@ -47,7 +53,11 @@ class ConvNeXtBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
         y = _conv_nhwc(self.dwconv, x)
-        use_fused = self.fused_mlp if self.fused_mlp is not None else y.is_cuda
+        use_fused = self.fused_mlp
+        if use_fused is None:
+            needs_grad = torch.is_grad_enabled() and (
+                y.requires_grad or any(p.requires_grad for p in self.parameters()))
+            use_fused = y.is_cuda and kernel_takes(y.shape[-1], y.dtype, needs_grad)
         if use_fused:
             return self._fused_tail(y, residual)
         y = self.norm(y)

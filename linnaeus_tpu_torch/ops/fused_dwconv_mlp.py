@@ -5,7 +5,10 @@ Port of linnaeus_tpu/ops/fused_dwconv_mlp.py: ``_block_kernel`` (via
 Linear(4C) -> GELU (tanh or erf) -> Linear(C) -> x gamma -> + the block's
 input, on NHWC activations. Neither the convolution's output nor the
 (M, 4C) hidden tensor reaches device memory. The kernel is
-``csrc/fused_dwconv_mlp_fwd.cu``; it shares the LN -> MLP body with K2.
+``csrc/fused_dwconv_mlp_fwd.cu``; it shares the LN -> MLP body with K2: in
+bfloat16 at K2's tensor-core widths the tail after the convolution is K2's
+``wgmma`` tail, in float32 and at the other widths its CUDA-core tail
+(:func:`forward_kernel`).
 
 Parameters use the torch layouts of the block's modules: the depthwise
 weight (C, 1, 7, 7), ``pwconv1`` (4C, C), ``pwconv2`` (C, 4C).
@@ -27,13 +30,21 @@ import torch
 import torch.nn.functional as F
 
 from linnaeus_tpu_torch import _kernels
-from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp_reference
+from linnaeus_tpu_torch.ops import fused_mlp
 
 MAX_WIDTH = 192  # widest C whose tile and window fit an SM's shared memory
 MIN_SIDE = 7  # smallest H and W: one full kernel footprint
 
 # kernel launches in this process: the proof that a path went through K3
 LAUNCHES = 0
+
+
+def forward_kernel(C: int, dtype: torch.dtype, hidden: int | None = None) -> str:
+    """"wgmma" or "cuda_cores": where the kernel runs its MLP tail for width
+    ``C``, hidden width ``hidden`` (4C if None) and ``dtype``: K2's rule up
+    to this kernel's own widest C. The same rule as ``block_takes_wgmma`` in
+    ``csrc/fused_dwconv_mlp_fwd.cu``."""
+    return fused_mlp.forward_kernel(C, dtype, hidden) if C <= MAX_WIDTH else "cuda_cores"
 
 
 def _taps(dw_weight: torch.Tensor) -> torch.Tensor:
@@ -71,7 +82,7 @@ def fused_convnext_block_reference(
         for dw in range(7):
             y += padded[:, dh:dh + H, dw:dw + W, :] * taps[dh * 7 + dw]
     y = y + dw_bias.float()
-    out = fused_convnext_mlp_reference(
+    out = fused_mlp.fused_convnext_mlp_reference(
         y.reshape(-1, C), x.reshape(-1, C), ln_w.float(), ln_b.float(), w1, b1.float(),
         w2, b2.float(), gamma.float(), eps, approximate, dtype=x.dtype,
     )
@@ -230,3 +241,11 @@ def _check_operands(x, dw_weight, dw_bias, ln_w, ln_b, w1, b1, w2, b2, gamma) ->
     for name, t in (("w1", w1), ("w2", w2)):
         if not t.is_contiguous():
             raise ValueError(f"fused_convnext_block: {name} must be contiguous")
+    if forward_kernel(C, x.dtype, Hd) == "wgmma":
+        # the tensor-core tail copies and stores 16 bytes at a time
+        for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"fused_convnext_block: {name} is misaligned for the bfloat16 kernel: its "
+                    f"first element lies {t.data_ptr() % 16} bytes past a 16-byte boundary"
+                )

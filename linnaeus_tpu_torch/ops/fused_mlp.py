@@ -6,20 +6,23 @@ Port of linnaeus_tpu/ops/fused_mlp.py: the forward ``_body`` (via
 x gamma [-> + residual], and the backward ``_bwd_kernel`` (via
 ``_pallas_bwd``), which recomputes the forward in the tile. Both are tiled
 over rows so the (M, 4C) intermediates never reach device memory. The
-kernels are ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu`` and
-``csrc/fused_mlp_bwd_wgmma.cu``.
+kernels are ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_fwd_wgmma.cu``,
+``csrc/fused_mlp_bwd.cu`` and ``csrc/fused_mlp_bwd_wgmma.cu``.
 
-Both directions are bound by arithmetic on the H100 (8 M C^2 operations
-forward and 32 M C^2 backward for a few M C elements moved). The backward
-runs on the tensor cores where it can: in bfloat16 with C a multiple of 32
-every one of its products is a ``wgmma`` from swizzled shared-memory tiles
-filled by asynchronous copies, two warpgroups a block that split the work by
-side, after a prologue kernel that writes LN(y) and dout * gamma once as
-bfloat16 (M, C) into the workspace. float32 (no tensor-core product keeps
-its 2e-5 bar) and the other widths run float32 FMAs on the CUDA cores, as
-the forward does in both dtypes. :func:`backward_kernel` holds that rule;
-both routes sum in a fixed order, so the gradients are the same from run to
-run.
+Both directions are bound by arithmetic on the H100 (16 M C^2 operations
+forward and 48 M C^2 backward for a few M C elements moved), and both run on
+the tensor cores where they can: in bfloat16 with C a multiple of 32 every
+product is a ``wgmma`` from swizzled shared-memory tiles filled by
+asynchronous copies. The forward is one persistent kernel (LN by the block,
+the weight chunks through a ring, GELU in registers between the two
+products); the backward is two passes of two warpgroups a block that split
+the work by side, after a prologue kernel that writes LN(y) and dout * gamma
+once as bfloat16 (M, C) into the workspace. float32 (no tensor-core product
+keeps its 1e-5 and 2e-5 bars) and the other widths run float32 FMAs on the
+CUDA cores. :func:`forward_kernel` and :func:`backward_kernel` hold those
+rules, and :func:`kernel_takes` says which widths the kernels take at all;
+every route sums in a fixed order, so outputs and gradients are the same
+from run to run.
 
 Weights use the torch Linear layout of the block's ``pwconv1`` (4C, C) and
 ``pwconv2`` (C, 4C). ``fused_convnext_mlp`` is differentiable: a
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 
 from linnaeus_tpu_torch import _kernels
 
-MAX_WIDTH = 256  # widest C the forward kernel's column split covers
+MAX_WIDTH = 256  # widest C of both forward kernels (the column split; the tiles)
 MAX_WIDTH_BWD = 192  # widest C whose backward tiles fit an SM's shared memory
 
 # kernel launches in this process (forward, backward): the proof that a path
@@ -82,8 +85,26 @@ def fused_convnext_mlp_reference(
     return out.to(dt)
 
 
-BWD_KERNELS = ("wgmma", "cuda_cores")
-WGMMA_WIDTH_STEP = 32  # the tensor-core backward takes C = 32, 64, .. MAX_WIDTH_BWD
+KERNELS = BWD_KERNELS = ("wgmma", "cuda_cores")
+WGMMA_WIDTH_STEP = 32  # the tensor-core kernels take C = 32, 64, .. their widest
+
+
+def _fills_wgmma_tiles(C: int, dtype: torch.dtype, hidden: int | None, widest: int) -> bool:
+    """bfloat16 at widths that fill whole 32-column half atoms, up to
+    ``widest``, and whole 64-column hidden chunks."""
+    hidden = 4 * C if hidden is None else hidden
+    return (dtype == torch.bfloat16 and WGMMA_WIDTH_STEP <= C <= widest
+            and C % WGMMA_WIDTH_STEP == 0 and hidden >= 64 and hidden % 64 == 0)
+
+
+def forward_kernel(C: int, dtype: torch.dtype, hidden: int | None = None) -> str:
+    """"wgmma" or "cuda_cores": the kernel that the forward launches for
+    width ``C``, hidden width ``hidden`` (4C if None) and ``dtype``. The
+    tensor-core kernel takes bfloat16 at C = 32, 64, .. MAX_WIDTH with whole
+    64-column hidden chunks; everything else keeps the CUDA-core kernel. A
+    rule on dtype and shape alone, the same as ``lt::mlp_fwd_takes_wgmma``
+    in ``csrc/fused_mlp_body_wgmma.cuh``."""
+    return "wgmma" if _fills_wgmma_tiles(C, dtype, hidden, MAX_WIDTH) else "cuda_cores"
 
 
 def backward_kernel(C: int, dtype: torch.dtype, hidden: int | None = None) -> str:
@@ -93,10 +114,16 @@ def backward_kernel(C: int, dtype: torch.dtype, hidden: int | None = None) -> st
     half atoms and whole 64-column hidden chunks; everything else keeps the
     CUDA-core kernels. A rule on dtype and shape alone, the same as
     ``lt::mlp_bwd_takes_wgmma`` in ``csrc/fused_mlp_bwd.cuh``."""
-    hidden = 4 * C if hidden is None else hidden
-    wide = (dtype == torch.bfloat16 and WGMMA_WIDTH_STEP <= C <= MAX_WIDTH_BWD
-            and C % WGMMA_WIDTH_STEP == 0 and hidden >= 64 and hidden % 64 == 0)
-    return "wgmma" if wide else "cuda_cores"
+    return "wgmma" if _fills_wgmma_tiles(C, dtype, hidden, MAX_WIDTH_BWD) else "cuda_cores"
+
+
+def kernel_takes(C: int, dtype: torch.dtype, needs_grad: bool) -> bool:
+    """Whether the kernels take width ``C`` in ``dtype``: float32 or
+    bfloat16 up to the forward kernels' MAX_WIDTH and, where a gradient is
+    wanted, up to the backward kernels' MAX_WIDTH_BWD. The shape rule by
+    which a ConvNeXt block chooses, before any launch, between K2 and its
+    plain modules."""
+    return dtype in _kernels.DTYPE_CODES and 1 <= C <= (MAX_WIDTH_BWD if needs_grad else MAX_WIDTH)
 
 
 def _gelu_grad(a: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -301,6 +328,7 @@ def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
     }
     if x2 is not None:
         expected["residual"] = (x2, (M, C), y2.dtype)
+    wide = forward_kernel(C, y2.dtype, Hd) == "wgmma"
     for name, (t, shape, dtype) in expected.items():
         if t.device != y2.device:
             raise ValueError(f"fused_convnext_mlp: {name} is on {t.device}, y on {y2.device}")
@@ -311,3 +339,9 @@ def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"fused_convnext_mlp: {name} must be contiguous")
+        # the tensor-core kernels copy and store 16 bytes at a time
+        if wide and t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(
+                f"fused_convnext_mlp: {name} is misaligned for the bfloat16 kernels: its "
+                f"first element lies {t.data_ptr() % 16} bytes past a 16-byte boundary"
+            )

@@ -50,7 +50,7 @@ PORT_KERNELS = (
     "flash_fwd_wgmma_kernel", "flash_fwd_fp32_kernel", "flash_bwd_wgmma_kernel",
     "flash_bwd_fp32_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_fp32_kernel",
     "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_fp32_kernel", "delta_kernel",
-    "dq_finish_kernel", "fused_mlp_kernel", "mlp_bwd_prologue_kernel",
+    "dq_finish_kernel", "fused_mlp_wgmma_kernel", "fused_mlp_kernel", "mlp_bwd_prologue_kernel",
     "mlp_bwd_rows_wgmma_kernel", "mlp_bwd_weights_wgmma_kernel", "mlp_bwd_rows_kernel",
     "mlp_bwd_weights_kernel", "mlp_bwd_reduce_kernel",
 )

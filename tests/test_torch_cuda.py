@@ -15,9 +15,12 @@ bf16 step or two). The split backward's dQ and dK/dV kernels and K3 (the
 fused ConvNeXt block, held to K2's bars) are checked the same way. In
 bfloat16 all four K1 kernels run on the tensor cores and are held at every
 K1 shape of chip_smoke.py and around the tile edges; float32 stays on the
-CUDA cores at its 2e-5. K2's backward runs on the tensor cores in bfloat16
-at widths that are multiples of 32 and on the CUDA cores otherwise; the C
-side's report of that route is held against the Python rule.
+CUDA cores at its 2e-5. K2's forward and backward and K3's MLP tail run on
+the tensor cores in bfloat16 at widths that are multiples of 32 (up to 256,
+192 and 192) and on the CUDA cores otherwise; the C side's reports of those
+routes are held against the Python rules, the tensor-core forward around
+its 64-row tile and 64-column atom edges, and a ConvNeXt block left to
+choose its route at the lg and xl presets' widths.
 """
 
 import numpy as np
@@ -101,6 +104,117 @@ def test_k2_rejects_what_it_does_not_take(dev):
         fm.fused_convnext_mlp(y, None, torch.ones(C, device=dev), torch.zeros(C, device=dev),
                               w, torch.zeros(4 * C, device=dev), w.t().contiguous(),
                               torch.zeros(C, device=dev), None)
+
+
+def _k2_args(dev, M, C, dtype, seed=None, hidden=None):
+    g = torch.Generator(device=dev).manual_seed(C if seed is None else seed)
+    Hd = 4 * C if hidden is None else hidden
+    y, x = (torch.randn(M, C, generator=g, device=dev).to(dtype) for _ in range(2))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    w1 = (0.1 * torch.randn(Hd, C, generator=g, device=dev)).to(dtype)
+    w2 = (0.1 * torch.randn(C, Hd, generator=g, device=dev)).to(dtype)
+    return [y, x, vec(C, 0.1, 1.0), vec(C, 0.1), w1, vec(Hd, 0.1), w2, vec(C, 0.1),
+            vec(C, 0.1, 0.5)]
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 128, 129, 200, 64 * 150 + 7])
+@pytest.mark.parametrize("C", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("residual,approximate", [(True, True), (False, True), (True, False)])
+def test_k2_bf16_tensor_core_forward_matches_plain(dev, M, C, residual, approximate):
+    """Around the 64-row tile edges (and past one block's rows), at every
+    half atom of width, the same bits twice."""
+    dtype = torch.bfloat16
+    assert fm.forward_kernel(C, dtype) == "wgmma"
+    args = _k2_args(dev, M, C, dtype, seed=M + C)
+    if not residual:
+        args[1] = None
+    before = fm.LAUNCHES
+    out = fm.fused_convnext_mlp(*args, approximate_gelu=approximate)
+    again = fm.fused_convnext_mlp(*args, approximate_gelu=approximate)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == before + 2
+    ref = fm.fused_convnext_mlp_reference(*args, 1e-6, approximate)
+    assert out.shape == (M, C) and out.dtype == dtype and torch.isfinite(out).all()
+    assert _max_err(out, ref) <= K2_TOL[dtype]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("hidden", [64, 192, 320])
+def test_k2_bf16_tensor_core_forward_takes_any_whole_hidden_chunks(dev, hidden):
+    """One chunk, an odd number of chunks, and a hidden width that is not 4C."""
+    args = _k2_args(dev, 150, 96, torch.bfloat16, hidden=hidden)
+    assert fm.forward_kernel(96, torch.bfloat16, hidden) == "wgmma"
+    out = fm.fused_convnext_mlp(*args)
+    torch.cuda.synchronize()
+    assert _max_err(out, fm.fused_convnext_mlp_reference(*args, 1e-6, True)) <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 32, 40, 64, 96, 128, 160, 192, 224, 256])
+def test_forward_routes_reported_by_the_library_are_the_python_rules(dev, dtype, C):
+    from linnaeus_tpu_torch import _kernels
+
+    lib, code = _kernels.library(), _kernels.DTYPE_CODES[dtype]
+    for hidden in (4 * C, 4 * C + 8):
+        reported = lib.lt_fused_mlp_fwd_route(C, hidden, code)
+        assert fm.KERNELS[1 - reported] == fm.forward_kernel(C, dtype, hidden)
+        reported = lib.lt_fused_convnext_block_fwd_route(C, hidden, code)
+        assert fm.KERNELS[1 - reported] == fb.forward_kernel(C, dtype, hidden)
+    wide = dtype == torch.bfloat16 and C % 32 == 0
+    assert fm.forward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
+    assert fb.forward_kernel(C, dtype) == ("wgmma" if wide and C <= 192 else "cuda_cores")
+
+
+def test_k2_bf16_rejects_a_misaligned_operand(dev):
+    args = _k2_args(dev, 64, 96, torch.bfloat16)
+    flat = torch.zeros(64 * 96 + 8, dtype=torch.bfloat16, device=dev)
+    args[0] = flat[1:1 + 64 * 96].view(64, 96)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="y is misaligned"):
+        fm.fused_convnext_mlp(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [96, 192, 256, 384, 512])
+@pytest.mark.parametrize("train", [False, True])
+def test_block_left_to_choose_runs_at_every_preset_width(dev, dtype, dim, train):
+    """``ConvNeXtBlock(dim, fused_mlp=None)`` forward, and forward and
+    backward, at the widths of the sm, lg (192, 384) and xl (256, 512)
+    presets: through K2 where ``kernel_takes`` says so, through the plain
+    modules past it, and agreeing with the plain modules either way."""
+    from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
+
+    torch.manual_seed(dim)
+    block = ConvNeXtBlock(dim, layer_scale_init_value=0.5).to(dev)
+    plain = ConvNeXtBlock(dim, layer_scale_init_value=0.5, fused_mlp=False).to(dev)
+    plain.load_state_dict(block.state_dict())
+    x = torch.randn(2, 9, 10, dim, device=dev).to(dtype)
+    before = (fm.LAUNCHES, fm.BWD_LAUNCHES)
+    with torch.set_grad_enabled(train):  # the layers cast their float32 weights to x's dtype
+        out, ref = block(x), plain(x)
+        if train:
+            out.float().square().sum().backward()
+            ref.float().square().sum().backward()
+    torch.cuda.synchronize()
+    took = fm.kernel_takes(dim, out.dtype, needs_grad=train)
+    assert (fm.LAUNCHES - before[0], fm.BWD_LAUNCHES - before[1]) == (
+        int(took), int(took and train))
+    assert _max_err(out, ref) <= 2 * K2_TOL[dtype] + 1e-4
+    if train:
+        for (name, p), q in zip(block.named_parameters(), plain.parameters()):
+            assert _rel_err(p.grad, q.grad) <= 10 * BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dim", [288, 384, 512])
+def test_block_told_to_fuse_past_the_kernels_widths_raises_by_name(dev, dim):
+    from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
+
+    block = ConvNeXtBlock(dim, fused_mlp=True).to(dev)
+    with torch.no_grad(), pytest.raises(ValueError, match=f"C={dim}"):
+        block(torch.randn(1, 8, 8, dim, device=dev))
+    wide = ConvNeXtBlock(256, fused_mlp=True).to(dev)  # the forward takes it, the backward not
+    out = wide(torch.randn(1, 8, 8, 256, device=dev))
+    with pytest.raises(ValueError, match="C=256"):
+        out.sum().backward()
 
 
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -315,7 +429,8 @@ def test_k1_auto_route_takes_the_split_kernels_past_1024_tokens(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 7, 7, 16), (2, 9, 11, 40), (1, 8, 8, 96), (3, 13, 17, 96),
-                                   (2, 10, 23, 192)])
+                                   (2, 10, 23, 192), (2, 7, 9, 32), (1, 16, 24, 64),
+                                   (2, 17, 8, 128), (1, 9, 9, 160), (2, 24, 24, 192)])
 @pytest.mark.parametrize("approximate", [True, False])
 def test_k3_matches_plain(dev, dtype, shape, approximate):
     B, H, W, C = shape

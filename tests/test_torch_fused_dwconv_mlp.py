@@ -132,3 +132,56 @@ def test_k3_takes_any_image_of_at_least_seven_pixels():
     small = convnext_block_args_from_jax(*_inputs(B=1, H=6, W=8, C=8))
     with pytest.raises(ValueError, match="at least 7"):
         tfb.fused_convnext_block(*small)
+
+
+# ------------------------------------------ the tensor-core tail's arithmetic
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("shape", [(1, 8, 9, 32), (2, 9, 11, 96)])
+def test_tensor_core_tail_tiling_matches_pallas_block_kernel(dtype, approximate, shape):
+    """The bfloat16 kernel on the card keeps the convolution in float32 and
+    hands its unrounded output to K2's tensor-core tail: a plain PyTorch
+    emulation of that (the convolution as the plain version does it, then
+    the tail tile by tile and cast for cast, 64 pixels a tile) against the
+    TPU package's kernel in interpret mode, within the TPU kernel tests'
+    bars (fp32 1e-4; bf16 atol 0.15 with rtol 0.08) and within K2's bars of
+    the wrapper's plain version (1e-5 and 5e-2), to which the card run holds
+    the kernel."""
+    from tests.test_torch_fused_mlp import emulate_tensor_core_tail
+
+    jdt, dt = getattr(jnp, dtype), getattr(torch, dtype)
+    B, H, W, C = shape
+    args = _inputs(*shape, seed=C)
+    ref = jfb.fused_convnext_block(*_jax_args(args, jdt), tile_h=H if H % 4 else 4,
+                                   approximate_gelu=approximate)
+    x, dw, kb, ls, lb, w1, b1, w2, b2, g = convnext_block_args_from_jax(
+        *_rounded(args, jdt), dtype=dt)
+    padded = torch.nn.functional.pad(x.float(), (0, 0, 3, 3, 3, 3))
+    taps = tfb._taps(dw)
+    y = torch.zeros(B, H, W, C)
+    for dh in range(7):
+        for dwi in range(7):
+            y += padded[:, dh:dh + H, dwi:dwi + W, :] * taps[dh * 7 + dwi]
+    y = y + kb
+    out = emulate_tensor_core_tail(y.reshape(-1, C), x.reshape(-1, C), ls, lb, w1, b1, w2, b2, g,
+                                   1e-6, approximate, dt).reshape(shape)
+    bars = {"float32": dict(atol=1e-4), "bfloat16": dict(atol=0.15, rtol=0.08)}[dtype]
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **bars)
+    plain = tfb.fused_convnext_block_reference(x, dw, kb, ls, lb, w1, b1, w2, b2, g, 1e-6,
+                                               approximate)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(),
+                               atol={"float32": 1e-5, "bfloat16": 5e-2}[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", [16, 32, 40, 64, 96, 128, 160, 192, 224, 256])
+def test_k3_forward_kernel_rule(dtype, C):
+    """K3's tail runs on the tensor cores where K2's forward does, up to
+    K3's own widest C."""
+    from linnaeus_tpu_torch.ops import fused_mlp as tfm
+
+    wide = dtype == torch.bfloat16 and C % 32 == 0 and C <= tfb.MAX_WIDTH
+    assert tfb.forward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
+    assert tfb.forward_kernel(C, dtype, 4 * C + 8) == "cuda_cores"
+    if C <= tfb.MAX_WIDTH:
+        assert tfb.forward_kernel(C, dtype) == tfm.forward_kernel(C, dtype)

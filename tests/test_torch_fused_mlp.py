@@ -293,3 +293,210 @@ def test_backward_kernel_rule(dtype, C):
     assert tfm.backward_kernel(C, dtype, 4 * C) == tfm.backward_kernel(C, dtype)
     assert tfm.backward_kernel(C, dtype, 4 * C + 8) == "cuda_cores"
     assert tfm.backward_kernel(C, dtype) in tfm.BWD_KERNELS
+
+
+# -------------------------------------- the tensor-core forward's arithmetic
+# A plain PyTorch emulation of what the bfloat16 forward kernel computes on
+# the card, tile by tile and cast for cast, held against the TPU package's
+# kernel in interpret mode within the TPU kernel tests' bars: the tiling, the
+# padding and the cast points chosen for the kernel stay inside those bars
+# whatever the card does with them.
+
+
+def _hardware_sigmoid_gelu(a):
+    """The kernel's tanh-form GELU: x / (1 + exp(-2 u)) with the card's
+    exp2 and reciprocal approximations, each good to a few units of
+    float32's last place: taken here at 2**-21, with alternating sign."""
+    u = 0.7978845608028654 * (a + 0.044715 * a * a * a)
+    sign = 1.0 - 2.0 * (torch.arange(a.numel()).reshape(a.shape) % 2)
+    return a / (1.0 + torch.exp(-2.0 * u)) * (1.0 + sign * 2.0 ** -21)
+
+
+def emulate_tensor_core_tail(h_in, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate,
+                             dt):
+    """LN -> the MLP tail -> epilogue as the tensor-core kernels tile it, on
+    float32 rows ``h_in`` (y itself for K2, the convolution's unrounded
+    output for K3): 64-row tiles with zero rows past M, C padded with zero
+    columns to whole 64-column atoms, the hidden dim in 64-column chunks, h0
+    and each chunk's h1 rounded to ``dt``, the second product accumulated in
+    float32 across the chunks, then (acc + b2) * gamma [+ residual] in
+    float32 and one cast."""
+    M, C = h_in.shape
+    Hd = w1.shape[0]
+    assert Hd % 64 == 0 and C % 32 == 0
+    CP = -(-C // 64) * 64
+    rd = lambda t: t.to(dt).float()  # noqa: E731
+    w1f = w1.float()                                                 # [hidden][c]
+    w2p = torch.nn.functional.pad(w2.float(), (0, 0, 0, CP - C))     # [c padded][hidden]
+    gelu = (_hardware_sigmoid_gelu if dt == torch.bfloat16 else
+            lambda a: torch.nn.functional.gelu(a, approximate="tanh")) if approximate else (
+        lambda a: torch.nn.functional.gelu(a))
+    out = torch.empty(M, C, dtype=dt)
+    for r0 in range(0, M, 64):
+        rows = min(64, M - r0)
+        yt = torch.zeros(64, C)
+        yt[:rows] = h_in[r0:r0 + rows]
+        mean = yt.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((yt - mean).square().mean(-1, keepdim=True) + eps)
+        h0 = rd((yt - mean) * rstd * ln_w + ln_b)
+        h0[rows:] = 0.0                                              # rows past M arrive as zeros
+        acc = torch.zeros(64, CP)
+        for hc in range(0, Hd, 64):
+            ch = slice(hc, hc + 64)
+            a1 = h0 @ w1f[ch].t() + b1[ch]                           # inner C, no padding read
+            acc += rd(gelu(a1)) @ w2p[:, ch].t()                     # across the padded C
+        t = (acc[:rows, :C] + b2) * gamma
+        if residual is not None:
+            t = t + residual[r0:r0 + rows].float()
+        out[r0:r0 + rows] = t.to(dt)
+        assert bool((acc[:, C:] == 0).all())                         # padded columns stay zero
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("M,C", [(70, 32), (200, 96), (130, 192)])
+def test_tensor_core_forward_tiling_matches_pallas(dtype, approximate, residual, M, C):
+    a = _inputs(M, C, dtype, seed=M + C)
+    jdt, dt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jfm.fused_convnext_mlp(
+        jnp.asarray(a["y"], jdt), jnp.asarray(a["x"], jdt) if residual else None,
+        a["ls"], a["lb"], jnp.asarray(a["w1"], jdt), a["b1"],
+        jnp.asarray(a["w2"], jdt), a["b2"], a["g"], approximate_gelu=approximate,
+    )
+    y, x = _torch(a["y"], dtype), _torch(a["x"], dtype)
+    w1, w2 = _torch(a["w1"].T.copy(), dtype), _torch(a["w2"].T.copy(), dtype)
+    ls, lb, b1, b2, g = (torch.tensor(a[k]) for k in ("ls", "lb", "b1", "b2", "g"))
+    out = emulate_tensor_core_tail(y.float(), x if residual else None, ls, lb, w1, b1, w2, b2, g,
+                                   1e-6, approximate, dt)
+    assert out.dtype == dt and out.shape == (M, C) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=TOL[dtype])
+    # and within the same bar of the wrapper's plain version, which the card run holds it to
+    plain = tfm.fused_convnext_mlp_reference(y, x if residual else None, ls, lb, w1, b1, w2, b2, g,
+                                             1e-6, approximate)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(), atol=TOL[dtype])
+
+
+WIDTHS = [16, 32, 40, 64, 96, 128, 160, 192, 224, 256, 288, 384, 512]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_forward_kernel_rule(dtype, C):
+    """bfloat16 at multiples of 32 up to the widest forward takes the tensor
+    cores; float32, the odd widths and ragged hidden chunks do not."""
+    wide = dtype == torch.bfloat16 and C % 32 == 0 and C <= tfm.MAX_WIDTH
+    assert tfm.forward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
+    assert tfm.forward_kernel(C, dtype, 4 * C) == tfm.forward_kernel(C, dtype)
+    assert tfm.forward_kernel(C, dtype, 4 * C + 8) == "cuda_cores"
+    assert tfm.forward_kernel(C, dtype) in tfm.KERNELS
+    # the backward's tensor-core widths are among the forward's
+    if tfm.backward_kernel(C, dtype) == "wgmma":
+        assert tfm.forward_kernel(C, dtype) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_kernel_takes_rule(dtype, C):
+    """The widths the kernels take at all: up to 256 forward, up to 192
+    where a gradient is wanted; float16 never."""
+    known = dtype in (torch.float32, torch.bfloat16)
+    assert tfm.kernel_takes(C, dtype, needs_grad=False) == (known and C <= 256)
+    assert tfm.kernel_takes(C, dtype, needs_grad=True) == (known and C <= 192)
+    assert (tfm.MAX_WIDTH, tfm.MAX_WIDTH_BWD) == (256, 192)
+
+
+class _Recorder:
+    """Stands in for ``fused_convnext_mlp`` in the block: records the call
+    and answers with the plain version."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, *, eps, approximate_gelu):
+        self.calls += 1
+        return tfm.fused_convnext_mlp(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps=eps,
+                                      approximate_gelu=approximate_gelu)
+
+
+@pytest.mark.parametrize("dim", [96, 192, 256, 384, 512])
+@pytest.mark.parametrize("grad", [False, True])
+def test_block_chooses_by_shape_before_any_launch(monkeypatch, dim, grad):
+    """``ConvNeXtBlock(fused_mlp=None)`` on a tensor that says it lies on the
+    card goes to K2 exactly where ``kernel_takes`` says so (lg's and xl's
+    widths past it take the plain modules); on a CPU tensor never."""
+    from linnaeus_tpu_torch.models.blocks import convnext
+
+    block = convnext.ConvNeXtBlock(dim).requires_grad_(grad)
+    rec = _Recorder()
+    monkeypatch.setattr(convnext, "fused_convnext_mlp", rec)
+    x = torch.randn(1, 7, 7, dim)
+    with torch.set_grad_enabled(grad):
+        want = block(x)
+        assert rec.calls == 0  # a CPU tensor takes the plain modules
+
+        class OnCard(torch.Tensor):  # the same values, claiming to be a CUDA tensor
+            is_cuda = True
+
+        monkeypatch.setattr(convnext, "_conv_nhwc",
+                            lambda conv, t: conv(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                            .as_subclass(OnCard))
+        got = block(x)
+    assert rec.calls == int(tfm.kernel_takes(dim, torch.float32, needs_grad=grad))
+    assert rec.calls == int(dim <= (192 if grad else 256))
+    torch.testing.assert_close(got.as_subclass(torch.Tensor), want, rtol=1e-5, atol=1e-5)
+
+
+class _FakeCuda:
+    type = "cuda"
+
+    def __eq__(self, other):
+        return isinstance(other, _FakeCuda)
+
+    def __ne__(self, other):
+        return not self == other
+
+
+class _Face:
+    """A CUDA tensor's face as ``_check_operands`` reads it."""
+
+    def __init__(self, shape, dtype, ptr=0):
+        self.shape, self.dtype, self.device, self._ptr = torch.Size(shape), dtype, _FakeCuda(), ptr
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self._ptr
+
+
+def _faces(dtype, C, M=8, y_ptr=0, w2_ptr=0):
+    f, T = torch.float32, _Face
+    return (T((M, C), dtype, y_ptr), T((M, C), dtype), T((C,), f), T((C,), f),
+            T((4 * C, C), dtype), T((4 * C,), f), T((C, 4 * C), dtype, w2_ptr), T((C,), f),
+            T((C,), f))
+
+
+@pytest.mark.parametrize("C", [288, 384, 512])
+def test_forced_kernel_past_its_widths_raises_by_name(C):
+    """``fused_mlp=True`` is a demand, not a preference: past the kernels'
+    widths the wrapper's check raises a ValueError that names the width."""
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=f"width C={C} is outside 1..256"):
+            tfm._check_operands(*_faces(dtype, C))
+    tfm._check_operands(*_faces(torch.bfloat16, 256))
+
+
+def test_bf16_operands_must_be_16_byte_aligned():
+    """The tensor-core route copies 16 bytes at a time: a bfloat16 operand
+    whose first element is off a 16-byte boundary is refused by name; the
+    CUDA-core route (float32, odd widths) does not care."""
+    dt = torch.bfloat16
+    tfm._check_operands(*_faces(dt, 32))
+    with pytest.raises(ValueError, match="y is misaligned.*8 bytes past"):
+        tfm._check_operands(*_faces(dt, 32, y_ptr=4096 + 8))
+    with pytest.raises(ValueError, match="w2 is misaligned.*2 bytes past"):
+        tfm._check_operands(*_faces(dt, 32, w2_ptr=2))
+    tfm._check_operands(*_faces(torch.float32, 32, y_ptr=4))  # float32: CUDA cores
+    tfm._check_operands(*_faces(dt, 40, y_ptr=2))             # an odd width: CUDA cores

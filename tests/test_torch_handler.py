@@ -1,9 +1,10 @@
 """The port's inference handler against the TPU package's on one bundle.
 
 Both handlers serve the tiny mFormerV1 of tests/bundle_utils.py in fp32 on
-the same weights (bridged with ``state_dict_from_jax``), with the
-hierarchical-consistency pass off on both sides (the port has no taxonomy
-tree yet). Top-k class ids must agree and probabilities to 1e-5.
+the same weights (bridged with ``state_dict_from_jax``), once with the
+hierarchical-consistency pass off on both sides and once with the port's
+default options (the pass on, against the bundle's taxonomy tree). Top-k
+class ids must agree and probabilities to 1e-5.
 """
 
 import subprocess
@@ -20,8 +21,11 @@ from linnaeus_tpu.inference import InferenceRequestMetadata as JOpts
 from linnaeus_tpu.inference import LinnaeusInferenceHandler as JHandler
 from linnaeus_tpu.inference import preprocessing as jpre
 from linnaeus_tpu_torch.inference import preprocessing as tpre
-from linnaeus_tpu_torch.inference.artifacts import load_class_index_maps_artifact
-from linnaeus_tpu_torch.inference.config import load_inference_config
+from linnaeus_tpu_torch.inference.artifacts import (
+    load_class_index_maps_artifact,
+    load_taxonomy_tree_artifact,
+)
+from linnaeus_tpu_torch.inference.config import InferenceOptionsConfig, load_inference_config
 from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
 from linnaeus_tpu_torch.inference.model_utils import build_model_for_inference
 from linnaeus_tpu_torch.inference.schemas import InferenceRequestMetadata
@@ -36,22 +40,30 @@ TINY = {
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(scope="module")
-def handlers(tmp_path_factory):
-    from tests.bundle_utils import make_test_bundle
-
-    bundle = make_test_bundle(tmp_path_factory.mktemp("bundle"))
+def _pair(bundle, check: bool):
+    """(JAX handler, port handler) on the bundle's weights. ``check`` False:
+    the bundle's options with the hierarchical-consistency pass off on both
+    sides. True: the port's handler gets ``InferenceOptionsConfig()``, every
+    option its default (the pass on), and the JAX handler the same top-k
+    and batch size with the pass on."""
+    defaults = InferenceOptionsConfig()
     loaded = JHandler.load_from_artifacts(bundle / "config.yaml")
     jcfg = loaded.config.model_copy(deep=True)
-    jcfg.inference_options.enable_hierarchical_consistency_check = False
+    jcfg.inference_options.enable_hierarchical_consistency_check = check
     jcfg.inference_options.data_parallel = 1
+    if check:
+        jcfg.inference_options.default_top_k = defaults.default_top_k
+        jcfg.inference_options.batch_size = defaults.batch_size
     jax_handler = JHandler(
         jcfg, loaded.model.clone(dtype=jnp.float32), loaded.variables,
         loaded.taxonomy, loaded.class_maps,
     )
 
     cfg = load_inference_config(bundle / "config.yaml")
-    cfg.inference_options.enable_hierarchical_consistency_check = False
+    if check:
+        cfg.inference_options = defaults
+    else:
+        cfg.inference_options.enable_hierarchical_consistency_check = False
     model = build_model_for_inference(cfg, arch=TINY, device="cpu")
     params = jax.tree.map(np.asarray, loaded.variables["params"])
     model.load_state_dict(
@@ -59,12 +71,31 @@ def handlers(tmp_path_factory):
                             ("TEMPORAL", "SPATIAL", "ELEVATION"), tuple(TASKS)),
         strict=True,
     )
-    m = cfg.model
+    m, tax = cfg.model, cfg.taxonomy_data
     class_maps = load_class_index_maps_artifact(
         bundle / "class_map.json", m.model_task_keys_ordered,
         m.num_classes_per_task, m.null_class_indices,
     )
-    return jax_handler, LinnaeusInferenceHandler(cfg, model, class_maps)
+    taxonomy = load_taxonomy_tree_artifact(
+        bundle / tax.taxonomy_tree_path, tax.source_name, tax.version, tax.root_identifier)
+    return jax_handler, LinnaeusInferenceHandler(cfg, model, taxonomy, class_maps)
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    from tests.bundle_utils import make_test_bundle
+
+    return make_test_bundle(tmp_path_factory.mktemp("bundle"))
+
+
+@pytest.fixture(scope="module")
+def handlers(bundle):
+    return _pair(bundle, check=False)
+
+
+@pytest.fixture(scope="module")
+def default_handlers(bundle):
+    return _pair(bundle, check=True)
 
 
 def _requests(n, seed):
@@ -131,17 +162,93 @@ def test_preprocessing_matches_jax(handlers):
         )
 
 
-def test_unported_serving_options_raise(handlers):
+def _assert_same_results(ours, theirs):
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert a.taxonomy_context == dict(b.taxonomy_context)
+        assert [t.task_key for t in a.tasks] == TASKS
+        for ta, tb in zip(a.tasks, b.tasks):
+            assert ta.rank_level == tb.rank_level
+            assert [tid for tid, _ in ta.predictions] == [tid for tid, _ in tb.predictions]
+            np.testing.assert_allclose(
+                [p for _, p in ta.predictions], [p for _, p in tb.predictions], atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 12])
+def test_default_options_serve_and_match_jax_handler(default_handlers, n):
+    """The port's handler with its default InferenceOptions: the
+    consistency pass on, one device. Same taxa as the JAX handler with the
+    pass on, probabilities to 1e-5, and every result obeys the tree."""
+    jax_handler, handler = default_handlers
+    opts = handler.config.inference_options
+    assert opts == InferenceOptionsConfig()
+    assert opts.enable_hierarchical_consistency_check and opts.data_parallel == "auto"
+    images, metas = _requests(n, seed=20 + n)
+    ours = handler.predict(images, metas)
+    _assert_same_results(ours, jax_handler.predict(images, metas))
+    tree, maps = handler.taxonomy.taxonomy_tree, handler.class_maps
+    for r in ours:
+        fine, coarse = r.tasks  # taxa_L10 under taxa_L20
+        top = {t.rank_level: t.predictions[0][0] for t in r.tasks}
+        if top[20] == maps.null_taxon_ids[20]:
+            assert fine.predictions == [(maps.null_taxon_ids[10], 1.0)]
+        elif top[10] != maps.null_taxon_ids[10]:
+            child = ("taxa_L10", maps.taxon_id_to_idx[10][top[10]])
+            parent = ("taxa_L20", maps.taxon_id_to_idx[20][top[20]])
+            assert tree.get_parent(child) in (None, parent)
+
+
+def test_the_consistency_pass_changes_some_result(default_handlers, handlers):
+    """On random weights some request has a finer top taxon outside its
+    coarser one's children, so the pass is seen to act (and to be off in
+    the other pair)."""
+    _, checked = default_handlers
+    _, raw = handlers
+    images, metas = _requests(24, seed=7)
+    a, b = checked.predict(images, metas), raw.predict(images, metas)
+    changed = sum(ta.predictions != tb.predictions
+                  for ra, rb in zip(a, b) for ta, tb in zip(ra.tasks, rb.tasks))
+    assert changed > 0
+    for ra, rb in zip(a, b):  # the coarsest rank is never touched
+        assert ra.tasks[1].predictions == rb.tasks[1].predictions
+
+
+@pytest.mark.parametrize("spec", [False, None, "off", 1, "1", "auto"])
+def test_data_parallel_one_device_spellings_construct(handlers, spec):
     _, handler = handlers
-    for opts in (
-        replace(handler.config.inference_options, enable_hierarchical_consistency_check=True),
-        replace(handler.config.inference_options, data_parallel=2),
-    ):
-        with pytest.raises(NotImplementedError):
+    opts = replace(handler.config.inference_options, data_parallel=spec)
+    built = LinnaeusInferenceHandler(
+        replace(handler.config, inference_options=opts), handler.model, handler.taxonomy,
+        handler.class_maps)
+    assert built._dp == 1
+
+
+def test_unported_serving_options_raise(handlers):
+    """Several devices are not ported; the consistency pass without a tree
+    raises by name."""
+    _, handler = handlers
+    opts = handler.config.inference_options
+    for spec in (2, "2", 4):
+        with pytest.raises(NotImplementedError, match="data_parallel"):
             LinnaeusInferenceHandler(
-                replace(handler.config, inference_options=opts), handler.model,
-                handler.class_maps,
-            )
+                replace(handler.config, inference_options=replace(opts, data_parallel=spec)),
+                handler.model, handler.taxonomy, handler.class_maps)
+    checked = replace(handler.config, inference_options=replace(
+        opts, enable_hierarchical_consistency_check=True))
+    with pytest.raises(ValueError, match="enable_hierarchical_consistency_check"):
+        LinnaeusInferenceHandler(checked, handler.model, None, handler.class_maps)
+    LinnaeusInferenceHandler(checked, handler.model, handler.taxonomy, handler.class_maps)
+    # off, the handler needs no tree and quotes the config's taxonomy names
+    bare = LinnaeusInferenceHandler(handler.config, handler.model, None, handler.class_maps)
+    res = bare.predict([np.zeros((32, 32, 3), np.uint8)])[0]
+    assert res.taxonomy_context["source"] == handler.config.taxonomy_data.source_name
+
+
+def test_architecture_variant_config_path_raises_by_name(bundle):
+    cfg = load_inference_config(bundle / "config.yaml")
+    cfg.model.architecture_variant_config_path = "variants/wide.yaml"
+    with pytest.raises(NotImplementedError, match="architecture_variant_config_path"):
+        build_model_for_inference(cfg, arch=TINY, device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -21,7 +21,15 @@ its default options but for the batch size, so with the
 hierarchical-consistency pass on against a seeded taxonomy tree over the
 four tasks: three predict requests of 1, 7 and 64 images, with launch
 counters proving every forward went through both forward kernels and every
-result held to the tree; it compares the whole
+result held to the tree. Then it serves a bundle from disk: it writes
+config.yaml (the same model and options), an architecture variant file (K1
+on, HierarchicalSoftmax heads), taxonomy.json, class_map.json and a
+state_dict, loads them with LinnaeusInferenceHandler.load_from_artifacts,
+and serves the handler through tools/serve.make_server to concurrent HTTP
+clients sending base64 JPEG and PNG images with metadata: every answer held
+to the tree and to handler.predict on the same bytes, K1 and K2 launches
+counted against the forwards the batcher ran, requests/s and p50/p95/p99
+latency printed with the host side of one 64-image predict. It compares the whole
 forward with the kernels on and off and reports serving throughput. Then it
 trains: a few steps of make_train_step through tools/train_bench at the
 same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
@@ -41,6 +49,7 @@ printed. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -711,12 +720,11 @@ def serving_config():
     })
 
 
-def serving_taxonomy(cfg):
+def serving_tree():
     """A seeded random taxonomy over the four tasks (fine -> coarse): every
     class but the null class 0 gets a parent among the next coarser rank's
-    classes; taxon ids are 100000 * rank + class index. Returns the
-    handler's taxonomy data and class maps."""
-    from linnaeus_tpu_torch.inference.artifacts import class_index_maps, taxonomy_data
+    classes; taxon ids are 100000 * rank + class index. Returns the tree
+    and the class map as a bundle's class_map.json holds it."""
     from linnaeus_tpu_torch.utils.taxonomy import TaxonomyTree
 
     rng = np.random.default_rng(SEED + 7)
@@ -726,6 +734,14 @@ def serving_taxonomy(cfg):
     tree = TaxonomyTree(hierarchy, keys, dict(TASKS))
     raw = {t: {str(i): 100000 * int(t.split("_L")[1]) + i for i in range(n)}
            for t, n in TASKS.items()}
+    return tree, raw
+
+
+def serving_taxonomy(cfg):
+    """The handler's taxonomy data and class maps of :func:`serving_tree`."""
+    from linnaeus_tpu_torch.inference.artifacts import class_index_maps, taxonomy_data
+
+    tree, raw = serving_tree()
     m = cfg.model
     maps = class_index_maps(raw, m.model_task_keys_ordered, m.num_classes_per_task,
                             m.null_class_indices)
@@ -786,6 +802,360 @@ def compare_forward(on, off, dt, n: int, dev) -> tuple[float, dict]:
     check(all(torch.isfinite(a[t]).all().item() for t in TASKS), "finite logits")
     check(err <= LOGIT_TOL[dt], f"{dt} kernels on vs off: max|dlogit| {err}")
     return err, top1
+
+
+# bf16 agreement of an answer served over HTTP with handler.predict on the
+# same bytes: the batcher collates requests into another batch bucket than
+# the direct call, and the library's matrix products and convolutions pick
+# other algorithms for other shapes, so logits move by a few bf16 steps
+PROB_TOL = 2e-2
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_IMAGES = 8, 4, 4  # 128 images of traffic
+
+
+def write_bundle(d, dev) -> dict:
+    """A bundle in directory ``d``: config.yaml (mFormerV1_sm at IMG px,
+    the four tasks, TEMPORAL + SPATIAL + ELEVATION metadata, every inference
+    option at its default but the batch size, the variant named by an
+    absolute path), variant.yaml (K1 on, HierarchicalSoftmax heads for every
+    task), taxonomy.json, class_map.json and weights.pt, the state_dict of
+    the model the config form builds from these files with a fixed seed.
+    Returns that model."""
+    import yaml
+
+    from linnaeus_tpu_torch.inference.config import InferenceOptionsConfig, load_inference_config
+    from linnaeus_tpu_torch.inference.model_utils import build_config_for_inference
+    from linnaeus_tpu_torch.models.build import build_model
+
+    tree, raw = serving_tree()
+    tree.save(str(d / "taxonomy.json"))
+    (d / "class_map.json").write_text(json.dumps(raw))
+    (d / "variant.yaml").write_text(yaml.safe_dump({"MODEL": {
+        "USE_FLASH_ATTN": True,
+        "CLASSIFICATION": {"HEADS": {t: {"TYPE": "HierarchicalSoftmax"} for t in TASKS}}}}))
+    (d / "config.yaml").write_text(yaml.safe_dump({
+        "model": {"architecture_name": "mFormerV1_sm",
+                  "architecture_variant_config_path": str(d / "variant.yaml"),
+                  "weights_path": "weights.pt",
+                  "model_task_keys_ordered": list(TASKS),
+                  "num_classes_per_task": list(TASKS.values()),
+                  "null_class_indices": {t: 0 for t in TASKS}},
+        "input_preprocessing": {"image_size": [3, IMG, IMG]},
+        "metadata_preprocessing": {"use_temporal": True, "use_geolocation": True,
+                                   "use_elevation": True},
+        "taxonomy_data": {"source_name": "synthetic", "taxonomy_tree_path": "taxonomy.json",
+                          "class_index_map_path": "class_map.json"},
+        "inference_options": {"batch_size": BATCH},
+    }))
+    cfg = load_inference_config(d / "config.yaml")
+    check(cfg.inference_options == InferenceOptionsConfig(batch_size=BATCH),
+          "the bundle keeps every inference option at its default but the batch size")
+    model = build_model(build_config_for_inference(cfg), dict(TASKS), tree, device=dev,
+                        seed=SEED + 9)
+    torch.save(model.state_dict(), d / "weights.pt")
+    return model
+
+
+def encoded_requests(rng) -> list[dict]:
+    """SERVE_CLIENTS x SERVE_REQUESTS /predict bodies of SERVE_IMAGES
+    base64 images each, JPEG and PNG alternating, with metadata."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    bodies = []
+    for r in range(SERVE_CLIENTS * SERVE_REQUESTS):
+        images, metas = requests(SERVE_IMAGES, rng)
+        instances = []
+        for i, (image, meta) in enumerate(zip(images, metas)):
+            buf = io.BytesIO()
+            if (r + i) % 2:
+                Image.fromarray(image).save(buf, "JPEG", quality=90)
+            else:
+                Image.fromarray(image).save(buf, "PNG")
+            instances.append({"image": base64.b64encode(buf.getvalue()).decode(),
+                              "metadata": meta})
+        bodies.append({"instances": instances})
+    return bodies
+
+
+def as_result(payload: dict):
+    """An answer's JSON back into the handler's result dataclasses."""
+    from linnaeus_tpu_torch.inference.schemas import HierarchicalClassificationResult, TaskPrediction
+
+    return HierarchicalClassificationResult(
+        taxonomy_context=payload["taxonomy_context"],
+        tasks=[TaskPrediction(t["rank_level"], t["task_key"],
+                              [(int(i), float(p)) for i, p in t["predictions"]])
+               for t in payload["tasks"]])
+
+
+def agreement(got, want, raw, maps) -> tuple[int, float]:
+    """An HTTP answer ``got`` against ``handler.predict`` of the same bytes
+    (``want``; ``raw`` the same without the consistency pass), coarse to
+    fine: every taxon both list within PROB_TOL; a different top-1 must be a
+    near tie in ``raw`` (the HTTP top-1 within PROB_TOL of the direct one);
+    a task nulled by the consistency pass on one side only must sit at or
+    below such a near tie. Returns (flips, largest probability difference)."""
+    flips, worst, tie_above = 0, 0.0, False
+    for g, w, r in sorted(zip(got.tasks, want.tasks, raw.tasks), key=lambda x: -x[0].rank_level):
+        null = [(maps.null_taxon_ids[g.rank_level], 1.0)]
+        rp = dict(r.predictions)
+        tie_here = r.predictions[0][1] - r.predictions[1][1] <= PROB_TOL
+        if g.predictions == null or w.predictions == null:
+            check(g.predictions == w.predictions or tie_here or tie_above,
+                  f"{g.task_key}: nulled on one side only, with no near tie: {g} / {w} / {r}")
+            flips += g.predictions != w.predictions
+        else:
+            gp, wp = dict(g.predictions), dict(w.predictions)
+            for taxon in gp.keys() & wp.keys():
+                worst = max(worst, abs(gp[taxon] - wp[taxon]))
+            top = g.predictions[0][0]
+            if top != w.predictions[0][0]:
+                check(top in rp and r.predictions[0][1] - rp[top] <= PROB_TOL,
+                      f"{g.task_key}: top-1 {top} over HTTP, {w.predictions[0][0]} direct, "
+                      f"not a near tie: {r.predictions}")
+                flips += 1
+        tie_above = tie_above or tie_here
+    check(worst <= PROB_TOL, f"HTTP vs direct probabilities differ by {worst}")
+    return flips, worst
+
+
+def predict_breakdown(handler, images, metas, card) -> dict:
+    """The host side of one ``predict`` of these images, step by step as
+    ``predict_async`` runs it: preprocessing (decode, resize, metadata), the
+    upload, the forward (CUDA events), the fetch, and the results with the
+    consistency pass; the pass is timed once more alone on those results."""
+    from linnaeus_tpu_torch.inference.postprocessing import enforce_hierarchical_consistency
+    from linnaeus_tpu_torch.inference.preprocessing import (
+        preprocess_image_batch,
+        preprocess_metadata_batch,
+    )
+
+    k = handler.config.inference_options.default_top_k
+    ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pixels = preprocess_image_batch(images, handler.config)
+    aux = preprocess_metadata_batch(metas, len(images), handler.config)
+    t1 = time.perf_counter()
+    x = torch.from_numpy(pixels).to(handler.device, non_blocking=True)
+    a = torch.from_numpy(aux).to(handler.device, non_blocking=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = handler._forward(x, a, k)
+    end.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    packed = out.cpu().numpy()
+    t4 = time.perf_counter()
+    results = [handler._build_result(row, k) for row in packed]
+    t5 = time.perf_counter()
+    for r in results:
+        enforce_hierarchical_consistency(r, handler.taxonomy, handler.class_maps)
+    t6 = time.perf_counter()
+    ms = {"preprocess": 1e3 * (t1 - t0), "upload": 1e3 * (t2 - t1),
+          "forward_events": start.elapsed_time(end), "forward_wall": 1e3 * (t3 - t2),
+          "fetch": 1e3 * (t4 - t3), "results_and_pass": 1e3 * (t5 - t4),
+          "pass_alone": 1e3 * (t6 - t5)}
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    handler.predict(images, metas)
+    ms["predict"] = 1e3 * (time.perf_counter() - t7)
+    print(f"[{card}] host side of one predict of {len(images)} encoded images, ms: "
+          + ", ".join(f"{name} {v:.3f}" for name, v in ms.items()), flush=True)
+    return ms
+
+
+def bundle_phase(dev, card, fa, fm) -> dict:
+    """Serve a bundle from disk: write it (under build/, removed afterwards),
+    load it with ``LinnaeusInferenceHandler.load_from_artifacts``, check the
+    handler (card, bf16, hierarchical heads with the tree's matrices, warmup,
+    logits bit-identical to the in-memory model's), serve it with
+    ``tools.serve.make_server`` to concurrent clients over HTTP, check every
+    answer against the tree and against ``handler.predict`` on the same
+    bytes, and count K1's and K2's launches against the forwards the
+    batcher ran. Returns the launches and the measurements."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+    from dataclasses import replace
+    from pathlib import Path
+
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.inference.postprocessing import enforce_hierarchical_consistency
+    from linnaeus_tpu_torch.tools.serve import make_server
+    from linnaeus_tpu_torch.tools.serve_latency_bench import percentile
+
+    Path("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="smoke_bundle_") as tmp:
+        d = Path(tmp).resolve()
+        start = time.perf_counter()
+        reference = write_bundle(d, dev)
+        written = time.perf_counter() - start
+        start = time.perf_counter()
+        handler = LinnaeusInferenceHandler.load_from_artifacts(d / "config.yaml")
+        loaded = time.perf_counter() - start
+    model = handler.model
+    print(f"bundle written in {written:.1f} s, loaded by load_from_artifacts in {loaded:.1f} s",
+          flush=True)
+    check(all(p.device.type == "cuda" for p in model.parameters()), "the parameters are on the card")
+    check(model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16 compute over float32 parameters")
+    matrices = handler.taxonomy.taxonomy_tree.build_hierarchy_matrices()
+    heads = model.head
+    check(all(heads.head_configs[t]["TYPE"] == "HierarchicalSoftmax" for t in TASKS)
+          and sorted(heads.pairs) == sorted(matrices)
+          and all(torch.equal(heads.matrix(k).cpu(), torch.tensor(m, dtype=torch.float32))
+                  for k, m in matrices.items()), "hierarchical heads with the tree's matrices")
+    check(all(b.attn.use_flash_attn for s in (2, 3) for b in model.stages[s])
+          and all(b.fused_mlp is None for s in (0, 1) for b in model.stages[s]),
+          "the variant's USE_FLASH_ATTN and the default FUSED_CONVNEXT_MLP auto")
+    buckets = handler.warmup()
+    check(buckets == int(np.log2(BATCH)) + 1, f"warmup ran {buckets} buckets")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn(8, IMG, IMG, 3, generator=g, device=dev)
+    aux = torch.randn(8, 11, generator=g, device=dev)
+    with torch.inference_mode():
+        a, b = model(x, aux), reference(x, aux)
+    check(all(torch.equal(a[t], b[t]) for t in TASKS),
+          "the loaded model's logits equal the in-memory model's bit for bit")
+    del reference
+    torch.cuda.empty_cache()
+    print(f"handler from disk: {sum(p.numel() for p in model.parameters())} float32 parameters "
+          f"on {next(model.parameters()).device}, bf16 compute, HierarchicalSoftmax over "
+          f"{sorted(matrices)}, warmup ran {buckets} buckets, logits bit-identical to the "
+          f"in-memory model", flush=True)
+
+    bodies = encoded_requests(np.random.default_rng(SEED + 11))
+    # where the batcher's host time goes: its worker thread dispatches
+    # (decode, preprocessing, upload, launches) through predict_async and
+    # its completion thread runs the finisher (fetch, results, the pass)
+    busy = {"dispatch": 0.0, "finish": 0.0}
+    dispatch = handler.predict_async
+
+    def timed_dispatch(*args, **kwargs):
+        t0 = time.perf_counter()
+        finisher = dispatch(*args, **kwargs)
+        busy["dispatch"] += time.perf_counter() - t0
+
+        def timed_finish():
+            t1 = time.perf_counter()
+            try:
+                return finisher()
+            finally:
+                busy["finish"] += time.perf_counter() - t1
+        return timed_finish
+
+    handler.predict_async = timed_dispatch
+    server = make_server(handler, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+
+    def call(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json"},
+            method="POST" if body is not None else "GET")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            check(resp.status == 200, f"{path}: HTTP {resp.status}")
+            return json.loads(resp.read())
+
+    try:
+        check(call("/healthz") == {"status": "ok"}, "/healthz")
+        info = call("/info")
+        check(info["architecture_name"] == "mFormerV1_sm" and info["task_keys"] == list(TASKS)
+              and info["input_image_size"] == [3, IMG, IMG], f"/info {info}")
+        fa.LAUNCHES = fm.LAUNCHES = 0
+        answers, latencies, errors = [None] * len(bodies), [], []
+        lock = threading.Lock()
+
+        def client(c):
+            for r in range(c * SERVE_REQUESTS, (c + 1) * SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                try:
+                    answers[r] = call("/predict", bodies[r])
+                except Exception as e:  # noqa: BLE001 counted and failed below
+                    with lock:
+                        errors.append(repr(e))
+                    continue
+                with lock:
+                    latencies.append(1e3 * (time.perf_counter() - t0))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - start
+        batches = list(server.batcher.batch_sizes)
+        launches = {"K1": fa.LAUNCHES, "K2": fm.LAUNCHES}
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+        del handler.predict_async
+    n_images = SERVE_CLIENTS * SERVE_REQUESTS * SERVE_IMAGES
+    check(not errors, f"HTTP errors: {errors[:3]}")
+    check(sum(batches) == n_images, f"the batcher ran {sum(batches)} images, not {n_images}")
+    forwards = len(batches)  # each collated batch (at most 32 images) is one forward
+    print(f"served {len(bodies)} /predict requests of {SERVE_IMAGES} images from {SERVE_CLIENTS} "
+          f"concurrent clients over HTTP: {forwards} forwards of {batches} images; launches "
+          f"K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
+    check(launches == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards},
+          f"bundle launch counts {launches} for {forwards} forwards")
+
+    opts = handler.config.inference_options
+    raw_handler = LinnaeusInferenceHandler(
+        replace(handler.config, inference_options=replace(
+            opts, enable_hierarchical_consistency_check=False)),
+        model, handler.taxonomy, handler.class_maps)
+    flips, worst, nulled = 0, 0.0, 0
+    for body, answer in zip(bodies, answers):
+        got = [as_result(p) for p in answer["predictions"]]
+        nulled += check_results(got, SERVE_IMAGES, handler.taxonomy, handler.class_maps)
+        images = [base64.b64decode(inst["image"]) for inst in body["instances"]]
+        metas = [inst["metadata"] for inst in body["instances"]]
+        want = handler.predict(images, metas)
+        raw = raw_handler.predict(images, metas)
+        check(all(enforce_hierarchical_consistency(r, handler.taxonomy, handler.class_maps) == w
+                  for r, w in zip(raw, want)), "the consistency pass of the raw answers")
+        for g_, w_, r_ in zip(got, want, raw):
+            f, e = agreement(g_, w_, r_, handler.class_maps)
+            flips, worst = flips + f, max(worst, e)
+    print(f"every HTTP answer obeys the taxonomy tree (the pass nulled {nulled} of "
+          f"{n_images * len(TASKS)} task results) and agrees with handler.predict on the same "
+          f"bytes: max |dp| {worst:.3e} (tol {PROB_TOL:g}), {flips} near-tie flips", flush=True)
+
+    lat = sorted(latencies)
+    stats = {"requests_per_s": len(lat) / wall, "images_per_s": n_images / wall,
+             "p50_ms": percentile(lat, 50), "p95_ms": percentile(lat, 95),
+             "p99_ms": percentile(lat, 99), "mean_batch": sum(batches) / forwards,
+             "forwards": forwards, "wall_s": wall,
+             "dispatch_s": busy["dispatch"], "finish_s": busy["finish"]}
+    print(f"[{card}] HTTP serving of the bundle, mFormerV1_sm {IMG}px bf16, make_server "
+          f"defaults (max_batch 32, batch timeout 5 ms, pipeline depth 2), {SERVE_CLIENTS} "
+          f"clients x {SERVE_REQUESTS} requests x {SERVE_IMAGES} images: "
+          f"{stats['requests_per_s']:.2f} req/s ({stats['images_per_s']:.1f} img/s), latency "
+          f"p50 {stats['p50_ms']:.1f} / p95 {stats['p95_ms']:.1f} / p99 {stats['p99_ms']:.1f} ms, "
+          f"mean collated batch {stats['mean_batch']:.2f} images; over the {wall:.3f} s of "
+          f"the run the batcher's worker spent {busy['dispatch']:.3f} s dispatching (decode, "
+          f"preprocessing, upload, launches) and its completion thread {busy['finish']:.3f} s "
+          f"finishing (waiting on the device, fetch, results)", flush=True)
+    images = [base64.b64decode(inst["image"]) for body in bodies[:BATCH // SERVE_IMAGES]
+              for inst in body["instances"]]
+    metas = [inst["metadata"] for body in bodies[:BATCH // SERVE_IMAGES]
+             for inst in body["instances"]]
+    stats["host_ms"] = predict_breakdown(handler, images, metas, card)
+    del handler, raw_handler, model
+    gc.collect()  # the server's request-handler class and the model form cycles
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats}
 
 
 def main() -> int:
@@ -857,6 +1227,10 @@ def main() -> int:
     print(f"repeat of the 7-image request: same top-k ids {same_ids}, max|dp| {drift:.3e}",
           flush=True)
     check(same_ids and drift <= 1e-6, "repeat request gives the same answer")
+
+    # 3b. serve a bundle from disk: load_from_artifacts with a variant file
+    # (K1 on, hierarchical heads), then HTTP through tools/serve.make_server
+    bundle = bundle_phase(dev, card, fa, fm)
 
     # 4. the whole forward, kernels on vs off, same weights
     off = build_model_for_inference(cfg, dtype=torch.bfloat16, device=dev,
@@ -934,6 +1308,7 @@ def main() -> int:
                         "ms_spread": r.get("ms_spread"),
                         "library_chain_ms": r.get("library_chain_ms"),
                         "serving_launches": launches.get(key),
+                        "bundle_launches": bundle["launches"].get(key),
                         "launches_512px": trained_large.get(key), "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": kernels}), flush=True)

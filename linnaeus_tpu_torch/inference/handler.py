@@ -1,33 +1,43 @@
 """LinnaeusInferenceHandler on one CUDA (or CPU) device.
 
-Port of linnaeus_tpu/inference/handler.py. ``predict`` brings images to
-uint8 NHWC and metadata to the packed aux vector on the host, pads the batch
-to a power-of-two bucket, and runs one forward per chunk of at most
-``batch_size`` images: uint8 -> /255 -> mean/std on the device, the model,
-a float32 softmax and per-task top-k, all packed into one (B, 2 * n_tasks,
-k) float32 tensor that is fetched with one copy to the host. At most two
-chunks are in flight. Results are ``HierarchicalClassificationResult``s.
+Port of linnaeus_tpu/inference/handler.py. :meth:`load_from_artifacts`
+assembles a bundle from disk: its config.yaml (relative paths resolve
+against the bundle's directory), the taxonomy tree and class maps, and the
+model built from the config (the architecture variant file merged, the tree
+handed to hierarchical heads) with its weights (a Flax ``.msgpack`` or a
+torch state_dict). ``predict`` brings images to uint8 NHWC and metadata to
+the packed aux vector on the host, pads the batch to a power-of-two bucket,
+and runs one forward per chunk of at most ``batch_size`` images: uint8 ->
+/255 -> mean/std on the device, the model, a float32 softmax and per-task
+top-k, all packed into one (B, 2 * n_tasks, k) float32 tensor that is
+fetched with one copy to the host. At most two chunks are in flight.
+Results are ``HierarchicalClassificationResult``s.
 
 With ``enable_hierarchical_consistency_check`` on (the default) every
 result goes through :func:`enforce_hierarchical_consistency` against the
 taxonomy tree the handler was given. ``data_parallel`` 1, "1", "off", False
 or None is one device, and "auto" resolves to one: this handler serves on
-one device.
-
-Not ported yet: ``load_from_artifacts`` (the TPU package's weights are a
-Flax msgpack) and data-parallel serving over several devices, which raises.
+one device; several devices raise (not ported yet, M10).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
 
-from .artifacts import ClassIndexMapData, TaxonomyData, rank_level_from_task_key
-from .config import InferenceConfig
+from .artifacts import (
+    ClassIndexMapData,
+    TaxonomyData,
+    load_class_index_maps_artifact,
+    load_taxonomy_tree_artifact,
+    rank_level_from_task_key,
+)
+from .config import InferenceConfig, load_inference_config
+from .model_utils import load_model_for_inference
 from .postprocessing import enforce_hierarchical_consistency
 from .preprocessing import preprocess_image_batch, preprocess_metadata_batch
 from .schemas import (
@@ -76,6 +86,34 @@ class LinnaeusInferenceHandler:
         pre = config.input_preprocessing
         self._mean = torch.tensor(pre.image_mean, device=self.device).view(1, 1, 1, -1)
         self._std = torch.tensor(pre.image_std, device=self.device).view(1, 1, 1, -1)
+
+    @classmethod
+    def load_from_artifacts(cls, config_path: str | Path,
+                            artifacts_dir: str | Path | None = None) -> "LinnaeusInferenceHandler":
+        """The handler of a bundle on disk. Relative paths in the config
+        (taxonomy tree, class map, weights) resolve against ``artifacts_dir``,
+        by default the config's directory; the architecture variant path goes
+        to the config loader as given (absolute, or under ``$CONFIG_DIR``),
+        as in the JAX package. The model lands on
+        ``inference_options.device``."""
+        config = load_inference_config(config_path)
+        base = Path(artifacts_dir) if artifacts_dir else Path(config_path).parent
+
+        def resolve(p: str) -> str:
+            path = Path(p)
+            return str(path if path.is_absolute() else base / path)
+
+        tax = config.taxonomy_data
+        taxonomy = load_taxonomy_tree_artifact(
+            resolve(tax.taxonomy_tree_path), tax.source_name, tax.version, tax.root_identifier)
+        m = config.model
+        class_maps = load_class_index_maps_artifact(
+            resolve(tax.class_index_map_path), m.model_task_keys_ordered,
+            m.num_classes_per_task, m.null_class_indices)
+        if not m.weights_path.startswith("hf://") and not Path(m.weights_path).is_absolute():
+            m.weights_path = resolve(m.weights_path)
+        model = load_model_for_inference(config, taxonomy_tree=taxonomy.taxonomy_tree)
+        return cls(config, model, taxonomy, class_maps)
 
     @torch.inference_mode()
     def _forward(self, images_u8: torch.Tensor, aux: torch.Tensor, k: int) -> torch.Tensor:

@@ -12,7 +12,11 @@ downsample_layers, norm_1/2, cls_token_1/2, meta_*_head_*, cl_1_fc,
 aggregate, final_norm, head), so a converted TPU checkpoint loads strict.
 Images are NHWC, as in the TPU package. Parameters are float32; ``dtype``
 is the compute dtype. MoE, ring attention, pipelining and rematerialisation
-are not ported yet and raise; dropout (0 in every preset) is not ported.
+are not ported yet and raise; dropout (``drop_rate``, ``attn_drop_rate``, 0
+in every preset and the defaults) is not ported: it acts only in training,
+so a model with either set builds and serves in eval mode and raises when
+put in training mode. The heads get the taxonomy tree's
+``hierarchy_matrices`` for HierarchicalSoftmax / ConditionalClassifier.
 ``attn_fp32_softmax`` False lets the plain attention path compute its scores
 in the compute dtype (ops/attention.py); it has no effect on the K1 route.
 """
@@ -62,12 +66,15 @@ class MFormerV1(nn.Module):
         use_flash_attn: bool = False,
         attn_fp32_softmax: bool = True,
         drop_path_rate: float = 0.1,
+        drop_rate: float = 0.0,
+        attn_drop_rate: float = 0.0,
         only_last_cls: bool = False,
         aggregation: str = "Conv1d",
         meta_components: tuple[tuple[str, int], ...] = (),
         task_keys: tuple[str, ...] = (),
         num_classes: Mapping[str, int] | None = None,
         head_configs: Mapping[str, Mapping[str, Any]] | None = None,
+        hierarchy_matrices: Mapping[str, np.ndarray] | None = None,
         moe_num_experts: int = 0,
         ring_attention: bool = False,
         pipeline_stages: int = 0,
@@ -94,6 +101,7 @@ class MFormerV1(nn.Module):
         if img_size[0] % 32 or img_size[1] % 32:
             raise ValueError(f"img_size {img_size} must be a multiple of 32")
         generator = torch.Generator().manual_seed(seed)
+        self.drop_rate, self.attn_drop_rate = float(drop_rate), float(attn_drop_rate)
         self.dtype = dtype
         self.only_last_cls = only_last_cls
         self.meta_components = tuple((str(n), int(d)) for n, d in meta_components)
@@ -153,12 +161,20 @@ class MFormerV1(nn.Module):
             self.aggregate = Conv1d(2, 1, kernel_size=1)
         self.final_norm = LayerNorm(rope_dims[1], eps=1e-5)
         self.head = MultiTaskHeads(
-            rope_dims[1], tuple(task_keys), num_classes or {}, head_configs)
+            rope_dims[1], tuple(task_keys), num_classes or {}, head_configs, hierarchy_matrices)
 
         init_parameters(self, generator)
         with torch.no_grad():
             trunc_normal_(self.cls_token_1, generator)
             trunc_normal_(self.cls_token_2, generator)
+
+    def train(self, mode: bool = True) -> "MFormerV1":
+        if mode and (self.drop_rate or self.attn_drop_rate):
+            raise NotImplementedError(
+                f"MFormerV1: drop_rate={self.drop_rate} / attn_drop_rate={self.attn_drop_rate} "
+                "(MODEL.DROP_RATE / MODEL.ATTN_DROP_RATE): dropout is not ported yet; it acts "
+                "only in training, so such a model serves in eval mode only")
+        return super().train(mode)
 
     def _extras(self, stage: int, meta: torch.Tensor, B: int) -> torch.Tensor:
         """CLS then one token per metadata component, (B, 1 + n_meta, C)."""

@@ -18,6 +18,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.loss.gradnorm import GradNormState, init_gradnorm_state
 from linnaeus_tpu_torch.models.blocks.common import DropPath
+from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
 
 
 @dataclass
@@ -54,14 +55,15 @@ def create_train_state(
     ema: bool = False,
 ) -> TrainState:
     """``generator`` must live on the model's device; it is handed to every
-    DropPath of the model, so stochastic depth draws from it too."""
+    DropPath of the model, so stochastic depth draws from it too, and to
+    its heads, whose gumbel routing draws from it."""
     device = next(model.parameters()).device
     if generator.device.type != device.type:
         raise ValueError(
             f"create_train_state: the generator is on {generator.device}, the model on {device}"
         )
     for module in model.modules():
-        if isinstance(module, DropPath):
+        if isinstance(module, (DropPath, MultiTaskHeads)):
             module.generator = generator
     return TrainState(
         step=0,

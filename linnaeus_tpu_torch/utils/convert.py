@@ -114,14 +114,13 @@ def _entries(
             out += _linear(f"{head}.3.w2", (head, "ResNormLayer_0", "Dense_1"))
             out += _norm(f"{head}.3.norm_fn2", (head, "ResNormLayer_0", "LayerNorm_1"))
     for task in task_keys:
-        src = ("head", f"head_{task}")
-        if "Conv_0" in params["head"][f"head_{task}"]:
-            out += [
-                (f"head.{task}.fc.weight", src + ("Conv_0", "kernel"), _conv1d),
-                (f"head.{task}.fc.bias", src + ("Conv_0", "bias"), None),
-            ]
-        else:
-            out += _linear(f"head.{task}.fc", src + ("Dense_0",))
+        head = params["head"][f"head_{task}"]
+        layer = "Conv_0" if "Conv_0" in head else "Dense_0"
+        src = ("head", f"head_{task}", layer)
+        out.append((f"head.{task}.fc.weight", src + ("kernel",),
+                    _conv1d if layer == "Conv_0" else _dense))
+        if "bias" in head[layer]:  # a head with USE_BIAS: False has none
+            out.append((f"head.{task}.fc.bias", src + ("bias",), None))
     return out
 
 

@@ -30,7 +30,14 @@ def test_the_walk_finds_the_port():
     assert {"chip_smoke.py", "linnaeus_tpu_torch/train/step.py",
             "linnaeus_tpu_torch/ops/flash_attention.py",
             "linnaeus_tpu_torch/ops/fused_dwconv_mlp.py",
-            "linnaeus_tpu_torch/tools/fused_block_ab.py"} <= names
+            "linnaeus_tpu_torch/tools/fused_block_ab.py",
+            "linnaeus_tpu_torch/configuration/cfg_node.py",
+            "linnaeus_tpu_torch/configuration/defaults.py",
+            "linnaeus_tpu_torch/configuration/utils.py",
+            "linnaeus_tpu_torch/utils/flax_msgpack.py",
+            "linnaeus_tpu_torch/utils/meta.py",
+            "linnaeus_tpu_torch/tools/serve.py",
+            "linnaeus_tpu_torch/tools/serve_latency_bench.py"} <= names
     assert len(FILES) > 32
 
 

@@ -36,7 +36,19 @@ same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
 schedule, clip 5.0), with launch counters proving every step went through
 all four kernels, against the same steps from the same seed with the
 kernels off. Then it trains the same model at 512 px, where stage 3 holds
-1028 tokens and K1's backward takes the split dQ and dK/dV kernels, and
+1028 tokens and K1's backward takes the split dQ and dK/dV kernels. Then
+(phase 7b) it trains it from the default config: AutoAugment, colour
+jitter and random erasing on the device, per-block rematerialisation
+('dots') on normal and GradNorm steps, GradNorm's task-weight update every
+second step, the heads' parameter group of
+configs/experiments/generic_mformer_example.yaml at 10x the rate, AdamW on
+a cosine schedule: the first step against the same step without remat
+(loss and gradient norm within the train bars, peak memory lower), one
+step's and one GradNorm update's launches of K1 and K2 against the counts
+the recompute implies, six steps counted from zero (finite, clipped, the
+task weights move, stay positive and sum to the task count, the heads'
+group at 10x), the augmentation's range, the step's, the update's and the
+augmentation's times, then one Muon and one AdEMAMix step. Then it
 runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints one JSON line about
 the seven kernels, and as its last line
@@ -695,6 +707,201 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
     check(d_norm <= TRAIN_GRAD_NORM_RTOL, f"first-step grad norm, kernels on vs off: rel {d_norm}")
     return results
 
+# the default-config phase: remat "dots" on both kinds of step recomputes
+# every tower block in the backward, and the policies see no product inside
+# K1 or K2 (models/utils.py), so each block launches its forward kernel once
+# in the forward and once in the recompute; the backward kernels run once.
+# A GradNorm update re-forwards the collated batch once per task (four),
+# each with its recompute and its backward (loss/gradnorm.py).
+DEFAULT_CFG_STEPS = 6
+GRADNORM_INTERVAL = 2
+K1_PER_REMAT_STEP = {"K1": 2 * K1_PER_FORWARD, "K1_bwd": K1_PER_FORWARD,
+                     "K2": 2 * K2_PER_FORWARD, "K2_bwd": K2_PER_FORWARD}
+PER_GRADNORM = {k: len(TASKS) * v for k, v in K1_PER_REMAT_STEP.items()}
+
+
+def default_config(remat: bool = True, optimizer: str = "adamw"):
+    """The TPU package's default config (the port's copy) with mFormerV1_sm
+    at 384 px, K1 on (K2 by the 'auto' rule), GradNorm every
+    GRADNORM_INTERVAL steps and the parameter groups of
+    configs/experiments/generic_mformer_example.yaml; every other option at
+    its default (AutoAugment 'original', jitter 0.4, erasing 0.25, remat
+    'dots' for both kinds of step, AdamW, cosine)."""
+    import yaml
+
+    from linnaeus_tpu_torch.tools import train_bench
+
+    cfg = train_bench.default_train_config(IMG, True, "mFormerV1_sm", tuple(TASKS))
+    with open("configs/experiments/generic_mformer_example.yaml") as f:
+        groups = yaml.safe_load(f)["OPTIMIZER"]["PARAMETER_GROUPS"]
+    cfg.merge_from_other_cfg({"OPTIMIZER": {"NAME": optimizer, "PARAMETER_GROUPS": groups},
+                              "LOSS": {"GRAD_WEIGHTING": {"TASK": {
+                                  "UPDATE_INTERVAL": GRADNORM_INTERVAL}}}})
+    cfg.OPTIMIZER.PARAMETER_GROUPS.DEFAULT.OPTIMIZER = optimizer
+    gc = cfg.TRAIN.GRADIENT_CHECKPOINTING
+    check(gc.ENABLED_NORMAL_STEPS and gc.ENABLED_GRADNORM_STEPS and gc.POLICY == "dots"
+          and cfg.AUG.AUTOAUG.POLICY == "original" and cfg.AUG.SINGLE_AUG_DEVICE == "device"
+          and cfg.LOSS.GRAD_WEIGHTING.TASK.TYPE == "gradnorm"
+          and cfg.LR_SCHEDULER.NAME == "cosine", "the default config's training options")
+    gc.ENABLED_NORMAL_STEPS = remat
+    return cfg
+
+
+def default_config_phase(dev, card, fa, fm) -> dict:
+    """Train mFormerV1_sm at 384 px, B = 64, bf16 from the default config
+    through tools/train_bench: DEFAULT_CFG_STEPS steps with GradNorm's
+    update after every GRADNORM_INTERVAL-th, and the checks and times listed
+    in main; returns the launch counts of the driven run."""
+    from linnaeus_tpu_torch.loss.gradnorm import should_update_gradnorm
+    from linnaeus_tpu_torch.tools import train_bench
+
+    def counts():
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
+                "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def zero():
+        fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+
+    first = {}
+    for remat in (False, True):
+        cfg = default_config(remat)
+        bench, state = train_bench.build_step(BATCH, config=cfg, num_classes=TASKS, device=dev,
+                                              seed=SEED)
+        check(state.model.gradient_checkpointing is remat
+              and state.model.remat_policy == "dots", f"remat {remat} from the config")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        m = bench.train()
+        torch.cuda.synchronize()
+        first[remat] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm_pre_clip"]),
+                        "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30,
+                        "ms": cuda_ms(bench.train, iters=3)}
+        if remat:
+            break
+        del bench, state
+        torch.cuda.empty_cache()
+    d_loss = abs(first[True]["loss"] - first[False]["loss"]) / abs(first[False]["loss"])
+    d_norm = (abs(first[True]["grad_norm"] - first[False]["grad_norm"])
+              / abs(first[False]["grad_norm"]))
+    print(f"default config, first step with remat 'dots' vs without, same seed, weights and "
+          f"collated batch: loss {first[True]['loss']:.5f} vs {first[False]['loss']:.5f} "
+          f"(rel {d_loss:.2e}, tol {TRAIN_LOSS_RTOL:g}); grad norm {first[True]['grad_norm']:.4f} "
+          f"vs {first[False]['grad_norm']:.4f} (rel {d_norm:.2e}, tol {TRAIN_GRAD_NORM_RTOL:g}); "
+          f"peak memory of the step {first[True]['peak_gib']:.2f} vs "
+          f"{first[False]['peak_gib']:.2f} GiB", flush=True)
+    check(d_loss <= TRAIN_LOSS_RTOL, f"remat vs not: first-step loss rel {d_loss}")
+    check(d_norm <= TRAIN_GRAD_NORM_RTOL, f"remat vs not: first-step grad norm rel {d_norm}")
+    check(first[True]["peak_gib"] < first[False]["peak_gib"],
+          f"peak memory with remat {first[True]['peak_gib']} is not below "
+          f"{first[False]['peak_gib']} without")
+
+    # one train step and one GradNorm update alone: their launch counts
+    before = counts()
+    bench.train()
+    step_counts = delta(before)
+    before = counts()
+    bench.gradnorm()
+    gn_counts = delta(before)
+    torch.cuda.synchronize()
+    print(f"default config launches: a train step {step_counts} (expected "
+          f"{K1_PER_REMAT_STEP}), a GradNorm update {gn_counts} (expected {PER_GRADNORM})",
+          flush=True)
+    for got, want, what in ((step_counts, K1_PER_REMAT_STEP, "train step"),
+                            (gn_counts, PER_GRADNORM, "GradNorm update")):
+        check(got == {**dict.fromkeys(got, 0), **want}, f"{what} launch counts {got}, "
+              f"expected {want}")
+
+    # the driven run: DEFAULT_CFG_STEPS steps from a fresh state, counted from 0
+    del bench, state
+    torch.cuda.empty_cache()
+    bench, state = train_bench.build_step(BATCH, config=default_config(), num_classes=TASKS,
+                                          device=dev, seed=SEED)
+    gw = state.gradnorm
+    w0 = gw.task_weights.clone()
+    before_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    zero()
+    history = [bench() for _ in range(DEFAULT_CFG_STEPS)]
+    torch.cuda.synchronize()
+    launched = counts()
+    n_gn = sum("gradnorm" in m for m in history)
+    want_gn = sum(should_update_gradnorm(bench.gradnorm_cfg, s)
+                  for s in range(1, DEFAULT_CFG_STEPS + 1))
+    check(n_gn == want_gn == DEFAULT_CFG_STEPS // GRADNORM_INTERVAL,
+          f"{n_gn} GradNorm updates in {DEFAULT_CFG_STEPS} steps, expected {want_gn}")
+    want = {k: DEFAULT_CFG_STEPS * K1_PER_REMAT_STEP.get(k, 0) + n_gn * PER_GRADNORM.get(k, 0)
+            for k in launched}
+    losses = [float(m["loss"]) for m in history]
+    pre = [float(m["grad_norm_pre_clip"]) for m in history]
+    post = [float(m["grad_norm_post_clip"]) for m in history]
+    weights = [m["gradnorm"]["gradnorm/weights"].tolist() for m in history if "gradnorm" in m]
+    w = state.gradnorm.task_weights
+    groups = {g["label"]: g for g in state.optimizer.param_groups}
+    heads, default = groups["HEADS"], groups["default"]
+    moved = sum(not torch.equal(before_params[n], p.detach())
+                for n, p in state.model.named_parameters())
+    print(f"default config, {DEFAULT_CFG_STEPS} steps: loss " + " ".join(f"{v:.4f}" for v in losses)
+          + "; grad norm before clip " + " ".join(f"{v:.3f}" for v in pre) + "; after clip "
+          + " ".join(f"{v:.3f}" for v in post) + f"; task weights after each update {weights}; "
+          f"lr default {default['lr']:.4e}, HEADS {heads['lr']:.4e}; {moved}/{len(before_params)} "
+          f"parameter tensors changed; launches {launched} (expected {want})", flush=True)
+    check(all(np.isfinite(v) for v in losses + pre + post), "finite losses and norms")
+    check(all(v <= 5.0 + 1e-3 for v in post), "gradient norm after the clip is at most 5.0")
+    check(bool((w > 0).all()) and abs(float(w.sum()) - len(TASKS)) < 1e-4
+          and not torch.equal(w, w0), f"task weights {w.tolist()} move, stay positive, "
+          f"sum to {len(TASKS)}")
+    check(heads["lr_multiplier"] == 10.0 and heads["lr"] == 10.0 * default["lr"] > 0,
+          f"the heads' group steps at 10x: {heads['lr']} vs {default['lr']}")
+    check(moved >= 0.9 * len(before_params), f"{moved} parameter tensors changed")
+    check(launched == want, f"default-config launch counts {launched}, expected {want}")
+
+    # the augmentation alone, on the batch in [0, 1]
+    x = bench.data["images"].float() * (1.0 / 255.0)
+    a, b = bench.augment(x, state.generator), bench.augment(x, state.generator)
+    check(float(a.min()) >= 0.0 and float(a.max()) <= 1.0 and a.shape == x.shape,
+          "augmented images stay in [0, 1]")
+    check(float((a - x).abs().mean()) > 1e-2 and float((a - b).abs().mean()) > 1e-2,
+          "augmented images differ from their inputs and between two draws")
+    aug_ms = cuda_ms(lambda: bench.augment(x, state.generator), iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(bench.train, iters=3)
+    gn_ms = cuda_ms(bench.gradnorm, iters=2)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[{card}] mFormerV1_sm {IMG}px B={BATCH} bf16 default-config train step: "
+          f"{step_ms:.2f} ms with remat 'dots' ({first[False]['ms']:.2f} ms without; CUDA events), "
+          f"GradNorm update {gn_ms:.2f} ms ({len(TASKS)} re-forwards with backward, remat), "
+          f"augmentation {aug_ms:.2f} ms; peak memory {peak:.2f} GiB", flush=True)
+    del bench, state, history
+    torch.cuda.empty_cache()
+
+    # one Muon and one AdEMAMix step from the same config
+    for name in ("muon", "ademamix"):
+        cfg = default_config(optimizer=name)
+        cfg.LR_SCHEDULER.WARMUP_FRACTION = 0.0
+        cfg.LR_SCHEDULER.WARMUP_STEPS = 0
+        bench, state = train_bench.build_step(16, config=cfg, num_classes=TASKS, device=dev,
+                                              seed=SEED)
+        before_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        m = bench.train()
+        moved = sum(not torch.equal(before_params[n], p.detach())
+                    for n, p in state.model.named_parameters())
+        finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+        print(f"{name} step from the default config (B=16): loss {float(m['loss']):.4f}, "
+              f"{moved}/{len(before_params)} parameter tensors changed, finite {finite}",
+              flush=True)
+        check(np.isfinite(float(m["loss"])) and finite and moved >= 0.9 * len(before_params),
+              f"{name} step: finite and the parameters move")
+        del bench, state
+        torch.cuda.empty_cache()
+    return {"launches": launched, "step_ms": step_ms, "gradnorm_ms": gn_ms, "aug_ms": aug_ms,
+            "peak_gib": peak, "no_remat_ms": first[False]["ms"]}
+
 
 def serving_config():
     """Every inference option at its default (the hierarchical-consistency
@@ -1274,6 +1481,13 @@ def main() -> int:
     trained_large = train_phase(dev, card, fa, fm, IMG_LARGE)["on"]["launches"]
     trained["K1_dq"], trained["K1_dkv"] = trained_large["K1_dq"], trained_large["K1_dkv"]
 
+    # 7b. train from the default config: AutoAugment, GradNorm's update,
+    # remat "dots", the heads' parameter group at 10x, AdamW on cosine;
+    # then one Muon and one AdEMAMix step
+    default_cfg = default_config_phase(dev, card, fa, fm)
+    for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
+        check(default_cfg["launches"][key] > 0, f"{key} was not launched from the default config")
+
     # 8. K3's path: the fused-block A/B tool, forward and train
     trained["K3"] = block_ab_phase(dev, fm, fb)
 
@@ -1309,7 +1523,9 @@ def main() -> int:
                         "library_chain_ms": r.get("library_chain_ms"),
                         "serving_launches": launches.get(key),
                         "bundle_launches": bundle["launches"].get(key),
-                        "launches_512px": trained_large.get(key), "shape": r["shape"],
+                        "launches_512px": trained_large.get(key),
+                        "default_cfg_launches": default_cfg["launches"].get(key, 0),
+                        "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

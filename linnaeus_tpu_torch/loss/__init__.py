@@ -7,7 +7,12 @@ from .basic import (  # noqa: F401
     soft_target_cross_entropy,
     taxonomy_smoothed_cross_entropy,
 )
-from .gradnorm import GradNormState, init_gradnorm_state  # noqa: F401
+from .gradnorm import (  # noqa: F401
+    GradNormState,
+    gradnorm_weight_update,
+    init_gradnorm_state,
+    make_gradnorm_update_fn,
+)
 from .hierarchical import compute_core_loss, weighted_hierarchical_loss  # noqa: F401
 from .masking import (  # noqa: F401
     apply_class_weighting,

@@ -1,5 +1,5 @@
-"""Shared small blocks: dtype-following layers, Mlp, DropPath, ResNormLayer,
-MetaHead and the parameter init.
+"""Shared small blocks: dtype-following layers, Mlp, DropPath, Dropout,
+ResNormLayer, MetaHead and the parameter init.
 
 Port of linnaeus_tpu/models/blocks/common.py. Parameters are kept in
 float32, as the TPU package keeps them; the layers here cast their weights
@@ -75,18 +75,39 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class Dropout(nn.Module):
+    """Element-wise dropout in training, identity in eval: each element is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate), as Flax's
+    ``nn.Dropout``. The keep mask is drawn from ``generator``, as DropPath's
+    is."""
+
+    def __init__(self, rate: float = 0.0, generator: torch.Generator | None = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> GELU -> fc2."""
+    """Transformer MLP: fc1 -> GELU -> dropout -> fc2 -> dropout."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 act_exact: bool = False):
+                 act_exact: bool = False, drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features)
         self.act_exact = act_exact
+        self.drop1 = Dropout(drop)
+        self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x), self.act_exact))
+        return self.drop2(self.fc2(self.drop1(gelu(self.fc1(x), self.act_exact))))
 
 
 class ResNormLayer(nn.Module):

@@ -32,7 +32,10 @@ class ConvNeXtBlock(nn.Module):
     tiles fit an SM's shared memory), plain modules for a CPU tensor and
     past those widths (the lg and xl presets' later stages). True at a
     width the kernels do not take raises a ValueError that names the width.
-    The parameters are the same either way."""
+    The parameters are the same either way. ``forward``'s ``training``
+    says whether a gradient is wanted; None reads it from the grad mode and
+    the operands. The model passes it, so a recomputed block under
+    checkpointing takes the route its first forward took."""
 
     def __init__(self, dim: int, drop_path: float = 0.0,
                  layer_scale_init_value: float = 1e-6, act_exact: bool = False,
@@ -50,12 +53,12 @@ class ConvNeXtBlock(nn.Module):
         self.act_exact = act_exact
         self.fused_mlp = fused_mlp
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool | None = None) -> torch.Tensor:
         residual = x
         y = _conv_nhwc(self.dwconv, x)
         use_fused = self.fused_mlp
         if use_fused is None:
-            needs_grad = torch.is_grad_enabled() and (
+            needs_grad = training if training is not None else torch.is_grad_enabled() and (
                 y.requires_grad or any(p.requires_grad for p in self.parameters()))
             use_fused = y.is_cuda and kernel_takes(y.shape[-1], y.dtype, needs_grad)
         if use_fused:

@@ -16,7 +16,7 @@ from torch import nn
 from linnaeus_tpu_torch.ops import rope
 from linnaeus_tpu_torch.ops.attention import scaled_dot_product_attention
 
-from .common import DropPath, LayerNorm, Linear, Mlp
+from .common import Dropout, DropPath, LayerNorm, Linear, Mlp
 
 ROPE_FIDELITIES = ("rotate", "reference_cos")
 
@@ -27,14 +27,17 @@ class RoPE2DAttention(nn.Module):
     (checkpoints trained with it). ``use_flash_attn`` sends the attention
     through K1; ``attn_fp32_softmax`` False lets the plain path compute its
     scores in the compute dtype (ops/attention.py). The qkv projection has a bias and the scale is
-    head_dim**-0.5, as in every mFormerV1; dropout is not ported."""
+    head_dim**-0.5, as in every mFormerV1. ``attn_drop`` acts, as in the TPU
+    package, on the attention output (the probabilities are never formed on
+    the kernel route) and not at all on the K1 route; ``proj_drop`` follows
+    the output projection."""
 
     def __init__(self, dim: int, img_grid_size: tuple[int, int],
                  extra_token_num: int = 1, num_heads: int = 8,
                  rope_theta: float = 10000.0, rope_mixed: bool = True,
                  rope_fidelity: str = "rotate", use_flash_attn: bool = False,
-                 attn_fp32_softmax: bool = True,
-                 generator: torch.Generator | None = None):
+                 attn_fp32_softmax: bool = True, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, generator: torch.Generator | None = None):
         super().__init__()
         if rope_fidelity not in ROPE_FIDELITIES:
             raise ValueError(f"rope_fidelity {rope_fidelity!r} not in {ROPE_FIDELITIES}")
@@ -48,6 +51,8 @@ class RoPE2DAttention(nn.Module):
         self.attn_fp32_softmax = attn_fp32_softmax
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
+        self.attn_drop = Dropout(0.0 if use_flash_attn else attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         H_grid, W_grid = self.grid
         if rope_mixed:
             self.freqs = nn.Parameter(rope.init_random_2d_freqs(
@@ -83,7 +88,8 @@ class RoPE2DAttention(nn.Module):
             q, k, v, scale=self.scale, use_flash=self.use_flash_attn, layout="bnhd",
             fp32_softmax=self.attn_fp32_softmax,
         )
-        return self.proj(out.reshape(B, N, C))
+        out = self.attn_drop(out)
+        return self.proj_drop(self.proj(out.reshape(B, N, C)))
 
 
 class RoPE2DMHSABlock(nn.Module):
@@ -95,6 +101,7 @@ class RoPE2DMHSABlock(nn.Module):
                  rope_mixed: bool = True, drop_path: float = 0.0,
                  use_flash_attn: bool = False, rope_fidelity: str = "rotate",
                  act_exact: bool = False, attn_fp32_softmax: bool = True,
+                 drop: float = 0.0, attn_drop: float = 0.0,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
@@ -102,10 +109,11 @@ class RoPE2DMHSABlock(nn.Module):
             dim, img_grid_size, extra_token_num=extra_token_num,
             num_heads=num_heads, rope_theta=rope_theta, rope_mixed=rope_mixed,
             rope_fidelity=rope_fidelity, use_flash_attn=use_flash_attn,
-            attn_fp32_softmax=attn_fp32_softmax, generator=generator,
+            attn_fp32_softmax=attn_fp32_softmax, attn_drop=attn_drop, proj_drop=drop,
+            generator=generator,
         )
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act_exact=act_exact)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act_exact=act_exact, drop=drop)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,10 @@ Port of linnaeus_tpu/models/build.py for mFormerV1, in two forms:
 * ``build_model(config, num_classes=None, taxonomy_tree=None)``: a
   ``CfgNode`` (``configuration/``) whose ``MODEL.*``, ``DATA.TASK_KEYS_H5``,
   ``DATA.META.COMPONENTS`` and ``TRAIN.MIXED_PRECISION`` decide the model,
-  as in the JAX package. What the port does not have raises by name:
-  another ``MODEL.TYPE``, ``MODEL.MOE.ENABLED``, an aggregation other than
-  the default, gradient checkpointing, and (in training mode) a non-zero
-  ``MODEL.DROP_RATE`` / ``ATTN_DROP_RATE``.
+  as in the JAX package; ``TRAIN.GRADIENT_CHECKPOINTING.ENABLED_NORMAL_STEPS``
+  and ``POLICY`` set the model's per-block rematerialisation. What the port
+  does not have raises by name: another ``MODEL.TYPE``,
+  ``MODEL.MOE.ENABLED``, an aggregation other than the default.
 * ``build_model(arch, img_size, num_classes, ...)``: the preset (a name from
   configuration/archs.py, or a dict of the same shape) fixes the depths and
   widths, and keywords carry the rest.
@@ -155,6 +155,7 @@ def build_model_from_config(
         hierarchy_matrices=matrices,
         gradient_checkpointing=bool(
             config.TRAIN.GRADIENT_CHECKPOINTING.get("ENABLED_NORMAL_STEPS", False)),
+        remat_policy=str(config.TRAIN.GRADIENT_CHECKPOINTING.get("POLICY", "dots")),
         dtype=resolve_compute_dtype(config),
         seed=seed,
     )

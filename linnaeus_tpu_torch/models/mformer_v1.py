@@ -11,11 +11,15 @@ Submodule names follow the upstream state_dict layout (stem, stages,
 downsample_layers, norm_1/2, cls_token_1/2, meta_*_head_*, cl_1_fc,
 aggregate, final_norm, head), so a converted TPU checkpoint loads strict.
 Images are NHWC, as in the TPU package. Parameters are float32; ``dtype``
-is the compute dtype. MoE, ring attention, pipelining and rematerialisation
-are not ported yet and raise; dropout (``drop_rate``, ``attn_drop_rate``, 0
-in every preset and the defaults) is not ported: it acts only in training,
-so a model with either set builds and serves in eval mode and raises when
-put in training mode. The heads get the taxonomy tree's
+is the compute dtype. MoE, ring attention and pipelining are not ported
+yet and raise. ``gradient_checkpointing`` recomputes every ConvNeXt and
+RoPE block of the towers in the backward, keeping what ``remat_policy``
+names (models/utils.py); the flag may be flipped between calls, as the
+GradNorm re-forward does. Dropout (``drop_rate`` in the RoPE blocks' MLP
+and after their output projection, ``attn_drop_rate`` on the attention
+output of the plain route) acts in training mode, as in the TPU package.
+``forward(..., gradnorm_mode=True)`` returns the heads' base logits. The
+heads get the taxonomy tree's
 ``hierarchy_matrices`` for HierarchicalSoftmax / ConditionalClassifier.
 ``attn_fp32_softmax`` False lets the plain attention path compute its scores
 in the compute dtype (ops/attention.py); it has no effect on the K1 route.
@@ -44,6 +48,7 @@ from linnaeus_tpu_torch.models.blocks.convnext import (
 )
 from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
+from linnaeus_tpu_torch.models.utils import checkpoint_block, resolve_remat_policy
 
 
 class MFormerV1(nn.Module):
@@ -79,6 +84,7 @@ class MFormerV1(nn.Module):
         ring_attention: bool = False,
         pipeline_stages: int = 0,
         gradient_checkpointing: bool = False,
+        remat_policy: str = "dots",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
     ):
@@ -87,7 +93,6 @@ class MFormerV1(nn.Module):
             ("moe_num_experts", moe_num_experts),
             ("ring_attention", ring_attention),
             ("pipeline_stages", pipeline_stages),
-            ("gradient_checkpointing", gradient_checkpointing),
         ):
             if value:
                 raise NotImplementedError(f"MFormerV1: {name} is not ported yet")
@@ -101,7 +106,10 @@ class MFormerV1(nn.Module):
         if img_size[0] % 32 or img_size[1] % 32:
             raise ValueError(f"img_size {img_size} must be a multiple of 32")
         generator = torch.Generator().manual_seed(seed)
-        self.drop_rate, self.attn_drop_rate = float(drop_rate), float(attn_drop_rate)
+        self.gradient_checkpointing = bool(gradient_checkpointing)
+        self.remat_policy = remat_policy
+        if self.gradient_checkpointing:
+            resolve_remat_policy(remat_policy)  # an unknown name raises here
         self.dtype = dtype
         self.only_last_cls = only_last_cls
         self.meta_components = tuple((str(n), int(d)) for n, d in meta_components)
@@ -133,7 +141,8 @@ class MFormerV1(nn.Module):
                     rope_theta=rope_theta, rope_mixed=rope_mixed,
                     drop_path=next(dpr), use_flash_attn=use_flash_attn,
                     rope_fidelity=rope_fidelity, act_exact=act_exact,
-                    attn_fp32_softmax=attn_fp32_softmax, generator=generator,
+                    attn_fp32_softmax=attn_fp32_softmax, drop=drop_rate,
+                    attn_drop=attn_drop_rate, generator=generator,
                 )
                 for _ in range(rope_depths[s])
             )
@@ -168,13 +177,13 @@ class MFormerV1(nn.Module):
             trunc_normal_(self.cls_token_1, generator)
             trunc_normal_(self.cls_token_2, generator)
 
-    def train(self, mode: bool = True) -> "MFormerV1":
-        if mode and (self.drop_rate or self.attn_drop_rate):
-            raise NotImplementedError(
-                f"MFormerV1: drop_rate={self.drop_rate} / attn_drop_rate={self.attn_drop_rate} "
-                "(MODEL.DROP_RATE / MODEL.ATTN_DROP_RATE): dropout is not ported yet; it acts "
-                "only in training, so such a model serves in eval mode only")
-        return super().train(mode)
+    def _block(self, blk: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
+        """One tower block, checkpointed when gradient checkpointing is on
+        and a gradient is being recorded."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint_block(blk, x, *args,
+                                    context_fn=resolve_remat_policy(self.remat_policy))
+        return blk(x, *args)
 
     def _extras(self, stage: int, meta: torch.Tensor, B: int) -> torch.Tensor:
         """CLS then one token per metadata component, (B, 1 + n_meta, C)."""
@@ -196,19 +205,22 @@ class MFormerV1(nn.Module):
             # absent metadata is the fully masked (all-zero) aux vector
             total = sum(d for _, d in self.meta_components)
             meta = torch.zeros((B, total), dtype=self.dtype, device=x.device)
+        # the ConvNeXt blocks' route (K2's training route or not) is fixed
+        # here and passed in, so a recomputed block takes it again
+        training = torch.is_grad_enabled()
         x = self.stem(x.to(self.dtype))  # (B, H/4, W/4, D0)
         for blk in self.stages[0]:
-            x = blk(x)
+            x = self._block(blk, x, training)
         x = self.downsample_layers[0](x)  # (B, H/8, W/8, D1)
         for blk in self.stages[1]:
-            x = blk(x)
+            x = self._block(blk, x, training)
         x = self.downsample_layers[1](x)  # (B, H/16, W/16, D2)
 
         h3, w3 = self.grid3
         x = x.reshape(B, h3 * w3, self.rope_dims[0])
         x = torch.cat([self._extras(1, meta, B), x], dim=1)
         for blk in self.stages[2]:
-            x = blk(x)
+            x = self._block(blk, x)
         x = self.norm_1(x)
         if not self.only_last_cls:
             cls_1 = self.cl_1_fc(x[:, 0:1, :])
@@ -219,7 +231,7 @@ class MFormerV1(nn.Module):
         x = x.reshape(B, h4 * w4, self.rope_dims[1])
         x = torch.cat([self._extras(2, meta, B), x], dim=1)
         for blk in self.stages[3]:
-            x = blk(x)
+            x = self._block(blk, x)
         x = self.norm_2(x)
         cls_2 = x[:, 0:1, :]
         if self.only_last_cls:
@@ -228,7 +240,9 @@ class MFormerV1(nn.Module):
         return self.final_norm(agg)
 
     def forward(
-        self, x: torch.Tensor, meta: torch.Tensor | None = None
+        self, x: torch.Tensor, meta: torch.Tensor | None = None, gradnorm_mode: bool = False,
     ) -> dict[str, torch.Tensor]:
-        """NHWC images (and the packed aux vector) -> float32 logits by task."""
-        return self.head(self.forward_features(x, meta))
+        """NHWC images (and the packed aux vector) -> float32 logits by task;
+        ``gradnorm_mode`` skips the hierarchical refinement (the GradNorm
+        re-forward's linear heads)."""
+        return self.head(self.forward_features(x, meta), gradnorm_mode=gradnorm_mode)

@@ -1,9 +1,11 @@
 """Train and eval steps.
 
-Port of linnaeus_tpu/train/step.py. One optimizer step: on-device mixing
-and meta-masking (collate semantics), forward in the compute dtype, float32
-loss, backward, float32 global-norm clip with the norm measured before and
-after, optimizer update, optional EMA, metrics. Where the TPU package
+Port of linnaeus_tpu/train/step.py. One optimizer step: on-device
+augmentation, mixing and meta-masking (collate semantics), forward in the
+compute dtype, float32 loss, backward, float32 global-norm clip with the
+norm measured before and after, optimizer update, optional EMA, metrics.
+``make_gradnorm_step`` is the GradNorm update that the TPU package's Trainer
+runs every UPDATE_INTERVAL steps on the batch the last step consumed. Where the TPU package
 returns a new state from a pure, jitted function, this step updates the
 ``TrainState`` in place and returns it; metrics are device scalars, so the
 step never waits for the device.
@@ -18,11 +20,22 @@ weight gradients are summed in float32 inside the kernel and cast once).
 The loss, the clip and the update run in float32.
 
 Randomness. Every draw of a step comes from ``state.generator`` in a fixed
-order (mix gate, permutation noise, lam, metadata picks, meta-masking coins,
-partial-masking coins, drop-path masks in layer order, null-masking coins
-per task). A step also accepts its collate and loss draws as ``draws``
-(the keys of data/collate.py plus ``meta_coins``, ``partial_coins`` and
-``null_coins``), which is how it is held against the TPU package's step.
+order (augmentation, mix gate, permutation noise, lam, metadata picks,
+meta-masking coins, partial-masking coins, drop-path and dropout masks in
+layer order, null-masking coins per task). A step also accepts its collate
+and loss draws as ``draws`` (the keys of data/collate.py plus ``augment``,
+the draws of data/augmentation/autoaugment.py, ``meta_coins``,
+``partial_coins`` and ``null_coins``), which is how it is held against the
+TPU package's step.
+
+The GradNorm re-forward. The TPU package re-derives the collated tensors of
+the last step by regenerating that step's key and preprocessing the same
+batch again. The port keeps the collated tensors themselves instead
+(``keep_collated``, ``TrainState.last_collated``): the images in the
+model's compute dtype, which is all its first op reads, the soft targets
+and the metadata. At 384 px and B = 64 in bfloat16 that is 57 MB of images
+(113 MB in float32) and 0.4 MB of targets for four tasks of 1530 classes,
+held from one step to the next; no augmentation or mixing runs twice.
 
 Gradient accumulation runs the microbatches in a Python loop, summing the
 gradients on the parameters. MoE statistics and BatchNorm running stats are
@@ -44,7 +57,7 @@ from linnaeus_tpu_torch.data.collate import (
 from linnaeus_tpu_torch.loss.basic import one_hot
 from linnaeus_tpu_torch.loss.hierarchical import weighted_hierarchical_loss
 
-from .state import TrainState
+from .state import Collated, TrainState
 
 Draws = Mapping[str, Any]
 
@@ -136,11 +149,13 @@ def make_preprocess_fn(
     mix_cfg: MixConfig,
     has_meta: bool = True,
     num_classes: dict[str, int] | None = None,
+    augment_fn: Callable | None = None,
 ):
-    """On-device collate: [0, 1] conversion -> mixing -> meta-masking (the
-    TPU package's on-device augmentation between the first two is not ported
-    yet). Returns ``preprocess(batch, scalars, generator, draws) ->
-    (images, targets, meta, mixed_mask)``."""
+    """On-device collate: [0, 1] conversion -> augmentation -> mixing ->
+    meta-masking, the TPU package's order. ``augment_fn`` is the pipeline of
+    data/augmentation/autoaugment.py (``augment(images, generator,
+    draws)``) or None. Returns ``preprocess(batch, scalars, generator,
+    draws) -> (images, targets, meta, mixed_mask)``."""
 
     def preprocess(batch, scalars: ScheduleScalars, generator=None, draws: Draws | None = None):
         draws = draws or {}
@@ -148,6 +163,8 @@ def make_preprocess_fn(
         if not images.is_floating_point():
             # uint8 host pipeline -> on-device [0, 1] float
             images = images.float() * (1.0 / 255.0)
+        if augment_fn is not None:
+            images = augment_fn(images.float(), generator, draws.get("augment")).to(images.dtype)
         targets = _ensure_soft(batch["targets"], num_classes)
         meta = batch.get("aux") if has_meta else None
         group_ids = batch.get("group_ids")
@@ -184,6 +201,8 @@ def make_train_step(
     moe_aux_weight: float = 0.0,
     moe_z_weight: float = 0.0,
     ema_decay: float = 0.0,
+    augment_fn: Callable | None = None,
+    keep_collated: bool = False,
 ):
     """Build the train step.
 
@@ -193,7 +212,9 @@ def make_train_step(
     are one-hot encoded on the device (requires ``num_classes``). ``state``
     is updated in place. ``draws`` is one dict, or one per microbatch.
     ``lr_schedule`` only reports the rate in the metrics; the rate that is
-    applied is ``state.lr_schedule``'s.
+    applied is ``state.lr_schedule``'s. ``augment_fn`` augments the images
+    after their [0, 1] conversion. ``keep_collated`` leaves what the forward
+    consumed in ``state.last_collated`` for the GradNorm step.
     """
     if moe_aux_weight > 0.0 or moe_z_weight > 0.0:
         raise NotImplementedError(
@@ -202,12 +223,17 @@ def make_train_step(
         )
     accum = max(int(accumulation_steps), 1)
     task_keys = tuple(task_keys)
-    preprocess = make_preprocess_fn(mix_cfg, has_meta=has_meta, num_classes=num_classes)
+    preprocess = make_preprocess_fn(mix_cfg, has_meta=has_meta, num_classes=num_classes,
+                                    augment_fn=augment_fn)
 
-    def forward_backward(state, batch, scalars, draws):
+    def forward_backward(state, batch, scalars, draws, kept):
         """Collate, forward, loss and backward of one (micro)batch; the
-        gradients are added onto the parameters' ``.grad``."""
+        gradients are added onto the parameters' ``.grad``; with
+        ``keep_collated`` the collated tensors are appended to ``kept``."""
         images, targets, meta, mixed_mask = preprocess(batch, scalars, state.generator, draws)
+        if keep_collated:
+            kept.append(Collated(images.detach().to(state.model.dtype), targets,
+                                 None if meta is None else meta.detach()))
         outputs = state.model(images, meta)
         total, components = weighted_hierarchical_loss(
             outputs, targets, criteria, state.gradnorm.task_weights,
@@ -235,11 +261,12 @@ def make_train_step(
             p.grad = None
 
         metrics: dict[str, torch.Tensor | float] = {}
+        kept: list[Collated] = []
         if accum == 1:
             if draws is not None and not isinstance(draws, Mapping):
                 (draws,) = draws
             total, outputs, components, mixed_mask = forward_backward(
-                state, batch, scalars, draws)
+                state, batch, scalars, draws, kept)
             for t in task_keys:
                 metrics[f"loss/{t}"] = components["tasks"][t].detach()
             metrics.update(_accuracy_metrics(outputs, batch["targets"]))
@@ -255,7 +282,7 @@ def make_train_step(
 
             for mb, mb_draws in zip(micro, per_micro):
                 mb_total, mb_out, mb_comp, mb_mixed = forward_backward(
-                    state, mb, scalars, mb_draws)
+                    state, mb, scalars, mb_draws, kept)
                 total = total + mb_total
                 add("mixed", mb_mixed.float().sum())
                 # accuracy counts against the raw microbatch targets
@@ -275,6 +302,12 @@ def make_train_step(
                 denom = stats[f"valid/{t}"].clamp_min(1.0)
                 metrics[f"acc1/{t}"] = stats[f"correct1/{t}"] / denom
                 metrics[f"acc3/{t}"] = stats[f"correct3/{t}"] / denom
+
+        if keep_collated:
+            state.last_collated = kept[0] if len(kept) == 1 else Collated(
+                torch.cat([k.images for k in kept]),
+                {t: torch.cat([k.targets[t] for k in kept]) for t in kept[0].targets},
+                None if kept[0].meta is None else torch.cat([k.meta for k in kept]))
 
         # the parameters are float32, so are their gradients: the clip and
         # the update run in float32
@@ -305,6 +338,27 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def make_gradnorm_step(update: Callable) -> Callable:
+    """The GradNorm update on what the last train step consumed:
+    ``gradnorm_step(state) -> (state, metrics)`` runs ``update``
+    (loss/gradnorm.py::make_gradnorm_update_fn) on
+    ``state.last_collated`` (a train step built with ``keep_collated``) and
+    writes the new task weights into ``state.gradnorm``. Under accumulation
+    the collated microbatches are re-forwarded as one batch, as the TPU
+    package's Trainer concatenates them."""
+
+    def gradnorm_step(state: TrainState):
+        if state.last_collated is None:
+            raise ValueError(
+                "gradnorm_step: no collated batch; build the train step with keep_collated=True "
+                "and take a step first")
+        images, targets, meta = state.last_collated
+        state.gradnorm, metrics = update(state.model, images, targets, meta, state.gradnorm)
+        return state, metrics
+
+    return gradnorm_step
 
 
 def make_eval_step(

@@ -18,14 +18,19 @@ tree shaped like the params just as well, a JAX gradient tree for one, and
 of an optax AdamW state, so a test can compare gradients and one optimizer
 update parameter by parameter. :func:`convnext_block_args_from_jax` does the
 same for the argument tuple of one fused ConvNeXt block (K3).
+
+:func:`jax_layouts` runs the map the other way for a live torch model: each
+parameter's Flax path and a view of it in the Flax layout, which is what
+the parameter filters and Muon read (utils/param_filters.py, optim/muon.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -206,3 +211,65 @@ def convnext_block_args_from_jax(
     cast = lambda a: torch.tensor(a).to(dtype)  # noqa: E731
     return (cast(f32(x)), taps, kb, ls, lb, cast(_dense(f32(w1))).contiguous(), b1t,
             cast(_dense(f32(w2))).contiguous(), b2t, g)
+
+
+class JaxLayout(NamedTuple):
+    """One parameter's place in the TPU package's tree: its Flax path joined
+    with '/' (``stage1_block0/Dense_0/kernel``), and the two views between
+    the torch layout and the Flax one."""
+
+    path: str
+    to_jax: Callable[[torch.Tensor], torch.Tensor]
+    from_jax: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+# the torch views of the numpy layout changes above: (to Flax, from Flax)
+_VIEWS: dict[Any, tuple[Callable, Callable]] = {
+    None: (_same, _same),
+    _conv: (lambda t: t.permute(2, 3, 1, 0), lambda t: t.permute(3, 2, 0, 1)),
+    _dense: (lambda t: t.t(), lambda t: t.t()),
+    _aggregate: (lambda t: t[:, :, 0].t(), lambda t: t.t()[:, :, None]),
+    _conv1d: (lambda t: t.permute(2, 1, 0), lambda t: t.permute(2, 1, 0)),
+}
+
+
+def _skeleton(model: nn.Module) -> dict[str, Any]:
+    """The keys of the Flax params tree that ``_entries`` looks up to decide
+    which leaves exist, read off a torch mFormerV1."""
+    tree: dict[str, Any] = {}
+    for s, name in ((0, "stage1"), (1, "stage2")):
+        for j, blk in enumerate(model.stages[s]):
+            tree[f"{name}_block{j}"] = {"gamma": True} if blk.gamma is not None else {}
+    for s, name in ((2, "stage3"), (3, "stage4")):
+        for j, blk in enumerate(model.stages[s]):
+            tree[f"{name}_block{j}"] = {"attn": {"freqs": True} if blk.attn.freqs is not None
+                                        else {}}
+    if hasattr(model, "cl_1_fc"):
+        tree["cl_1_fc"] = True
+    for s in (1, 2):
+        for name, dim in model.meta_components:
+            if dim > 0:
+                tree[f"meta_{name.lower()}_head_{s}"] = True
+    tree["head"] = {}
+    for task in model.head.task_keys:
+        fc = model.head[task].fc
+        layer = "Conv_0" if isinstance(fc, nn.Conv1d) else "Dense_0"
+        tree["head"][f"head_{task}"] = {layer: {"bias": True} if fc.bias is not None else {}}
+    return tree
+
+
+def jax_layouts(model: nn.Module) -> dict[str, JaxLayout]:
+    """Parameter name -> :class:`JaxLayout` for every parameter of a torch
+    mFormerV1, from the same table as :func:`state_dict_from_jax`."""
+    names = tuple(name for name, _ in model.meta_components)
+    depths = tuple(len(stage) for stage in model.stages)
+    out = {}
+    for key, path, convert in _entries(_skeleton(model), depths[:2], depths[2:], names,
+                                       tuple(model.head.task_keys)):
+        to_jax, from_jax = _VIEWS[convert]
+        out[key] = JaxLayout("/".join(path), to_jax, from_jax)
+    return out

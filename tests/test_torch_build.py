@@ -4,8 +4,9 @@ One config, read by both packages' ``build_model``: the module's fields
 (dtype, flash attention, fp32 scores, exact GELU, RoPE fidelity, the fused
 ConvNeXt MLP switch, drop-path, metadata components, heads) must say the
 same, and what the port does not have must raise by name: another
-``MODEL.TYPE``, MoE, a non-default aggregation, gradient checkpointing, and
-non-zero dropout once the model is put in training mode.
+``MODEL.TYPE``, MoE, a non-default aggregation. Gradient checkpointing
+(with its policy) and dropout in training mode, once unported, now follow
+the config.
 """
 
 import numpy as np
@@ -108,22 +109,55 @@ def test_num_classes_from_the_config():
      NotImplementedError, "gradient_checkpointing"),
 ])
 def test_unported_config_raises_by_name(change, error, name):
-    tcfg, _ = _both()
+    tcfg, jcfg = _both()
     tcfg.merge_from_other_cfg(change)
+    if name == "gradient_checkpointing":
+        # ported: the config's remat setting and policy reach the model, as
+        # they reach the JAX package's
+        jcfg.merge_from_other_cfg(change)
+        for policy in ("dots", "full"):
+            for cfg in (tcfg, jcfg):
+                cfg.TRAIN.GRADIENT_CHECKPOINTING.POLICY = policy
+            ours, theirs = build_model(tcfg, NC, device="cpu"), jbuild_model(jcfg, NC)
+            assert ours.gradient_checkpointing is theirs.gradient_checkpointing is True
+            assert ours.remat_policy == theirs.remat_policy == policy
+        tcfg.TRAIN.GRADIENT_CHECKPOINTING.POLICY = "offload"
+        with pytest.raises(ValueError, match="remat policy"):
+            build_model(tcfg, NC, device="cpu")
+        return
     with pytest.raises(error, match=name):
         build_model(tcfg, NC, device="cpu")
 
 
 @pytest.mark.parametrize("key", ["DROP_RATE", "ATTN_DROP_RATE"])
 def test_dropout_serves_in_eval_and_raises_in_training(key):
-    tcfg, _ = _both(**{key: 0.1})
+    """Dropout, once unported, now acts in training: eval is unchanged by
+    it, training draws its masks from the generator (two draws differ, the
+    same seed repeats), at the rate the config gives; on K1's route the
+    attention dropout is off, as in the JAX package."""
+    tcfg, _ = _both(DROP_PATH_RATE=0.0, **{key: 0.1})
     model = build_model(tcfg, NC, device="cpu")
+    plain = build_model(_both(DROP_PATH_RATE=0.0)[0], NC, device="cpu")
     assert not model.training
+    x, m = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(0)), torch.zeros(2, 5)
     with torch.no_grad():
-        out = model(torch.zeros(1, 64, 64, 3), torch.zeros(1, 5))
-    assert set(out) == set(TASKS)
-    with pytest.raises(NotImplementedError, match=key):
-        model.train()
+        out = model(x, m)
+        assert all(torch.equal(out[t], plain(x, m)[t]) for t in TASKS)
+    drops = [mod for mod in model.modules() if type(mod).__name__ == "Dropout" and mod.rate > 0]
+    assert drops and all(mod.rate == 0.1 for mod in drops)
+    model.train()
+    for mod in drops:
+        mod.generator = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        a, b = model(x, m), model(x, m)
+        for mod in drops:
+            mod.generator.manual_seed(1)
+        again = model(x, m)
+    assert not torch.equal(a["taxa_L10"], b["taxa_L10"])
+    assert torch.equal(a["taxa_L10"], again["taxa_L10"])
+    flash = build_model(_both(USE_FLASH_ATTN=True, **{key: 0.1})[0], NC, device="cpu")
+    attn = [blk.attn.attn_drop.rate for stage in flash.stages[2:] for blk in stage]
+    assert attn == [0.0] * len(attn)
     model.eval()
 
 

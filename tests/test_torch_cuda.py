@@ -20,7 +20,12 @@ the tensor cores in bfloat16 at widths that are multiples of 32 (up to 256,
 192 and 192) and on the CUDA cores otherwise; the C side's reports of those
 routes are held against the Python rules, the tensor-core forward around
 its 64-row tile and 64-column atom edges, and a ConvNeXt block left to
-choose its route at the lg and xl presets' widths.
+choose its route at the lg and xl presets' widths. K1 and K2 inside the
+non-reentrant checkpoints of per-block rematerialisation, under each
+policy, give the gradients of the run without it (to the backward bars,
+with one more forward launch per block), the recompute takes the first
+forward's route, and GradNorm's per-task norms with the kernels on and off
+agree within the bf16 backward bar.
 """
 
 import numpy as np
@@ -631,3 +636,102 @@ def test_tiny_model_kernels_on_vs_off(dev):
     assert (fa.LAUNCHES - k1, fm.LAUNCHES - k2) == (2, 3)
     for t in nc:
         assert _max_err(a[t], b[t]) <= 1e-4
+
+
+REMAT_SPEC = {
+    "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [96, 192, 128, 256]},
+    "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
+    "DROP_PATH_RATE": 0.2,
+}
+REMAT_NC = {"taxa_L10": 11, "taxa_L20": 5}
+
+
+def _remat_run(dev, dtype, remat, policy):
+    """Gradients of a training step of a small model with K1 and K2 on and
+    drop path drawn from a seeded generator, with per-block checkpointing
+    on or off; returns (gradients, launch counts)."""
+    model = build_model(REMAT_SPEC, 64, REMAT_NC, (("TEMPORAL", 2),), dtype=dtype,
+                        use_flash_attn=True, fused_convnext_mlp=None, device=dev, seed=1)
+    model.gradient_checkpointing, model.remat_policy = remat, policy
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for m in model.modules():
+        if hasattr(m, "rate"):
+            m.generator = gen
+    model.train()
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(size=(3, 64, 64, 3)).astype(np.float32), device=dev)
+    meta = torch.tensor(rng.normal(size=(3, 2)).astype(np.float32), device=dev)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, fm.BWD_LAUNCHES)
+    out = model(x, meta)
+    sum(v.square().mean() for v in out.values()).backward()
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip((fa.LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES,
+                                          fm.BWD_LAUNCHES), before))
+    return {n: p.grad.float() for n, p in model.named_parameters()}, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_kernels_under_checkpoint_give_the_same_gradients(dev, dtype, policy):
+    """K1 and K2 inside non-reentrant checkpoints, under each policy: the
+    recompute relaunches each block's forward kernel once (the policies see
+    no product inside a kernel), the backward kernels run once, and the
+    gradients are those of the run without checkpointing, to the backward
+    kernels' bars relative to each gradient's largest magnitude (K1's
+    float32 dQ sums through atomics, so two runs need not be the same
+    bits)."""
+    plain, n_plain = _remat_run(dev, dtype, False, policy)
+    remat, n_remat = _remat_run(dev, dtype, True, policy)
+    # 2 RoPE blocks (K1), 3 ConvNeXt blocks at 96 and 192 (K2)
+    assert n_plain == (2, 2, 3, 3)
+    assert n_remat == (4, 2, 6, 3)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for n in plain:
+        scale = plain[n].abs().max().item()
+        assert _max_err(remat[n], plain[n]) <= tol * scale + 1e-12, n
+
+
+def test_recompute_takes_the_first_forwards_route(dev):
+    """A ConvNeXt block left to choose takes K2's training route at C = 96
+    and the plain modules at C = 256 (K2's backward stops at 192); its
+    recompute, under checkpointing, takes the same route again."""
+    from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
+    from linnaeus_tpu_torch.models.utils import checkpoint_block, resolve_remat_policy
+
+    for dim, want in ((96, (2, 1)), (256, (0, 0))):
+        blk = ConvNeXtBlock(dim).to(dev).train()
+        x = torch.randn(2, 12, 12, dim, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        before = (fm.LAUNCHES, fm.BWD_LAUNCHES)
+        y = checkpoint_block(blk, x, True, context_fn=resolve_remat_policy("dots"))
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fm.LAUNCHES - before[0], fm.BWD_LAUNCHES - before[1]) == want, dim
+
+
+def test_gradnorm_norms_kernels_on_vs_off(dev):
+    """The GradNorm update's per-task trunk norms with K1 and K2 on and off,
+    on the same weights and batch, in bf16: within the backward kernels'
+    bf16 bar."""
+    from linnaeus_tpu_torch.loss import soft_target_cross_entropy
+    from linnaeus_tpu_torch.loss.gradnorm import init_gradnorm_state, make_gradnorm_update_fn
+
+    nets = [build_model(REMAT_SPEC, 64, REMAT_NC, (("TEMPORAL", 2),), dtype=torch.bfloat16,
+                        use_flash_attn=k, fused_convnext_mlp=k, device=dev, seed=1)
+            for k in (True, False)]
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(size=(4, 64, 64, 3)).astype(np.float32), device=dev)
+    meta = torch.tensor(rng.normal(size=(4, 2)).astype(np.float32), device=dev)
+    targets = {t: torch.eye(n, device=dev)[torch.arange(4, device=dev) % n]
+               for t, n in REMAT_NC.items()}
+    norms = []
+    for net in nets:
+        trunk = [n for n, _ in net.named_parameters() if not n.startswith(("head", "meta_"))]
+        update = make_gradnorm_update_fn({t: soft_target_cross_entropy for t in REMAT_NC},
+                                         tuple(REMAT_NC), trunk, alpha=1.5, remat=True)
+        k1 = fa.LAUNCHES
+        _, metrics = update(net, x, targets, meta, init_gradnorm_state(2, device=dev))
+        norms.append(metrics["gradnorm/norms"])
+        # two tasks, each a forward and its recompute through both RoPE blocks
+        assert fa.LAUNCHES - k1 == (2 * 2 * 2 if net is nets[0] else 0)
+    assert torch.isfinite(norms[0]).all()
+    assert _max_err(norms[0], norms[1]) <= 2e-2 * norms[1].abs().max().item()

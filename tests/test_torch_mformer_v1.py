@@ -168,15 +168,131 @@ def test_state_dict_from_jax_equals_reference_export():
 @pytest.mark.parametrize("kw", [
     {"moe_num_experts": 4}, {"ring_attention": True}, {"pipeline_stages": 2},
     {"gradient_checkpointing": True}, {"aggregation": "Concatenation"},
-    # dropout is not ported: such a model serves in eval mode and raises
-    # when put in training mode (the hierarchical heads, once here, are
-    # ported: tests/test_torch_heads.py)
     {"drop_rate": 0.1}, {"attn_drop_rate": 0.1},
 ])
 def test_unported_options_raise(kw):
+    """MoE, ring attention, pipelining and other aggregations raise.
+    Gradient checkpointing and dropout, once here, are ported: such a model
+    builds, trains and gives gradients (test_remat_* and
+    tests/test_torch_build.py hold what they compute)."""
+    build = functools.partial(MFormerV1, img_size=(64, 64), convnext_dims=(8, 16, 32, 64),
+                              rope_dims=(32, 64), **kw)
+    if set(kw) & {"gradient_checkpointing", "drop_rate", "attn_drop_rate"}:
+        model = build().train()
+        model.forward_features(torch.zeros(1, 64, 64, 3)).sum().backward()
+        assert model.training and all(p.grad is not None for p in model.stem.parameters())
+        return
     with pytest.raises(NotImplementedError):
+        build().train()
+
+
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+
+
+def _remat_grads(params, images, meta, remat, policy="dots", **kw):
+    """Logits and gradients of a training-mode forward (drop path 0.3 drawn
+    from one seeded generator) with per-block checkpointing on or off."""
+    model = build_model(SPEC, 64, NC, META, device="cpu", drop_path_rate=0.3, **kw)
+    model.load_state_dict(
+        state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS),
+        strict=True)
+    model.gradient_checkpointing, model.remat_policy = remat, policy
+    gen = torch.Generator().manual_seed(5)
+    for m in model.modules():
+        if hasattr(m, "rate"):
+            m.generator = gen
+    model.train()
+    out = model(torch.tensor(images), torch.tensor(meta))
+    sum((v * (i + 1)).square().mean() for i, v in enumerate(out.values())).backward()
+    return ({t: v.detach() for t, v in out.items()},
+            {n: p.grad.clone() for n, p in model.named_parameters()}, gen.get_state())
+
+
+@pytest.fixture(scope="module")
+def remat_inputs():
+    images, meta = _inputs()
+    return _perturbed_params(_jax_model(), images, meta), images, meta
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernel_routes"])
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_outputs_and_gradients_are_bit_identical(policy, kernels, remat_inputs):
+    """Every ConvNeXt and RoPE block checkpointed: the same logits and
+    gradients, bit for bit, under each policy, on the plain modules and on
+    K1's and K2's routes (their plain versions on the CPU); the recompute
+    draws the same drop-path masks and leaves the generator where the
+    forward left it."""
+    params, images, meta = remat_inputs
+    kw = {"use_flash_attn": True, "fused_convnext_mlp": True} if kernels else {}
+    out0, grads0, gen0 = _remat_grads(params, images, meta, False, **kw)
+    out1, grads1, gen1 = _remat_grads(params, images, meta, True, policy, **kw)
+    for t in TASKS:
+        assert torch.equal(out0[t], out1[t]), t
+    for n in grads0:
+        assert torch.equal(grads0[n], grads1[n]), n
+    assert torch.equal(gen0, gen1)
+
+
+def test_remat_recomputes_and_keeps_what_the_policy_names(monkeypatch, remat_inputs):
+    """The blocks are recomputed in the backward (each forward op runs
+    twice), and 'dots' keeps the products the recompute would redo."""
+    import linnaeus_tpu_torch.models.utils as mu
+
+    saved = []
+    plain = mu._save_products
+
+    def spy(ops, ctx, op, *a, **k):
+        policy = plain(ops, ctx, op, *a, **k)
+        saved.append((str(op), policy.name))
+        return policy
+
+    monkeypatch.setattr(mu, "_save_products", spy)
+    params, images, meta = remat_inputs
+    _remat_grads(params, images, meta, True, "dots")
+    kept = {op for op, policy in saved if policy == "MUST_SAVE"}
+    assert {"aten.addmm.default", "aten.bmm.default"} <= kept
+    assert not any("convolution" in op for op in kept)
+    saved.clear()
+    _remat_grads(params, images, meta, True, "dots_no_batch")
+    assert {op for op, policy in saved if policy == "MUST_SAVE"} == {"aten.addmm.default"}
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat policy"):
         MFormerV1(img_size=(64, 64), convnext_dims=(8, 16, 32, 64), rope_dims=(32, 64),
-                  **kw).train()
+                  gradient_checkpointing=True, remat_policy="offload")
+    model = MFormerV1(img_size=(64, 64), convnext_dims=(8, 16, 32, 64), rope_dims=(32, 64),
+                      remat_policy="offload").train()
+    model.gradient_checkpointing = True
+    with pytest.raises(ValueError, match="remat policy"):
+        model(torch.zeros(1, 64, 64, 3))
+
+
+def test_gradnorm_mode_returns_the_base_logits_as_in_jax():
+    from linnaeus_tpu.utils.taxonomy import TaxonomyTree as JTree
+    from linnaeus_tpu_torch.utils.taxonomy import TaxonomyTree
+
+    hierarchy = {"taxa_L10": {1: 1, 2: 1, 3: 2, 4: 2, 5: 2, 6: 1}}
+    heads = {"taxa_L10": {"TYPE": "HierarchicalSoftmax"}, "taxa_L20": {"TYPE": "Linear"}}
+    images, meta = _inputs()
+    jm = _jax_model()
+    jm = jm.clone(head_configs=heads, hierarchy_matrices=JTree(
+        hierarchy, list(TASKS), dict(NC)).build_hierarchy_matrices())
+    params = _perturbed_params(jm, images, meta)
+    model = build_model(SPEC, 64, NC, META, device="cpu", head_configs=heads,
+                        taxonomy_tree=TaxonomyTree(hierarchy, list(TASKS), dict(NC)))
+    model.load_state_dict(
+        state_dict_from_jax(params, DEPTHS, ROPE_DEPTHS, ("TEMPORAL", "SPATIAL"), TASKS),
+        strict=True)
+    for mode in (False, True):
+        ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta),
+                       gradnorm_mode=mode)
+        with torch.no_grad():
+            out = model(torch.tensor(images), torch.tensor(meta), gradnorm_mode=mode)
+        for t in TASKS:
+            np.testing.assert_allclose(out[t].numpy(), np.asarray(ref[t]), atol=ATOL)
+    assert not torch.allclose(out["taxa_L10"], model(torch.tensor(images), torch.tensor(meta))[
+        "taxa_L10"].detach())
 
 
 def test_conv1d_head_and_only_last_cls_match_jax():

@@ -17,7 +17,10 @@ gradient is float noise (below 1e-7: the bias before a LayerNorm, the key
 bias under the softmax), which AdamW normalises to a full step of either
 sign. bfloat16 compute over float32 parameters: loss 2e-2, gradient norms
 10% (8 mantissa bits through 12 blocks, rounded at other places by the two
-frameworks).
+frameworks). With the on-device augmentation (JAX's draws for the same
+key, tests/test_torch_augmentation.py) the preprocess order and a step
+match to the same bars, the images to the augmentation's 2e-5; the
+GradNorm step re-forwards exactly what the train step consumed.
 """
 
 import functools
@@ -33,6 +36,7 @@ import linnaeus_tpu.data.collate as jc
 import linnaeus_tpu.ops.flash_attention as jfa
 import linnaeus_tpu.ops.fused_mlp as jfm
 import linnaeus_tpu.train.step as jstep
+from linnaeus_tpu.data.augmentation import autoaugment as jaa
 from linnaeus_tpu.configuration.defaults import get_default_config
 from linnaeus_tpu.loss import soft_target_cross_entropy as j_stce
 from linnaeus_tpu.models import MFormerV1 as JMFormerV1
@@ -41,14 +45,23 @@ from linnaeus_tpu.optim import schedules as j_sched
 from linnaeus_tpu.train.state import create_train_state as j_create_state
 from linnaeus_tpu_torch.configuration.train_presets import train_preset
 from linnaeus_tpu_torch.data import collate as tc
+from linnaeus_tpu_torch.data.augmentation import autoaugment as taa
+from linnaeus_tpu_torch.loss import gradnorm as tgn
 from linnaeus_tpu_torch.loss import soft_target_cross_entropy as t_stce
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch.optim.build import build_optimizer
 from linnaeus_tpu_torch.optim.schedules import build_schedule
 from linnaeus_tpu_torch.tools import train_bench
 from linnaeus_tpu_torch.train.state import TrainState, create_train_state
-from linnaeus_tpu_torch.train.step import ScheduleScalars, make_eval_step, make_train_step
+from linnaeus_tpu_torch.train.step import (
+    ScheduleScalars,
+    make_eval_step,
+    make_gradnorm_step,
+    make_preprocess_fn,
+    make_train_step,
+)
 from linnaeus_tpu_torch.utils.convert import adamw_moments_from_optax, state_dict_from_jax
+from tests.test_torch_augmentation import jax_pipeline_draws
 from tests.test_torch_collate import mixing_draws
 
 TASKS = ("taxa_L10", "taxa_L20")
@@ -102,8 +115,9 @@ def _configs(base_lr=1e-3):
     return jcfg, cfg
 
 
-def _setup(dtype="float32", accum=1, mix=None, base_lr=1e-3, **step_kw):
-    """(jax step, jax state, torch step, torch state) on shared weights."""
+def _setup(dtype="float32", accum=1, mix=None, base_lr=1e-3, j_kw=None, t_kw=None, **step_kw):
+    """(jax step, jax state, torch step, torch state) on shared weights;
+    ``j_kw`` / ``t_kw`` go to one side's ``make_train_step`` only."""
     mix = mix or {"chunk_bounds": BOUNDS}
     jm = JMFormerV1(
         img_size=(IMG, IMG), convnext_depths=DEPTHS, convnext_dims=DIMS,
@@ -123,7 +137,7 @@ def _setup(dtype="float32", accum=1, mix=None, base_lr=1e-3, **step_kw):
                              rng=jax.random.PRNGKey(SEED_KEY))
     j_step = jax.jit(jstep.make_train_step(
         {t: j_stce for t in TASKS}, TASKS, jc.MixConfig(**mix), clip_grad=5.0,
-        accumulation_steps=accum, lr_schedule=j_schedule, **step_kw))
+        accumulation_steps=accum, lr_schedule=j_schedule, **step_kw, **(j_kw or {})))
 
     model = build_model(SPEC, IMG, NC, META, dtype=getattr(torch, dtype), use_flash_attn=True,
                         fused_convnext_mlp=True, device="cpu")
@@ -133,7 +147,7 @@ def _setup(dtype="float32", accum=1, mix=None, base_lr=1e-3, **step_kw):
                                  generator=torch.Generator().manual_seed(0), lr_schedule=schedule)
     t_step = make_train_step(
         {t: t_stce for t in TASKS}, TASKS, tc.MixConfig(**mix), clip_grad=5.0,
-        accumulation_steps=accum, lr_schedule=schedule, **step_kw)
+        accumulation_steps=accum, lr_schedule=schedule, **step_kw, **(t_kw or {}))
     return j_step, j_state, t_step, t_state
 
 
@@ -352,3 +366,103 @@ def test_unported_paths_raise_and_the_entry_point_needs_a_card():
                               device="cpu", steps=2)
     assert out["device"] == "cpu" and out["final_step"] == 3
     assert all(np.isfinite(out["loss"])) and all(np.isfinite(out["grad_norm_pre_clip"]))
+
+
+def _augmenters(erase=0.5):
+    return (jaa.make_batched_augment(jaa.make_train_augment("original", 0.4, erase)),
+            taa.make_train_augment("original", 0.4, erase))
+
+
+def _uint8_batch():
+    batch = _batch()
+    batch["images"] = np.random.default_rng(4).integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    return batch
+
+
+def _augment_draws(step, table, erase=0.5):
+    r_pre, _ = jstep.train_step_rngs(jax.random.PRNGKey(SEED_KEY), step)
+    r_aug = jax.random.split(r_pre, 4)[3]
+    return jax_pipeline_draws(r_aug, table, B, erase=erase, h=IMG, w=IMG)
+
+
+def test_preprocess_order_with_augmentation_matches_jax():
+    """uint8 -> [0, 1] -> AutoAugment, jitter, flip, erase -> mixing ->
+    meta-masking, with every draw of the JAX key, to the augmentation's bar."""
+    jaug, taug = _augmenters()
+    mix_cfg = jc.MixConfig(chunk_bounds=BOUNDS)
+    batch = _uint8_batch()
+    j_scalars, t_scalars = _scalars("mixed_masked")
+    jpre = jstep.make_preprocess_fn(mix_cfg, has_meta=True, augment_fn=jaug)
+    tpre = make_preprocess_fn(tc.MixConfig(chunk_bounds=BOUNDS), has_meta=True, augment_fn=taug)
+    r_pre, _ = jstep.train_step_rngs(jax.random.PRNGKey(SEED_KEY), 0)
+    want = jpre(dict(_tree(batch, jnp.asarray), _scalars=j_scalars), r_pre)
+    draws = dict(step_draws(0, mix_cfg), augment=_augment_draws(0, taug.table))
+    got = tpre(_tree(batch, torch.tensor), t_scalars, None, draws)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=2e-5)
+    for t in TASKS:
+        np.testing.assert_allclose(got[1][t].numpy(), np.asarray(want[1][t]), atol=1e-6)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-6)
+    assert np.array_equal(got[3].numpy(), np.asarray(want[3]))
+    plain = tpre(_tree(batch, torch.tensor), t_scalars, None, step_draws(0, mix_cfg))
+    assert float((plain[0] - got[0]).abs().max()) > 0.1  # the augmentation did act
+
+
+def test_train_step_with_augmentation_matches_jax():
+    jaug, taug = _augmenters()
+    j_step, j_state, t_step, t_state = _setup(j_kw={"augment_fn": jaug},
+                                              t_kw={"augment_fn": taug})
+    batch = _uint8_batch()
+    j_scalars, t_scalars = _scalars("mixed_masked")
+    mix_cfg = jc.MixConfig(chunk_bounds=BOUNDS)
+    for step in range(2):
+        j_state, j_m = j_step(j_state, _tree(batch, jnp.asarray), j_scalars)
+        draws = dict(step_draws(step, mix_cfg), augment=_augment_draws(step, taug.table))
+        t_state, t_m = t_step(t_state, _tree(batch, torch.tensor), t_scalars, draws=draws)
+        _compare_metrics(t_m, j_m, loss_atol=1e-4, norm_rtol=1e-3)
+
+
+def _gradnorm_setup(accum, zero_aux):
+    _, _, _, state = _setup(accum=accum)
+    _, taug = _augmenters()
+    step = make_train_step({t: t_stce for t in TASKS}, TASKS, tc.MixConfig(chunk_bounds=BOUNDS),
+                           accumulation_steps=accum, augment_fn=taug, keep_collated=True)
+    trunk = [n for n, _ in state.model.named_parameters() if not n.startswith(("head", "meta_"))]
+    update = tgn.make_gradnorm_update_fn({t: t_stce for t in TASKS}, TASKS, trunk, alpha=1.5,
+                                         zero_aux_info=zero_aux, remat=True)
+    return state, step, make_gradnorm_step(update)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("zero_aux", [True, False])
+def test_gradnorm_reforwards_what_the_step_consumed(accum, zero_aux):
+    """The GradNorm step's re-forward sees the augmented, mixed and
+    meta-masked tensors of the last train step (microbatches joined), in
+    the compute dtype, with the metadata zeroed under ZERO_AUX_INFO; its
+    criteria see the mixed soft targets."""
+    state, step, gradnorm_step = _gradnorm_setup(accum, zero_aux)
+    seen = []
+    hook = state.model.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen.append((args[0].detach().clone(),
+                                              None if args[1] is None else args[1].clone(),
+                                              kwargs.get("gradnorm_mode", False))),
+        with_kwargs=True)
+    _, t_scalars = _scalars("mixed_masked")
+    _, m = step(state, _tree(_uint8_batch(), torch.tensor), t_scalars,
+                draws=None if accum == 1 else [None] * accum)
+    consumed = seen[:]
+    seen.clear()
+    state, gm = gradnorm_step(state)
+    hook.remove()
+    images = torch.cat([c[0] for c in consumed])
+    meta = torch.cat([c[1] for c in consumed])
+    assert len(consumed) == accum and len(seen) == len(TASKS)
+    assert float(m["mixed_frac"]) > 0 and float((meta - _tree(_batch(), torch.tensor)["aux"])
+                                                .abs().max()) > 0
+    for imgs, mta, mode in seen:
+        assert mode is True
+        assert torch.equal(imgs, images.to(state.model.dtype))
+        assert torch.equal(mta, torch.zeros_like(meta) if zero_aux else meta)
+    assert torch.isfinite(gm["gradnorm/norms"]).all() and (gm["gradnorm/norms"] > 0).all()
+    np.testing.assert_allclose(float(state.gradnorm.task_weights.sum()), len(TASKS), rtol=1e-6)
+    assert bool(state.gradnorm.has_initted)
+    assert state.model.training is False or state.model.gradient_checkpointing is False

@@ -48,8 +48,23 @@ step's and one GradNorm update's launches of K1 and K2 against the counts
 the recompute implies, six steps counted from zero (finite, clipped, the
 task weights move, stay positive and sum to the task count, the heads'
 group at 10x), the augmentation's range, the step's, the update's and the
-augmentation's times, then one Muon and one AdEMAMix step. Then it
-runs tools/fused_block_ab (K3 against the library convolution + K2 and
+augmentation's times, then one Muon and one AdEMAMix step. Then (phase 7c)
+it trains through the Trainer: it writes 1,280 observations (a seeded
+four-rank taxonomy whose heads, with the null class, are 1000/400/100/30
+wide; null upper ranks; temporal, spatial and elevation metadata; labels as
+.h5, or .npz where h5py is absent; smooth 384 px JPEGs) and runs the CLI
+(linnaeus_tpu_torch.train.main.main) from the default config: hybrid
+images, B = 64, a 0.8 split (16 train steps and 4 val batches an epoch), 2
+epochs, GradNorm every 8 steps, a checkpoint every epoch with the last 2
+kept; then the CLI again with 3 epochs on the same output directory, which
+auto-resumes. It checks every step's loss is finite, the launches of K1 and
+K2 against the steps, GradNorm updates and validation forwards, every
+validation pass reports every task, the checkpoints retention keeps, that a
+resume loads the saved state bit for bit and starts at step 32, and that
+the resumed epoch reads the sampler's batches for its epoch; it prints the
+step under the Trainer against phase 7b's, the loader's rate and wait, the
+device-busy share, peak memory, and the validation, checkpoint and resume
+seconds. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints one JSON line about
 the seven kernels, and as its last line
 
@@ -903,6 +918,319 @@ def default_config_phase(dev, card, fa, fm) -> dict:
             "peak_gib": peak, "no_remat_ms": first[False]["ms"]}
 
 
+# the Trainer phase (7c): the CLI trains from a dataset on disk
+TRAINER_OBS = 1280
+TRAINER_EPOCHS, TRAINER_RESUME_EPOCHS = 2, 3
+TRAINER_GRADNORM_INTERVAL = 8  # the default is 100: cut so that 32 steps hold 4 updates
+TRAINER_KEEP_LAST = 2
+
+
+def write_trainer_dataset(d: str, rng: np.random.Generator, img: int = IMG,
+                          n_obs: int = TRAINER_OBS, widths=tuple(TASKS.values())) -> dict:
+    """A hybrid dataset in ``d``: labels (``.h5`` where h5py is installed,
+    else ``.npz`` through data/processor.py::write_labels_npz) and one
+    smooth ``img`` px JPEG an observation under ``d/images``. The taxonomy
+    is seeded: ``widths[r] - 1`` taxa at rank r, each with a parent one rank
+    up and every parent with a child, so that with the null class the
+    heads have ``widths``; the first observations hold every L10 taxon once;
+    some of the rest are null from a rank upward. Metadata: temporal (2),
+    spatial (3), elevation (10) columns."""
+    import importlib.util
+    import os
+
+    from PIL import Image
+
+    from linnaeus_tpu_torch.data.processor import write_labels_npz
+
+    taxa = [w - 1 for w in widths]
+    parents = [rng.permutation(taxa[r]) % taxa[r + 1] + 1 for r in range(len(taxa) - 1)]
+    leaf = np.concatenate([np.arange(1, taxa[0] + 1),
+                           rng.integers(1, taxa[0] + 1, n_obs - taxa[0])])
+    ranks = [leaf]
+    for parent in parents:
+        ranks.append(parent[ranks[-1] - 1])
+    ranks = np.stack(ranks).astype(np.int64)  # [4, N]
+    extra = np.arange(taxa[0], n_obs)
+    nulled = rng.choice(extra, len(extra) // 3, replace=False)
+    cut = rng.integers(1, len(taxa), len(nulled))
+    for row, k in zip(nulled, cut):
+        ranks[k:, row] = 0
+    order = rng.permutation(n_obs)
+    ranks = ranks[:, order]
+    ids = np.array([f"obs{i:05d}" for i in range(n_obs)], dtype="S12")
+    day = rng.uniform(0, 2 * np.pi, n_obs)
+    datasets = {
+        "img_identifiers": ids,
+        **{key: ranks[r] for r, key in enumerate(TASKS)},
+        "temporal": np.stack([np.sin(day), np.cos(day)], 1).astype(np.float32),
+        "spatial": rng.normal(size=(n_obs, 3)).astype(np.float32),
+        "elevation": rng.normal(size=(n_obs, 10)).astype(np.float32),
+    }
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        labels = os.path.join(d, "labels.h5")
+        with h5py.File(labels, "w") as f:
+            for k, v in datasets.items():
+                f.create_dataset(k, data=v)
+    else:
+        labels = os.path.join(d, "labels.npz")
+        write_labels_npz(labels, datasets)
+    images = os.path.join(d, "images")
+    os.makedirs(images)
+    yy, xx = np.mgrid[0:img, 0:img].astype(np.float32) / img
+    phase = rng.uniform(0, 1, (n_obs, 3, 4)).astype(np.float32)
+    freq = rng.uniform(0.5, 3.0, (n_obs, 3, 2)).astype(np.float32)
+    for i in range(n_obs):
+        chans = [127 + 60 * np.sin(2 * np.pi * (freq[i, c, 0] * xx + phase[i, c, 0]))
+                 + 60 * np.cos(2 * np.pi * (freq[i, c, 1] * yy + phase[i, c, 1]))
+                 for c in range(3)]
+        pixels = np.clip(np.stack(chans, -1), 0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(images, ids[i].decode() + ".jpg"),
+                                     quality=90)
+    return {"labels": labels, "images": images, "ranks": ranks}
+
+
+def trainer_yaml(d: str, data: dict, img: int = IMG, model: dict | None = None,
+                 batch: int = BATCH) -> str:
+    """The experiment: the default config with mFormerV1_sm at ``img`` px
+    (or ``model`` over it), B = ``batch`` for training and validation, the
+    four tasks with null labels (DATA.PARTIAL.LEVELS), hybrid images, a
+    0.8 split, TRAINER_EPOCHS epochs, GradNorm every TRAINER_GRADNORM_INTERVAL
+    steps, a checkpoint every epoch of which retention keeps the last
+    TRAINER_KEEP_LAST, the metadata with elevation on, and the step's
+    metrics logged every step; everything else (AutoAugment, jitter,
+    erasing, remat 'dots', AdamW on cosine, bf16) at its default."""
+    import os
+
+    import yaml
+
+    exp = {
+        "EXPERIMENT": {"NAME": "trainer", "PROJECT": "chip_smoke", "GROUP": "phase9"},
+        "ENV": {"OUTPUT": {"BASE_DIR": os.path.join(d, "out")}},
+        "MODEL": {"BASE": [os.path.abspath("configs/model/archs/mFormerV1_sm.yaml")],
+                  "IMG_SIZE": img,
+                  "USE_FLASH_ATTN": True, **(model or {})},
+        "DATA": {
+            "IMG_SIZE": img, "BATCH_SIZE": batch, "BATCH_SIZE_VAL": batch,
+            "TASK_KEYS_H5": list(TASKS), "PARTIAL": {"LEVELS": True},
+            "H5": {"LABELS_PATH": data["labels"], "TRAIN_VAL_SPLIT_RATIO": 0.8},
+            "HYBRID": {"USE_HYBRID": True, "IMAGES_DIR": data["images"],
+                       "FILE_EXTENSION": ".jpg"},
+            "META": {"COMPONENTS": {"ELEVATION": {"ENABLED": True, "SOURCE": "elevation"}}},
+        },
+        "TRAIN": {"EPOCHS": TRAINER_EPOCHS},
+        "LOSS": {"GRAD_WEIGHTING": {"TASK": {"UPDATE_INTERVAL": TRAINER_GRADNORM_INTERVAL}}},
+        "SCHEDULE": {"CHECKPOINT": {"INTERVAL_EPOCHS": 1, "KEEP_LAST_N": TRAINER_KEEP_LAST},
+                     "METRICS": {"CONSOLE_INTERVAL": 1, "WANDB_INTERVAL": 1}},
+    }
+    path = os.path.join(d, "trainer.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(exp, f)
+    return path
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
+                  batch: int = BATCH, n_obs: int = TRAINER_OBS, kernels: bool = True,
+                  widths=tuple(TASKS.values()), synthetic_step_ms: float | None = None) -> dict:
+    """Phase 7c: write a dataset, train it through the CLI
+    (``linnaeus_tpu_torch.train.main.main``) for TRAINER_EPOCHS epochs,
+    then run the CLI again on the same output directory for
+    TRAINER_RESUME_EPOCHS epochs, which must auto-resume; the checks and
+    times are listed in main. ``model``, ``batch``, ``n_obs`` and
+    ``widths`` shrink it for a run on the CPU, where ``kernels`` is False.
+    Returns the kernels' launches over both runs."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    from linnaeus_tpu_torch.data.sampler import build_sampler
+    from linnaeus_tpu_torch.train.loop import Trainer
+    from linnaeus_tpu_torch.train.main import main as train_main
+    from linnaeus_tpu_torch.train.main import parse_option
+    from linnaeus_tpu_torch.utils import checkpoint as ckpt
+
+    def counts():
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
+                "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+
+    def zero():
+        fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+
+    os.makedirs("build", exist_ok=True)
+    d = tempfile.mkdtemp(prefix="trainer_", dir="build")
+    t0 = time.perf_counter()
+    data = write_trainer_dataset(d, np.random.default_rng(SEED + 9), img, n_obs, widths)
+    write_s = time.perf_counter() - t0
+    cfg_path = trainer_yaml(d, data, img, model, batch)
+    argv = ["--cfg", cfg_path, "--device", str(dev)]
+    cuda = torch.device(dev).type == "cuda"
+    print(f"trainer phase: {n_obs} observations written in {write_s:.1f} s "
+          f"({os.path.basename(data['labels'])}, {img} px JPEGs); cut: GradNorm every "
+          f"{TRAINER_GRADNORM_INTERVAL} steps (default 100), {TRAINER_EPOCHS} + 1 epochs",
+          flush=True)
+
+    # run 1: train from scratch
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    t0 = time.perf_counter()
+    first = train_main(argv)
+    run1_s = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    steps1 = first.progress.global_step
+    spe = first.steps_per_epoch
+    n_val = len(first.val_loader) if first.val_loader is not None else 0
+    n_gn = sum(t["gradnorm_updates"] for t in first.epoch_timings.values())
+    passes = [stage for stage, _ in first.validation_seconds]
+    check(spe == int(0.8 * n_obs) // batch and n_val == (n_obs - int(0.8 * n_obs)) // batch,
+          f"{spe} train steps and {n_val} val batches an epoch")
+    check(steps1 == TRAINER_EPOCHS * spe, f"run 1 took {steps1} steps")
+    check(n_gn == steps1 // TRAINER_GRADNORM_INTERVAL, f"{n_gn} GradNorm updates")
+    check(first.num_classes == dict(zip(TASKS, widths)),
+          f"the heads' widths {first.num_classes}")
+    val_forwards = n_val * len(passes)
+    if kernels:
+        want = {k: steps1 * K1_PER_REMAT_STEP.get(k, 0) + n_gn * PER_GRADNORM.get(k, 0)
+                for k in launched}
+        want["K1"] += val_forwards * K1_PER_FORWARD
+        want["K2"] += val_forwards * K2_PER_FORWARD
+        print(f"trainer launches over run 1 ({steps1} steps, {n_gn} GradNorm updates, "
+              f"{val_forwards} validation forwards): {launched} (expected {want})", flush=True)
+        check(launched == want, f"trainer launch counts {launched}, expected {want}")
+    log_dir = first.config.ENV.OUTPUT.DIRS.LOGS
+    ckpt_dir = first.ckpt_dir
+
+    def step_losses():
+        out = {}
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            for line in f:
+                row = _json.loads(line)
+                if "train/loss" in row:
+                    out[row["step"]] = row["train/loss"]
+        return out
+
+    losses = step_losses()
+    check(sorted(losses) == list(range(1, steps1 + 1))
+          and all(np.isfinite(v) for v in losses.values()), f"finite loss at every step: {losses}")
+
+    def every_task(trainer):
+        for phase in ("val", "val_mask_meta"):
+            summary = trainer.metrics.phase_summary(phase)
+            check(all(f"acc1/{t}" in summary and f"loss/{t}" in summary for t in TASKS)
+                  and np.isfinite(summary["loss"]), f"{phase} reports every task: {summary}")
+
+    every_task(first)
+    check(passes == ["VALIDATION_NORMAL", "VALIDATION_MASK_META"] * TRAINER_EPOCHS,
+          f"validation passes {passes}")
+    kept = sorted(os.listdir(ckpt_dir))
+    want_kept = [ckpt._ckpt_name(s * spe) for s in range(1, TRAINER_EPOCHS + 1)][-TRAINER_KEEP_LAST:]
+    check(kept == want_kept, f"checkpoints {kept}, retention keeps {want_kept}")
+    saved = ckpt.snapshot_state(first.state)
+    timing = [first.epoch_timings[e] for e in range(TRAINER_EPOCHS)]
+    pipeline1 = first.train_loader.pipeline_metrics()
+    val_s = [round(s, 3) for _, s in first.validation_seconds]
+    async_block, async_write = first.ckpt_writer.last_save_seconds, first.ckpt_writer.last_write_seconds
+    sync = ckpt.CheckpointWriter(async_save=False)
+    sync.save(os.path.join(d, "sync_ckpt"), saved)
+    batches_epoch1 = [b.copy() for b in first.train_loader.epoch_indices]
+    del first
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the state a resume loads, held to the state run 1 ended with
+    args, config = parse_option(argv + ["--opts", "TRAIN.EPOCHS", str(TRAINER_RESUME_EPOCHS)])
+    probe = Trainer(config, device=dev)
+    check(probe.try_resume(), "a Trainer on the same output directory resumes")
+    loaded = ckpt.snapshot_state(probe.state)
+    check(_same_bits(loaded, saved), "resumed parameters, optimizer moments, GradNorm state "
+          "and generator state equal the saved ones bit for bit")
+    probe.close()
+    del probe, loaded
+    gc.collect()
+
+    # run 2: the CLI again, on the same output directory
+    t0 = time.perf_counter()
+    second = train_main(argv + ["--opts", "TRAIN.EPOCHS", str(TRAINER_RESUME_EPOCHS)])
+    run2_s = time.perf_counter() - t0
+    total = counts()
+    check(second.resumed_from is not None and second.resumed_from.endswith(
+        ckpt._ckpt_name(steps1)), f"run 2 resumed from {second.resumed_from}")
+    resumed = second.epoch_timings[TRAINER_RESUME_EPOCHS - 1]
+    check(list(second.epoch_timings) == [TRAINER_RESUME_EPOCHS - 1]
+          and resumed["first_step"] == steps1 + 1
+          and second.progress.global_step == TRAINER_RESUME_EPOCHS * spe,
+          f"run 2 took steps {resumed['first_step']}..{second.progress.global_step}")
+    sampler = build_sampler(second.config, second.bundle["train_dataset"].labels.group_ids,
+                            second.bundle["train_indices"], batch, is_train=True)
+    sampler.set_current_group_level(second.ops_schedule.get_mixup_group_level())
+    sampler.set_epoch(TRAINER_RESUME_EPOCHS - 1)
+    want_batches = sampler.batches()
+    got = second.train_loader.epoch_indices
+    check(len(got) == len(want_batches) and all(np.array_equal(a, b)
+                                                for a, b in zip(got, want_batches))
+          and not all(np.array_equal(a, b) for a, b in zip(got, batches_epoch1)),
+          "the resumed epoch reads the sampler's batches for its epoch")
+    losses = step_losses()
+    check(sorted(losses) == list(range(1, TRAINER_RESUME_EPOCHS * spe + 1))
+          and all(np.isfinite(v) for v in losses.values()), "finite loss at every resumed step")
+    every_task(second)
+    kept = sorted(os.listdir(ckpt_dir))
+    want_kept = [ckpt._ckpt_name(s * spe)
+                 for s in range(1, TRAINER_RESUME_EPOCHS + 1)][-TRAINER_KEEP_LAST:]
+    check(kept == want_kept, f"checkpoints after the resume {kept}, retention keeps {want_kept}")
+    timing.append(resumed)
+    pipeline2 = second.train_loader.pipeline_metrics()
+    resume_s = second.resume_seconds
+
+    fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
+    print(f"[{card}] mFormerV1_sm {img}px B={batch} bf16 through the Trainer (the CLI, "
+          f"hybrid JPEGs, default config): step under the Trainer "
+          + ", ".join(f"epoch {e}: median {fmt(t['median_step_ms'])} ms, device "
+                      f"{fmt(t.get('median_device_step_ms'))} ms, busy share "
+                      f"{fmt(t.get('device_busy_share'))}, wall {fmt(t['wall_s'])} s"
+                      for e, t in enumerate(timing))
+          + f" (phase 7b's synthetic-batch step: {fmt(synthetic_step_ms)} ms); loader "
+          f"{pipeline1['throughput_samples_per_sec']:.1f} img/s, wait "
+          f"{pipeline1['avg_wait_ms']:.2f} ms a batch (run 1's last epoch, cache warm), "
+          f"{pipeline2['throughput_samples_per_sec']:.1f} img/s, wait "
+          f"{pipeline2['avg_wait_ms']:.2f} ms (the resumed epoch, cache cold); peak memory "
+          f"{fmt(peak)} GiB; validation passes {val_s} s; checkpoint save held the loop "
+          f"{async_block:.3f} s (async), its file {fmt(async_write)} s, a sync save "
+          f"{sync.last_save_seconds:.3f} s; resume {resume_s:.3f} s; runs {run1_s:.1f} + "
+          f"{run2_s:.1f} s", flush=True)
+    del second
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    # the Trainers' shutdown registry drains at exit and logs to stdout: do
+    # it now, so the last line of the output stays the result
+    from linnaeus_tpu_torch.utils.hpc import get_shutdown_registry
+
+    get_shutdown_registry().drain()
+    return {"launches": total, "run1_launches": launched, "timing": timing,
+            "pipeline": [pipeline1, pipeline2], "peak_gib": peak, "validation_s": val_s,
+            "resume_s": resume_s}
+
+
 def serving_config():
     """Every inference option at its default (the hierarchical-consistency
     pass on, data_parallel "auto") but for the batch size, which is the
@@ -1488,6 +1816,12 @@ def main() -> int:
     for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
         check(default_cfg["launches"][key] > 0, f"{key} was not launched from the default config")
 
+    # 7c. train through the Trainer: the CLI on a dataset of JPEGs on disk,
+    # two epochs with validation and checkpoints, then a run that resumes
+    trainer = trainer_phase(dev, card, fa, fm, synthetic_step_ms=default_cfg["step_ms"])
+    for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
+        check(trainer["launches"][key] > 0, f"{key} was not launched through the Trainer")
+
     # 8. K3's path: the fused-block A/B tool, forward and train
     trained["K3"] = block_ab_phase(dev, fm, fb)
 
@@ -1525,6 +1859,7 @@ def main() -> int:
                         "bundle_launches": bundle["launches"].get(key),
                         "launches_512px": trained_large.get(key),
                         "default_cfg_launches": default_cfg["launches"].get(key, 0),
+                        "trainer_launches": trainer["launches"].get(key, 0),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": kernels}), flush=True)

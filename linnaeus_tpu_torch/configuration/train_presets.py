@@ -1,4 +1,4 @@
-"""Training presets as data, and the small attribute-dict they live in.
+"""Training presets as data.
 
 ``TRAINRUN_SYNTH_384`` carries what the train step, the loss, the schedule
 and the optimizer read from configs/experiments/tpu_trainrun_synth_384.yaml
@@ -9,7 +9,7 @@ drop-path 0.05, mixup alpha 1.0, the start values of the mix and
 meta-masking schedules, and the defaults' ``MODEL.ATTN_FP32_SOFTMAX: False``
 (the plain attention path stores its scores in the compute dtype), which
 the yaml does not override. Data paths, samplers, checkpoints and logging
-are not part of it: their modules are not ported yet.
+are not part of it: a run reads those from its experiment yaml.
 
 ``TRAINRUN_SYNTH_512`` is the same run with ``MODEL.IMG_SIZE`` and
 ``DATA.IMG_SIZE`` set to 512. The TPU package ships no 512 px yaml; both
@@ -20,30 +20,9 @@ takes its split dQ and dK/dV kernels (ops/flash_attention.py).
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import copy
 
-
-class ConfigNode(dict):
-    """A dict whose keys also read and write as attributes, nested. It
-    copies the mappings and lists it is built from."""
-
-    def __init__(self, data: Mapping[str, Any] | None = None):
-        super().__init__()
-        for key, value in (data or {}).items():
-            if isinstance(value, Mapping):
-                value = ConfigNode(value)
-            elif isinstance(value, list):
-                value = list(value)
-            self[key] = value
-
-    def __getattr__(self, name: str) -> Any:
-        try:
-            return self[name]
-        except KeyError:
-            raise AttributeError(name) from None
-
-    def __setattr__(self, name: str, value: Any) -> None:
-        self[name] = value
+from .cfg_node import CfgNode
 
 
 _TASKS = ["taxa_L10", "taxa_L20", "taxa_L30", "taxa_L40"]
@@ -122,7 +101,7 @@ TRAIN_PRESETS = {
 }
 
 
-def train_preset(name: str = "tpu_trainrun_synth_384") -> ConfigNode:
+def train_preset(name: str = "tpu_trainrun_synth_384") -> CfgNode:
     """A fresh, editable copy of the preset ``name`` (a key of
-    ``TRAIN_PRESETS``)."""
-    return ConfigNode(TRAIN_PRESETS[name])
+    ``TRAIN_PRESETS``) as a config node."""
+    return CfgNode(copy.deepcopy(TRAIN_PRESETS[name]))

@@ -26,6 +26,8 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from linnaeus_tpu_torch.ops_schedule.ops_schedule import gradnorm_due
+
 
 @dataclass
 class GradNormState:
@@ -160,11 +162,6 @@ def make_gradnorm_update_fn(
 
 def should_update_gradnorm(gw_cfg, step: int) -> bool:
     """Whether GradNorm updates after optimizer step ``step`` (the count of
-    steps taken): the rule of linnaeus_tpu/ops_schedule/ops_schedule.py
-    ``OpsSchedule.should_update_gradnorm``, on LOSS.GRAD_WEIGHTING.TASK."""
-    if str(gw_cfg.TYPE) != "gradnorm" or not gw_cfg.get("GRADNORM_ENABLED", True):
-        return False
-    if step < int(gw_cfg.get("GRADNORM_WARMUP_STEPS", 0) or 0):
-        return False
-    interval = max(int(gw_cfg.UPDATE_INTERVAL), 1)
-    return step > 0 and step % interval == 0
+    steps taken) under LOSS.GRAD_WEIGHTING.TASK: the rule of the copied
+    ``OpsSchedule.should_update_gradnorm`` (ops_schedule/ops_schedule.py)."""
+    return gradnorm_due(gw_cfg, step)

@@ -66,6 +66,16 @@ class MultiOptimizer:
         for opt in self.optimizers.values():
             opt.step()
 
+    def state_dict(self) -> dict:
+        return {label: opt.state_dict() for label, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        if set(state) != set(self.optimizers):
+            raise ValueError(f"optimizer labels {sorted(state)} in the checkpoint, "
+                             f"{sorted(self.optimizers)} here")
+        for label, opt in self.optimizers.items():
+            opt.load_state_dict(state[label])
+
 
 def _make_single(
     name: str,

@@ -14,7 +14,7 @@ import logging
 import math
 from typing import Callable
 
-from linnaeus_tpu_torch.configuration.train_presets import ConfigNode
+from linnaeus_tpu_torch.configuration.cfg_node import CfgNode
 
 logger = logging.getLogger(__name__)
 
@@ -177,6 +177,6 @@ def build_group_schedules(config, total_steps: int,
         lr_cfg = dict(config.LR_SCHEDULER)
         for k, v in gcfg.items():
             lr_cfg[k] = float(v) * scaling if k == "BASE_LR" and scaling != 1.0 else v
-        out[gname] = build_schedule(ConfigNode({"LR_SCHEDULER": lr_cfg}), total_steps,
+        out[gname] = build_schedule(CfgNode({"LR_SCHEDULER": lr_cfg}), total_steps,
                                     steps_per_epoch)
     return out

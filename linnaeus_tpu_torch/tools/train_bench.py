@@ -42,21 +42,17 @@ from typing import Any, Callable, Mapping
 import torch
 
 from linnaeus_tpu_torch.configuration.train_presets import train_preset
-from linnaeus_tpu_torch.data.augmentation.autoaugment import AugmentationPipelineFactory
 from linnaeus_tpu_torch.data.collate import MixConfig
 from linnaeus_tpu_torch.loss.basic import soft_target_cross_entropy
-from linnaeus_tpu_torch.loss.gradnorm import make_gradnorm_update_fn, should_update_gradnorm
+from linnaeus_tpu_torch.loss.gradnorm import should_update_gradnorm
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch.models.utils import resolve_remat_policy
 from linnaeus_tpu_torch.optim.build import build_optimizer
-from linnaeus_tpu_torch.optim.schedules import build_group_schedules, build_schedule
+from linnaeus_tpu_torch.optim.schedules import build_schedule
+from linnaeus_tpu_torch.train.build import build_training
 from linnaeus_tpu_torch.train.state import TrainState, create_train_state
-from linnaeus_tpu_torch.train.step import ScheduleScalars, make_gradnorm_step, make_train_step
+from linnaeus_tpu_torch.train.step import ScheduleScalars, make_train_step
 from linnaeus_tpu_torch.utils.device import resolve_device
-from linnaeus_tpu_torch.utils.param_filters import (
-    resolve_gradnorm_exclude,
-    trunk_mask_from_exclude,
-)
 
 NUM_CLASSES = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
@@ -150,12 +146,13 @@ def build_step(
     for both normal and GradNorm steps.
 
     With ``config`` (a ``CfgNode`` such as ``get_default_config()`` with an
-    mFormerV1 arch applied) the step is built from it instead of the
-    training preset: the model and its kernels, remat and policy (unless
-    ``remat`` / ``remat_policy`` are given), the on-device augmentation
-    (AUG.*), the GradNorm update (LOSS.GRAD_WEIGHTING.TASK), the optimizer
-    with its parameter groups and the schedules (OPTIMIZER.*,
-    LR_SCHEDULER.*), the clip and the metadata components; ``arch``,
+    mFormerV1 arch applied) the step is the one the Trainer trains with,
+    from train/build.py::build_training: the model and its kernels, remat
+    and policy (unless ``remat`` / ``remat_policy`` are given), the
+    on-device augmentation (AUG.*), the loss functions, mixing, the GradNorm
+    update (LOSS.GRAD_WEIGHTING.TASK), the optimizer with its parameter
+    groups and the schedules (OPTIMIZER.*, LR_SCHEDULER.*), the clip and the
+    metadata components; ``arch``,
     ``kernels``, ``dtype``, ``meta_components`` and ``fp32_scores`` are then
     the config's. GradNorm's initial task weights are INIT_WEIGHTS, or equal
     weights (the 'inverse_density' strategy needs the class counts of a
@@ -207,60 +204,19 @@ def _bench_scalars(meta_dim: int, device) -> ScheduleScalars:
 
 def _build_from_config(config, batch, num_classes, device, seed, accumulation_steps,
                        remat, remat_policy) -> tuple[BenchStep, TrainState]:
-    tasks = tuple(num_classes)
-    if tuple(config.DATA.TASK_KEYS_H5) != tasks:
-        raise ValueError(f"DATA.TASK_KEYS_H5 {list(config.DATA.TASK_KEYS_H5)} must name the "
-                         f"tasks of num_classes {list(tasks)}")
-    gc = config.TRAIN.GRADIENT_CHECKPOINTING
-    if remat is not None or remat_policy is not None:
-        config = config.clone()
-        gc = config.TRAIN.GRADIENT_CHECKPOINTING
-        if remat is not None:
-            gc.ENABLED_NORMAL_STEPS = gc.ENABLED_GRADNORM_STEPS = bool(remat)
-        if remat_policy is not None:
-            gc.POLICY = remat_policy
-    model = build_model(config, dict(num_classes), device=device, seed=seed)
-    img = model.grid3[0] * 16
-    schedules = build_group_schedules(config, TOTAL_STEPS)
-    optimizer = build_optimizer(config, schedules["default"], model, schedules)
-    gw = config.LOSS.GRAD_WEIGHTING.TASK
-    init_weights = list(gw.get("INIT_WEIGHTS") or []) or None
-    state = create_train_state(
-        model, optimizer, num_tasks=len(tasks),
-        generator=torch.Generator(device=device).manual_seed(seed),
-        init_task_weights=init_weights, lr_schedule=schedules,
-    )
-    criteria = {t: soft_target_cross_entropy for t in tasks}
     if str(config.AUG.SINGLE_AUG_DEVICE) != "device":
         raise NotImplementedError(
-            "AUG.SINGLE_AUG_DEVICE 'cpu' (augmentation on the host, in the loader) is not "
-            "ported yet: it comes with the data feed; 'device' is the default")
-    augment = AugmentationPipelineFactory.create(config)
-    gradnorm_on = str(gw.TYPE) == "gradnorm" and bool(gw.get("GRADNORM_ENABLED", True))
-    bounds, meta_dim = _meta_bounds(model.meta_components)
-    mix = config.SCHEDULE.MIX
-    step = make_train_step(
-        criteria, tasks,
-        MixConfig(mixup_alpha=float(mix.MIXUP.ALPHA), mixup_enabled=bool(mix.MIXUP.ENABLED),
-                  cutmix_enabled=bool(mix.CUTMIX.ENABLED), chunk_bounds=bounds),
-        clip_grad=float(config.TRAIN.CLIP_GRAD), accumulation_steps=accumulation_steps,
-        has_meta=meta_dim > 0, lr_schedule=schedules["default"], num_classes=dict(num_classes),
-        augment_fn=augment, keep_collated=gradnorm_on,
-    )
-    gradnorm_step = None
-    if gradnorm_on:
-        trunk = trunk_mask_from_exclude(model, resolve_gradnorm_exclude(gw))
-        gradnorm_step = make_gradnorm_step(make_gradnorm_update_fn(
-            criteria, tasks, [n for n, keep in trunk.items() if keep], alpha=float(gw.ALPHA),
-            zero_aux_info=bool(gw.ZERO_AUX_INFO),
-            use_linear_heads=bool(gw.USE_LINEAR_HEADS_FOR_GRADNORM_REFORWARD),
-            accum_steps=max(int(gw.get("GRADNORM_ACCUM_STEPS", 1) or 1), 1),
-            remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
-        ))
-    data = synthetic_batch(batch, img, num_classes, meta_dim, device, seed + 1)
-    bench = BenchStep(state, step, data, _bench_scalars(meta_dim, device), gradnorm_step, gw,
-                      augment)
-    return bench, state
+            "AUG.SINGLE_AUG_DEVICE 'cpu' augments the batches in the loader (data/build.py), "
+            "and train_bench feeds one synthetic batch without a loader; 'device' is the "
+            "default")
+    parts = build_training(config, num_classes, device=device, seed=seed,
+                           total_steps=TOTAL_STEPS, accumulation_steps=accumulation_steps,
+                           remat=remat, remat_policy=remat_policy)
+    img = parts.model.grid3[0] * 16
+    data = synthetic_batch(batch, img, num_classes, parts.meta_dim, device, seed + 1)
+    bench = BenchStep(parts.state, parts.train_step, data, _bench_scalars(parts.meta_dim, device),
+                      parts.gradnorm_step, config.LOSS.GRAD_WEIGHTING.TASK, parts.augment)
+    return bench, parts.state
 
 
 def measure(batch: int = 64, img: int = 384, kernels: bool = True, warmup: int = 1,

@@ -1,0 +1,91 @@
+"""CLI: ``python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --opts K V ...``
+
+Port of linnaeus_tpu/train/main.py (reference parity: linnaeus/main.py:
+356-423 parse_option + 2550-2643 bootstrap) for one device. It trains on
+the CUDA device unless ``--device`` names another (``--device cpu`` for a
+machine without a card); without a card and without ``--device`` it raises.
+``--throughput`` (evaluation/throughput.py) is not ported and raises by
+name. ENV.COMPILE_CACHE configures the TPU package's XLA cache and has
+nothing to do here.
+
+    python -m linnaeus_tpu_torch.train.main --cfg exp.yaml
+    python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --device cpu
+    python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --opts TRAIN.EPOCHS 3
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from linnaeus_tpu_torch.configuration import build_config, save_config
+from linnaeus_tpu_torch.utils.logging import create_h5data_logger, create_logger
+
+
+def parse_option(argv=None):
+    parser = argparse.ArgumentParser("linnaeus_tpu_torch training")
+    parser.add_argument("--cfg", type=str, default=None, help="experiment yaml")
+    parser.add_argument(
+        "--opts", nargs="*", default=None,
+        help="config overrides: KEY VALUE [KEY VALUE ...]",
+    )
+    parser.add_argument(
+        "--skip-validation", action="store_true",
+        help="skip pending-validation replay and scheduled validations",
+    )
+    parser.add_argument(
+        "--throughput", action="store_true",
+        help="the synthetic throughput test (not ported: raises)",
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help='where to train: "cuda" (default; raises without a card), "cuda:N" or "cpu"',
+    )
+    args = parser.parse_args(argv)
+    config = build_config(args.cfg, opts=args.opts)
+    config.freeze()
+    return args, config
+
+
+def main(argv=None):
+    """Train as the config says; returns the Trainer after training, its
+    loaders stopped and its checkpoints written."""
+    args, config = parse_option(argv)
+    if args.throughput:
+        raise NotImplementedError(
+            "--throughput: evaluation/throughput.py is not ported yet (M11)")
+    from linnaeus_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    from linnaeus_tpu_torch.configuration.utils import setup_output_dirs
+
+    setup_output_dirs(config)
+    log_dir = config.ENV.OUTPUT.DIRS.LOGS
+    # DEBUG.VERBOSE_DEBUG: force both loggers to DEBUG so the per-flag
+    # debug sites (check_debug_flag) become visible without touching levels
+    level_main = config.EXPERIMENT.LOG_LEVEL_MAIN
+    level_h5 = config.EXPERIMENT.LOG_LEVEL_H5DATA
+    if bool(config.DEBUG.get("VERBOSE_DEBUG", False)):
+        level_main = level_h5 = "DEBUG"
+    create_logger(log_dir, level=level_main)
+    create_h5data_logger(log_dir, level=level_h5)
+    if config.EXPERIMENT.CODE_VERSION:
+        # reference parity: surface the experiment's code version at startup
+        # (main.py:458-459)
+        from linnaeus_tpu_torch.utils.logging import get_main_logger
+
+        get_main_logger().critical(f"CODE VERSION: {config.EXPERIMENT.CODE_VERSION}")
+    save_config(config, f"{config.ENV.OUTPUT.DIRS.CONFIGS}/merged_config.yaml")
+
+    from linnaeus_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(config, skip_validation=args.skip_validation, device=device)
+    try:
+        trainer.train()
+    finally:
+        # any in-flight async checkpoint flush must finalize before exit
+        trainer.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -73,6 +73,22 @@ class ScheduleScalars(NamedTuple):
     null_mask_prob: float | torch.Tensor
 
     @classmethod
+    def from_ops_schedule(cls, ops_schedule, step: int, meta_dim: int, combo_mask=None,
+                          device: torch.device | str | None = None):
+        """The schedule's values at ``step`` (ops_schedule/ops_schedule.py);
+        ``combo_mask`` is the [meta_dim] 0/1 partial-masking columns."""
+        if combo_mask is None:
+            combo_mask = torch.zeros(meta_dim)
+        return cls(
+            mix_prob=float(ops_schedule.get_mixup_prob(step)),
+            use_cutmix=bool(ops_schedule.should_use_cutmix()),
+            meta_mask_prob=float(ops_schedule.get_meta_mask_prob(step)),
+            partial_mask_prob=float(ops_schedule.get_partial_meta_mask_prob(step)),
+            partial_combo_mask=torch.as_tensor(combo_mask, dtype=torch.float32, device=device),
+            null_mask_prob=float(ops_schedule.get_null_mask_prob(step)),
+        )
+
+    @classmethod
     def zeros(cls, meta_dim: int, device: torch.device | str | None = None):
         return cls(
             mix_prob=0.0,

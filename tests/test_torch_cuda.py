@@ -735,3 +735,44 @@ def test_gradnorm_norms_kernels_on_vs_off(dev):
         assert fa.LAUNCHES - k1 == (2 * 2 * 2 if net is nets[0] else 0)
     assert torch.isfinite(norms[0]).all()
     assert _max_err(norms[0], norms[1]) <= 2e-2 * norms[1].abs().max().item()
+
+
+def test_loader_copies_batches_to_the_card_on_a_side_stream(dev):
+    """data/loader.py on the card: batches copied from pinned buffers on a
+    side stream, the consumer's stream made to wait on each copy's event,
+    equal the host batches; a kernel on the consumer's stream reads them
+    before any host synchronisation."""
+    from linnaeus_tpu_torch.data.datasets import PrefetchingDataset, SyntheticImageSource
+    from linnaeus_tpu_torch.data.loader import H5DataLoader
+    from linnaeus_tpu_torch.data.processor import ProcessedLabels
+    from linnaeus_tpu_torch.data.sampler import GroupedBatchSampler
+
+    n = 96
+    rng = np.random.default_rng(0)
+    labels = ProcessedLabels()
+    labels.img_identifiers = [f"i{i}" for i in range(n)]
+    labels.labels = {"t": rng.integers(0, 5, n).astype(np.int32)}
+    labels.aux = rng.normal(size=(n, 5)).astype(np.float32)
+    labels.group_ids = {"t": labels.labels["t"]}
+    labels.valid_mask = np.ones(n, bool)
+
+    def batches(device):
+        loader = H5DataLoader(PrefetchingDataset(labels, SyntheticImageSource(64, seed=1), ["t"]),
+                              GroupedBatchSampler(labels.group_ids, np.arange(n), 8,
+                                                  mode="standard"),
+                              device=device, device_prefetch_depth=2)
+        loader.set_epoch(1)
+        out = [{"sum": b["images"].sum(dtype=torch.int64), "batch": b} if device else b
+               for b in loader]
+        loader.close()
+        return out
+
+    host, on_card = batches(None), batches(dev)
+    assert len(host) == len(on_card) == n // 8
+    for h, c in zip(host, on_card):
+        assert int(c["sum"]) == int(h["images"].astype(np.int64).sum())
+        b = c["batch"]
+        assert b["images"].device.type == "cuda" and b["images"].dtype == torch.uint8
+        np.testing.assert_array_equal(b["images"].cpu().numpy(), h["images"])
+        np.testing.assert_array_equal(b["targets"]["t"].cpu().numpy(), h["targets"]["t"])
+        np.testing.assert_array_equal(b["aux"].cpu().numpy(), h["aux"])

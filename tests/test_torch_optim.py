@@ -34,7 +34,8 @@ from linnaeus_tpu.optim import build as j_build
 from linnaeus_tpu.optim.muon import muon as j_muon
 from linnaeus_tpu.optim.muon import zeropower_via_newtonschulz5 as j_zeropower
 from linnaeus_tpu.optim import schedules as j_sched
-from linnaeus_tpu_torch.configuration.train_presets import ConfigNode, train_preset
+from linnaeus_tpu_torch.configuration.cfg_node import CfgNode
+from linnaeus_tpu_torch.configuration.train_presets import train_preset
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch import configuration as tconf
 from linnaeus_tpu_torch.optim import build as t_build
@@ -128,11 +129,11 @@ def test_unported_optimizers_raise(name):
     opt = t_build.build_optimizer(cfg, 1e-3, model)
     assert type(opt).__name__ == {"sgd": "SGD", "muon": "Muon", "ademamix": "AdEMAMix"}[name]
     assert sum(len(g["params"]) for g in opt.param_groups) == len(list(model.parameters()))
-    cfg.OPTIMIZER.PARAMETER_GROUPS = ConfigNode({
+    cfg.OPTIMIZER.PARAMETER_GROUPS = CfgNode({
         "ENABLED": True, "HEADS": {"FILTER": {"TYPE": "name", "PATTERNS": ["head_"]}}})
     assert {g["label"] for g in t_build.build_optimizer(cfg, 1e-3, model).param_groups} == {
         "default", "HEADS"}
-    cfg.OPTIMIZER.PARAMETER_GROUPS = ConfigNode({"ENABLED": False})
+    cfg.OPTIMIZER.PARAMETER_GROUPS = CfgNode({"ENABLED": False})
     cfg.OPTIMIZER.NAME = "lamb"
     with pytest.raises(ValueError, match="lamb"):
         t_build.build_optimizer(cfg, 1e-3, model)

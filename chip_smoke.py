@@ -62,9 +62,10 @@ K2 against the steps, GradNorm updates and validation forwards, every
 validation pass reports every task, the checkpoints retention keeps, that a
 resume loads the saved state bit for bit and starts at step 32, and that
 the resumed epoch reads the sampler's batches for its epoch; it prints the
-step under the Trainer against phase 7b's, the loader's rate and wait, the
-device-busy share, peak memory, and the validation, checkpoint and resume
-seconds. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
+step under the Trainer against phase 7b's, the span between each step's
+CUDA events, the device-busy share of seven profiled steps of the resumed
+epoch (torch.profiler), the loader's rate and wait, peak memory, and the
+validation, checkpoint and resume seconds. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints one JSON line about
 the seven kernels, and as its last line
 
@@ -76,6 +77,7 @@ printed. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -925,14 +927,14 @@ TRAINER_GRADNORM_INTERVAL = 8  # the default is 100: cut so that 32 steps hold 4
 TRAINER_KEEP_LAST = 2
 
 
-def write_trainer_dataset(d: str, rng: np.random.Generator, img: int = IMG,
-                          n_obs: int = TRAINER_OBS, widths=tuple(TASKS.values())) -> dict:
-    """A hybrid dataset in ``d``: labels (``.h5`` where h5py is installed,
-    else ``.npz`` through data/processor.py::write_labels_npz) and one
-    smooth ``img`` px JPEG an observation under ``d/images``. The taxonomy
-    is seeded: ``widths[r] - 1`` taxa at rank r, each with a parent one rank
-    up and every parent with a child, so that with the null class the
-    heads have ``widths``; the first observations hold every L10 taxon once;
+def write_trainer_dataset(d: str, rng: np.random.Generator) -> dict:
+    """A hybrid dataset of TRAINER_OBS observations in ``d``: labels
+    (``.h5`` where h5py is installed, else ``.npz`` through
+    data/processor.py::write_labels_npz) and one smooth IMG px JPEG an
+    observation under ``d/images``. The taxonomy is seeded: ``TASKS[r] - 1``
+    taxa at rank r, each with a parent one rank up and every parent with a
+    child, so that with the null class the heads have the widths of TASKS;
+    the first observations hold every L10 taxon once;
     some of the rest are null from a rank upward. Metadata: temporal (2),
     spatial (3), elevation (10) columns."""
     import importlib.util
@@ -942,7 +944,8 @@ def write_trainer_dataset(d: str, rng: np.random.Generator, img: int = IMG,
 
     from linnaeus_tpu_torch.data.processor import write_labels_npz
 
-    taxa = [w - 1 for w in widths]
+    img, n_obs = IMG, TRAINER_OBS
+    taxa = [w - 1 for w in TASKS.values()]
     parents = [rng.permutation(taxa[r]) % taxa[r + 1] + 1 for r in range(len(taxa) - 1)]
     leaf = np.concatenate([np.arange(1, taxa[0] + 1),
                            rng.integers(1, taxa[0] + 1, n_obs - taxa[0])])
@@ -991,10 +994,9 @@ def write_trainer_dataset(d: str, rng: np.random.Generator, img: int = IMG,
     return {"labels": labels, "images": images, "ranks": ranks}
 
 
-def trainer_yaml(d: str, data: dict, img: int = IMG, model: dict | None = None,
-                 batch: int = BATCH) -> str:
-    """The experiment: the default config with mFormerV1_sm at ``img`` px
-    (or ``model`` over it), B = ``batch`` for training and validation, the
+def trainer_yaml(d: str, data: dict) -> str:
+    """The experiment: the default config with mFormerV1_sm at IMG px,
+    B = BATCH for training and validation, the
     four tasks with null labels (DATA.PARTIAL.LEVELS), hybrid images, a
     0.8 split, TRAINER_EPOCHS epochs, GradNorm every TRAINER_GRADNORM_INTERVAL
     steps, a checkpoint every epoch of which retention keeps the last
@@ -1009,10 +1011,9 @@ def trainer_yaml(d: str, data: dict, img: int = IMG, model: dict | None = None,
         "EXPERIMENT": {"NAME": "trainer", "PROJECT": "chip_smoke", "GROUP": "phase9"},
         "ENV": {"OUTPUT": {"BASE_DIR": os.path.join(d, "out")}},
         "MODEL": {"BASE": [os.path.abspath("configs/model/archs/mFormerV1_sm.yaml")],
-                  "IMG_SIZE": img,
-                  "USE_FLASH_ATTN": True, **(model or {})},
+                  "IMG_SIZE": IMG, "USE_FLASH_ATTN": True},
         "DATA": {
-            "IMG_SIZE": img, "BATCH_SIZE": batch, "BATCH_SIZE_VAL": batch,
+            "IMG_SIZE": IMG, "BATCH_SIZE": BATCH, "BATCH_SIZE_VAL": BATCH,
             "TASK_KEYS_H5": list(TASKS), "PARTIAL": {"LEVELS": True},
             "H5": {"LABELS_PATH": data["labels"], "TRAIN_VAL_SPLIT_RATIO": 0.8},
             "HYBRID": {"USE_HYBRID": True, "IMAGES_DIR": data["images"],
@@ -1042,16 +1043,38 @@ def _same_bits(a, b) -> bool:
     return a == b
 
 
-def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
-                  batch: int = BATCH, n_obs: int = TRAINER_OBS, kernels: bool = True,
-                  widths=tuple(TASKS.values()), synthetic_step_ms: float | None = None) -> dict:
+@contextlib.contextmanager
+def process_handlers_restored():
+    """Each Trainer installs process-wide handlers (SIGINT, SIGTERM,
+    SIGUSR1, sys.excepthook, an atexit drain: utils/hpc.py). On leaving,
+    drain the shutdown registry (at exit it would log after the result
+    line) and put back what was there before, so that a signal to the
+    later phases ends the process again."""
+    import atexit
+    import signal
+
+    from linnaeus_tpu_torch.utils.hpc import get_shutdown_registry
+
+    signals = (signal.SIGINT, signal.SIGTERM, signal.SIGUSR1)
+    handlers, excepthook = {sig: signal.getsignal(sig) for sig in signals}, sys.excepthook
+    try:
+        yield
+    finally:
+        registry = get_shutdown_registry()
+        registry.drain()
+        atexit.unregister(registry.drain)
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+        sys.excepthook = excepthook
+
+
+def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
     """Phase 7c: write a dataset, train it through the CLI
     (``linnaeus_tpu_torch.train.main.main``) for TRAINER_EPOCHS epochs,
     then run the CLI again on the same output directory for
-    TRAINER_RESUME_EPOCHS epochs, which must auto-resume; the checks and
-    times are listed in main. ``model``, ``batch``, ``n_obs`` and
-    ``widths`` shrink it for a run on the CPU, where ``kernels`` is False.
-    Returns the kernels' launches over both runs."""
+    TRAINER_RESUME_EPOCHS epochs, which must auto-resume and profiles the
+    seven steps between two GradNorm updates; the checks and times are
+    listed in main. Returns the kernels' launches over both runs."""
     import json as _json
     import os
     import shutil
@@ -1074,26 +1097,25 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
     os.makedirs("build", exist_ok=True)
     d = tempfile.mkdtemp(prefix="trainer_", dir="build")
     t0 = time.perf_counter()
-    data = write_trainer_dataset(d, np.random.default_rng(SEED + 9), img, n_obs, widths)
+    data = write_trainer_dataset(d, np.random.default_rng(SEED + 9))
     write_s = time.perf_counter() - t0
-    cfg_path = trainer_yaml(d, data, img, model, batch)
+    cfg_path = trainer_yaml(d, data)
     argv = ["--cfg", cfg_path, "--device", str(dev)]
-    cuda = torch.device(dev).type == "cuda"
+    n_obs, batch = TRAINER_OBS, BATCH
     print(f"trainer phase: {n_obs} observations written in {write_s:.1f} s "
-          f"({os.path.basename(data['labels'])}, {img} px JPEGs); cut: GradNorm every "
+          f"({os.path.basename(data['labels'])}, {IMG} px JPEGs); cut: GradNorm every "
           f"{TRAINER_GRADNORM_INTERVAL} steps (default 100), {TRAINER_EPOCHS} + 1 epochs",
           flush=True)
 
     # run 1: train from scratch
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     zero()
     t0 = time.perf_counter()
     first = train_main(argv)
     run1_s = time.perf_counter() - t0
     launched = counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     steps1 = first.progress.global_step
     spe = first.steps_per_epoch
     n_val = len(first.val_loader) if first.val_loader is not None else 0
@@ -1103,17 +1125,15 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
           f"{spe} train steps and {n_val} val batches an epoch")
     check(steps1 == TRAINER_EPOCHS * spe, f"run 1 took {steps1} steps")
     check(n_gn == steps1 // TRAINER_GRADNORM_INTERVAL, f"{n_gn} GradNorm updates")
-    check(first.num_classes == dict(zip(TASKS, widths)),
-          f"the heads' widths {first.num_classes}")
+    check(first.num_classes == TASKS, f"the heads' widths {first.num_classes}")
     val_forwards = n_val * len(passes)
-    if kernels:
-        want = {k: steps1 * K1_PER_REMAT_STEP.get(k, 0) + n_gn * PER_GRADNORM.get(k, 0)
-                for k in launched}
-        want["K1"] += val_forwards * K1_PER_FORWARD
-        want["K2"] += val_forwards * K2_PER_FORWARD
-        print(f"trainer launches over run 1 ({steps1} steps, {n_gn} GradNorm updates, "
-              f"{val_forwards} validation forwards): {launched} (expected {want})", flush=True)
-        check(launched == want, f"trainer launch counts {launched}, expected {want}")
+    want = {k: steps1 * K1_PER_REMAT_STEP.get(k, 0) + n_gn * PER_GRADNORM.get(k, 0)
+            for k in launched}
+    want["K1"] += val_forwards * K1_PER_FORWARD
+    want["K2"] += val_forwards * K2_PER_FORWARD
+    print(f"trainer launches over run 1 ({steps1} steps, {n_gn} GradNorm updates, "
+          f"{val_forwards} validation forwards): {launched} (expected {want})", flush=True)
+    check(launched == want, f"trainer launch counts {launched}, expected {want}")
     log_dir = first.config.ENV.OUTPUT.DIRS.LOGS
     ckpt_dir = first.ckpt_dir
 
@@ -1152,8 +1172,7 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
     batches_epoch1 = [b.copy() for b in first.train_loader.epoch_indices]
     del first
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
     # the state a resume loads, held to the state run 1 ended with
     args, config = parse_option(argv + ["--opts", "TRAIN.EPOCHS", str(TRAINER_RESUME_EPOCHS)])
@@ -1166,9 +1185,15 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
     del probe, loaded
     gc.collect()
 
-    # run 2: the CLI again, on the same output directory
+    # run 2: the CLI again, on the same output directory; torch.profiler
+    # over the steps after the first GradNorm update up to the step before
+    # the next (steps1 is a multiple of the interval)
+    prof_start = steps1 + TRAINER_GRADNORM_INTERVAL
+    prof_end = prof_start + TRAINER_GRADNORM_INTERVAL - 1
     t0 = time.perf_counter()
-    second = train_main(argv + ["--opts", "TRAIN.EPOCHS", str(TRAINER_RESUME_EPOCHS)])
+    second = train_main(argv + ["--opts", "TRAIN.EPOCHS", str(TRAINER_RESUME_EPOCHS),
+                                "DEBUG.PROFILE.START_STEP", str(prof_start),
+                                "DEBUG.PROFILE.END_STEP", str(prof_end)])
     run2_s = time.perf_counter() - t0
     total = counts()
     check(second.resumed_from is not None and second.resumed_from.endswith(
@@ -1199,15 +1224,23 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
     timing.append(resumed)
     pipeline2 = second.train_loader.pipeline_metrics()
     resume_s = second.resume_seconds
+    prof = second.profile_summary
+    check(prof is not None and prof["steps"] == prof_end - prof_start,
+          f"the profiled window of steps {prof_start + 1}-{prof_end}: {prof}")
 
     fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
-    print(f"[{card}] mFormerV1_sm {img}px B={batch} bf16 through the Trainer (the CLI, "
+    print(f"[{card}] mFormerV1_sm {IMG}px B={batch} bf16 through the Trainer (the CLI, "
           f"hybrid JPEGs, default config): step under the Trainer "
-          + ", ".join(f"epoch {e}: median {fmt(t['median_step_ms'])} ms, device "
-                      f"{fmt(t.get('median_device_step_ms'))} ms, busy share "
-                      f"{fmt(t.get('device_busy_share'))}, wall {fmt(t['wall_s'])} s"
+          + ", ".join(f"epoch {e}: median {fmt(t['median_step_ms'])} ms, event span "
+                      f"{fmt(t['median_event_span_ms'])} ms (the device's waits for the "
+                      f"host included), span share {fmt(t['event_span_share'])}, wall "
+                      f"{fmt(t['wall_s'])} s"
                       for e, t in enumerate(timing))
-          + f" (phase 7b's synthetic-batch step: {fmt(synthetic_step_ms)} ms); loader "
+          + f" (phase 7b's synthetic-batch step: {fmt(synthetic_step_ms)} ms); "
+          f"under torch.profiler, steps {prof_start + 1}-{prof_end} of epoch "
+          f"{TRAINER_RESUME_EPOCHS - 1}: {prof['wall_ms_per_step']:.2f} ms a step, device "
+          f"busy {prof['device_busy_ms_per_step']:.2f} ms, device-busy share "
+          f"{1.0 - prof['idle_share']:.3f}; loader "
           f"{pipeline1['throughput_samples_per_sec']:.1f} img/s, wait "
           f"{pipeline1['avg_wait_ms']:.2f} ms a batch (run 1's last epoch, cache warm), "
           f"{pipeline2['throughput_samples_per_sec']:.1f} img/s, wait "
@@ -1218,17 +1251,11 @@ def trainer_phase(dev, card, fa, fm, img: int = IMG, model: dict | None = None,
           f"{run2_s:.1f} s", flush=True)
     del second
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     shutil.rmtree(d, ignore_errors=True)
-    # the Trainers' shutdown registry drains at exit and logs to stdout: do
-    # it now, so the last line of the output stays the result
-    from linnaeus_tpu_torch.utils.hpc import get_shutdown_registry
-
-    get_shutdown_registry().drain()
     return {"launches": total, "run1_launches": launched, "timing": timing,
             "pipeline": [pipeline1, pipeline2], "peak_gib": peak, "validation_s": val_s,
-            "resume_s": resume_s}
+            "resume_s": resume_s, "profile": prof}
 
 
 def serving_config():
@@ -1818,7 +1845,8 @@ def main() -> int:
 
     # 7c. train through the Trainer: the CLI on a dataset of JPEGs on disk,
     # two epochs with validation and checkpoints, then a run that resumes
-    trainer = trainer_phase(dev, card, fa, fm, synthetic_step_ms=default_cfg["step_ms"])
+    with process_handlers_restored():
+        trainer = trainer_phase(dev, card, fa, fm, default_cfg["step_ms"])
     for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
         check(trainer["launches"][key] > 0, f"{key} was not launched through the Trainer")
 

@@ -262,29 +262,17 @@ class DirImageSource(ImageSource):
         self.allow_missing = allow_missing
         # DATA.NATIVE_DATAPLANE: 'auto' and 'off' decode per sample with
         # cv2/PIL; 'on' (the native batched decode) raises: not ported
-        self.native_mode = str(native)
-        if self.native_mode == "on":
+        if str(native) == "on":
             raise NotImplementedError(
                 "DATA.NATIVE_DATAPLANE 'on': the native batched JPEG decode "
                 "(linnaeus_tpu/native/) is not ported yet; use 'auto' or 'off'"
             )
-        self._dataplane = False  # not resolved yet
-
-    def _native_plane(self):
-        """The native batched decode is not ported: always None ('auto'
-        logs the per-sample path once)."""
-        if self._dataplane is False:
-            self._dataplane = None
-            if self.native_mode == "auto" and self.ext.lower() in (".jpg", ".jpeg"):
-                logger.info(
-                    "DirImageSource: DATA.NATIVE_DATAPLANE 'auto' decodes per "
-                    f"sample with {'cv2' if _HAS_CV2 else 'PIL'} (the native "
-                    "batched decode is not ported)"
-                )
-        return self._dataplane
-
-    def supports_batch_read(self) -> bool:
-        return self._native_plane() is not None
+        if str(native) == "auto" and file_extension.lower() in (".jpg", ".jpeg"):
+            logger.info(
+                "DirImageSource: DATA.NATIVE_DATAPLANE 'auto' decodes per sample "
+                f"with {'cv2' if _HAS_CV2 else 'PIL'} (the native batched decode "
+                "is not ported)"
+            )
 
     def _path(self, idx: int) -> str:
         ident = self.identifiers[idx]
@@ -402,7 +390,7 @@ class PrefetchingDataset:
 
     def _can_bulk_read(self) -> bool:
         """Batch-at-a-time reads apply when the source does the whole batch
-        in one GIL-free native call (DirImageSource's C++ decode) and no
+        in one call (H5ImageSource's direct-chunk gather) and no
         per-sample hook (transform, HPC read simulation, verbose read
         logging) needs the per-sample path."""
         return (
@@ -415,9 +403,8 @@ class PrefetchingDataset:
 
     def _bulk_images(self, indices: np.ndarray, pool=None) -> np.ndarray:
         """One-gather batch read: cache hits are taken per index, the
-        misses go through the source's single native batch call
-        (DirImageSource.read_batch_rows — C++ file read + JPEG decode +
-        resize, no per-sample Python), and rows land in their requested
+        misses go through the source's single batch call
+        (H5ImageSource.read_batch_rows), and rows land in their requested
         order."""
         idx = np.asarray(indices, np.int64)
         if len(idx) == 0:
@@ -455,7 +442,7 @@ class PrefetchingDataset:
 
     def _read_miss_rows(self, miss_idx: np.ndarray, pool=None) -> np.ndarray:
         """Read rows for cache-miss indices, in the given order."""
-        del pool  # the native batch call threads internally
+        del pool  # the batch call reads the rows itself
         return self.source.read_batch_rows(miss_idx)
 
     def read_batch(self, indices: np.ndarray, pool=None) -> dict:

@@ -52,7 +52,7 @@ from linnaeus_tpu_torch.optim.schedules import build_schedule
 from linnaeus_tpu_torch.train.build import build_training
 from linnaeus_tpu_torch.train.state import TrainState, create_train_state
 from linnaeus_tpu_torch.train.step import ScheduleScalars, make_train_step
-from linnaeus_tpu_torch.utils.device import resolve_device
+from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
 
 NUM_CLASSES = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
@@ -306,19 +306,7 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
     wall_ms = 1000.0 * (time.perf_counter() - t0) / steps
     if trace_path:
         prof.export_chrome_trace(trace_path)
-    rows = []
-    for e in prof.key_averages():
-        # device rows only, and no user-annotation ranges (the optimizer's
-        # "Optimizer.step#..." span covers kernels that have rows of their own)
-        on_device = "cuda" in str(getattr(e, "device_type", "")).lower()
-        if not on_device or getattr(e, "is_user_annotation", False) or "#" in e.key:
-            continue
-        device_us = getattr(e, "self_device_time_total", None)
-        if device_us is None:
-            device_us = getattr(e, "self_cuda_time_total", 0.0)
-        if device_us > 0:
-            rows.append((e.key, device_us / 1000.0 / steps, e.count / steps))
-    rows.sort(key=lambda r: -r[1])
+    rows = [(key, ms / steps, count / steps) for key, ms, count in profiled_device_rows(prof)]
     busy = sum(r[1] for r in rows)
     as_dict = lambda r: {"name": r[0][:100], "ms_per_step": r[1],  # noqa: E731
                          "launches_per_step": r[2]}

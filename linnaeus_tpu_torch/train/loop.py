@@ -24,7 +24,10 @@ build_model and make_train_step, mFormerV0, MoE and BatchNorm statistics.
 Each loop iteration (a train step and, when due, the GradNorm update) is
 bracketed by CUDA events and host clock readings (``step_times``, the
 current epoch's); at the epoch's end they are summed up into
-``epoch_timings[epoch]``: device-busy time against the epoch's wall time.
+``epoch_timings[epoch]``. The span between an iteration's two events is
+not device-busy time: it holds every gap in which the device waits for the
+host's next launch. The device-busy share comes from the torch.profiler
+window of DEBUG.PROFILE (``profile_summary``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from linnaeus_tpu_torch.ops_schedule.training_progress import TrainingStage
 from linnaeus_tpu_torch.optim.build import lr_dict_for_logging
 from linnaeus_tpu_torch.utils import checkpoint as ckpt
 from linnaeus_tpu_torch.utils.debug import check_debug_flag
-from linnaeus_tpu_torch.utils.device import resolve_device
+from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
 from linnaeus_tpu_torch.utils.logging import get_main_logger
 from linnaeus_tpu_torch.utils.meta import compute_meta_chunk_bounds_by_name, total_meta_dim
 
@@ -261,6 +264,8 @@ class Trainer:
         self.resumed_from: str | None = None
         self.resume_seconds: float | None = None
         self._profiler = None
+        self._profile_t0 = 0.0
+        self.profile_summary: dict | None = None
         # callbacks run before resources close during drain(), so the
         # emergency checkpoint lands before the loaders shut down
         self.shutdown.register_callback(self._on_preempt)
@@ -378,8 +383,13 @@ class Trainer:
         logger.info("Training complete")
 
     def _profile(self, step: int) -> None:
-        """DEBUG.PROFILE.START_STEP / END_STEP: torch.profiler over those
-        steps, its chrome trace written under the logs directory."""
+        """DEBUG.PROFILE.START_STEP / END_STEP: torch.profiler over the
+        steps after START_STEP up to END_STEP, its chrome trace written under
+        the logs directory. On CUDA the window starts and ends with the
+        device idle, and ``profile_summary`` holds its steps, its wall and
+        device-busy milliseconds a step (the sum of the device rows) and the
+        idle share. Tracing the host slows it, so these are the profiled
+        loop's."""
         prof = self.config.DEBUG.PROFILE
         start, end = int(prof.get("START_STEP", 0) or 0), int(prof.get("END_STEP", 0) or 0)
         if end <= start:
@@ -389,11 +399,26 @@ class Trainer:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=activities)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profile_t0 = time.perf_counter()
             self._profiler.__enter__()
         if step == end and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall_ms = 1000.0 * (time.perf_counter() - self._profile_t0) / (end - start)
             self._profiler.__exit__(None, None, None)
             path = f"{self.config.ENV.OUTPUT.DIRS.LOGS}/profile_steps_{start}_{end}.json"
             self._profiler.export_chrome_trace(path)
+            if self.device.type == "cuda":
+                busy_ms = sum(ms for _, ms, _ in profiled_device_rows(self._profiler)) / (
+                    end - start)
+                self.profile_summary = {
+                    "steps": end - start, "wall_ms_per_step": wall_ms,
+                    "device_busy_ms_per_step": busy_ms,
+                    "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                }
+                logger.info(f"profiled steps {start + 1}-{end}: {self.profile_summary}")
             self._profiler = None
             logger.info(f"Wrote torch profiler trace for steps {start}-{end} to {path}")
 
@@ -528,9 +553,10 @@ class Trainer:
         steps and GradNorm updates, its first step, its wall seconds, the
         median host interval from one step's start to the next (a step as
         the loop takes it: the batch's wait, the launches, the GradNorm
-        update when due), and on CUDA the device milliseconds between each
-        iteration's two events, the median of those without a GradNorm
-        update, and their sum over the wall time (the device-busy share)."""
+        update when due), and on CUDA the milliseconds between each
+        iteration's two events on the stream (the event span, the device's
+        waits for the host included), the median of those without a GradNorm
+        update, and their sum over the wall time."""
         rows = self.step_times
         starts = [r["host_start"] for r in rows]
         out = {
@@ -542,12 +568,12 @@ class Trainer:
                                if len(starts) > 1 else None),
         }
         if rows and rows[0]["start_event"] is not None:
-            device_ms = [r["start_event"].elapsed_time(r["end_event"]) for r in rows]
-            plain = [ms for ms, r in zip(device_ms, rows) if not r["gradnorm"]]
+            span_ms = [r["start_event"].elapsed_time(r["end_event"]) for r in rows]
+            plain = [ms for ms, r in zip(span_ms, rows) if not r["gradnorm"]]
             out.update({
-                "device_ms_total": float(sum(device_ms)),
-                "median_device_step_ms": statistics.median(plain) if plain else None,
-                "device_busy_share": sum(device_ms) / 1000.0 / wall_s,
+                "event_span_ms_total": float(sum(span_ms)),
+                "median_event_span_ms": statistics.median(plain) if plain else None,
+                "event_span_share": sum(span_ms) / 1000.0 / wall_s,
             })
         return out
 

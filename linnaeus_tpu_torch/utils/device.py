@@ -18,3 +18,23 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def profiled_device_rows(prof) -> list[tuple[str, float, int]]:
+    """The device rows of a finished ``torch.profiler.profile``: each
+    kernel or copy by name, with its total self device milliseconds and its
+    count, longest first. User-annotation ranges are left out (the
+    optimizer's "Optimizer.step#..." span covers kernels that have rows of
+    their own). Their sum is the device-busy time of the profiled window."""
+    rows = []
+    for e in prof.key_averages():
+        on_device = "cuda" in str(getattr(e, "device_type", "")).lower()
+        if not on_device or getattr(e, "is_user_annotation", False) or "#" in e.key:
+            continue
+        device_us = getattr(e, "self_device_time_total", None)
+        if device_us is None:
+            device_us = getattr(e, "self_cuda_time_total", 0.0)
+        if device_us > 0:
+            rows.append((e.key, device_us / 1000.0, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows

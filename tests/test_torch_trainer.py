@@ -186,7 +186,9 @@ def port_only(data_dir, out, epochs=2, **extra):  # noqa: F811
 
 @time_limit(240)
 def test_trainer_end_to_end_and_resume(data_dir, tmp_path):  # noqa: F811
-    cfg = port_only(data_dir, tmp_path / "out", **{"SCHEDULE.CHECKPOINT.KEEP_LAST_N": 1})
+    cfg = port_only(data_dir, tmp_path / "out", **{"SCHEDULE.CHECKPOINT.KEEP_LAST_N": 1,
+                                                   "DEBUG.PROFILE.START_STEP": 1,
+                                                   "DEBUG.PROFILE.END_STEP": 2})
     trainer = Trainer(cfg, device="cpu")
     assert trainer.model.gradient_checkpointing and trainer.model.remat_policy == "dots"
     trainer.train()
@@ -207,6 +209,9 @@ def test_trainer_end_to_end_and_resume(data_dir, tmp_path):  # noqa: F811
     timing = trainer.epoch_timings[1]
     assert timing["steps"] == trainer.steps_per_epoch and timing["wall_s"] > 0
     assert timing["first_step"] == trainer.steps_per_epoch + 1 and timing["median_step_ms"] > 0
+    # the profiled window wrote its trace; its device-busy share is the card's only
+    assert os.path.exists(os.path.join(cfg.ENV.OUTPUT.DIRS.LOGS, "profile_steps_1_2.json"))
+    assert trainer.profile_summary is None
 
     # a fresh trainer resumes the state bit for bit
     from linnaeus_tpu_torch.utils.checkpoint import snapshot_state

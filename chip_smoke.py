@@ -65,7 +65,24 @@ the resumed epoch reads the sampler's batches for its epoch; it prints the
 step under the Trainer against phase 7b's, the span between each step's
 CUDA events, the device-busy share of seven profiled steps of the resumed
 epoch (torch.profiler), the loader's rate and wait, peak memory, and the
-validation, checkpoint and resume seconds. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
+validation, checkpoint and resume seconds. Then (phase 7d) it goes from
+pretrained weights to a served bundle on the same dataset: it prints the
+probe of the compiler and libjpeg's header that the native JPEG decode
+would need (not ported: serving decodes with PIL), writes seeded
+ConvNeXt-Tiny and RoPE-ViT DeiT-Small checkpoints in the official layouts,
+builds the Trainer of configs/experiments/generic_mformer_example.yaml
+through the CLI's construction (train.main.build_trainer) with AutoBatch for
+both batches under 0.10 of the card's memory, and checks every mapped tensor
+against its source bit for bit before the first step, the loaders' reports
+against the same mapping on the CPU, the peak at the chosen batch (its
+steps and one GradNorm update) within the budget and the next larger trial
+above it, BASE_LR scaled once; it trains one epoch (its peak within the
+budget), builds the run again
+(it resumes at the checkpoint's batches and base LR, without a search),
+bundles the last checkpoint with tools/prepare_inference_bundle,
+serves it (logits bit for bit against the checkpoint's model, 64
+validation JPEGs through predict and over HTTP), and runs --throughput and
+inspect_checkpoints. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints one JSON line about
 the seven kernels, and as its last line
 
@@ -80,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1077,7 +1095,6 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
     listed in main. Returns the kernels' launches over both runs."""
     import json as _json
     import os
-    import shutil
     import tempfile
 
     from linnaeus_tpu_torch.data.sampler import build_sampler
@@ -1252,10 +1269,404 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
     del second
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(d, ignore_errors=True)
     return {"launches": total, "run1_launches": launched, "timing": timing,
             "pipeline": [pipeline1, pipeline2], "peak_gib": peak, "validation_s": val_s,
-            "resume_s": resume_s, "profile": prof}
+            "resume_s": resume_s, "profile": prof, "dir": d, "data": data,
+            "yaml": cfg_path}
+
+
+# phase 7d: from pretrained files to a served bundle
+PRETRAINED_MEMORY_FRACTION = 0.10  # cut: AutoBatch's budget, 8 GB of the card's 80
+PRETRAINED_BOUNDS, PRETRAINED_BOUNDS_VAL = (16, 512), (16, 256)
+PRETRAINED_CLIENTS, PRETRAINED_REQUESTS, PRETRAINED_IMAGES = 8, 2, 4
+
+
+def native_decode_probe() -> bool:
+    """The compiler and libjpeg's header the native JPEG decode would need;
+    prints both probes and returns whether the header compiles."""
+    if shutil.which("g++") is None:
+        print("native decode probe: no g++ on this machine", flush=True)
+        return False
+    version = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    header = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                            input="#include <cstdio>\n#include <jpeglib.h>\n",
+                            capture_output=True, text=True)
+    print(f"native decode probe: {version.stdout.splitlines()[0]}; jpeglib.h: "
+          + ("compiles" if header.returncode == 0 else header.stderr.strip().splitlines()[0]),
+          flush=True)
+    return header.returncode == 0
+
+
+def write_pretrained_files(d: str, seed: int) -> tuple[str, str]:
+    """Two checkpoints in the official layouts from a seeded generator,
+    every tensor with values of its own: ConvNeXt-Tiny (depths 3, 3, 9, 3;
+    dims 96, 192, 384, 768; wrapped as {"model": ...}) and a RoPE-Mixed
+    DeiT-Small (12 blocks of 384, 6 heads, per-block ``attn.freqs``).
+    Weights are 0.02 x normal, LayerNorm scales 1 + that, layer scales
+    0.1 x normal, so the stitched model trains as a pretrained one would."""
+    import os
+
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, kind="weight"):
+        offset, scale = {"weight": (0.0, 0.02), "norm": (1.0, 0.02), "gamma": (0.0, 0.1),
+                         "freqs": (0.0, 0.5)}[kind]
+        return offset + scale * torch.randn(*shape, generator=g)
+
+    dims, depths = (96, 192, 384, 768), (3, 3, 9, 3)
+    cn = {"downsample_layers.0.0.weight": t(96, 3, 4, 4), "downsample_layers.0.0.bias": t(96),
+          "downsample_layers.0.1.weight": t(96, kind="norm"), "downsample_layers.0.1.bias": t(96)}
+    for i in (1, 2, 3):
+        cn.update({f"downsample_layers.{i}.0.weight": t(dims[i - 1], kind="norm"),
+                   f"downsample_layers.{i}.0.bias": t(dims[i - 1]),
+                   f"downsample_layers.{i}.1.weight": t(dims[i], dims[i - 1], 2, 2),
+                   f"downsample_layers.{i}.1.bias": t(dims[i])})
+    for s, (dim, depth) in enumerate(zip(dims, depths)):
+        for j in range(depth):
+            p = f"stages.{s}.{j}"
+            cn.update({f"{p}.dwconv.weight": t(dim, 1, 7, 7), f"{p}.dwconv.bias": t(dim),
+                       f"{p}.norm.weight": t(dim, kind="norm"), f"{p}.norm.bias": t(dim),
+                       f"{p}.pwconv1.weight": t(4 * dim, dim), f"{p}.pwconv1.bias": t(4 * dim),
+                       f"{p}.pwconv2.weight": t(dim, 4 * dim), f"{p}.pwconv2.bias": t(dim),
+                       f"{p}.gamma": t(dim, kind="gamma")})
+    cn.update({"norm.weight": t(768, kind="norm"), "norm.bias": t(768),
+               "head.weight": t(1000, 768), "head.bias": t(1000)})
+    dim, rv = 384, {"cls_token": t(1, 1, 384), "patch_embed.proj.weight": t(384, 3, 16, 16)}
+    for i in range(12):
+        p = f"blocks.{i}"
+        rv.update({f"{p}.norm1.weight": t(dim, kind="norm"), f"{p}.norm1.bias": t(dim),
+                   f"{p}.attn.qkv.weight": t(3 * dim, dim), f"{p}.attn.qkv.bias": t(3 * dim),
+                   f"{p}.attn.proj.weight": t(dim, dim), f"{p}.attn.proj.bias": t(dim),
+                   f"{p}.attn.freqs": t(2, 6, 32, kind="freqs"),
+                   f"{p}.norm2.weight": t(dim, kind="norm"), f"{p}.norm2.bias": t(dim),
+                   f"{p}.mlp.fc1.weight": t(4 * dim, dim), f"{p}.mlp.fc1.bias": t(4 * dim),
+                   f"{p}.mlp.fc2.weight": t(dim, 4 * dim), f"{p}.mlp.fc2.bias": t(dim)})
+    paths = os.path.join(d, "convnext_tiny.pth"), os.path.join(d, "rope_mixed_deit_small.pth")
+    torch.save({"model": cn}, paths[0])
+    torch.save({"model": rv, "epoch": 300}, paths[1])
+    return paths
+
+
+def pretrained_phase(dev, card, fa, fm, trainer: dict) -> dict:
+    """Phase 7d, on phase 7c's dataset: the example experiment
+    (configs/experiments/generic_mformer_example.yaml: stitched init,
+    ConditionalClassifier heads, the heads' group at 10x, GradNorm, AutoAugment)
+    through the CLI's own construction (``train.main.build_trainer``) from
+    seeded pretrained files, with AutoBatch for the train and validation
+    batches; checks the pretrained weights bit for bit before the first step,
+    the reports against the same mapping on the CPU, the search's peak (a
+    train trial's steps and one GradNorm update) against its budget and
+    BASE_LR's scaling; trains one epoch, its peak within the budget too;
+    builds the run again, which resumes at the checkpoint's batches and base
+    LR without a search; bundles the
+    last checkpoint with ``tools/prepare_inference_bundle`` and serves it
+    (logits bit for bit against the checkpoint's model, 64 validation JPEGs,
+    HTTP); then ``--throughput`` and ``inspect_checkpoints``. Returns the
+    kernels' launches and the measurements."""
+    import base64
+    import os
+    import threading
+    import urllib.request
+
+    import yaml
+
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.inference.preprocessing import preprocess_image_batch
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.tools.inspect_checkpoints import inspect_checkpoint
+    from linnaeus_tpu_torch.tools.prepare_inference_bundle import prepare_bundle
+    from linnaeus_tpu_torch.tools.serve import make_server
+    from linnaeus_tpu_torch.tools.serve_latency_bench import percentile
+    from linnaeus_tpu_torch.train.main import build_trainer
+    from linnaeus_tpu_torch.train.main import main as train_main
+    from linnaeus_tpu_torch.utils import checkpoint as ckpt
+    from linnaeus_tpu_torch.utils import pretrained as tpre
+
+    def counts():
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K2": fm.LAUNCHES,
+                "K2_bwd": fm.BWD_LAUNCHES}
+
+    # the example's MODEL.BASE names its preset relative to $CONFIG_DIR, the
+    # repository's root, from which this script runs
+    os.environ.setdefault("CONFIG_DIR", os.getcwd())
+    native = native_decode_probe()
+    print("native JPEG decode: not ported in this tree "
+          + ("(this machine could build it)" if native else "(this machine has no jpeglib.h)")
+          + "; DATA.NATIVE_DATAPLANE 'off', serving decodes with PIL", flush=True)
+    d = trainer["dir"]
+    t0 = time.perf_counter()
+    cn_path, rv_path = write_pretrained_files(d, SEED + 20)
+    write_s = time.perf_counter() - t0
+    data = trainer["data"]
+    lo, hi = PRETRAINED_BOUNDS
+    lo_val, hi_val = PRETRAINED_BOUNDS_VAL
+    argv = ["--cfg", os.path.abspath("configs/experiments/generic_mformer_example.yaml"),
+            "--device", str(dev), "--opts",
+            "MODEL.PRETRAINED_CONVNEXT", cn_path, "MODEL.PRETRAINED_ROPEVIT", rv_path,
+            "MODEL.IMG_SIZE", str(IMG), "MODEL.USE_FLASH_ATTN", "True",
+            "DATA.IMG_SIZE", str(IMG), "DATA.H5.LABELS_PATH", data["labels"],
+            "DATA.H5.IMAGES_PATH", "", "DATA.H5.TRAIN_VAL_SPLIT_RATIO", "0.8",
+            "DATA.HYBRID.USE_HYBRID", "True", "DATA.HYBRID.IMAGES_DIR", data["images"],
+            "DATA.HYBRID.FILE_EXTENSION", ".jpg", "DATA.NATIVE_DATAPLANE", "off",
+            "DATA.AUTOBATCH.ENABLED", "True", "DATA.AUTOBATCH.ENABLED_VAL", "True",
+            "DATA.AUTOBATCH.TARGET_MEMORY_FRACTION", str(PRETRAINED_MEMORY_FRACTION),
+            "DATA.AUTOBATCH.TARGET_MEMORY_FRACTION_VAL", str(PRETRAINED_MEMORY_FRACTION),
+            "DATA.AUTOBATCH.MIN_BATCH_SIZE", str(lo), "DATA.AUTOBATCH.MAX_BATCH_SIZE", str(hi),
+            "DATA.AUTOBATCH.MIN_BATCH_SIZE_VAL", str(lo_val),
+            "DATA.AUTOBATCH.MAX_BATCH_SIZE_VAL", str(hi_val),
+            "TRAIN.EPOCHS", "1", "ENV.OUTPUT.BASE_DIR", os.path.join(d, "out_pretrained"),
+            "SCHEDULE.METRICS.CONSOLE_INTERVAL", "1", "SCHEDULE.METRICS.WANDB_INTERVAL", "1"]
+    print(f"pretrained phase: two seeded checkpoints in the official layouts written in "
+          f"{write_s:.1f} s; cuts: AutoBatch's budget {PRETRAINED_MEMORY_FRACTION} of the "
+          f"card's memory (train bounds {PRETRAINED_BOUNDS}, validation "
+          f"{PRETRAINED_BOUNDS_VAL}), 1 epoch of phase 7c's {TRAINER_OBS} observations",
+          flush=True)
+
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = build_trainer(argv)
+    build_s = time.perf_counter() - t0
+    cfg = run.config
+    reports = run.pretrained_reports
+    # every mapped tensor holds its source's bits before the first step (the
+    # AutoBatch trials ran real steps and must have been undone)
+    sources = {**tpre.load_torch_state_dict(cn_path), **tpre.load_torch_state_dict(rv_path)}
+    depths = tuple(len(stage) for stage in run.model.stages)
+    entries = dict((dst, src) for src, dst in tpre.convnext_entries(depths[:2])
+                   + tpre.ropevit_entries(tpre.load_torch_state_dict(rv_path), depths[2:]))
+    weights = run.model.state_dict()
+    loaded = reports["ConvNeXt"]["loaded"] + reports["RoPE-ViT"]["loaded"]
+    check(all(torch.equal(weights[k].cpu(), sources[entries[k]]) for k in loaded),
+          "every mapped tensor equals its source tensor bit for bit before the first step")
+    check(all(torch.equal(run.state.ema_params[k], weights[k]) for k in loaded)
+          if run.state.ema_params is not None else True, "the EMA starts from the loaded weights")
+    cpu_model = build_model(cfg, run.num_classes, run.taxonomy_tree, device="cpu", seed=SEED)
+    cpu_reports = tpre.load_pretrained(cfg, cpu_model)
+    del cpu_model
+    check(cpu_reports == reports, "the reports equal the same mapping's on the CPU")
+    tally = {name: {k: len(v) for k, v in r.items()} for name, r in reports.items()}
+    ab, ab_val = run.autobatch["train"], run.autobatch["val"]
+    # the train budget falls between the bounds; the validation step keeps
+    # no activations for a backward, so its largest batch may fit whole
+    for name, rec, bounds in (("train", ab, PRETRAINED_BOUNDS), ("val", ab_val,
+                                                                 PRETRAINED_BOUNDS_VAL)):
+        found, trials, budget = rec["found"], rec["trials"], rec["budget_bytes"]
+        larger = [bs for bs in trials if bs > found]
+        check(bounds[0] < found < bounds[1] or (name == "val" and found == bounds[1]),
+              f"AutoBatch ({name}) chose {found} inside {bounds}")
+        check(trials[found] is not None and trials[found] <= budget,
+              f"AutoBatch ({name}): the peak at {found} is within the budget: {trials}")
+        check(found == bounds[1] or (trials[min(larger)] is None or trials[min(larger)] > budget),
+              f"AutoBatch ({name}): the next larger trial exceeded the budget: {trials}")
+    check(ab["base_lr_after"] == ab["base_lr_before"] * (ab["found"] / ab["batch_before"]),
+          f"BASE_LR scaled once by {ab['found']} / {ab['batch_before']}: {ab}")
+    check(cfg.DATA.BATCH_SIZE == ab["found"] and cfg.DATA.BATCH_SIZE_VAL == ab_val["found"],
+          "the loaders use the batches AutoBatch chose")
+    gib = 2.0**30
+    ab_steps = int(cfg.DATA.AUTOBATCH.STEPS_PER_TRIAL)
+    check(run._gradnorm_update is not None, "the example experiment runs GradNorm, which "
+          "AutoBatch's train trials probe")
+    print(f"[{card}] the example experiment built by the CLI in {build_s:.1f} s: pretrained "
+          f"reports {tally} (the same on the CPU); AutoBatch (train: {ab_steps} steps and one "
+          f"GradNorm update a trial, {run.train_loader.device_prefetch_depth} batches ahead "
+          f"resident, {ab['seconds']:.1f} s): "
+          f"budget {ab['budget_bytes'] / gib:.2f} GiB, trials "
+          + ", ".join(f"{bs}: {'OOM' if b is None else '%.2f GiB' % (b / gib)}"
+                      for bs, b in ab["trials"].items())
+          + f" -> B={ab['found']} (configured {ab['batch_before']}), BASE_LR "
+          f"{ab['base_lr_before']:.4e} -> {ab['base_lr_after']:.4e}; AutoBatch (val, "
+          f"{ab_val['seconds']:.1f} s): trials "
+          + ", ".join(f"{bs}: {'OOM' if b is None else '%.2f GiB' % (b / gib)}"
+                      for bs, b in ab_val["trials"].items())
+          + f" -> B={ab_val['found']}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        run.train()
+    finally:
+        run.close()
+    train_s = time.perf_counter() - t0
+    epoch_peak = torch.cuda.max_memory_allocated(dev)
+    losses = {}
+    with open(os.path.join(cfg.ENV.OUTPUT.DIRS.LOGS, "metrics.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            if "train/loss" in row:
+                losses[row["step"]] = row["train/loss"]
+    check(sorted(losses) == list(range(1, run.steps_per_epoch + 1))
+          and all(np.isfinite(v) for v in losses.values()), f"finite loss at every step {losses}")
+    summary = run.metrics.phase_summary("val")
+    check(np.isfinite(summary["loss"]), f"validation after the pretrained epoch: {summary}")
+    timing = run.epoch_timings[0]
+    check(epoch_peak <= ab["budget_bytes"], f"the epoch's peak {epoch_peak} B is within "
+          f"AutoBatch's budget {ab['budget_bytes']} B")
+    print(f"[{card}] one epoch of {run.steps_per_epoch} steps at B={ab['found']} in "
+          f"{train_s:.1f} s (median step {timing['median_step_ms']:.1f} ms, a smoke reading of "
+          f"{run.steps_per_epoch} steps, the first cold; peak {epoch_peak / gib:.2f} GiB, "
+          f"{timing['gradnorm_updates']} GradNorm updates, budget "
+          f"{ab['budget_bytes'] / gib:.2f} GiB); losses "
+          f"{[round(losses[s], 4) for s in sorted(losses)]}; validation loss "
+          f"{summary['loss']:.4f}", flush=True)
+
+    # a new process of the same run resumes: no search, the checkpoint's
+    # batches and base LR (a search reads peaks that move with what else the
+    # process holds)
+    last = ckpt.auto_resume_helper(run.ckpt_dir)
+    t0 = time.perf_counter()
+    again = build_trainer(argv)
+    again_s = time.perf_counter() - t0
+    try:
+        check(again.autobatch["train"].get("resumed_from") == last
+              and "trials" not in again.autobatch["train"]
+              and "trials" not in again.autobatch["val"], f"no search on resume: {again.autobatch}")
+        check((again.config.DATA.BATCH_SIZE, again.config.DATA.BATCH_SIZE_VAL,
+               again.config.LR_SCHEDULER.BASE_LR, again.steps_per_epoch)
+              == (ab["found"], ab_val["found"], ab["base_lr_after"], run.steps_per_epoch),
+              "the resumed run's batches, base LR and schedule are the checkpoint's")
+        check(again.pretrained_reports == {}, "resume wins over pretrained init")
+    finally:
+        again.close()
+    del again
+    print(f"the run built again in {again_s:.1f} s resumes from {os.path.basename(last)} at "
+          f"B={ab['found']} / {ab_val['found']}, BASE_LR {ab['base_lr_after']:.4e}, without a "
+          f"search", flush=True)
+
+    # bundle the last checkpoint and serve it
+    bundle_dir = os.path.join(d, "bundle")
+    t0 = time.perf_counter()
+    prepare_bundle(last, cfg.ENV.OUTPUT.DIRS.ASSETS, bundle_dir, "mFormerV1_sm",
+                   list(TASKS), [run.num_classes[t] for t in TASKS], image_size=IMG)
+    bundle_s = time.perf_counter() - t0
+    # what a user adds to the tool's config for a model that is not the
+    # bare preset: the variant (the run's MODEL section: its heads, K1 on)
+    # and the serving batch
+    variant = os.path.join(bundle_dir, "variant.yaml")
+    model_cfg = json.loads(json.dumps(cfg.MODEL))
+    for key in ("PRETRAINED_CONVNEXT", "PRETRAINED_ROPEVIT", "PRETRAINED_SOURCE"):
+        model_cfg.pop(key, None)
+    with open(variant, "w") as f:
+        yaml.safe_dump({"MODEL": model_cfg, "TRAIN": {
+            "MIXED_PRECISION": json.loads(json.dumps(cfg.TRAIN.MIXED_PRECISION))}}, f)
+    with open(os.path.join(bundle_dir, "config.yaml")) as f:
+        bundle_cfg = yaml.safe_load(f)
+    bundle_cfg["model"]["architecture_variant_config_path"] = variant
+    bundle_cfg["inference_options"]["batch_size"] = BATCH
+    with open(os.path.join(bundle_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(bundle_cfg, f, sort_keys=False)
+    t0 = time.perf_counter()
+    handler = LinnaeusInferenceHandler.load_from_artifacts(os.path.join(bundle_dir, "config.yaml"))
+    load_s = time.perf_counter() - t0
+    direct = build_model(cfg, run.num_classes, run.taxonomy_tree, device=dev, seed=SEED + 1)
+    direct.load_state_dict(torch.load(os.path.join(last, ckpt.STATE_DIR, ckpt.STATE_FILE),
+                                      map_location="cpu", weights_only=True)["model"])
+    direct.eval()
+    ids = run.bundle["val_dataset"].labels.img_identifiers
+    jpegs = []
+    for i in run.bundle["val_indices"][:BATCH]:
+        with open(os.path.join(data["images"], f"{ids[i]}.jpg"), "rb") as f:
+            jpegs.append(f.read())
+    pixels = torch.from_numpy(preprocess_image_batch(jpegs, handler.config)).to(dev)
+    aux_dim = handler.config.aux_vector_length()
+    aux = torch.randn(BATCH, aux_dim, generator=torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    x = (pixels.float() / 255.0 - handler._mean) / handler._std
+    with torch.inference_mode():
+        a, b = handler.model(x, aux), direct(x, aux)
+    check(all(torch.equal(a[t], b[t]) for t in TASKS),
+          "the bundle's logits equal the checkpoint's model's bit for bit")
+    del direct
+    results = handler.predict(jpegs)
+    taxonomy, maps = handler.taxonomy, handler.class_maps
+    nulled = check_results(results, BATCH, taxonomy, maps)
+    print(f"bundle written in {bundle_s:.1f} s, loaded in {load_s:.1f} s; its logits equal the "
+          f"checkpoint's model's bit for bit on {BATCH} validation JPEGs; every result obeys "
+          f"the tree (the pass nulled {nulled})", flush=True)
+    host_ms = predict_breakdown(handler, jpegs, None, card)
+
+    handler.warmup()
+    server = make_server(handler, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    n_req = PRETRAINED_CLIENTS * PRETRAINED_REQUESTS
+    bodies = [{"instances": [{"image": base64.b64encode(jpegs[(r * PRETRAINED_IMAGES + i)
+                                                              % BATCH]).decode()}
+                             for i in range(PRETRAINED_IMAGES)]} for r in range(n_req)]
+    latencies, answers, errors = [], [None] * n_req, []
+    lock = threading.Lock()
+
+    def client(c):
+        for r in range(c * PRETRAINED_REQUESTS, (c + 1) * PRETRAINED_REQUESTS):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                         data=json.dumps(bodies[r]).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    answers[r] = json.loads(resp.read())
+            except Exception as e:  # noqa: BLE001 counted and failed below
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                latencies.append(1e3 * (time.perf_counter() - t1))
+
+    try:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(PRETRAINED_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    check(not errors, f"HTTP errors: {errors[:3]}")
+    for answer in answers:
+        check_results([as_result(p) for p in answer["predictions"]], PRETRAINED_IMAGES,
+                      taxonomy, maps)
+    lat = sorted(latencies)
+    http = {"requests_per_s": n_req / wall, "images_per_s": n_req * PRETRAINED_IMAGES / wall,
+            "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99)}
+    print(f"[{card}] HTTP serving of the trained bundle (PIL decode; a smoke reading, too few "
+          f"requests for a rate), {PRETRAINED_CLIENTS} "
+          f"clients x {PRETRAINED_REQUESTS} requests x {PRETRAINED_IMAGES} JPEGs: "
+          f"{http['requests_per_s']:.2f} req/s ({http['images_per_s']:.1f} img/s), p50 "
+          f"{http['p50_ms']:.1f} ms, p99 {http['p99_ms']:.1f} ms", flush=True)
+    del handler, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tools: --throughput of phase 7c's experiment and the checkpoint
+    tput = train_main(["--cfg", trainer["yaml"], "--device", str(dev), "--throughput", "--opts",
+                       "MODEL.NUM_CLASSES", str(list(TASKS.values())),
+                       "ENV.OUTPUT.BASE_DIR", os.path.join(d, "out_throughput")])
+    check(all(np.isfinite(r["images_per_sec"]) and r["images_per_sec"] > 0
+              for r in tput.values()), f"--throughput {tput}")
+    print(f"[{card}] --throughput (mFormerV1_sm {IMG}px bf16, K1 on, fresh normal inputs a "
+          f"batch): " + ", ".join(f"B={bs}: {r['images_per_sec']:.1f} img/s, "
+                                  f"{r['latency_ms']:.2f} ms" for bs, r in tput.items()),
+          flush=True)
+    info = inspect_checkpoint(last, show_params=True)
+    n_params = sum(p.numel() for p in run.model.parameters())
+    check(info["step"] == run.progress.global_step and info["num_params"] == n_params,
+          f"inspect_checkpoints: step {info['step']}, {info['num_params']} parameters")
+    print(f"inspect_checkpoints: {os.path.basename(last)} at step {info['step']}, epoch "
+          f"{info['epoch']}, {info['num_params']} parameters in {len(info['tree'])} tensors",
+          flush=True)
+    launched = counts()
+    for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
+        check(launched[key] > 0, f"{key} was not launched from pretrained weights to a bundle")
+    print(f"launches over phase 7d: {launched}", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launched, "autobatch": {"train": ab, "val": ab_val},
+            "reports": tally, "http": http, "host_ms": host_ms, "throughput": tput,
+            "build_s": build_s, "train_s": train_s, "epoch_peak_bytes": epoch_peak}
 
 
 def serving_config():
@@ -1847,8 +2258,13 @@ def main() -> int:
     # two epochs with validation and checkpoints, then a run that resumes
     with process_handlers_restored():
         trainer = trainer_phase(dev, card, fa, fm, default_cfg["step_ms"])
-    for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
-        check(trainer["launches"][key] > 0, f"{key} was not launched through the Trainer")
+        for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
+            check(trainer["launches"][key] > 0, f"{key} was not launched through the Trainer")
+        # 7d. from pretrained files to a served bundle: the example
+        # experiment with AutoBatch, one epoch, the bundle tool, serving,
+        # --throughput and inspect_checkpoints, on phase 7c's dataset
+        pretrained = pretrained_phase(dev, card, fa, fm, trainer)
+    shutil.rmtree(trainer["dir"], ignore_errors=True)
 
     # 8. K3's path: the fused-block A/B tool, forward and train
     trained["K3"] = block_ab_phase(dev, fm, fb)
@@ -1888,6 +2304,7 @@ def main() -> int:
                         "launches_512px": trained_large.get(key),
                         "default_cfg_launches": default_cfg["launches"].get(key, 0),
                         "trainer_launches": trainer["launches"].get(key, 0),
+                        "pretrained_launches": pretrained["launches"].get(key, 0),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,9 @@ have yet. The upstream framework's surface is kept, with these additions:
 
 * ``TRAIN.AMP_OPT_LEVEL`` ("O0".."O3") is kept for compatibility but the
   native control is ``TRAIN.MIXED_PRECISION`` (compute dtype, bf16 default).
-* ``DATA.AUTOBATCH`` probes compiled memory rather than allocator statistics.
+* ``DATA.AUTOBATCH`` probes compiled memory rather than allocator statistics
+  in the JAX package; the port runs ``STEPS_PER_TRIAL`` real steps a trial
+  and reads the allocator's peak (train/autobatch.py).
 * A ``PARALLEL`` section describes the device mesh.
 """
 
@@ -126,8 +128,9 @@ def _build_default_config() -> CN:
     _C.DATA.AUTOBATCH.TARGET_MEMORY_FRACTION = 0.8
     _C.DATA.AUTOBATCH.MAX_BATCH_SIZE = 512
     _C.DATA.AUTOBATCH.MIN_BATCH_SIZE = 1
-    # STEPS_PER_TRIAL/LOG_LEVEL are parity no-ops: autobatch here searches
-    # by compiled-executable memory (utils/autobatch.py), not timed trials
+    # STEPS_PER_TRIAL: steps a trial runs in the port (train/autobatch.py);
+    # a no-op in the JAX package, which reads compiled memory. LOG_LEVEL is
+    # a parity no-op
     _C.DATA.AUTOBATCH.STEPS_PER_TRIAL = 2
     _C.DATA.AUTOBATCH.LOG_LEVEL = "INFO"
     _C.DATA.AUTOBATCH.ENABLED_VAL = False

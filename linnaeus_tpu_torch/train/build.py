@@ -10,7 +10,9 @@ loss functions (LOSS.*), mixing (SCHEDULE.MIX), the clip, accumulation, the
 optimizer with its parameter groups and schedules (OPTIMIZER.*,
 LR_SCHEDULER.*), the EMA (TRAIN.EMA) and GradNorm's update
 (LOSS.GRAD_WEIGHTING.TASK), whose step keeps the collated batch it
-re-forwards (``keep_collated``).
+re-forwards (``keep_collated``). With ``pretrained`` it loads the
+configured pretrained weights (MODEL.PRETRAINED*, utils/pretrained.py) into
+the model before the optimizer and the EMA are built from it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from linnaeus_tpu_torch.utils.param_filters import (
     resolve_gradnorm_exclude,
     trunk_mask_from_exclude,
 )
+from linnaeus_tpu_torch.utils.pretrained import Report, load_pretrained
 
 from .state import TrainState, create_train_state
 from .step import make_gradnorm_step, make_train_step
@@ -51,6 +54,11 @@ class TrainParts:
     schedules: dict[str, Callable]
     mix_cfg: MixConfig
     meta_dim: int
+    # schedules by group label -> a new optimizer on the model and the train
+    # step reading those schedules (AutoBatch rebuilds both for a new batch)
+    optimizer_and_step: Callable
+    # the pretrained loaders' reports by name (empty without pretrained init)
+    pretrained_reports: dict[str, Report]
 
 
 def mix_config(config) -> MixConfig:
@@ -89,12 +97,14 @@ def build_training(
     remat: bool | None = None,
     remat_policy: str | None = None,
     init_task_weights=None,
+    pretrained: bool = False,
 ) -> TrainParts:
     """The training parts ``config`` names, on ``device``, the model drawn
     from ``seed`` and the state's generator seeded with it. ``remat`` /
     ``remat_policy`` override the config's for normal and GradNorm steps;
     ``accumulation_steps`` TRAIN.ACCUMULATION_STEPS; GradNorm's initial task
-    weights are ``init_task_weights``, else INIT_WEIGHTS, else equal."""
+    weights are ``init_task_weights``, else INIT_WEIGHTS, else equal;
+    ``pretrained`` loads MODEL.PRETRAINED* into the model first."""
     tasks = tuple(config.DATA.TASK_KEYS_H5)
     if tuple(num_classes) != tasks:
         raise ValueError(f"DATA.TASK_KEYS_H5 {list(tasks)} must name the tasks of "
@@ -109,18 +119,13 @@ def build_training(
             gc.POLICY = remat_policy
     gc = config.TRAIN.GRADIENT_CHECKPOINTING
     model = build_model(config, dict(num_classes), taxonomy_tree, device=device, seed=seed)
+    reports = load_pretrained(config, model) if pretrained else {}
     schedules = build_group_schedules(config, total_steps, steps_per_epoch)
-    optimizer = build_optimizer(config, schedules["default"], model, schedules)
     gw = config.LOSS.GRAD_WEIGHTING.TASK
     if init_task_weights is None:
         init_task_weights = list(gw.get("INIT_WEIGHTS") or []) or None
     ema = config.TRAIN.get("EMA", {})
     ema_on = bool(ema.get("ENABLED", False))
-    state = create_train_state(
-        model, optimizer, num_tasks=len(tasks),
-        generator=torch.Generator(device=device).manual_seed(seed),
-        init_task_weights=init_task_weights, lr_schedule=schedules, ema=ema_on,
-    )
     train_criteria, val_criteria = prepare_loss_functions(
         config, dict(num_classes), taxonomy_tree, device=device)
     augment = None
@@ -133,16 +138,27 @@ def build_training(
     if accumulation_steps is None:
         accumulation_steps = int(config.TRAIN.ACCUMULATION_STEPS)
     moe = config.MODEL.get("MOE", {})
-    train_step = make_train_step(
-        train_criteria, tasks, mix_cfg,
-        clip_grad=float(config.TRAIN.CLIP_GRAD or 0.0),
-        accumulation_steps=max(int(accumulation_steps), 1),
-        phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
-        has_meta=meta_dim > 0, lr_schedule=schedules["default"],
-        num_classes=dict(num_classes), augment_fn=augment, keep_collated=gradnorm_on,
-        moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01))
-                        if bool(moe.get("ENABLED", False)) else 0.0),
-        ema_decay=float(ema.DECAY) if ema_on else 0.0,
+
+    def optimizer_and_step(schedules: dict[str, Callable]):
+        optimizer = build_optimizer(config, schedules["default"], model, schedules)
+        train_step = make_train_step(
+            train_criteria, tasks, mix_cfg,
+            clip_grad=float(config.TRAIN.CLIP_GRAD or 0.0),
+            accumulation_steps=max(int(accumulation_steps), 1),
+            phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
+            has_meta=meta_dim > 0, lr_schedule=schedules["default"],
+            num_classes=dict(num_classes), augment_fn=augment, keep_collated=gradnorm_on,
+            moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01))
+                            if bool(moe.get("ENABLED", False)) else 0.0),
+            ema_decay=float(ema.DECAY) if ema_on else 0.0,
+        )
+        return optimizer, train_step
+
+    optimizer, train_step = optimizer_and_step(schedules)
+    state = create_train_state(
+        model, optimizer, num_tasks=len(tasks),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        init_task_weights=init_task_weights, lr_schedule=schedules, ema=ema_on,
     )
     gradnorm_step = None
     if gradnorm_on:
@@ -155,4 +171,4 @@ def build_training(
             remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
         ))
     return TrainParts(model, state, train_step, gradnorm_step, augment, train_criteria,
-                      val_criteria, schedules, mix_cfg, meta_dim)
+                      val_criteria, schedules, mix_cfg, meta_dim, optimizer_and_step, reports)

@@ -16,10 +16,26 @@ Schedule values enter each step as operands computed on the host. GradNorm's
 update re-forwards the collated batch the step just consumed, which the step
 keeps (``keep_collated``).
 
+MODEL.PRETRAINED* loads pretrained weights (utils/pretrained.py) into the
+model after it is built and before the optimizer and the EMA exist, unless
+an auto-resume checkpoint is there: resume wins. DATA.AUTOBATCH.ENABLED /
+ENABLED_VAL search the train / validation batch (train/autobatch.py) at the
+end of the build by real steps on the card (a train trial ends with one
+GradNorm update when GradNorm is on, and holds the batches the loader keeps
+on the card ahead of the step), from a snapshot of the state that is
+put back afterwards, then rebuild the loaders and, for the train batch,
+scale BASE_LR by new / old and rebuild the schedules, the optimizer and the
+step. As in the TPU package, the schedule steps resolved from fractions
+(warm-up, masking, mixing) keep the configured batch's count. The search
+reads allocator peaks, which move with what else the process holds, so a
+run that finds an auto-resume checkpoint does not search again: it takes
+the batches and the base LR that the checkpoint records.
+
 What the port does not run raises by name: the mesh, multi-host, FSDP, TP,
-SP, EP and PP branches (data/build.py::check_one_process), DATA.AUTOBATCH,
-MODEL.PRETRAINED*, remote output sync (ENV.OUTPUT.BUCKET), and, through
-build_model and make_train_step, mFormerV0, MoE and BatchNorm statistics.
+SP, EP and PP branches (data/build.py::check_one_process), remote output
+sync (ENV.OUTPUT.BUCKET), and, through build_model, make_train_step and
+load_pretrained, mFormerV0, MoE, BatchNorm statistics, MetaFormer pretrained
+init and remote pretrained paths.
 
 Each loop iteration (a train step and, when due, the GradNorm update) is
 bracketed by CUDA events and host clock readings (``step_times``, the
@@ -53,7 +69,9 @@ from linnaeus_tpu_torch.utils.debug import check_debug_flag
 from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
 from linnaeus_tpu_torch.utils.logging import get_main_logger
 from linnaeus_tpu_torch.utils.meta import compute_meta_chunk_bounds_by_name, total_meta_dim
+from linnaeus_tpu_torch.utils.pretrained import pretrained_paths
 
+from .autobatch import auto_find_batch_size, device_memory_bytes, measure_peak_bytes
 from .build import build_training
 from .step import ScheduleScalars, make_eval_step
 from .validation import accumulate_batch, eval_masks, soft_targets, summarize_totals, to_host
@@ -73,17 +91,7 @@ def combo_to_mask(combo: list[str] | None, bounds_by_name: dict, meta_dim: int):
 
 def check_trainer_options(config) -> None:
     """Raise by name for what a config may ask of the Trainer that the port
-    does not run yet (the parallel branches are checked with the data)."""
-    ab = config.DATA.AUTOBATCH
-    if ab.get("ENABLED", False) or ab.get("ENABLED_VAL", False):
-        raise NotImplementedError(
-            "DATA.AUTOBATCH.ENABLED / ENABLED_VAL: train/autobatch.py (the batch-size "
-            "search) is not ported yet; set DATA.BATCH_SIZE and BATCH_SIZE_VAL")
-    for key in ("PRETRAINED", "PRETRAINED_CONVNEXT", "PRETRAINED_ROPEVIT"):
-        if config.MODEL.get(key):
-            raise NotImplementedError(
-                f"MODEL.{key}: pretrained initialisation (utils/pretrained.py) is not "
-                "ported yet (M11)")
+    does not run (the parallel branches are checked with the data)."""
     if config.ENV.OUTPUT.BUCKET.get("ENABLED", False) or config.ENV.OUTPUT.BUCKET.get(
             "SYNC_ON_CHECKPOINT", False):
         raise NotImplementedError(
@@ -106,6 +114,9 @@ class Trainer:
         self.config = config
         self.skip_validation = skip_validation
         check_trainer_options(config)
+        ab = config.DATA.AUTOBATCH
+        if ab.get("ENABLED", False) or ab.get("ENABLED_VAL", False):
+            device_memory_bytes(self.device)  # the probe needs a card: raises without one
         setup_output_dirs(config)
         self.ckpt_dir = config.ENV.OUTPUT.DIRS.CHECKPOINTS
         # async flush: the hot loop resumes while the snapshot writes in the
@@ -204,13 +215,28 @@ class Trainer:
             ]
         self.ema_enabled = bool(config.TRAIN.get("EMA", {}).get("ENABLED", False))
         self.ema_eval = self.ema_enabled and bool(config.TRAIN.EMA.get("EVAL", True))
+        # pretrained init and AutoBatch; auto-resume wins: a checkpoint in
+        # the output directory means this run already trained past init, at
+        # the batch that checkpoint records
+        resume_path = (ckpt.auto_resume_helper(self.ckpt_dir)
+                       if bool(config.TRAIN.AUTO_RESUME) else None)
+        pretrained = bool(pretrained_paths(config))
+        if pretrained and resume_path:
+            logger.info(
+                "MODEL.PRETRAINED set but an auto-resume checkpoint exists — skipping "
+                "pretrained init (resume wins)")
+            pretrained = False
         parts = build_training(
             config, self.num_classes, self.taxonomy_tree, device=self.device,
             seed=int(config.MISC.SEED), total_steps=total_steps,
             steps_per_epoch=self.steps_per_epoch,
-            init_task_weights=init_weights or None,
+            init_task_weights=init_weights or None, pretrained=pretrained,
         )
         self.model, self.state = parts.model, parts.state
+        # the loaders' reports by name ("ConvNeXt", "RoPE-ViT", ...), empty
+        # when no pretrained weights were loaded
+        self.pretrained_reports = parts.pretrained_reports
+        self._optimizer_and_step = parts.optimizer_and_step
         self.group_schedules = parts.schedules
         self.lr_schedule = parts.schedules["default"]
         self.train_criteria, self.val_criteria = parts.train_criteria, parts.val_criteria
@@ -266,6 +292,18 @@ class Trainer:
         self._profiler = None
         self._profile_t0 = 0.0
         self.profile_summary: dict | None = None
+        # what AutoBatch found, by "train" / "val": the budget, every trial's
+        # peak bytes (None: out of memory), the batch before and after, the
+        # search's seconds, and for "train" the base LR before and after; on
+        # resume only the checkpoint it came from and the batch
+        self.autobatch: dict[str, dict] = {}
+        if resume_path and (ab.get("ENABLED", False) or ab.get("ENABLED_VAL", False)):
+            self._resume_autobatch(resume_path)
+        else:
+            if ab.get("ENABLED", False):
+                self._run_autobatch()
+            if ab.get("ENABLED_VAL", False):
+                self._run_autobatch_val()
         # callbacks run before resources close during drain(), so the
         # emergency checkpoint lands before the loaders shut down
         self.shutdown.register_callback(self._on_preempt)
@@ -278,6 +316,175 @@ class Trainer:
         if self.val_loader is not None:
             self.val_loader.close()
         self.shutdown.unregister_callback(self._on_preempt)
+
+    # ----------------------------------------------------------- AutoBatch
+    def _zeros_batch(self, bs: int) -> dict:
+        """A batch of ``bs`` zeros as the loader gives it (uint8 images)."""
+        size = self.config.MODEL.IMG_SIZE
+        h, w = (size, size) if isinstance(size, int) else tuple(size)
+        dev = self.device
+        return {
+            "images": torch.zeros((bs, h, w, int(self.config.MODEL.IN_CHANS)),
+                                  dtype=torch.uint8, device=dev),
+            "targets": {t: torch.zeros((bs,), dtype=torch.long, device=dev)
+                        for t in self.task_keys},
+            "aux": torch.zeros((bs, self.meta_dim), device=dev) if self.meta_dim else None,
+            "group_ids": torch.zeros((bs,), dtype=torch.int32, device=dev),
+        }
+
+    def _search(self, key: str, run_trial, fraction: float, lo: int, hi: int,
+                multiple_of: int = 1) -> int:
+        """AutoBatch's search with ``run_trial(bs)`` as the probe, from a
+        snapshot of the state that is put back afterwards (the trials are
+        real steps: they move the parameters, the moments, the GradNorm
+        state, the generator and the step counter)."""
+        saved = ckpt.snapshot_state(self.state)
+        trials: dict[int, int | None] = {}
+        total = device_memory_bytes(self.device)
+        t0 = time.perf_counter()
+        found = auto_find_batch_size(
+            lambda bs: measure_peak_bytes(run_trial, bs, self.device),
+            target_memory_fraction=fraction, min_batch_size=lo, max_batch_size=hi,
+            total_bytes=total, multiple_of=multiple_of, trials=trials,
+        )
+        ckpt.restore_snapshot(self.state, saved)
+        self.model.zero_grad(set_to_none=True)
+        self.autobatch[key] = {"budget_bytes": int(total * fraction), "trials": trials,
+                               "found": found, "seconds": time.perf_counter() - t0}
+        return found
+
+    def _set_train_batch(self, batch_size: int, base_lr: float) -> None:
+        """Train at ``batch_size`` and ``base_lr`` where the build assumed
+        the configured batch: rebuild the loaders, TOTAL_STEPS, the group
+        schedules, the optimizer on the same parameters (fresh moments) and
+        the step, which reads the default schedule for its lr metric."""
+        from linnaeus_tpu_torch.optim.schedules import build_group_schedules
+
+        logger.info(f"AutoBatch: updating DATA.BATCH_SIZE -> {batch_size}")
+        self.config.defrost()
+        self.config.DATA.BATCH_SIZE = batch_size
+        self.config.freeze()
+        self._rebuild_loaders()
+        self.steps_per_epoch = max(len(self.train_loader), 1)
+        total_steps = self.steps_per_epoch * int(self.config.TRAIN.EPOCHS)
+        self.progress.expected_total_steps = total_steps
+        self.config.defrost()
+        self.config.LR_SCHEDULER.TOTAL_STEPS = total_steps
+        self.config.LR_SCHEDULER.BASE_LR = base_lr
+        self.config.freeze()
+        logger.info(f"AutoBatch: base LR -> {base_lr:.3e}; rebuilding schedules for "
+                    f"total_steps={total_steps}")
+        self.group_schedules = build_group_schedules(
+            self.config, total_steps, self.steps_per_epoch)
+        self.lr_schedule = self.group_schedules["default"]
+        optimizer, self._train_step = self._optimizer_and_step(self.group_schedules)
+        self.state.optimizer = optimizer
+        self.state.lr_schedule = self.group_schedules
+
+    def _set_val_batch(self, batch_size: int) -> None:
+        logger.info(f"AutoBatch(val): updating DATA.BATCH_SIZE_VAL -> {batch_size}")
+        self.config.defrost()
+        self.config.DATA.BATCH_SIZE_VAL = batch_size
+        self.config.freeze()
+        self._rebuild_loaders()
+
+    def _rebuild_loaders(self) -> None:
+        """New loaders at the config's batch sizes. The old ones have not
+        been iterated (no threads) and share the datasets, so they leave
+        the shutdown registry unclosed."""
+        for old in (self.train_loader, self.val_loader):
+            if old is not None:
+                self.shutdown.unregister(old)
+        self.train_loader, self.val_loader = build_loaders(
+            self.config, self.bundle, device=self.device)
+        self.shutdown.register(self.train_loader)
+        if self.val_loader is not None:
+            self.shutdown.register(self.val_loader)
+
+    def _resume_autobatch(self, path: str) -> None:
+        """AutoBatch when an auto-resume checkpoint exists: the batches and
+        the base LR the checkpoint records, so the resumed run keeps its LR,
+        its schedule and the loader positions it saved. A checkpoint that
+        records none keeps the configured batches."""
+        recorded = ckpt.read_sidecar(path).get("batch")
+        if recorded is None:
+            logger.warning(f"AutoBatch: {path} records no batch; resuming at the configured "
+                           "batches without a search")
+            return
+        ab = self.config.DATA.AUTOBATCH
+        if ab.get("ENABLED", False):
+            bs, lr = int(recorded["BATCH_SIZE"]), float(recorded["BASE_LR"])
+            self.autobatch["train"] = {"resumed_from": path, "found": bs, "base_lr_after": lr}
+            if (bs, lr) != (int(self.config.DATA.BATCH_SIZE),
+                            float(self.config.LR_SCHEDULER.BASE_LR)):
+                self._set_train_batch(bs, lr)
+        if ab.get("ENABLED_VAL", False):
+            bs = int(recorded["BATCH_SIZE_VAL"])
+            self.autobatch["val"] = {"resumed_from": path, "found": bs}
+            if bs != int(self.config.DATA.BATCH_SIZE_VAL):
+                self._set_val_batch(bs)
+
+    def _run_autobatch(self) -> None:
+        """The largest train batch under TARGET_MEMORY_FRACTION (reference:
+        main.py:1249-1396), each trial STEPS_PER_TRIAL steps of the
+        configured step and, when GradNorm is on, one GradNorm update, which
+        re-forwards the kept batch with a backward a task and may peak above
+        the step, with the loader's DEVICE_PREFETCH_DEPTH batches resident
+        beside them (the TPU package probes the step alone); then the loaders,
+        the LR, the schedules, the optimizer and the step are rebuilt around
+        it."""
+        ab = self.config.DATA.AUTOBATCH
+        scalars = ScheduleScalars.zeros(self.meta_dim, device=self.device)
+
+        def run_trial(bs: int) -> None:
+            self.state.last_collated = None  # a trial that ran out of memory may have left it
+            batch = self._zeros_batch(bs)
+            # the batches the loader copies to the card ahead of the step
+            ahead = [self._zeros_batch(bs)
+                     for _ in range(self.train_loader.device_prefetch_depth)]
+            for _ in range(int(ab.STEPS_PER_TRIAL)):
+                self.state, _metrics = self._train_step(self.state, batch, scalars)
+            if self._gradnorm_update is not None:
+                self.state, _metrics = self._gradnorm_update(self.state)
+            self.state.last_collated = None
+            del ahead
+
+        old_bs = int(self.config.DATA.BATCH_SIZE)
+        old_lr = float(self.config.LR_SCHEDULER.BASE_LR)
+        # the mixed-pairs sampler takes even batches only (the TPU package
+        # aligns to the data-parallel count alone, so one device may get an
+        # odd batch there: ROADMAP F7)
+        pairs = self.train_loader.sampler.mode == "mixed-pairs"
+        found = self._search("train", run_trial, float(ab.TARGET_MEMORY_FRACTION),
+                             int(ab.MIN_BATCH_SIZE), int(ab.MAX_BATCH_SIZE),
+                             multiple_of=2 if pairs else 1)
+        self.autobatch["train"].update(batch_before=old_bs, base_lr_before=old_lr,
+                                       base_lr_after=old_lr)
+        if found == old_bs:
+            return
+        # the absolute scaling already ran once for the configured batch
+        self._set_train_batch(found, old_lr * (found / max(old_bs, 1)))
+        self.autobatch["train"]["base_lr_after"] = float(self.config.LR_SCHEDULER.BASE_LR)
+
+    def _run_autobatch_val(self) -> None:
+        """The largest validation batch under TARGET_MEMORY_FRACTION_VAL
+        (reference: DATA.AUTOBATCH.ENABLED_VAL), probed by eval steps under
+        ``no_grad``; then the loaders are rebuilt."""
+        ab = self.config.DATA.AUTOBATCH
+        no_combo = np.zeros((self.meta_dim,), np.float32)
+
+        def run_trial(bs: int) -> None:
+            batch = self._zeros_batch(bs)
+            with torch.no_grad():
+                for _ in range(int(ab.STEPS_PER_TRIAL_VAL)):
+                    self._eval_step(self.state, batch, *eval_masks(batch, False, no_combo))
+
+        old_bs = int(self.config.DATA.BATCH_SIZE_VAL)
+        found = self._search("val", run_trial, float(ab.TARGET_MEMORY_FRACTION_VAL),
+                             int(ab.MIN_BATCH_SIZE_VAL), int(ab.MAX_BATCH_SIZE_VAL))
+        self.autobatch["val"]["batch_before"] = old_bs
+        if found != old_bs:
+            self._set_val_batch(found)
 
     # ------------------------------------------------------------ resume
     def try_resume(self) -> bool:
@@ -784,6 +991,9 @@ class Trainer:
             config_dump=self.config.dump(),
             metric_value=metric,
             wandb_run_id=wandb_run_id,
+            batch={"BATCH_SIZE": int(self.config.DATA.BATCH_SIZE),
+                   "BATCH_SIZE_VAL": int(self.config.DATA.BATCH_SIZE_VAL),
+                   "BASE_LR": float(self.config.LR_SCHEDULER.BASE_LR)},
         )
         sc = self.config.SCHEDULE.CHECKPOINT
         ckpt.manage_checkpoints(

@@ -4,13 +4,15 @@ Port of linnaeus_tpu/train/main.py (reference parity: linnaeus/main.py:
 356-423 parse_option + 2550-2643 bootstrap) for one device. It trains on
 the CUDA device unless ``--device`` names another (``--device cpu`` for a
 machine without a card); without a card and without ``--device`` it raises.
-``--throughput`` (evaluation/throughput.py) is not ported and raises by
-name. ENV.COMPILE_CACHE configures the TPU package's XLA cache and has
-nothing to do here.
+``--throughput`` runs the synthetic throughput test of the config's model
+(evaluation/throughput.py) instead of training. ``build_trainer`` is
+everything ``main`` does before ``Trainer.train``. ENV.COMPILE_CACHE
+configures the TPU package's XLA cache and has nothing to do here.
 
     python -m linnaeus_tpu_torch.train.main --cfg exp.yaml
     python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --device cpu
     python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --opts TRAIN.EPOCHS 3
+    python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --throughput
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def parse_option(argv=None):
     )
     parser.add_argument(
         "--throughput", action="store_true",
-        help="the synthetic throughput test (not ported: raises)",
+        help="run the synthetic throughput test instead of training",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -46,13 +48,11 @@ def parse_option(argv=None):
     return args, config
 
 
-def main(argv=None):
-    """Train as the config says; returns the Trainer after training, its
-    loaders stopped and its checkpoints written."""
+def setup(argv=None):
+    """Parse the options, resolve the device, create the output
+    directories and the loggers, and save the merged config; returns
+    (args, config, device)."""
     args, config = parse_option(argv)
-    if args.throughput:
-        raise NotImplementedError(
-            "--throughput: evaluation/throughput.py is not ported yet (M11)")
     from linnaeus_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -75,6 +75,27 @@ def main(argv=None):
 
         get_main_logger().critical(f"CODE VERSION: {config.EXPERIMENT.CODE_VERSION}")
     save_config(config, f"{config.ENV.OUTPUT.DIRS.CONFIGS}/merged_config.yaml")
+    return args, config, device
+
+
+def build_trainer(argv=None):
+    """The Trainer ``main`` trains, built as ``main`` builds it (pretrained
+    weights loaded, AutoBatch run), not yet trained."""
+    from linnaeus_tpu_torch.train.loop import Trainer
+
+    args, config, device = setup(argv)
+    return Trainer(config, skip_validation=args.skip_validation, device=device)
+
+
+def main(argv=None):
+    """Train as the config says; returns the Trainer after training, its
+    loaders stopped and its checkpoints written. With ``--throughput``,
+    returns the throughput test's results instead."""
+    args, config, device = setup(argv)
+    if args.throughput:
+        from linnaeus_tpu_torch.evaluation.throughput import throughput_test
+
+        return throughput_test(config, device=device)
 
     from linnaeus_tpu_torch.train.loop import Trainer
 

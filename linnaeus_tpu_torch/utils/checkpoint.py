@@ -106,9 +106,11 @@ class CheckpointWriter:
         config_dump: str | None = None,
         wandb_run_id: str | None = None,
         metric_value: float | None = None,
+        batch: dict | None = None,
     ) -> str:
         """Save one checkpoint; returns its path. ``state`` is a TrainState
-        or a ``snapshot_state`` of one."""
+        or a ``snapshot_state`` of one. ``batch`` records the batch sizes and
+        the base LR the run trains with (AutoBatch resumes with them)."""
         self.wait()  # one outstanding async save at a time
         t0 = time.perf_counter()
         snapshot = state if isinstance(state, dict) else snapshot_state(state)
@@ -139,6 +141,8 @@ class CheckpointWriter:
             # stopped keeps training (reference: early_stop_state serialized
             # with the checkpoint, utils/checkpoint.py)
             sidecar["early_stop"] = early_stop_state
+        if batch is not None:
+            sidecar["batch"] = batch
         with open(os.path.join(path, SIDECAR_NAME), "w") as f:
             json.dump(sidecar, f, indent=2, default=_json_default)
         if config_dump is not None:
@@ -207,7 +211,26 @@ def load_checkpoint(path: str, state):
     disabled drops the stored EMA.
     """
     state_file = os.path.join(os.path.abspath(path), STATE_DIR, STATE_FILE)
-    saved = torch.load(state_file, map_location="cpu", weights_only=True)
+    restore_snapshot(state, torch.load(state_file, map_location="cpu", weights_only=True))
+    sidecar = read_sidecar(path)
+    logger.info(f"Loaded checkpoint from {path} (step {sidecar.get('step')})")
+    return state, sidecar
+
+
+def read_sidecar(path: str) -> dict:
+    """A checkpoint directory's sidecar (step, progress, metrics, batch...),
+    empty when it has none."""
+    sidecar_path = os.path.join(path, SIDECAR_NAME)
+    if not os.path.exists(sidecar_path):
+        return {}
+    with open(sidecar_path) as f:
+        return json.load(f)
+
+
+def restore_snapshot(state, saved: dict[str, Any]) -> None:
+    """Put a :func:`snapshot_state` back into ``state`` in place: the
+    parameters, the optimizer's state (moments it did not hold are
+    dropped), the step, the GradNorm state, the generator and the EMA."""
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
@@ -238,13 +261,6 @@ def load_checkpoint(path: str, state):
             "buffers are dropped"
         )
     state.last_collated = None
-    sidecar_path = os.path.join(path, SIDECAR_NAME)
-    sidecar = {}
-    if os.path.exists(sidecar_path):
-        with open(sidecar_path) as f:
-            sidecar = json.load(f)
-    logger.info(f"Loaded checkpoint from {path} (step {sidecar.get('step')})")
-    return state, sidecar
 
 
 def list_checkpoints(checkpoint_dir: str) -> list[str]:

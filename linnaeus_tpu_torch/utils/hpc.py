@@ -39,6 +39,10 @@ class ShutdownRegistry:
         """Register anything with a .close() method."""
         self._resources.add(resource)
 
+    def unregister(self, resource) -> None:
+        """Drop a resource that was replaced before it was used."""
+        self._resources.discard(resource)
+
     def register_callback(self, fn: Callable) -> None:
         self._callbacks.append(fn)
 

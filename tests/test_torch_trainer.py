@@ -17,8 +17,9 @@ tests/test_trainer_e2e.py:100, :271 and :369), early stop across a resume,
 EMA evaluation, the subset metrics, the standalone validation API, and the
 CLI itself in two processes (train, then resume).
 
-(c) Every option the port does not run raises by name; the CLI without
-``--device`` needs a card.
+(c) Every option the port does not run raises by name (AutoBatch on the
+CPU, remote pretrained paths); the CLI without ``--device`` needs a card,
+to train and to run ``--throughput``.
 
 Each test has a time limit of its own (SIGALRM).
 """
@@ -406,8 +407,8 @@ def test_the_cli_trains_validates_checkpoints_and_resumes(data_dir, tmp_path):  
 OPTIONS = {
     "DATA.AUTOBATCH.ENABLED": (True, "DATA.AUTOBATCH"),
     "DATA.AUTOBATCH.ENABLED_VAL": (True, "DATA.AUTOBATCH"),
-    "MODEL.PRETRAINED": ("/weights.pth", "MODEL.PRETRAINED"),
-    "MODEL.PRETRAINED_CONVNEXT": ("/weights.pth", "MODEL.PRETRAINED_CONVNEXT"),
+    "MODEL.PRETRAINED": ("hf://org/repo/weights.pth", "MODEL.PRETRAINED"),
+    "MODEL.PRETRAINED_CONVNEXT": ("b2://bucket/weights.pth", "MODEL.PRETRAINED_CONVNEXT"),
     "ENV.OUTPUT.BUCKET.ENABLED": (True, "ENV.OUTPUT.BUCKET"),
     "PARALLEL.PARAM_SHARDING": ("fsdp", "PARALLEL.PARAM_SHARDING"),
     "PARALLEL.MESH.MODEL": (4, "PARALLEL.MESH.MODEL"),
@@ -439,8 +440,7 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
 @time_limit(120)
 def test_the_cli_needs_a_card_unless_told_otherwise(data_dir, tmp_path):  # noqa: F811
     path = _cli_yaml(data_dir, tmp_path / "out", 1)
-    with pytest.raises(NotImplementedError, match="--throughput"):
-        tmain.main(["--cfg", path, "--device", "cpu", "--throughput"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            tmain.main(["--cfg", path])
+        for extra in ([], ["--throughput"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                tmain.main(["--cfg", path, *extra])

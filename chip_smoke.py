@@ -82,9 +82,22 @@ budget), builds the run again
 bundles the last checkpoint with tools/prepare_inference_bundle,
 serves it (logits bit for bit against the checkpoint's model, 64
 validation JPEGs through predict and over HTTP), and runs --throughput and
-inspect_checkpoints. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
-against the plain chain, forward and train). It prints one JSON line about
-the seven kernels, and as its last line
+inspect_checkpoints. Then (phase 7e) the mFormerV0 family on the same
+dataset: mFormerV0_sm (configs/model/archs/mFormerV0_sm.yaml over the
+defaults) at 384 px, bf16, three metadata sources: its forward at B = 64
+(CUDA events, device-busy ms under torch.profiler, peak memory; bf16
+against fp32 logits of the same weights); the CLI trains it one epoch with
+validation, GradNorm and a checkpoint (every BatchNorm's running
+statistics moved and finite), a probe Trainer resumes it bit for bit,
+running statistics included, and the CLI runs on to a second epoch with a
+profiled window; a seeded MetaFG-layout file loads through
+MODEL.PRETRAINED_SOURCE 'metaformer' (the same reports as on the CPU); the
+handler serves the training checkpoint directory with the logits of the
+bundle tool's weights.pt bit for bit, then over HTTP. None of the seven
+kernels is on mFormerV0's path, and the phase checks none was launched.
+Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
+against the plain chain, forward and train). It prints its own time, one
+JSON line about the seven kernels, and as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -1669,6 +1682,452 @@ def pretrained_phase(dev, card, fa, fm, trainer: dict) -> dict:
             "build_s": build_s, "train_s": train_s, "epoch_peak_bytes": epoch_peak}
 
 
+# phase 7e: the mFormerV0 family (mFormerV0_sm) on phase 7c's dataset
+V0_ARCH = "configs/model/archs/mFormerV0_sm.yaml"
+V0_SEED = SEED + 30
+V0_EPOCHS, V0_RESUME_EPOCHS = 1, 2
+V0_PROFILE = (26, 30)  # DEBUG.PROFILE START / END: steps 27-30, between GradNorm updates
+# bf16 against fp32 logits of the same weights: the bar of
+# tests/test_torch_mformer_v0.py and tests/test_torch_mformer_v1.py
+V0_BF16_TOL = 0.05
+
+
+def v0_config(bf16: bool = True):
+    """The default config with configs/model/archs/mFormerV0_sm.yaml over it
+    at IMG px, the four tasks, three metadata sources (temporal, spatial,
+    elevation); bf16 compute unless ``bf16`` is False."""
+    import os
+
+    from linnaeus_tpu_torch.configuration import get_default_config, load_config, merge_configs
+
+    cfg = merge_configs(get_default_config(), load_config(os.path.abspath(V0_ARCH)))
+    cfg.defrost()
+    cfg.MODEL.IMG_SIZE = IMG
+    cfg.DATA.TASK_KEYS_H5 = list(TASKS)
+    cfg.DATA.META.COMPONENTS.ELEVATION.ENABLED = True
+    if not bf16:
+        cfg.TRAIN.MIXED_PRECISION.ENABLED = False
+        cfg.TRAIN.AMP_OPT_LEVEL = "O0"
+    return cfg
+
+
+def v0_batchnorms(model) -> dict:
+    from linnaeus_tpu_torch.models.blocks.common import BatchNorm
+
+    return {name: m for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+
+
+def v0_forward(dev, card) -> dict:
+    """Phase 7e (a): mFormerV0_sm from the config form, bf16 B=BATCH, eval
+    mode: ms by CUDA events (median of 3 repeats, spread), device-busy ms of
+    the forward under torch.profiler, peak memory; the logits against an
+    fp32 forward of the same weights."""
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+
+    nc = dict(TASKS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(v0_config(), nc, device=dev, seed=V0_SEED)
+    meta_dim = sum(d for _, d in model.meta_components)
+    check(type(model).__name__ == "MFormerV0" and model.dtype == torch.bfloat16
+          and len(model.meta_components) == 3 and model.stage_dims == (64, 96, 192, 384, 768)
+          and model.mbconv_depths == (2, 3) and model.attn_depths == (5, 2)
+          and model.stage_3[0].attn.num_heads == model.stage_4[0].attn.num_heads == 8,
+          f"mFormerV0_sm from the config form: {model.meta_components}")
+    n_bn = len(v0_batchnorms(model))
+    g = torch.Generator(device=dev).manual_seed(V0_SEED + 1)
+    x = torch.randn(BATCH, IMG, IMG, 3, generator=g, device=dev)
+    aux = torch.randn(BATCH, meta_dim, generator=g, device=dev)
+    with torch.inference_mode():
+        out = model(x, aux)
+        torch.cuda.synchronize()
+        ms, spread = cuda_ms_median(lambda: model(x, aux), iters=5, repeats=3)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model(x, aux)
+            torch.cuda.synchronize()
+    rows = profiled_device_rows(prof)
+    busy = sum(ms_ for _, ms_, _ in rows) / 3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ref = build_model(v0_config(bf16=False), nc, device=dev, seed=V0_SEED)
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        out32 = ref(x, aux)
+    err = max(max_err(out[t], out32[t]) for t in TASKS)
+    agree = {t: (out[t].argmax(-1) == out32[t].argmax(-1)).float().mean().item() for t in TASKS}
+    check(all(torch.isfinite(out[t]).all() and out[t].shape == (BATCH, TASKS[t]) for t in TASKS),
+          "finite logits of the expected shapes")
+    check(err <= V0_BF16_TOL, f"bf16 against fp32 logits: max|diff| {err} (tol {V0_BF16_TOL})")
+    print(f"[{card}] mFormerV0_sm {IMG}px bf16 B={BATCH} forward (config form, {n_bn} "
+          f"BatchNorms in eval, {meta_dim} metadata columns): {ms:.2f} ms (CUDA events, median "
+          f"of 3 repeats of 5, spread {spread:.3f}), device busy {busy:.2f} ms a forward under "
+          f"torch.profiler (share {busy / ms:.3f}), peak {peak:.2f} GiB; bf16 against fp32 "
+          f"logits max|diff| {err:.3e} (tol {V0_BF16_TOL}), top-1 agreement "
+          + ", ".join(f"{t} {a:.3f}" for t, a in agree.items()), flush=True)
+    print("the forward's longest device rows, ms a forward (calls): " + "; ".join(
+        f"{name[:70]} {ms_ / 3:.3f} ({n // 3})" for name, ms_, n in rows[:10]), flush=True)
+    del model, ref, out, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "spread": spread, "busy_ms": busy, "peak_gib": peak, "max_err": err,
+            "top1_agreement": agree}
+
+
+def write_metaformer_file(path: str, seed: int, model) -> dict:
+    """A MetaFG-layout checkpoint for ``model`` (an mFormerV0 at IMG px)
+    from a seeded generator, written with ``torch.save`` as
+    ``{"model": ...}``: every tensor of its state_dict (normal draws, running
+    variances positive), MetaFG's ``num_batches_tracked`` and
+    ``relative_position_index`` beside them and its own 1000-class
+    ``head``, none of the per-task heads, and three tensors of another
+    geometry (the 224 px relative-position tables of stages 3 and 4, a
+    temporal head with the hour columns). Returns the mismatched keys."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, value in model.state_dict().items():
+        if key.startswith("head."):
+            continue
+        t = 0.02 * torch.randn(value.shape, generator=g)
+        sd[key] = t.abs() + 0.5 if key.endswith("running_var") else t
+        if key.endswith("running_var"):
+            sd[key.replace("running_var", "num_batches_tracked")] = torch.tensor(1000)
+    for name, module in model.named_modules():
+        if hasattr(module, "relative_position_index"):
+            sd[f"{name}.relative_position_index"] = module.relative_position_index.cpu()
+    sd["head.weight"], sd["head.bias"] = torch.randn(1000, 768, generator=g), torch.zeros(1000)
+    mismatched = {"stage_3.0.attn.relative_position_bias_table": (27 * 27 + 1, 8),
+                  "stage_4.0.attn.relative_position_bias_table": (13 * 13 + 1, 8),
+                  "meta_temporal_head_1.0.weight": (384, 4)}
+    for key, shape in mismatched.items():
+        sd[key] = 0.02 * torch.randn(shape, generator=g)
+    torch.save({"model": sd}, path)
+    return mismatched
+
+
+def v0_metaformer(dev, card, d: str) -> dict:
+    """Phase 7e (c): mFormerV0_sm built with MODEL.PRETRAINED_SOURCE
+    'metaformer' from a seeded MetaFG file; the loaded tensors bit for bit
+    the file's, the reports those of the same load on the CPU."""
+    import os
+
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.utils import pretrained as tpre
+
+    nc = dict(TASKS)
+    cfg = v0_config()
+    cpu_model = build_model(cfg, nc, device="cpu", seed=V0_SEED)
+    path = os.path.join(d, "metafg_seeded.pth")
+    mismatched = write_metaformer_file(path, V0_SEED + 2, cpu_model)
+    cfg.MODEL.PRETRAINED, cfg.MODEL.PRETRAINED_SOURCE = path, "metaformer"
+    model = build_model(cfg, nc, device=dev, seed=V0_SEED)
+    reports = tpre.load_pretrained(cfg, model)
+    cpu_reports = tpre.load_pretrained(cfg, cpu_model)
+    source = tpre.load_torch_state_dict(path)
+    weights = model.state_dict()
+    loaded = [k for r in reports.values() for k in r["loaded"]]
+    check(sorted(reports) == ["MetaFormer", "MetaFormer/bn-stats"] and reports == cpu_reports,
+          "the MetaFormer reports on the card equal the CPU's")
+    check(all(torch.equal(weights[k].cpu(), source[k]) for k in loaded),
+          "every loaded tensor equals the file's bit for bit")
+    check(sorted(m.split(":")[0] for m in reports["MetaFormer"]["shape_mismatch"])
+          == sorted(mismatched), f"shape mismatches {reports['MetaFormer']['shape_mismatch']}")
+    stats = reports["MetaFormer/bn-stats"]
+    check(len(stats["loaded"]) == 2 * len(v0_batchnorms(model)) and not stats["missing"],
+          f"every running statistic loaded: {stats}")
+    tally = {name: {k: len(v) for k, v in r.items()} for name, r in reports.items()}
+    print(f"[{card}] MetaFormer init of mFormerV0_sm (MODEL.PRETRAINED_SOURCE 'metaformer', a "
+          f"seeded MetaFG-layout file): {tally}, the same on the CPU; every loaded tensor "
+          f"bit for bit the file's", flush=True)
+    del model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tally
+
+
+def v0_trainer_yaml(d: str, data: dict) -> str:
+    """Phase 7c's experiment with mFormerV0_sm: the default config, B=BATCH,
+    the four tasks, hybrid JPEGs, a 0.8 split, GradNorm every
+    TRAINER_GRADNORM_INTERVAL steps, a checkpoint every epoch, V0_EPOCHS
+    epochs, three metadata sources."""
+    import os
+
+    import yaml
+
+    exp = {
+        "EXPERIMENT": {"NAME": "trainer_v0", "PROJECT": "chip_smoke", "GROUP": "phase7e"},
+        "ENV": {"OUTPUT": {"BASE_DIR": os.path.join(d, "out_v0")}},
+        "MODEL": {"BASE": [os.path.abspath(V0_ARCH)], "IMG_SIZE": IMG},
+        "DATA": {
+            "IMG_SIZE": IMG, "BATCH_SIZE": BATCH, "BATCH_SIZE_VAL": BATCH,
+            "TASK_KEYS_H5": list(TASKS), "PARTIAL": {"LEVELS": True},
+            "H5": {"LABELS_PATH": data["labels"], "TRAIN_VAL_SPLIT_RATIO": 0.8},
+            "HYBRID": {"USE_HYBRID": True, "IMAGES_DIR": data["images"],
+                       "FILE_EXTENSION": ".jpg"},
+            "META": {"COMPONENTS": {"ELEVATION": {"ENABLED": True, "SOURCE": "elevation"}}},
+        },
+        "TRAIN": {"EPOCHS": V0_EPOCHS},
+        "LOSS": {"GRAD_WEIGHTING": {"TASK": {"UPDATE_INTERVAL": TRAINER_GRADNORM_INTERVAL}}},
+        "SCHEDULE": {"CHECKPOINT": {"INTERVAL_EPOCHS": 1, "KEEP_LAST_N": TRAINER_KEEP_LAST},
+                     "METRICS": {"CONSOLE_INTERVAL": 1, "WANDB_INTERVAL": 1}},
+    }
+    path = os.path.join(d, "trainer_v0.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(exp, f)
+    return path
+
+
+def v0_train(dev, card, trainer: dict) -> dict:
+    """Phase 7e (b): the CLI trains mFormerV0_sm for V0_EPOCHS epochs with
+    validation, GradNorm and a checkpoint; a probe Trainer resumes it bit
+    for bit, running statistics included; the CLI runs again to
+    V0_RESUME_EPOCHS epochs, auto-resuming, with a profiled window."""
+    import os
+
+    from linnaeus_tpu_torch.train.loop import Trainer
+    from linnaeus_tpu_torch.train.main import main as train_main
+    from linnaeus_tpu_torch.train.main import parse_option
+    from linnaeus_tpu_torch.utils import checkpoint as ckpt
+
+    d = trainer["dir"]
+    argv = ["--cfg", v0_trainer_yaml(d, trainer["data"]), "--device", str(dev)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = train_main(argv)
+    run1_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(type(first.model).__name__ == "MFormerV0", "the CLI built mFormerV0")
+    spe, steps1 = first.steps_per_epoch, first.progress.global_step
+    check(steps1 == V0_EPOCHS * spe, f"run 1 took {steps1} steps")
+    losses = {}
+    with open(os.path.join(first.config.ENV.OUTPUT.DIRS.LOGS, "metrics.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            if "train/loss" in row:
+                losses[row["step"]] = row["train/loss"]
+    check(sorted(losses) == list(range(1, steps1 + 1))
+          and all(np.isfinite(v) for v in losses.values()), f"finite loss at every step {losses}")
+    summary = first.metrics.phase_summary("val")
+    check(np.isfinite(summary["loss"]), f"validation of mFormerV0: {summary}")
+    bns = v0_batchnorms(first.model)
+    moved = {n: bool((m.running_mean != 0).any() and (m.running_var != 1).any()
+                     and torch.isfinite(m.running_mean).all() and torch.isfinite(m.running_var).all())
+             for n, m in bns.items()}
+    check(all(moved.values()), f"every BatchNorm's running statistics moved and are finite: "
+          f"{[n for n, ok in moved.items() if not ok]}")
+    n_gn = sum(t["gradnorm_updates"] for t in first.epoch_timings.values())
+    check(n_gn == steps1 // TRAINER_GRADNORM_INTERVAL, f"{n_gn} GradNorm updates")
+    saved = ckpt.snapshot_state(first.state)
+    last = ckpt.auto_resume_helper(first.ckpt_dir)
+    on_disk = torch.load(os.path.join(last, ckpt.STATE_DIR, ckpt.STATE_FILE),
+                         map_location="cpu", weights_only=True)["model"]
+    check(all(torch.equal(on_disk[f"{n}.{b}"], saved["model"][f"{n}.{b}"])
+              for n in bns for b in ("running_mean", "running_var")),
+          "the checkpoint holds the running statistics run 1 ended with")
+    timing1 = first.epoch_timings[V0_EPOCHS - 1]
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, config = parse_option(argv + ["--opts", "TRAIN.EPOCHS", str(V0_RESUME_EPOCHS)])
+    probe = Trainer(config, device=dev)
+    check(probe.try_resume(), "a Trainer on the same output directory resumes")
+    check(_same_bits(ckpt.snapshot_state(probe.state), saved),
+          "the resumed state (parameters, running statistics, optimizer moments, GradNorm, "
+          "generator) equals the checkpoint bit for bit")
+    probe.close()
+    del probe
+    gc.collect()
+
+    start, end = V0_PROFILE
+    t0 = time.perf_counter()
+    second = train_main(argv + ["--opts", "TRAIN.EPOCHS", str(V0_RESUME_EPOCHS),
+                                "DEBUG.PROFILE.START_STEP", str(start),
+                                "DEBUG.PROFILE.END_STEP", str(end)])
+    run2_s = time.perf_counter() - t0
+    check(second.resumed_from is not None and second.resumed_from.endswith(
+        ckpt._ckpt_name(steps1)) and second.progress.global_step == V0_RESUME_EPOCHS * spe,
+        f"run 2 resumed from {second.resumed_from} and took steps to "
+        f"{second.progress.global_step}")
+    prof = second.profile_summary
+    check(prof is not None and prof["steps"] == end - start, f"profiled window {prof}")
+    timing2 = second.epoch_timings[V0_RESUME_EPOCHS - 1]
+    fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
+    print(f"[{card}] mFormerV0_sm {IMG}px B={BATCH} bf16 through the Trainer (the CLI, "
+          f"hybrid JPEGs, default config, {len(bns)} BatchNorms): run 1 {steps1} steps, "
+          f"median step {fmt(timing1['median_step_ms'])} ms (the first epoch, cold), losses "
+          f"{[round(losses[s], 4) for s in sorted(losses)][:4]}..., validation loss "
+          f"{summary['loss']:.4f}; every running statistic moved, finite; resumed state bit for "
+          f"bit the checkpoint's; run 2 (resumed) median step {fmt(timing2['median_step_ms'])} ms; "
+          f"under torch.profiler, steps {start + 1}-{end}: {prof['wall_ms_per_step']:.2f} ms a "
+          f"step, device busy {prof['device_busy_ms_per_step']:.2f} ms, device-busy share "
+          f"{1.0 - prof['idle_share']:.3f}; peak memory {peak:.2f} GiB (run 1); runs "
+          f"{run1_s:.1f} + {run2_s:.1f} s", flush=True)
+    out = {"second": second, "last": ckpt.auto_resume_helper(second.ckpt_dir), "dir": d,
+           "images": trainer["data"]["images"], "peak_gib": peak,
+           "median_step_ms": [timing1["median_step_ms"], timing2["median_step_ms"]],
+           "profile": prof, "runs_s": [run1_s, run2_s]}
+    return out
+
+
+def v0_serve(dev, card, run: dict) -> dict:
+    """Phase 7e (d): the handler from (b)'s checkpoint directory (F8)
+    against the bundle tool's ``weights.pt`` of the same checkpoint: logits
+    on BATCH validation JPEGs bit for bit; then HTTP through
+    tools/serve.make_server, every answer within PROB_TOL of ``predict``."""
+    import base64
+    import os
+    import threading
+    import urllib.request
+    from dataclasses import replace
+
+    import yaml
+
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.inference.preprocessing import preprocess_image_batch
+    from linnaeus_tpu_torch.tools.prepare_inference_bundle import prepare_bundle
+    from linnaeus_tpu_torch.tools.serve import make_server
+    from linnaeus_tpu_torch.tools.serve_latency_bench import percentile
+
+    second, last = run["second"], run["last"]
+    cfg = second.config
+    bundle_dir = os.path.join(run["dir"], "bundle_v0")
+    prepare_bundle(last, cfg.ENV.OUTPUT.DIRS.ASSETS, bundle_dir, "mFormerV0_sm", list(TASKS),
+                   [second.num_classes[t] for t in TASKS], image_size=IMG)
+    variant = os.path.join(bundle_dir, "variant.yaml")
+    with open(variant, "w") as f:
+        yaml.safe_dump({"MODEL": json.loads(json.dumps(cfg.MODEL)), "TRAIN": {
+            "MIXED_PRECISION": json.loads(json.dumps(cfg.TRAIN.MIXED_PRECISION))}}, f)
+    with open(os.path.join(bundle_dir, "config.yaml")) as f:
+        bundle_cfg = yaml.safe_load(f)
+    bundle_cfg["model"]["architecture_variant_config_path"] = variant
+    bundle_cfg["inference_options"]["batch_size"] = BATCH
+    paths = {}
+    for name, weights in (("pt", "weights.pt"), ("dir", os.path.abspath(last))):
+        bundle_cfg["model"]["weights_path"] = weights
+        paths[name] = os.path.join(bundle_dir, f"config_{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(bundle_cfg, f, sort_keys=False)
+    t0 = time.perf_counter()
+    handler = LinnaeusInferenceHandler.load_from_artifacts(paths["dir"])
+    load_s = time.perf_counter() - t0
+    from_pt = LinnaeusInferenceHandler.load_from_artifacts(paths["pt"])
+    check(type(handler.model).__name__ == "MFormerV0" and handler.model.dtype == torch.bfloat16,
+          "the handler serves mFormerV0 in bf16")
+    ids = second.bundle["val_dataset"].labels.img_identifiers
+    jpegs = []
+    for i in second.bundle["val_indices"][:BATCH]:
+        with open(os.path.join(run["images"], f"{ids[i]}.jpg"), "rb") as f:
+            jpegs.append(f.read())
+    pixels = torch.from_numpy(preprocess_image_batch(jpegs, handler.config)).to(dev)
+    aux = torch.randn(BATCH, handler.config.aux_vector_length(),
+                      generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    x = (pixels.float() / 255.0 - handler._mean) / handler._std
+    with torch.inference_mode():
+        a, b = handler.model(x, aux), from_pt.model(x, aux)
+    check(all(torch.equal(a[t], b[t]) for t in TASKS),
+          "the checkpoint directory's logits equal the bundle's weights.pt's bit for bit")
+    del from_pt
+    gc.collect()
+    host_ms = predict_breakdown(handler, jpegs, None, card)
+
+    opts = handler.config.inference_options
+    raw_handler = LinnaeusInferenceHandler(
+        replace(handler.config, inference_options=replace(
+            opts, enable_hierarchical_consistency_check=False)),
+        handler.model, handler.taxonomy, handler.class_maps)
+    handler.warmup()
+    server = make_server(handler, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    n_req = PRETRAINED_CLIENTS * PRETRAINED_REQUESTS
+    images = [[jpegs[(r * PRETRAINED_IMAGES + i) % BATCH] for i in range(PRETRAINED_IMAGES)]
+              for r in range(n_req)]
+    answers, latencies, errors = [None] * n_req, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        for r in range(c * PRETRAINED_REQUESTS, (c + 1) * PRETRAINED_REQUESTS):
+            body = {"instances": [{"image": base64.b64encode(j).decode()} for j in images[r]]}
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                         data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    answers[r] = json.loads(resp.read())
+            except Exception as e:  # noqa: BLE001 counted and failed below
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                latencies.append(1e3 * (time.perf_counter() - t1))
+
+    try:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(PRETRAINED_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    check(not errors, f"HTTP errors: {errors[:3]}")
+    flips, worst = 0, 0.0
+    for r, answer in enumerate(answers):
+        got = [as_result(p) for p in answer["predictions"]]
+        check_results(got, PRETRAINED_IMAGES, handler.taxonomy, handler.class_maps)
+        want, raw = handler.predict(images[r]), raw_handler.predict(images[r])
+        for g_, w_, r_ in zip(got, want, raw):
+            f, e = agreement(g_, w_, r_, handler.class_maps)
+            flips, worst = flips + f, max(worst, e)
+    lat = sorted(latencies)
+    http = {"images_per_s": n_req * PRETRAINED_IMAGES / wall, "p50_ms": percentile(lat, 50),
+            "p99_ms": percentile(lat, 99)}
+    print(f"[{card}] mFormerV0_sm served from the training checkpoint directory "
+          f"{os.path.basename(last)} (loaded in {load_s:.1f} s): logits bit for bit those of the "
+          f"bundle tool's weights.pt on {BATCH} validation JPEGs; HTTP {PRETRAINED_CLIENTS} "
+          f"clients x {PRETRAINED_REQUESTS} requests x {PRETRAINED_IMAGES} JPEGs (smoke "
+          f"reading): {http['images_per_s']:.1f} img/s, p50 {http['p50_ms']:.1f} ms, p99 "
+          f"{http['p99_ms']:.1f} ms; every answer within {PROB_TOL:g} of predict (max |dp| "
+          f"{worst:.3e}, {flips} near-tie flips)", flush=True)
+    del handler, raw_handler, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"http": http, "host_ms": host_ms, "load_s": load_s}
+
+
+def v0_phase(dev, card, fa, fm, trainer: dict) -> dict:
+    """Phase 7e: (a) the forward, (b) training through the CLI with resume,
+    (c) MetaFormer init, (d) serving from the checkpoint directory. None of
+    the seven kernels is on mFormerV0's path; their counters must stay at 0."""
+    t0 = time.perf_counter()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    forward = v0_forward(dev, card)
+    run = v0_train(dev, card, trainer)
+    tally = v0_metaformer(dev, card, trainer["dir"])
+    served = v0_serve(dev, card, run)
+    launched = {"K1": fa.LAUNCHES + fa.BWD_LAUNCHES + fa.DQ_LAUNCHES + fa.DKV_LAUNCHES,
+                "K2": fm.LAUNCHES + fm.BWD_LAUNCHES}
+    check(launched == {"K1": 0, "K2": 0}, f"mFormerV0 launched a kernel: {launched}")
+    del run["second"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"phase 7e (mFormerV0_sm) took {seconds:.1f} s; no kernel launched (none is on "
+          f"mFormerV0's path)", flush=True)
+    return {"forward": forward, "train": {k: v for k, v in run.items() if k != "second"},
+            "metaformer": tally, "serve": served, "seconds": seconds}
+
+
 def serving_config():
     """Every inference option at its default (the hierarchical-consistency
     pass on, data_parallel "auto") but for the batch size, which is the
@@ -2145,6 +2604,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    script_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2264,6 +2724,10 @@ def main() -> int:
         # experiment with AutoBatch, one epoch, the bundle tool, serving,
         # --throughput and inspect_checkpoints, on phase 7c's dataset
         pretrained = pretrained_phase(dev, card, fa, fm, trainer)
+        # 7e. the mFormerV0 family: mFormerV0_sm's forward, training through
+        # the CLI with resume, MetaFormer init and serving from the training
+        # checkpoint directory, on phase 7c's dataset
+        v0_phase(dev, card, fa, fm, trainer)
     shutil.rmtree(trainer["dir"], ignore_errors=True)
 
     # 8. K3's path: the fused-block A/B tool, forward and train
@@ -2307,6 +2771,7 @@ def main() -> int:
                         "pretrained_launches": pretrained["launches"].get(key, 0),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
+    print(f"chip_smoke.py took {time.perf_counter() - script_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

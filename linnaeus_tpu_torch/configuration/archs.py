@@ -3,8 +3,7 @@
 Port of linnaeus_tpu/configuration/archs.py: ConvNeXt-T/L/XL trunks with
 DeiT-S/B/L-width RoPE stages, and the MetaFG geometries of mFormerV0.
 ``apply_arch(cfg, name)`` merges a preset into ``cfg.MODEL`` as the JAX
-package does; the port builds only mFormerV1 (``models/build.py`` raises by
-name for mFormerV0).
+package does; ``models/build.py`` builds both families.
 """
 
 from __future__ import annotations

@@ -8,12 +8,16 @@ with the inference config. :func:`load_model_for_inference` builds the model
 from that config (``models.build.build_model``) and loads its weights:
 
 * a Flax ``.msgpack`` file, the JAX package's bundles' format, read by
-  ``utils/flax_msgpack.py`` and mapped by ``utils/convert.py::state_dict_from_jax``;
-* a torch ``state_dict`` file (``.pt`` / ``.pth``), the port's own format.
-
-An Orbax checkpoint directory (the training checkpoints of the JAX package)
-and ``hf://`` weights raise by name: the checkpoint code is not ported yet
-(M6), and the port downloads nothing.
+  ``utils/flax_msgpack.py`` (``params``, and an mFormerV0's ``batch_stats``)
+  and mapped by ``utils/convert.py::state_dict_from_variables``;
+* a torch ``state_dict`` file (``.pt`` / ``.pth``), the port's own format
+  (an mFormerV0's holds its BatchNorms' running statistics as buffers);
+* a training checkpoint directory of the port's Trainer
+  (``<dir>/state/state.pt``, utils/checkpoint.py): its model state_dict,
+  running statistics included, as the JAX package serves its own training
+  checkpoint directories. An Orbax directory (the JAX package's training
+  checkpoints) raises by name, and so do ``hf://`` weights: the port reads
+  no Orbax state and downloads nothing.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ import torch
 from linnaeus_tpu_torch.configuration import get_default_config, load_config, merge_configs
 from linnaeus_tpu_torch.configuration.archs import apply_arch
 from linnaeus_tpu_torch.configuration.cfg_node import CfgNode
+from torch import nn
+
 from linnaeus_tpu_torch.models.build import build_model
-from linnaeus_tpu_torch.models.mformer_v1 import MFormerV1
 from linnaeus_tpu_torch.utils import flax_msgpack
-from linnaeus_tpu_torch.utils.convert import state_dict_from_jax
+from linnaeus_tpu_torch.utils.checkpoint import STATE_DIR, STATE_FILE
+from linnaeus_tpu_torch.utils.convert import state_dict_from_variables
 
 from .config import InferenceConfig
 
@@ -84,29 +90,29 @@ def _num_classes(inf_cfg: InferenceConfig) -> dict[str, int]:
     return dict(zip(inf_cfg.model.model_task_keys_ordered, inf_cfg.model.num_classes_per_task))
 
 
-def load_weights(model: MFormerV1, weights_path: str) -> None:
-    """Load ``weights_path`` into ``model`` (strict): a Flax ``.msgpack``
-    or a torch state_dict file."""
+def load_weights(model: nn.Module, weights_path: str) -> None:
+    """Load ``weights_path`` into ``model`` (strict): a Flax ``.msgpack``, a
+    torch state_dict file or a training checkpoint directory of the port."""
     path = Path(weights_path)
     if weights_path.startswith("hf://"):
         raise NotImplementedError(
             f"weights_path {weights_path!r}: hf:// weights are not ported (no downloads); "
             "give a local .msgpack or .pt file")
     if path.is_dir():
-        raise NotImplementedError(
-            f"weights_path {weights_path!r} is a directory: restoring an Orbax training "
-            "checkpoint is not ported yet (M6); give a .msgpack or .pt file")
-    if not path.is_file():
+        state_file = path / STATE_DIR / STATE_FILE
+        if state_file.is_file():
+            state = torch.load(state_file, map_location="cpu", weights_only=True)["model"]
+        elif (path / STATE_DIR).is_dir():
+            raise NotImplementedError(
+                f"weights_path {weights_path!r}: an Orbax training checkpoint (the JAX "
+                f"package's) has no {STATE_DIR}/{STATE_FILE}; the port reads no Orbax state. "
+                "Give a port checkpoint directory, a .msgpack or a .pt file")
+        else:
+            raise FileNotFoundError(f"No checkpoint state in {weights_path}")
+    elif not path.is_file():
         raise FileNotFoundError(f"weights file not found: {weights_path}")
-    if path.suffix == ".msgpack":
-        stages = model.stages
-        state = state_dict_from_jax(
-            flax_msgpack.read_params(path),
-            (len(stages[0]), len(stages[1])),
-            (len(stages[2]), len(stages[3])),
-            tuple(name for name, _ in model.meta_components),
-            model.head.task_keys,
-        )
+    elif path.suffix == ".msgpack":
+        state = state_dict_from_variables(model, flax_msgpack.read_variables(path))
     elif path.suffix in (".pt", ".pth"):
         state = torch.load(path, map_location="cpu", weights_only=True)
     else:
@@ -115,7 +121,7 @@ def load_weights(model: MFormerV1, weights_path: str) -> None:
 
 
 def load_model_for_inference(inf_cfg: InferenceConfig, taxonomy_tree=None,
-                             **kwargs: Any) -> MFormerV1:
+                             **kwargs: Any) -> nn.Module:
     """The bundle's model with its weights, in eval mode, on
     ``inference_options.device`` ("auto" is the CUDA device and raises
     without one). ``kwargs`` go to ``build_model`` (``device``, ``seed``)."""
@@ -132,8 +138,8 @@ def build_model_for_inference(
     arch: str | Mapping[str, Any] | None = None,
     taxonomy_tree=None,
     **kwargs: Any,
-) -> MFormerV1:
-    """mFormerV1 for ``cfg`` with seeded random weights.
+) -> nn.Module:
+    """The bundle's model (mFormerV1 or mFormerV0) with seeded random weights.
 
     With ``model.architecture_variant_config_path`` set, the merged config
     (:func:`build_config_for_inference`) decides the model through the

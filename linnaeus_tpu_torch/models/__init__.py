@@ -1,1 +1,1 @@
-"""mFormerV1 and its building blocks."""
+"""mFormerV1, mFormerV0 and their building blocks."""

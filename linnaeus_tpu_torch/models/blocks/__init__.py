@@ -1,1 +1,2 @@
-"""Shared blocks: ConvNeXt, 2D-RoPE attention, MLPs and meta heads."""
+"""Shared blocks: ConvNeXt, 2D-RoPE and relative-position attention, MBConv,
+BatchNorm, MLPs and meta heads."""

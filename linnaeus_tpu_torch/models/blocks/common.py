@@ -1,5 +1,6 @@
-"""Shared small blocks: dtype-following layers, Mlp, DropPath, Dropout,
-ResNormLayer, MetaHead and the parameter init.
+"""Shared small blocks: dtype-following layers, a BatchNorm with Flax's
+semantics, Mlp, DropPath, Dropout, ResNormLayer, MetaHead and the parameter
+init.
 
 Port of linnaeus_tpu/models/blocks/common.py. Parameters are kept in
 float32, as the TPU package keeps them; the layers here cast their weights
@@ -47,6 +48,59 @@ class Conv2d(nn.Conv2d):
 class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A Conv2d on NHWC activations: the convolution sees an NCHW view of
+    the same memory (channels-last strides) and its output is viewed back."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis with the semantics of ``flax.linen.BatchNorm``
+    (``use_fast_variance``, ``force_float32_reductions``), not those of
+    ``torch.nn.BatchNorm2d``:
+
+    * the batch statistics are reduced in float32 whatever the input's dtype,
+      the variance as ``max(0, E[x^2] - E[x]^2)``: the **biased** variance,
+      which is also what the running variance is updated with (torch's
+      BatchNorm updates it with the unbiased one);
+    * ``momentum`` is Flax's, the weight of the old value:
+      ``running = momentum * running + (1 - momentum) * batch`` (Flax's 0.9
+      is torch's 0.1);
+    * ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
+      cast back to the input's dtype.
+
+    Training mode normalises with the batch statistics and updates the
+    buffers once per forward; eval mode normalises with the buffers and
+    leaves them alone. ``weight`` / ``bias`` are Flax's ``scale`` / ``bias``,
+    ``running_mean`` / ``running_var`` its ``batch_stats`` ``mean`` / ``var``,
+    in float32."""
+
+    def __init__(self, num_features: int, eps: float, momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            x32 = x.float()
+            mean = x32.mean(axes)
+            var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        # x - mean promotes to float32 in one pass, without a float32 copy of x
+        return torch.addcmul(self.bias, x - mean, mul).to(x.dtype)
 
 
 def gelu(x: torch.Tensor, exact: bool) -> torch.Tensor:
@@ -147,13 +201,13 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """The TPU package's init, drawn from ``generator``: trunc-normal
     weights and zero biases for every Linear and Conv, unit/zero
-    LayerNorms. Other parameters (layer scales, CLS tokens, RoPE
+    LayerNorms and BatchNorms. Other parameters (layer scales, CLS tokens, RoPE
     frequencies) are set by their modules' constructors."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             trunc_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

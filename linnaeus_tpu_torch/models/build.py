@@ -1,14 +1,15 @@
 """Model construction: from a config, or from an architecture preset.
 
-Port of linnaeus_tpu/models/build.py for mFormerV1, in two forms:
+Port of linnaeus_tpu/models/build.py, in two forms:
 
 * ``build_model(config, num_classes=None, taxonomy_tree=None)``: a
-  ``CfgNode`` (``configuration/``) whose ``MODEL.*``, ``DATA.TASK_KEYS_H5``,
-  ``DATA.META.COMPONENTS`` and ``TRAIN.MIXED_PRECISION`` decide the model,
-  as in the JAX package; ``TRAIN.GRADIENT_CHECKPOINTING.ENABLED_NORMAL_STEPS``
-  and ``POLICY`` set the model's per-block rematerialisation. What the port
-  does not have raises by name: another ``MODEL.TYPE``,
-  ``MODEL.MOE.ENABLED``, an aggregation other than the default.
+  ``CfgNode`` (``configuration/``) whose ``MODEL.TYPE`` names the model in
+  the registry (models/factory.py: mFormerV1, mFormerV0) and whose
+  ``MODEL.*``, ``DATA.TASK_KEYS_H5``, ``DATA.META.COMPONENTS`` and
+  ``TRAIN.MIXED_PRECISION`` decide it, as in the JAX package;
+  ``TRAIN.GRADIENT_CHECKPOINTING.ENABLED_NORMAL_STEPS`` and ``POLICY`` set
+  mFormerV1's per-block rematerialisation. ``MODEL.MOE.ENABLED`` raises by
+  name (not ported).
 * ``build_model(arch, img_size, num_classes, ...)``: the preset (a name from
   configuration/archs.py, or a dict of the same shape) fixes the depths and
   widths, and keywords carry the rest.
@@ -20,9 +21,13 @@ from typing import Any, Mapping
 
 import torch
 
-from linnaeus_tpu_torch.configuration.archs import MFORMER_V1_ARCHS
+from torch import nn
+
+from linnaeus_tpu_torch.configuration.archs import MFORMER_V0_ARCHS, MFORMER_V1_ARCHS
 from linnaeus_tpu_torch.configuration.cfg_node import CfgNode
+from linnaeus_tpu_torch.models.factory import MODEL_REGISTRY, list_models
 from linnaeus_tpu_torch.models.heads.heads import needs_taxonomy_tree
+from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
 from linnaeus_tpu_torch.models.mformer_v1 import MFormerV1
 from linnaeus_tpu_torch.utils.device import resolve_device
 from linnaeus_tpu_torch.utils.meta import get_enabled_meta_components
@@ -68,7 +73,7 @@ def _hierarchy_matrices(head_configs, taxonomy_tree):
     return taxonomy_tree.build_hierarchy_matrices()
 
 
-def build_model(arch, *args, **kwargs) -> MFormerV1:
+def build_model(arch, *args, **kwargs) -> nn.Module:
     """``build_model(config, num_classes=None, taxonomy_tree=None, *,
     device=None, seed=0)`` for a ``CfgNode``; otherwise the keyword form,
     :func:`build_model_from_arch`. Either way the model has seeded random
@@ -86,16 +91,15 @@ def build_model_from_config(
     *,
     device: torch.device | str | None = None,
     seed: int = 0,
-) -> MFormerV1:
+) -> nn.Module:
     """The model ``config.MODEL.TYPE`` declares, read as
     linnaeus_tpu/models/build.py reads it."""
     device = resolve_device(device)
     model_type = config.MODEL.TYPE
-    if model_type == "mFormerV0":  # in the JAX package's registry
-        raise NotImplementedError(
-            "MODEL.TYPE 'mFormerV0' is not ported yet (M8); the port builds mFormerV1")
-    if model_type != "mFormerV1":
-        raise ValueError(f"Unknown MODEL.TYPE '{model_type}'. Registered: ['mFormerV1']")
+    list_models()  # fills the registry
+    if model_type not in MODEL_REGISTRY:
+        raise ValueError(
+            f"Unknown MODEL.TYPE '{model_type}'. Registered: {sorted(MODEL_REGISTRY)}")
 
     task_keys = tuple(config.DATA.TASK_KEYS_H5)
     if num_classes is None:
@@ -112,42 +116,21 @@ def build_model_from_config(
 
     moe = config.MODEL.get("MOE", {})
     if bool(moe.get("ENABLED", False)):
+        if model_type != "mFormerV1":
+            raise ValueError(
+                "MODEL.MOE.ENABLED requires MODEL.TYPE=mFormerV1 (the MoE MLP replaces "
+                "RoPE-block MLPs; mFormerV0 has no MoE substrate)")
         raise NotImplementedError("MODEL.MOE.ENABLED: the MoE MLP is not ported yet (M9)")
-    aggregation = str(config.MODEL.get("AGGREGATION", {}).get("TYPE", "default"))
-    if aggregation not in ("Conv1d", "default"):
-        raise NotImplementedError(
-            f"MODEL.AGGREGATION.TYPE {aggregation!r} is not ported yet (M8); the port has "
-            "the default dual-CLS Conv1d aggregation")
 
     img_size = config.MODEL.IMG_SIZE
     img_size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
-    cs = config.MODEL.CONVNEXT_STAGES
-    rs = config.MODEL.ROPE_STAGES
-    fused = str(config.MODEL.get("FUSED_CONVNEXT_MLP", "auto")).lower()
-    model = MFormerV1(
+    common = dict(
         img_size=img_size,
         in_chans=int(config.MODEL.IN_CHANS),
-        convnext_depths=tuple(cs.DEPTHS),
-        convnext_dims=tuple(cs.DIMS),
-        convnext_ls_init=float(cs.get("LAYER_SCALE_INIT_VALUE", 1e-6)),
-        rope_depths=tuple(rs.DEPTHS),
-        rope_dims=tuple(rs.DIMS),
-        rope_num_heads=tuple(rs.NUM_HEADS),
-        rope_mlp_ratio=tuple(float(r) for r in rs.MLP_RATIO),
-        rope_theta=float(rs.get("ROPE_THETA", 10000.0)),
-        rope_mixed=bool(rs.get("ROPE_MIXED", True)),
-        # ROPE_DEINTERLEAVE is a weight layout of the TPU package's qkv
-        # projection with the same parameters and function: nothing to read
-        rope_fidelity=str(config.MODEL.get("ROPE_FIDELITY", "rotate")),
-        act_exact=bool(config.MODEL.get("ACT_EXACT_GELU", False)),
-        fused_convnext_mlp={"auto": None, "on": True, "off": False}[fused],
-        use_flash_attn=bool(config.MODEL.get("USE_FLASH_ATTN", False)),
-        attn_fp32_softmax=bool(config.MODEL.get("ATTN_FP32_SOFTMAX", True)),
-        drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         drop_rate=float(config.MODEL.DROP_RATE),
         attn_drop_rate=float(config.MODEL.ATTN_DROP_RATE),
+        drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         only_last_cls=bool(config.MODEL.ONLY_LAST_CLS),
-        aggregation=aggregation,
         meta_components=_meta_component_pairs(config),
         task_keys=task_keys,
         num_classes={k: int(v) for k, v in num_classes.items()},
@@ -155,10 +138,47 @@ def build_model_from_config(
         hierarchy_matrices=matrices,
         gradient_checkpointing=bool(
             config.TRAIN.GRADIENT_CHECKPOINTING.get("ENABLED_NORMAL_STEPS", False)),
-        remat_policy=str(config.TRAIN.GRADIENT_CHECKPOINTING.get("POLICY", "dots")),
+        act_exact=bool(config.MODEL.get("ACT_EXACT_GELU", False)),
+        use_flash_attn=bool(config.MODEL.get("USE_FLASH_ATTN", False)),
+        attn_fp32_softmax=bool(config.MODEL.get("ATTN_FP32_SOFTMAX", True)),
         dtype=resolve_compute_dtype(config),
         seed=seed,
     )
+    if model_type == "mFormerV1":
+        cs = config.MODEL.CONVNEXT_STAGES
+        rs = config.MODEL.ROPE_STAGES
+        fused = str(config.MODEL.get("FUSED_CONVNEXT_MLP", "auto")).lower()
+        model = MFormerV1(
+            convnext_depths=tuple(cs.DEPTHS),
+            convnext_dims=tuple(cs.DIMS),
+            convnext_ls_init=float(cs.get("LAYER_SCALE_INIT_VALUE", 1e-6)),
+            rope_depths=tuple(rs.DEPTHS),
+            rope_dims=tuple(rs.DIMS),
+            rope_num_heads=tuple(rs.NUM_HEADS),
+            rope_mlp_ratio=tuple(float(r) for r in rs.MLP_RATIO),
+            rope_theta=float(rs.get("ROPE_THETA", 10000.0)),
+            rope_mixed=bool(rs.get("ROPE_MIXED", True)),
+            # ROPE_DEINTERLEAVE is a weight layout of the TPU package's qkv
+            # projection with the same parameters and function: nothing to read
+            rope_fidelity=str(config.MODEL.get("ROPE_FIDELITY", "rotate")),
+            fused_convnext_mlp={"auto": None, "on": True, "off": False}[fused],
+            aggregation=str(config.MODEL.get("AGGREGATION", {}).get("TYPE", "default")),
+            remat_policy=str(config.TRAIN.GRADIENT_CHECKPOINTING.get("POLICY", "dots")),
+            **common,
+        )
+    elif model_type == "mFormerV0":
+        st = config.MODEL.get("STAGES", {})
+        model = MFormerV0(
+            stage_dims=tuple(st.get("DIMS", (64, 96, 192, 384, 768))),
+            mbconv_depths=tuple(st.get("MBCONV_DEPTHS", (2, 3))),
+            attn_depths=tuple(st.get("ATTN_DEPTHS", (5, 2))),
+            num_heads=tuple(st.get("NUM_HEADS", (8, 8))),
+            mlp_ratio=tuple(float(r) for r in st.get("MLP_RATIO", (4.0, 4.0))),
+            head_split=bool(config.MODEL.get("ATTN_HEAD_SPLIT", False)),
+            **common,
+        )
+    else:
+        model = MODEL_REGISTRY[model_type](**common)
     return model.to(device).eval()
 
 
@@ -179,8 +199,8 @@ def build_model_from_arch(
     seed: int = 0,
     drop_path_rate: float | None = None,
     taxonomy_tree=None,
-) -> MFormerV1:
-    """mFormerV1 for ``arch`` with seeded random weights, in eval mode, on
+) -> nn.Module:
+    """mFormerV1 or mFormerV0 for ``arch`` with seeded random weights, in eval mode, on
     the CUDA device: ``device=None`` (or ``"auto"``) means the card and
     raises where there is none; the CPU is used only for ``device="cpu"``.
 
@@ -192,11 +212,37 @@ def build_model_from_arch(
     package's ``MODEL.ATTN_FP32_SOFTMAX``); ``fused_convnext_mlp`` True or
     None routes the ConvNeXt MLP tails of stages 1-2 through K2 on CUDA
     (None keeps plain modules for CPU tensors), False keeps plain modules.
-    Hierarchical ``head_configs`` need ``taxonomy_tree``.
+    Hierarchical ``head_configs`` need ``taxonomy_tree``. An mFormerV0
+    preset (``MFORMER_V0_ARCHS``, or a dict with ``DIMS`` and
+    ``MBCONV_DEPTHS``) builds an mFormerV0; ``fused_convnext_mlp`` and
+    ``rope_fidelity`` have nothing to act on there, and ``use_flash_attn``
+    is accepted and unused, as in the JAX package.
     """
     device = resolve_device(device)
-    spec = MFORMER_V1_ARCHS[arch] if isinstance(arch, str) else arch
+    spec = (MFORMER_V1_ARCHS | MFORMER_V0_ARCHS)[arch] if isinstance(arch, str) else arch
     matrices = _hierarchy_matrices(head_configs or {}, taxonomy_tree)
+    if "MBCONV_DEPTHS" in spec:
+        model = MFormerV0(
+            img_size=(img_size, img_size),
+            in_chans=in_chans,
+            stage_dims=tuple(spec["DIMS"]),
+            mbconv_depths=tuple(spec["MBCONV_DEPTHS"]),
+            attn_depths=tuple(spec["ATTN_DEPTHS"]),
+            num_heads=tuple(spec["NUM_HEADS"]),
+            drop_path_rate=float(
+                spec.get("DROP_PATH_RATE", 0.2) if drop_path_rate is None else drop_path_rate),
+            act_exact=act_exact,
+            use_flash_attn=use_flash_attn,
+            attn_fp32_softmax=attn_fp32_softmax,
+            meta_components=tuple(meta_components),
+            task_keys=tuple(num_classes),
+            num_classes=dict(num_classes),
+            head_configs=head_configs,
+            hierarchy_matrices=matrices,
+            dtype=dtype,
+            seed=seed,
+        )
+        return model.to(device).eval()
     model = MFormerV1(
         img_size=(img_size, img_size),
         in_chans=in_chans,

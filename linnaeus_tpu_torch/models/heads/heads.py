@@ -27,11 +27,13 @@ import torch
 from torch import nn
 
 from linnaeus_tpu_torch.models.blocks.common import Conv1d, Linear
+from linnaeus_tpu_torch.models.factory import register_head
 
 HIERARCHICAL_TYPES = ("HierarchicalSoftmax", "ConditionalClassifier")
 _MATRIX_PREFIX = "hierarchy_"
 
 
+@register_head("Linear")
 class LinearHead(nn.Module):
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
         super().__init__()
@@ -41,6 +43,7 @@ class LinearHead(nn.Module):
         return self.fc(x)
 
 
+@register_head("Conv1d")
 class Conv1dHead(nn.Module):
     """Conv1d over a singleton length axis with 'same' padding: a Linear
     with a conv-shaped weight (out, in, kernel_size)."""

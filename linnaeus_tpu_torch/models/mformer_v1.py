@@ -11,8 +11,11 @@ Submodule names follow the upstream state_dict layout (stem, stages,
 downsample_layers, norm_1/2, cls_token_1/2, meta_*_head_*, cl_1_fc,
 aggregate, final_norm, head), so a converted TPU checkpoint loads strict.
 Images are NHWC, as in the TPU package. Parameters are float32; ``dtype``
-is the compute dtype. MoE, ring attention and pipelining are not ported
-yet and raise. ``gradient_checkpointing`` recomputes every ConvNeXt and
+is the compute dtype. ``aggregation`` (MODEL.AGGREGATION.TYPE) 'Conv1d' or
+'default' is the dual-CLS ``aggregate``; another registered aggregation
+(models/aggregation.py) is built as ``aggregate_alt`` over the (B, 2, C)
+stack of the two CLS tokens, as the TPU package routes it. MoE, ring
+attention and pipelining are not ported yet and raise. ``gradient_checkpointing`` recomputes every ConvNeXt and
 RoPE block of the towers in the backward, keeping what ``remat_policy``
 names (models/utils.py); the flag may be flipped between calls, as the
 GradNorm re-forward does. Dropout (``drop_rate`` in the RoPE blocks' MLP
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from linnaeus_tpu_torch.models import aggregation as _aggregation  # noqa: F401 (registers)
 from linnaeus_tpu_torch.models.blocks.common import (
     Conv1d,
     LayerNorm,
@@ -47,10 +51,12 @@ from linnaeus_tpu_torch.models.blocks.convnext import (
     ConvNeXtStem,
 )
 from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
+from linnaeus_tpu_torch.models.factory import AGGREGATION_REGISTRY, register_model
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
 from linnaeus_tpu_torch.models.utils import checkpoint_block, resolve_remat_policy
 
 
+@register_model("mFormerV1")
 class MFormerV1(nn.Module):
     def __init__(
         self,
@@ -96,8 +102,6 @@ class MFormerV1(nn.Module):
         ):
             if value:
                 raise NotImplementedError(f"MFormerV1: {name} is not ported yet")
-        if aggregation not in ("Conv1d", "default"):
-            raise NotImplementedError(f"MFormerV1: aggregation {aggregation!r} is not ported yet")
         if tuple(rope_dims) != tuple(convnext_dims[2:4]):
             raise ValueError(
                 f"RoPE dims {tuple(rope_dims)} must match ConvNeXt dims[2:4] "
@@ -166,8 +170,15 @@ class MFormerV1(nn.Module):
                 Mlp(rope_dims[0], rope_dims[0], rope_dims[1], act_exact=act_exact),
                 LayerNorm(rope_dims[1], eps=1e-5),
             )
-            # 2 -> 1 channel 1x1 conv over the two CLS tokens
-            self.aggregate = Conv1d(2, 1, kernel_size=1)
+            if aggregation in ("Conv1d", "default"):
+                # 2 -> 1 channel 1x1 conv over the two CLS tokens
+                self.aggregate = Conv1d(2, 1, kernel_size=1)
+            else:
+                if aggregation not in AGGREGATION_REGISTRY:
+                    raise ValueError(f"Unknown MODEL.AGGREGATION.TYPE '{aggregation}'")
+                cls = AGGREGATION_REGISTRY[aggregation]
+                self.aggregate_alt = (cls(2 * rope_dims[1], rope_dims[1])
+                                      if aggregation == "Concatenation" else cls())
         self.final_norm = LayerNorm(rope_dims[1], eps=1e-5)
         self.head = MultiTaskHeads(
             rope_dims[1], tuple(task_keys), num_classes or {}, head_configs, hierarchy_matrices)
@@ -236,8 +247,10 @@ class MFormerV1(nn.Module):
         cls_2 = x[:, 0:1, :]
         if self.only_last_cls:
             return self.final_norm(cls_2[:, 0, :])
-        agg = self.aggregate(torch.cat([cls_1, cls_2], dim=1))[:, 0, :]  # (B, D3)
-        return self.final_norm(agg)
+        cat = torch.cat([cls_1, cls_2], dim=1)  # (B, 2, D3)
+        if hasattr(self, "aggregate_alt"):
+            return self.final_norm(self.aggregate_alt(cat))
+        return self.final_norm(self.aggregate(cat)[:, 0, :])
 
     def forward(
         self, x: torch.Tensor, meta: torch.Tensor | None = None, gradnorm_mode: bool = False,

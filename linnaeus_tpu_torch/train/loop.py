@@ -25,8 +25,11 @@ GradNorm update when GradNorm is on, and holds the batches the loader keeps
 on the card ahead of the step), from a snapshot of the state that is
 put back afterwards, then rebuild the loaders and, for the train batch,
 scale BASE_LR by new / old and rebuild the schedules, the optimizer and the
-step. As in the TPU package, the schedule steps resolved from fractions
-(warm-up, masking, mixing) keep the configured batch's count. The search
+step. The schedule steps given as fractions (warm-up, masking, mixing,
+intervals) are resolved again from the unresolved config against the new
+batch's step count, as a run configured with that batch resolves them; the
+TPU package keeps the configured batch's counts there (ROADMAP F6: the port
+departs from it on purpose). The search
 reads allocator peaks, which move with what else the process holds, so a
 run that finds an auto-resume checkpoint does not search again: it takes
 the batches and the base LR that the checkpoint records.
@@ -34,8 +37,10 @@ the batches and the base LR that the checkpoint records.
 What the port does not run raises by name: the mesh, multi-host, FSDP, TP,
 SP, EP and PP branches (data/build.py::check_one_process), remote output
 sync (ENV.OUTPUT.BUCKET), and, through build_model, make_train_step and
-load_pretrained, mFormerV0, MoE, BatchNorm statistics, MetaFormer pretrained
-init and remote pretrained paths.
+load_pretrained, MoE and remote pretrained paths. mFormerV0 trains here as
+mFormerV1 does: its BatchNorm running statistics are buffers of the model,
+so the step updates them, and checkpoints, resume and AutoBatch's snapshot
+carry them with the model's state_dict (train/step.py).
 
 Each loop iteration (a train step and, when due, the GradNorm update) is
 bracketed by CUDA events and host clock readings (``step_times``, the
@@ -160,6 +165,8 @@ class Trainer:
         )
 
         validate_schedule_config(config)
+        # the fractions as configured, for AutoBatch to resolve again (F6)
+        self._unresolved_schedule = config.clone()
         resolve_all_schedule_params(config, total_steps)
         # linear LR scaling by the batch of one optimizer step (reference
         # applies this unconditionally, main.py:924); accumulation splits
@@ -369,7 +376,7 @@ class Trainer:
         total_steps = self.steps_per_epoch * int(self.config.TRAIN.EPOCHS)
         self.progress.expected_total_steps = total_steps
         self.config.defrost()
-        self.config.LR_SCHEDULER.TOTAL_STEPS = total_steps
+        self._resolve_fractions_again(total_steps)
         self.config.LR_SCHEDULER.BASE_LR = base_lr
         self.config.freeze()
         logger.info(f"AutoBatch: base LR -> {base_lr:.3e}; rebuilding schedules for "
@@ -380,6 +387,28 @@ class Trainer:
         optimizer, self._train_step = self._optimizer_and_step(self.group_schedules)
         self.state.optimizer = optimizer
         self.state.lr_schedule = self.group_schedules
+
+    def _resolve_fractions_again(self, total_steps: int) -> None:
+        """Every schedule step the config gives as a fraction, resolved
+        again from the configured fraction against ``total_steps`` (and
+        TOTAL_STEPS set), as a run configured with the new batch resolves
+        them (F6)."""
+        from linnaeus_tpu_torch.utils.schedule_utils import (
+            _FRACTION_PAIRS,
+            _node_at,
+            resolve_all_schedule_params,
+        )
+
+        for path, steps_key, frac_key in _FRACTION_PAIRS:
+            try:
+                src, dst = _node_at(self._unresolved_schedule, path), _node_at(self.config, path)
+            except KeyError:
+                continue
+            if steps_key in src:
+                dst[steps_key] = src[steps_key]
+            if frac_key in src:
+                dst[frac_key] = src[frac_key]
+        resolve_all_schedule_params(self.config, total_steps)
 
     def _set_val_batch(self, batch_size: int) -> None:
         logger.info(f"AutoBatch(val): updating DATA.BATCH_SIZE_VAL -> {batch_size}")

@@ -38,8 +38,17 @@ and the metadata. At 384 px and B = 64 in bfloat16 that is 57 MB of images
 held from one step to the next; no augmentation or mixing runs twice.
 
 Gradient accumulation runs the microbatches in a Python loop, summing the
-gradients on the parameters. MoE statistics and BatchNorm running stats are
-not on mFormerV1's path and are not ported.
+gradients on the parameters. MoE statistics are not ported.
+
+BatchNorm running statistics (mFormerV0; models/blocks/common.py::BatchNorm)
+are buffers that a training-mode forward updates, so they follow the TPU
+package's rules with nothing here to carry them: a train step updates them
+once per microbatch, in microbatch order, as the TPU package carries
+``batch_stats`` through its accumulation scan; the eval step and the
+GradNorm re-forward run the model in eval mode, which normalises with them
+and leaves them alone (the TPU package's ``deterministic=True``); the EMA
+averages parameters only, so an EMA evaluation uses the live statistics; a
+checkpoint and ``restore_snapshot`` carry them in the model's state_dict.
 """
 
 from __future__ import annotations
@@ -266,11 +275,6 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict, scalars: ScheduleScalars,
                    draws: Draws | Sequence[Draws] | None = None):
         model = state.model
-        if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
-            raise NotImplementedError(
-                "make_train_step: BatchNorm running stats are not ported yet (mFormerV1 "
-                "has none)"
-            )
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:

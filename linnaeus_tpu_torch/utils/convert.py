@@ -1,5 +1,5 @@
-"""The weight bridge: a TPU-package mFormerV1 param tree -> this port's
-state_dict.
+"""The weight bridge: a TPU-package mFormerV1 or mFormerV0 variable tree ->
+this port's state_dict.
 
 Port of the mapping in linnaeus_tpu/utils/pretrained.py
 (``_reference_v1_entries`` walked by ``export_reference_mformer_v1``),
@@ -10,7 +10,12 @@ arrays (``jax.tree.map(np.asarray, params)``), and the layouts convert as
   aggregate Dense (2, 1) -> Conv1d (1, 2, 1),
   Conv1d-head kernel (k, in, out) -> (out, in, k).
 The result loads into :class:`linnaeus_tpu_torch.models.mformer_v1.MFormerV1`
-with ``strict=True``.
+with ``strict=True``. :func:`v0_state_dict_from_jax` does the same for an
+mFormerV0 (MetaFG's key layout; the table of
+linnaeus_tpu/utils/pretrained.py::load_metaformer_into_mformer_v0 run the
+other way), with its ``batch_stats`` collection mapped onto the BatchNorms'
+``running_mean`` / ``running_var`` buffers; :func:`load_jax_variables` puts a
+whole ``{"params", "batch_stats"}`` tree into a live model of either kind.
 
 The map only renames and transposes, so ``state_dict_from_jax`` carries any
 tree shaped like the params just as well, a JAX gradient tree for one, and
@@ -102,11 +107,20 @@ def _entries(
         out += _linear("cl_1_fc.0.fc1", ("cl_1_fc", "Dense_0"))
         out += _linear("cl_1_fc.0.fc2", ("cl_1_fc", "Dense_1"))
         out += _norm("cl_1_fc.1", ("cl_1_norm",))
-        out += [
-            ("aggregate.weight", ("aggregate", "kernel"), _aggregate),
-            ("aggregate.bias", ("aggregate", "bias"), None),
-        ]
+        if "aggregate" in params:
+            out += [
+                ("aggregate.weight", ("aggregate", "kernel"), _aggregate),
+                ("aggregate.bias", ("aggregate", "bias"), None),
+            ]
+        elif "Dense_0" in params.get("aggregate_alt", {}):  # a Concatenation aggregation
+            out += _linear("aggregate_alt.fc", ("aggregate_alt", "Dense_0"))
     out += _norm("final_norm", ("final_norm",))
+    return out + _meta_and_task_heads(params, meta_names, task_keys)
+
+
+def _meta_and_task_heads(params: Mapping[str, Any], meta_names: tuple[str, ...],
+                         task_keys: tuple[str, ...]) -> list[Entry]:
+    out = []
     for s in (1, 2):
         for name in meta_names:
             head = f"meta_{name.lower()}_head_{s}"
@@ -129,6 +143,99 @@ def _entries(
     return out
 
 
+def _conv_kernel(dst: str, src: tuple[str, ...]) -> list[Entry]:
+    return [(f"{dst}.weight", src + ("kernel",), _conv)]
+
+
+# (the port's stem index, the Flax module) of mFormerV0's stem
+_V0_STEM_CONVS = (("stage_0.0", "stem_conv0"), ("stage_0.3", "stem_conv1"),
+                  ("stage_0.6", "stem_conv2"))
+_V0_STEM_BNS = (("stage_0.1", "stem_bn0"), ("stage_0.4", "stem_bn1"), ("bn1", "bn1"))
+_MBCONV_BNS = (("_bn0", "bn0"), ("_bn1", "bn1"), ("_bn2", "bn2"))
+
+
+def _v0_batchnorms(params: Mapping[str, Any], mbconv_depths: tuple[int, int]
+                   ) -> list[tuple[str, tuple[str, ...]]]:
+    """(port module, Flax path) of every BatchNorm of an mFormerV0."""
+    out = [(dst, (src,)) for dst, src in _V0_STEM_BNS]
+    for s, depth in ((1, mbconv_depths[0]), (2, mbconv_depths[1])):
+        for j in range(depth):
+            dst, src = f"stage_{s}.{j}", f"stage{s}_block{j}"
+            out += [(f"{dst}.{d}", (src, b)) for d, b in _MBCONV_BNS if b in params[src]]
+    return out
+
+
+def _v0_entries(
+    params: Mapping[str, Any],
+    mbconv_depths: tuple[int, int],
+    attn_depths: tuple[int, int],
+    meta_names: tuple[str, ...],
+    task_keys: tuple[str, ...],
+) -> list[Entry]:
+    """mFormerV0's parameters: MetaFG key <- Flax path."""
+    out = []
+    for dst, src in _V0_STEM_CONVS:
+        out += _conv_kernel(dst, (src,))
+    for dst, path in _v0_batchnorms(params, mbconv_depths):
+        out += _norm(dst, path)
+    for s, depth in ((1, mbconv_depths[0]), (2, mbconv_depths[1])):
+        for j in range(depth):
+            dst, src = f"stage_{s}.{j}", f"stage{s}_block{j}"
+            if "expand_conv" in params[src]:
+                out += _conv_kernel(f"{dst}._expand_conv", (src, "expand_conv"))
+            out += _conv_kernel(f"{dst}._depthwise_conv", (src, "depthwise_conv"))
+            if "se" in params[src]:
+                out += _conv2d(f"{dst}._se_reduce", (src, "se", "reduce"))
+                out += _conv2d(f"{dst}._se_expand", (src, "se", "expand"))
+            out += _conv_kernel(f"{dst}._project_conv", (src, "project_conv"))
+    for s, depth in ((3, attn_depths[0]), (4, attn_depths[1])):
+        for j in range(depth):
+            dst, src = f"stage_{s}.{j}", f"stage{s}_block{j}"
+            if j == 0:
+                out += _conv2d(f"{dst}.patch_embed.proj", (src, "patch_embed", "proj"))
+                out += _norm(f"{dst}.patch_embed.norm", (src, "patch_embed", "LayerNorm_0"))
+            out += _norm(f"{dst}.norm1", (src, "norm1"))
+            out += _linear(f"{dst}.attn.qkv", (src, "attn", "qkv"))
+            out += _linear(f"{dst}.attn.proj", (src, "attn", "proj"))
+            out.append((f"{dst}.attn.relative_position_bias_table",
+                        (src, "attn", "relative_position_bias_table"), None))
+            out += _norm(f"{dst}.norm2", (src, "norm2"))
+            out += _linear(f"{dst}.mlp.fc1", (src, "mlp", "Dense_0"))
+            out += _linear(f"{dst}.mlp.fc2", (src, "mlp", "Dense_1"))
+    out += _norm("norm_1", ("norm_1",)) + _norm("norm_2", ("norm_2",))
+    out += [("cls_token_1", ("cls_token_1",), None), ("cls_token_2", ("cls_token_2",), None)]
+    if "cl_1_fc" in params:
+        out += _linear("cl_1_fc.0.fc1", ("cl_1_fc", "Dense_0"))
+        out += _linear("cl_1_fc.0.fc2", ("cl_1_fc", "Dense_1"))
+        out += _norm("cl_1_fc.1", ("cl_1_norm",))
+        out += [("aggregate.weight", ("aggregate", "kernel"), _aggregate),
+                ("aggregate.bias", ("aggregate", "bias"), None)]
+    out += _norm("norm", ("final_norm",))
+    return out + _meta_and_task_heads(params, meta_names, task_keys)
+
+
+def _v0_stat_entries(params: Mapping[str, Any], mbconv_depths: tuple[int, int]) -> list[Entry]:
+    """mFormerV0's BatchNorm buffers: MetaFG key <- ``batch_stats`` path."""
+    out = []
+    for dst, path in _v0_batchnorms(params, mbconv_depths):
+        out += [(f"{dst}.running_mean", path + ("mean",), None),
+                (f"{dst}.running_var", path + ("var",), None)]
+    return out
+
+
+def _gather(tree: Mapping[str, Any], entries: list[Entry]) -> dict[str, torch.Tensor]:
+    state: dict[str, torch.Tensor] = {}
+    for key, path, convert in entries:
+        node = tree
+        for part in path:
+            node = node[part]
+        value = np.asarray(node)
+        if convert is not None:
+            value = convert(value)
+        state[key] = torch.tensor(value, dtype=torch.float32)
+    return state
+
+
 def state_dict_from_jax(
     params: Mapping[str, Any],
     convnext_depths: tuple[int, ...],
@@ -140,18 +247,59 @@ def state_dict_from_jax(
     tree of its shape such as its gradients, onto the port's state_dict
     keys, converting layouts; every listed leaf must exist (a missing one
     raises KeyError)."""
-    state: dict[str, torch.Tensor] = {}
-    for key, path, convert in _entries(
-        params, convnext_depths, rope_depths, tuple(meta_names), tuple(task_keys)
-    ):
-        node = params
-        for part in path:
-            node = node[part]
-        value = np.asarray(node)
-        if convert is not None:
-            value = convert(value)
-        state[key] = torch.tensor(value, dtype=torch.float32)
+    return _gather(params, _entries(params, convnext_depths, rope_depths, tuple(meta_names),
+                                    tuple(task_keys)))
+
+
+def v0_state_dict_from_jax(
+    params: Mapping[str, Any],
+    mbconv_depths: tuple[int, int],
+    attn_depths: tuple[int, int],
+    meta_names: tuple[str, ...] = (),
+    task_keys: tuple[str, ...] = (),
+    batch_stats: Mapping[str, Any] | None = None,
+) -> dict[str, torch.Tensor]:
+    """A Flax mFormerV0 ``params`` tree (or any tree of its shape, such as
+    its gradients) onto the port's MetaFG keys, and with ``batch_stats`` its
+    ``mean`` / ``var`` onto the BatchNorms' ``running_mean`` /
+    ``running_var``; every listed leaf must exist."""
+    state = _gather(params, _v0_entries(params, mbconv_depths, attn_depths, tuple(meta_names),
+                                        tuple(task_keys)))
+    if batch_stats is not None:
+        state.update(_gather(batch_stats, _v0_stat_entries(params, mbconv_depths)))
     return state
+
+
+def _bridge_args(model: nn.Module) -> tuple[Callable, tuple]:
+    """The bridge for ``model``'s kind and its arguments after the tree."""
+    names = tuple(name for name, _ in model.meta_components)
+    tasks = tuple(model.head.task_keys)
+    if hasattr(model, "mbconv_depths"):  # mFormerV0
+        return v0_state_dict_from_jax, (model.mbconv_depths, model.attn_depths, names, tasks)
+    depths = tuple(len(stage) for stage in model.stages)
+    return state_dict_from_jax, (depths[:2], depths[2:], names, tasks)
+
+
+def state_dict_from_variables(model: nn.Module, variables: Mapping[str, Any]
+                              ) -> dict[str, torch.Tensor]:
+    """The JAX package's variables ``{"params": ..., "batch_stats": ...}``
+    (nested dicts of numpy arrays; ``batch_stats`` only for mFormerV0) as a
+    state_dict of ``model``, an MFormerV1 or MFormerV0 of the same geometry."""
+    bridge, args = _bridge_args(model)
+    if bridge is v0_state_dict_from_jax:
+        if "batch_stats" not in variables:
+            raise ValueError("an mFormerV0's variables need their 'batch_stats' collection "
+                             "(the BatchNorms' running statistics)")
+        return bridge(variables["params"], *args, batch_stats=variables["batch_stats"])
+    if variables.get("batch_stats"):
+        raise ValueError("'batch_stats' given for an mFormerV1, which has no BatchNorm")
+    return bridge(variables["params"], *args)
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
+    """Load the JAX package's ``{"params", "batch_stats"}`` into ``model``
+    (strict: every parameter and running statistic is set)."""
+    model.load_state_dict(state_dict_from_variables(model, variables), strict=True)
 
 
 def adamw_moments_from_optax(
@@ -160,11 +308,13 @@ def adamw_moments_from_optax(
     rope_depths: tuple[int, int],
     meta_names: tuple[str, ...] = (),
     task_keys: tuple[str, ...] = (),
+    bridge: Callable = state_dict_from_jax,
 ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], int]:
     """(exp_avg, exp_avg_sq, count) of an optax AdamW state by the port's
     parameter names: the ``mu`` and ``nu`` trees and the step count of the
     ``ScaleByAdamState`` found in ``opt_state`` (a nested tuple of states,
-    with the trees already brought to numpy)."""
+    with the trees already brought to numpy). For an mFormerV0 pass
+    ``bridge=v0_state_dict_from_jax`` and its MBConv and attention depths."""
 
     def find(node):
         if hasattr(node, "mu") and hasattr(node, "nu"):
@@ -180,8 +330,7 @@ def adamw_moments_from_optax(
     if adam is None:
         raise ValueError("no state with mu and nu trees in this optax state")
     args = (convnext_depths, rope_depths, meta_names, task_keys)
-    return (state_dict_from_jax(adam.mu, *args), state_dict_from_jax(adam.nu, *args),
-            int(np.asarray(adam.count)))
+    return bridge(adam.mu, *args), bridge(adam.nu, *args), int(np.asarray(adam.count))
 
 
 def convnext_block_args_from_jax(
@@ -250,9 +399,19 @@ def _skeleton(model: nn.Module) -> dict[str, Any]:
                                         else {}}
     if hasattr(model, "cl_1_fc"):
         tree["cl_1_fc"] = True
+    if hasattr(model, "aggregate"):
+        tree["aggregate"] = True
+    alt = getattr(model, "aggregate_alt", None)
+    if alt is not None and hasattr(alt, "fc"):
+        tree["aggregate_alt"] = {"Dense_0": True}
+    return tree | _heads_skeleton(model, lambda dim: dim > 0)
+
+
+def _heads_skeleton(model: nn.Module, has_meta_head: Callable[[int], bool]) -> dict[str, Any]:
+    tree: dict[str, Any] = {}
     for s in (1, 2):
         for name, dim in model.meta_components:
-            if dim > 0:
+            if has_meta_head(dim):
                 tree[f"meta_{name.lower()}_head_{s}"] = True
     tree["head"] = {}
     for task in model.head.task_keys:
@@ -262,14 +421,37 @@ def _skeleton(model: nn.Module) -> dict[str, Any]:
     return tree
 
 
+def _v0_skeleton(model: nn.Module) -> dict[str, Any]:
+    """The keys of a Flax mFormerV0 params tree that ``_v0_entries`` looks up,
+    read off a torch mFormerV0."""
+    tree: dict[str, Any] = {}
+    for s in (1, 2):
+        for j, blk in enumerate(getattr(model, f"stage_{s}")):
+            node = tree[f"stage{s}_block{j}"] = {"bn1": True, "bn2": True}
+            if hasattr(blk, "_expand_conv"):
+                node.update(expand_conv=True, bn0=True)
+            if blk.has_se:
+                node["se"] = True
+    if hasattr(model, "cl_1_fc"):
+        tree["cl_1_fc"] = True
+    return tree | _heads_skeleton(model, lambda dim: True)
+
+
 def jax_layouts(model: nn.Module) -> dict[str, JaxLayout]:
     """Parameter name -> :class:`JaxLayout` for every parameter of a torch
-    mFormerV1, from the same table as :func:`state_dict_from_jax`."""
+    mFormerV1 or mFormerV0, from the same table as :func:`state_dict_from_jax`
+    / :func:`v0_state_dict_from_jax` (parameters only: the running
+    statistics are no parameters)."""
     names = tuple(name for name, _ in model.meta_components)
-    depths = tuple(len(stage) for stage in model.stages)
+    tasks = tuple(model.head.task_keys)
+    if hasattr(model, "mbconv_depths"):
+        entries = _v0_entries(_v0_skeleton(model), model.mbconv_depths, model.attn_depths,
+                              names, tasks)
+    else:
+        depths = tuple(len(stage) for stage in model.stages)
+        entries = _entries(_skeleton(model), depths[:2], depths[2:], names, tasks)
     out = {}
-    for key, path, convert in _entries(_skeleton(model), depths[:2], depths[2:], names,
-                                       tuple(model.head.task_keys)):
+    for key, path, convert in entries:
         to_jax, from_jax = _VIEWS[convert]
         out[key] = JaxLayout("/".join(path), to_jax, from_jax)
     return out

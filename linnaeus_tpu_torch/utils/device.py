@@ -25,11 +25,16 @@ def profiled_device_rows(prof) -> list[tuple[str, float, int]]:
     kernel or copy by name, with its total self device milliseconds and its
     count, longest first. User-annotation ranges are left out (the
     optimizer's "Optimizer.step#..." span covers kernels that have rows of
-    their own). Their sum is the device-busy time of the profiled window."""
+    their own): an annotation's name holds a '#' and no space, where a
+    kernel's '#' sits in a lambda of its template arguments
+    ("void at::native::elementwise_kernel<...{lambda()#1}...>"), which must
+    count. Their sum is the device-busy time of the profiled window."""
     rows = []
     for e in prof.key_averages():
         on_device = "cuda" in str(getattr(e, "device_type", "")).lower()
-        if not on_device or getattr(e, "is_user_annotation", False) or "#" in e.key:
+        annotation = getattr(e, "is_user_annotation", False) or (
+            "#" in e.key and " " not in e.key)
+        if not on_device or annotation:
             continue
         device_us = getattr(e, "self_device_time_total", None)
         if device_us is None:

@@ -12,8 +12,11 @@ maps whose leaves use three extension types:
 Arrays larger than Flax's ``MAX_CHUNK_SIZE`` (2**30 bytes) are written as
 ``{"__msgpack_chunked_array__": True, "shape": {"0": ..}, "chunks": {"0":
 flat array, "1": ..}}``, reassembled here. Only the ``msgpack`` package is
-needed. :func:`read_params` gives the ``params`` collection as nested dicts
-of numpy arrays, the input of ``utils/convert.py::state_dict_from_jax``.
+needed. :func:`read_variables` gives the ``params`` collection and, for an
+mFormerV0, its ``batch_stats`` (the BatchNorms' running statistics) as
+nested dicts of numpy arrays, the input of
+``utils/convert.py::state_dict_from_variables``; :func:`read_params` the
+``params`` alone.
 """
 
 from __future__ import annotations
@@ -72,15 +75,16 @@ def load(path: str | Path) -> dict[str, Any]:
     return loads(Path(path).read_bytes())
 
 
-def read_params(path: str | Path) -> dict[str, Any]:
-    """The ``params`` collection of a Flax variables file. A
-    ``batch_stats`` collection raises: it belongs to mFormerV0's BatchNorm,
-    which is not ported yet (M8)."""
+def read_variables(path: str | Path) -> dict[str, Any]:
+    """The ``params`` collection of a Flax variables file and, where it has
+    one, its ``batch_stats`` collection: ``{"params": ..., "batch_stats":
+    ...}``. Other collections are left out."""
     variables = load(path)
-    if "batch_stats" in variables:
-        raise NotImplementedError(
-            f"{path}: a 'batch_stats' collection (BatchNorm running statistics, mFormerV0) "
-            "is not ported yet")
     if "params" not in variables:
         raise ValueError(f"{path}: no 'params' collection (found {sorted(variables)})")
-    return variables["params"]
+    return {k: variables[k] for k in ("params", "batch_stats") if k in variables}
+
+
+def read_params(path: str | Path) -> dict[str, Any]:
+    """The ``params`` collection of a Flax variables file."""
+    return read_variables(path)["params"]

@@ -1,10 +1,12 @@
-"""Pretrained initialisation of mFormerV1 from torch checkpoints.
+"""Pretrained initialisation of mFormerV1 and mFormerV0 from torch checkpoints.
 
-Port of the mFormerV1 part of linnaeus_tpu/utils/pretrained.py (reference
-parity: utils/checkpoint.py:216-513): the stitched ConvNeXt + RoPE-ViT init
-(``load_stitched_pretrained``), the reference framework's own mFormerV1
-``state_dict`` (``load_reference_mformer_v1``) and the config-driven
-``load_pretrained``. The port's modules hold the reference's key layout, so
+Port of linnaeus_tpu/utils/pretrained.py (reference parity:
+utils/checkpoint.py:117-513) without its MoE and export parts: the stitched
+ConvNeXt + RoPE-ViT init (``load_stitched_pretrained``), the reference
+framework's own mFormerV1 ``state_dict`` (``load_reference_mformer_v1``), a
+MetaFG ("MetaFormer") checkpoint into mFormerV0
+(``load_metaformer_into_mformer_v0``, running statistics included) and the
+config-driven ``load_pretrained``. The port's modules hold the reference's key layout, so
 every entry maps a source key onto one of the model's own ``state_dict``
 keys and the tensor is copied as it is: no layout changes. The official
 ConvNeXt layout differs from the reference's by one downsampler index: its
@@ -20,9 +22,9 @@ parameters, so the optimizer and the EMA, built afterwards, see the loaded
 values. Each loader returns its report: ``{"loaded": [...], "missing":
 [...], "shape_mismatch": [...]}``, keys by the port's names.
 
-What the port does not run raises by name: the MetaFormer source
-(mFormerV0, M8), an MoE model (sparse upcycling, M9) and ``hf://`` or
-``b2://`` paths (remote checkpoints are not part of the port).
+What the port does not run raises by name: an MoE model (sparse upcycling,
+M9) and ``hf://`` or ``b2://`` paths (remote checkpoints are not part of the
+port).
 """
 
 from __future__ import annotations
@@ -228,6 +230,80 @@ def load_reference_mformer_v1(model: nn.Module,
     return report
 
 
+_BN_STATS = ("running_mean", "running_var")
+
+
+def _weight_bias(src: str) -> list[str]:
+    return [f"{src}.weight", f"{src}.bias"]
+
+
+def metaformer_entries(mbconv_depths: tuple[int, int], attn_depths: tuple[int, int],
+                       meta_names: tuple[str, ...] = (), task_keys: tuple[str, ...] = ()
+                       ) -> tuple[list[Entry], list[Entry]]:
+    """(parameter entries, running-statistic entries) of a MetaFG checkpoint
+    on mFormerV0, in the order of the TPU package's table
+    (``load_metaformer_into_mformer_v0``). The port holds MetaFG's layout, so
+    every key maps onto itself. Not in the table, so never loaded: MetaFG's
+    own ``head``, the ``relative_position_index`` buffers and
+    ``num_batches_tracked``."""
+    params = ["stage_0.0.weight", "stage_0.3.weight", "stage_0.6.weight"]
+    stats = []
+    for src in ("stage_0.1", "stage_0.4", "bn1"):
+        params += _weight_bias(src)
+        stats += [f"{src}.{b}" for b in _BN_STATS]
+    for s, depth in ((1, mbconv_depths[0]), (2, mbconv_depths[1])):
+        for j in range(depth):
+            src = f"stage_{s}.{j}"
+            params += [f"{src}._expand_conv.weight", f"{src}._depthwise_conv.weight",
+                       *_weight_bias(f"{src}._se_reduce"), *_weight_bias(f"{src}._se_expand"),
+                       f"{src}._project_conv.weight"]
+            for bn in ("_bn0", "_bn1", "_bn2"):
+                params += _weight_bias(f"{src}.{bn}")
+                stats += [f"{src}.{bn}.{b}" for b in _BN_STATS]
+    for s, depth in ((3, attn_depths[0]), (4, attn_depths[1])):
+        for j in range(depth):
+            src = f"stage_{s}.{j}"
+            if j == 0:
+                params += [*_weight_bias(f"{src}.patch_embed.proj"),
+                           *_weight_bias(f"{src}.patch_embed.norm")]
+            params += [*_weight_bias(f"{src}.norm1"), *_weight_bias(f"{src}.attn.qkv"),
+                       *_weight_bias(f"{src}.attn.proj"),
+                       f"{src}.attn.relative_position_bias_table", *_weight_bias(f"{src}.norm2"),
+                       *_weight_bias(f"{src}.mlp.fc1"), *_weight_bias(f"{src}.mlp.fc2")]
+    params += [*_weight_bias("norm_1"), *_weight_bias("norm_2"), "cls_token_1", "cls_token_2",
+               *_weight_bias("norm"), *_weight_bias("cl_1_fc.0.fc1"),
+               *_weight_bias("cl_1_fc.0.fc2"), *_weight_bias("cl_1_fc.1"),
+               *_weight_bias("aggregate")]
+    for s in (1, 2):
+        for name in meta_names:
+            head = f"meta_{name.lower()}_head_{s}"
+            for part in ("0", "2", "3.w1", "3.norm_fn1", "3.w2", "3.norm_fn2"):
+                params += _weight_bias(f"{head}.{part}")
+    for task in task_keys:
+        params += _weight_bias(f"head.{task}.fc")
+    return [(k, k) for k in params], [(k, k) for k in stats]
+
+
+def load_metaformer_into_mformer_v0(model: nn.Module,
+                                    state_dict: Mapping[str, torch.Tensor]) -> dict[str, Report]:
+    """A MetaFG ("MetaFormer") checkpoint onto an mFormerV0 (reference:
+    utils/checkpoint.py:117 ``map_metaformer_checkpoint``): the stem, MBConv
+    and attention stages, CLS tokens, the metadata heads and the aggregator,
+    and every BatchNorm's running statistics. Non-strict: an absent or
+    shape-mismatched tensor keeps its init and is reported. The reports of
+    the parameters ("MetaFormer") and of the statistics
+    ("MetaFormer/bn-stats"), as the TPU package logs them."""
+    param_entries, stat_entries = metaformer_entries(
+        model.mbconv_depths, model.attn_depths,
+        tuple(name for name, _ in model.meta_components), tuple(model.head.task_keys))
+    reports = {"MetaFormer": _new_report(), "MetaFormer/bn-stats": _new_report()}
+    apply_entries(model, state_dict, param_entries, reports["MetaFormer"])
+    apply_entries(model, state_dict, stat_entries, reports["MetaFormer/bn-stats"])
+    for name, report in reports.items():
+        log_report(name, report)
+    return reports
+
+
 def pretrained_paths(config) -> dict[str, str]:
     """MODEL.PRETRAINED / PRETRAINED_CONVNEXT / PRETRAINED_ROPEVIT that the
     config sets, by key."""
@@ -242,10 +318,10 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
     loader, empty when nothing is configured. Reads:
 
       MODEL.PRETRAINED           torch checkpoint path
-      MODEL.PRETRAINED_SOURCE    'reference' (v1) | 'stitched'; inferred when
-                                 unset ('stitched' with a ConvNeXt or RoPE-ViT
-                                 path, 'metaformer' for mFormerV0, else
-                                 'reference'); 'metaformer' raises (M8)
+      MODEL.PRETRAINED_SOURCE    'metaformer' (v0) | 'reference' (v1) |
+                                 'stitched'; inferred when unset ('stitched'
+                                 with a ConvNeXt or RoPE-ViT path,
+                                 'metaformer' for mFormerV0, else 'reference')
       MODEL.PRETRAINED_CONVNEXT  ConvNeXt trunk checkpoint (stitched init)
       MODEL.PRETRAINED_ROPEVIT   RoPE-ViT checkpoint (stitched init)
 
@@ -277,9 +353,7 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
     if source == "stitched":
         return load_stitched_pretrained(model, cn_path, rv_path)
     if source == "metaformer":
-        raise NotImplementedError(
-            "MODEL.PRETRAINED_SOURCE 'metaformer': MetaFormer (mFormerV0) pretrained init is not "
-            "ported yet (M8)")
+        return load_metaformer_into_mformer_v0(model, load_torch_state_dict(paths["PRETRAINED"]))
     if source == "reference":
         return {"reference-mFormerV1": load_reference_mformer_v1(
             model, load_torch_state_dict(paths["PRETRAINED"]))}

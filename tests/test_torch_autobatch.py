@@ -297,3 +297,72 @@ def test_autobatch_without_a_card_raises_by_name(data_dir, tmp_path):  # noqa: F
     for train, val in ((True, False), (False, True)):
         with pytest.raises(NotImplementedError, match=r"DATA\.AUTOBATCH.*CUDA memory"):
             Trainer(port_config(config(data_dir, tmp_path / "out", train, val)), device="cpu")
+
+
+def with_fractions(cfg):
+    """Warm-up and metadata masking given as fractions of the run (as in
+    configs/experiments/generic_mformer_example.yaml), not as steps, over
+    four epochs."""
+    cfg.TRAIN.EPOCHS = 4
+    cfg.LR_SCHEDULER.WARMUP_STEPS = 0
+    cfg.LR_SCHEDULER.WARMUP_FRACTION = 0.25
+    cfg.SCHEDULE.META_MASKING.END_STEPS = 0
+    cfg.SCHEDULE.META_MASKING.END_FRACTION = 0.5
+    return cfg
+
+
+FRACTION_STEPS = ("LR_SCHEDULER.WARMUP_STEPS", "SCHEDULE.META_MASKING.END_STEPS",
+                  "LR_SCHEDULER.TOTAL_STEPS", "LR_SCHEDULER.BASE_LR")
+
+
+def read(cfg, dotted):
+    for part in dotted.split("."):
+        cfg = cfg[part]
+    return cfg
+
+
+@time_limit(240)
+def test_autobatch_resolves_the_fractions_for_the_batch_it_finds(data_dir, tmp_path,  # noqa: F811
+                                                               monkeypatch):
+    """F6: after AutoBatch changes the batch, every step count given as a
+    fraction is resolved again for the new batch's run, so the Trainer
+    equals the JAX Trainer configured with the found batch by hand (the
+    warm-up, the masking end, TOTAL_STEPS, BASE_LR) and trains the losses
+    of the port's own hand-set Trainer bit for bit. The port departs here
+    from the JAX package's AutoBatch on purpose, as it does for F7 (ROADMAP
+    Queue 3): JAX keeps the configured batch's resolved steps."""
+    jcfg = with_fractions(config(data_dir, tmp_path / "jax", train=False, val=False))
+    jcfg.DATA.BATCH_SIZE = B
+    jtrainer = JTrainer(jcfg)
+    jtrainer.train_loader.close()
+    jtrainer.val_loader.close()
+
+    tried = []
+    patch_port(monkeypatch, {0.8: B}, tried)
+    pcfg = port_config(with_fractions(config(data_dir, tmp_path / "port", val=False)))
+    pcfg.DATA.AUTOBATCH.TARGET_MEMORY_FRACTION = 0.8
+    trainer = Trainer(pcfg, device="cpu")
+    assert tried == [B0, B] and trainer.config.DATA.BATCH_SIZE == B
+    configured = Trainer(port_config(with_fractions(
+        config(data_dir, tmp_path / "configured", train=False, val=False))), device="cpu")
+    configured.close()
+    for key in FRACTION_STEPS:
+        assert read(trainer.config, key) == read(jtrainer.config, key), key
+    for key in FRACTION_STEPS[:3]:  # the configured batch's counts are twice as many
+        assert read(configured.config, key) == 2 * read(trainer.config, key), key
+
+    hand_cfg = port_config(with_fractions(config(data_dir, tmp_path / "hand", train=False,
+                                                 val=False)))
+    hand_cfg.DATA.BATCH_SIZE = B
+    hand = Trainer(hand_cfg, device="cpu")
+    for key in FRACTION_STEPS:
+        assert read(hand.config, key) == read(trainer.config, key), key
+    assert same_bits(ckpt.snapshot_state(trainer.state), ckpt.snapshot_state(hand.state))
+    for t in (trainer, hand):
+        t.train()
+        t.close()
+    got = step_rows(trainer.config.ENV.OUTPUT.DIRS.LOGS)
+    want = step_rows(hand.config.ENV.OUTPUT.DIRS.LOGS)
+    assert sorted(got) == sorted(want) == list(range(1, 4 * trainer.steps_per_epoch + 1))
+    for key in ("train/loss", "lr"):
+        assert [got[s].get(key) for s in sorted(got)] == [want[s].get(key) for s in sorted(want)]

@@ -111,6 +111,16 @@ def test_num_classes_from_the_config():
 def test_unported_config_raises_by_name(change, error, name):
     tcfg, jcfg = _both()
     tcfg.merge_from_other_cfg(change)
+    if name in ("MODEL.TYPE", "MODEL.AGGREGATION.TYPE"):
+        # ported since (tests/test_torch_mformer_v0.py, tests/test_torch_model_zoo.py):
+        # the config builds the model the JAX package builds
+        jcfg.merge_from_other_cfg(change)
+        ours, theirs = build_model(tcfg, NC, device="cpu"), jbuild_model(jcfg, NC)
+        assert type(ours).__name__ == type(theirs).__name__
+        if name == "MODEL.AGGREGATION.TYPE":
+            assert theirs.aggregation == "Concatenation"
+            assert type(ours.aggregate_alt).__name__ == "ConcatenationAggregation"
+        return
     if name == "gradient_checkpointing":
         # ported: the config's remat setting and policy reach the model, as
         # they reach the JAX package's

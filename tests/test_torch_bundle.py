@@ -192,3 +192,105 @@ def test_throughput_tests_give_the_jax_keys(tmp_path):
     assert list(results) == [32, 64, 128, 256]
     assert all(r.keys() == want[2].keys() for r in results.values())
 
+
+
+V0_ARCH = dict(img_size=(32, 32), stage_dims=(8, 12, 24, 32, 64), mbconv_depths=(1, 1),
+               attn_depths=(1, 1), num_heads=(2, 2), drop_path_rate=0.0)
+V0_VARIANT = {"MODEL": {"TYPE": "mFormerV0", "DROP_PATH_RATE": 0.0,
+                        "STAGES": {"DIMS": [8, 12, 24, 32, 64], "MBCONV_DEPTHS": [1, 1],
+                                   "ATTN_DEPTHS": [1, 1], "NUM_HEADS": [2, 2],
+                                   "MLP_RATIO": [4.0, 4.0]}},
+              "TRAIN": {"AMP_OPT_LEVEL": "O0", "MIXED_PRECISION": {"ENABLED": False}}}
+
+
+def v0_checkpoints(tmp_path, num_classes, meta):
+    """A JAX Orbax checkpoint of a tiny mFormerV0's params and moved running
+    statistics, and a port checkpoint of the same variables."""
+    from linnaeus_tpu.models import MFormerV0 as JMFormerV0
+    from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
+    from linnaeus_tpu_torch.utils.convert import load_jax_variables
+
+    jmodel = JMFormerV0(**V0_ARCH, meta_components=meta, task_keys=TASKS,
+                        num_classes=num_classes,
+                        head_configs={t: {"TYPE": "Linear"} for t in TASKS})
+    aux = jnp.zeros((1, sum(d for _, d in meta)))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), aux)
+    rng = np.random.default_rng(5)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, a: np.asarray(a) + (0.5 if path[-1].key == "var" else 0.1)
+        * np.abs(rng.normal(size=a.shape)).astype(np.float32), variables["batch_stats"])
+    jpath = jckpt.save_checkpoint(str(tmp_path / "jax_ckpts"), j_state(
+        jmodel, variables["params"], optax.sgd(0.1), num_tasks=2, rng=jax.random.PRNGKey(0),
+        batch_stats=jax.tree.map(jnp.asarray, stats)))
+    model = MFormerV0(**V0_ARCH, meta_components=meta, task_keys=TASKS, num_classes=num_classes)
+    load_jax_variables(model, {"params": jax.tree.map(np.asarray, variables["params"]),
+                               "batch_stats": stats})
+    state = create_train_state(model, torch.optim.SGD(model.parameters(), lr=0.1), num_tasks=2,
+                               generator=torch.Generator().manual_seed(0))
+    return jpath, tckpt.save_checkpoint(str(tmp_path / "port_ckpts"), state), state
+
+
+def with_weights(config_path: str, weights_path: str, out: str) -> str:
+    with open(config_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["weights_path"] = weights_path
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return out
+
+
+@pytest.mark.parametrize("family", ["mFormerV1", "mFormerV0"])
+def test_a_training_checkpoint_directory_serves_as_its_bundle(assets, tmp_path, family):
+    """F8: the handler loads the port's training checkpoint directory
+    (``state/state.pt``, running statistics included) and gives the logits
+    of the ``weights.pt`` the bundle tool writes from it, bit for bit; the
+    JAX package's Orbax directory raises by name. For mFormerV0 the JAX
+    tool's ``weights.msgpack`` (``params`` and ``batch_stats``) serves the
+    same bits, and the JAX handler on it agrees to the model bar."""
+    from linnaeus_tpu.inference import LinnaeusInferenceHandler as JHandler
+    from linnaeus_tpu_torch.inference.model_utils import load_weights
+
+    assets_dir, num_classes = assets
+    if family == "mFormerV1":
+        jpath, tpath, state = checkpoints(tmp_path, num_classes, META)
+        variant_cfg = VARIANT
+    else:
+        jpath, tpath, state = v0_checkpoints(tmp_path, num_classes, META)
+        variant_cfg = V0_VARIANT
+    args = ("tiny", list(TASKS), [num_classes[t] for t in TASKS])
+    tb = prepare_inference_bundle.prepare_bundle(tpath, assets_dir, str(tmp_path / "port_bundle"),
+                                                 *args, image_size=32)
+    variant = str(tmp_path / "variant.yaml")
+    with open(variant, "w") as f:
+        yaml.safe_dump(variant_cfg, f)
+    from_pt = on_cpu_with_variant(tb, variant)
+    from_dir = with_weights(from_pt, os.path.abspath(tpath), os.path.join(tb, "from_dir.yaml"))
+    handlers = {name: LinnaeusInferenceHandler.load_from_artifacts(path)
+                for name, path in (("pt", from_pt), ("dir", from_dir))}
+    assert type(handlers["dir"].model).__name__ == family.replace("mF", "MF")
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((4, 32, 32, 3), generator=g)
+    a = torch.randn((4, 5), generator=g)
+    with torch.inference_mode():
+        logits = {name: h.model(x, a) for name, h in handlers.items()}
+    for t in TASKS:
+        assert torch.equal(logits["pt"][t], logits["dir"][t]), t
+    want = {k: v for k, v in state.model.state_dict().items()}
+    got = handlers["dir"].model.state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(NotImplementedError, match="Orbax"):
+        load_weights(handlers["dir"].model, jpath)
+    with pytest.raises(FileNotFoundError, match="No checkpoint state"):
+        load_weights(handlers["dir"].model, str(tmp_path))
+    if family == "mFormerV1":
+        return
+    jb = j_prepare(jpath, assets_dir, str(tmp_path / "jax_bundle"), *args, image_size=32)
+    from_msgpack = LinnaeusInferenceHandler.load_from_artifacts(on_cpu_with_variant(jb, variant))
+    theirs = JHandler.load_from_artifacts(os.path.join(jb, "config.yaml"))
+    assert "batch_stats" in theirs.variables
+    with torch.inference_mode():
+        ours = from_msgpack.model(x, a)
+    ref = theirs.model.apply(theirs.variables, jnp.asarray(x.numpy()), jnp.asarray(a.numpy()))
+    for t in TASKS:
+        assert torch.equal(ours[t], logits["dir"][t]), t
+        np.testing.assert_allclose(ours[t].numpy(), np.asarray(ref[t]), atol=4e-5, rtol=0)

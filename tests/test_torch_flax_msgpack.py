@@ -109,10 +109,47 @@ def test_scalars_complex_and_dtypes():
 
 
 def test_batch_stats_and_missing_params_raise(variables, tmp_path):
-    with_bn = {"params": variables["params"], "batch_stats": {"bn": {"mean": np.zeros(3)}}}
+    """A ``batch_stats`` collection (mFormerV0's running statistics) is read
+    beside ``params`` (it raised before the port had BatchNorm); a file
+    without ``params`` still raises."""
+    with_bn = {"params": variables["params"], "batch_stats": {"bn": {"mean": np.zeros(3)}},
+               "other": {"x": np.ones(2)}}
     (tmp_path / "bn.msgpack").write_bytes(fser.to_bytes(with_bn))
-    with pytest.raises(NotImplementedError, match="batch_stats"):
-        flax_msgpack.read_params(tmp_path / "bn.msgpack")
+    read = flax_msgpack.read_variables(tmp_path / "bn.msgpack")
+    assert sorted(read) == ["batch_stats", "params"]
+    np.testing.assert_array_equal(read["batch_stats"]["bn"]["mean"], np.zeros(3))
+    assert flax_msgpack.read_params(tmp_path / "bn.msgpack").keys() == variables["params"].keys()
     (tmp_path / "none.msgpack").write_bytes(fser.to_bytes({"other": {"x": np.zeros(2)}}))
     with pytest.raises(ValueError, match="params"):
         flax_msgpack.read_params(tmp_path / "none.msgpack")
+
+
+def test_mformer_v0_variables_with_batch_stats_load_leaf_by_leaf(tmp_path):
+    """An mFormerV0's ``weights.msgpack`` (``params`` and ``batch_stats``,
+    the JAX package's bundle format) loads into the port's model: every
+    parameter and running statistic equal to the file's, the statistics in
+    the BatchNorms' buffers. The handler's logits on such a bundle against
+    the JAX handler's: tests/test_torch_bundle.py."""
+    from linnaeus_tpu.models import MFormerV0 as JMFormerV0
+    from linnaeus_tpu_torch.inference.model_utils import load_weights
+    from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
+    from linnaeus_tpu_torch.utils.convert import state_dict_from_variables
+
+    kw = dict(img_size=(32, 32), stage_dims=(8, 12, 24, 32, 64), mbconv_depths=(1, 1),
+              attn_depths=(1, 1), num_heads=(2, 2), meta_components=META, task_keys=TASKS,
+              num_classes=NC)
+    jmodel = JMFormerV0(**kw, head_configs={t: {"TYPE": "Linear"} for t in TASKS})
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
+                                     jnp.zeros((1, 5)))
+    variables = {"params": variables["params"], "batch_stats": jax.tree.map(
+        lambda a: a + 0.25, variables["batch_stats"])}
+    (tmp_path / "weights.msgpack").write_bytes(fser.to_bytes(variables))
+    read = flax_msgpack.read_variables(tmp_path / "weights.msgpack")
+    _assert_same_tree(read, jax.tree.map(np.asarray, fser.to_state_dict(variables)))
+    model = MFormerV0(**kw)
+    load_weights(model, str(tmp_path / "weights.msgpack"))
+    want = state_dict_from_variables(model, jax.tree.map(np.asarray, variables))
+    assert model.state_dict().keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(model.state_dict()[key], value), key
+    assert float(model.bn1.running_var[0]) == 1.25

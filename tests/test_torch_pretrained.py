@@ -258,8 +258,8 @@ def test_nothing_configured_loads_nothing_and_what_waits_raises(initial, tmp_pat
         _, cfg = configs(**{key: value})
         with pytest.raises(NotImplementedError, match=match):
             tpre.load_pretrained(cfg, model)
-    _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"), PRETRAINED_SOURCE="metaformer")
-    with pytest.raises(NotImplementedError, match="metaformer"):
+    _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"), PRETRAINED_SOURCE="other")
+    with pytest.raises(ValueError, match="Unknown MODEL.PRETRAINED_SOURCE 'other'"):
         tpre.load_pretrained(cfg, model)
     _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"))
     cfg.MODEL.MOE.ENABLED = True
@@ -353,3 +353,88 @@ def test_the_example_config_builds_a_trainer_from_local_files(data_dir, tmp_path
     assert len(reports["ConvNeXt"]["loaded"]) == 4 + 9 * 2 + 12
     assert torch.equal(trainer.model.stages[2][0].attn.qkv.weight, rope["blocks.0.attn.qkv.weight"])
     trainer.close()
+
+
+# ------------------------------------------------------------------ mFormerV0
+V0_KW = dict(img_size=(64, 64), stage_dims=(8, 12, 24, 32, 64), mbconv_depths=(1, 1),
+             attn_depths=(1, 1), num_heads=(2, 2), drop_path_rate=0.0, meta_components=META,
+             task_keys=TASKS, num_classes=NUM_CLASSES)
+
+
+def metafg_sd(model, seed: int) -> dict[str, torch.Tensor]:
+    """A MetaFG-layout file for the tiny mFormerV0, every tensor seeded and
+    distinct: running variances positive, MetaFG's ``num_batches_tracked``,
+    ``relative_position_index`` and 1000-class ``head`` beside them, task
+    t1's head present and t2's absent, a bias of stage 4 missing, and two
+    tensors of another geometry (a 32 px stage-3 bias table, a temporal
+    head with hour columns)."""
+    t = Seeded(seed)
+    sd = {}
+    for key, value in model.state_dict().items():
+        sd[key] = t(*value.shape)
+        if key.endswith("running_var"):
+            sd[key] = sd[key].abs() + 0.5
+            sd[key.replace("running_var", "num_batches_tracked")] = torch.tensor(7)
+    for name, module in model.named_modules():
+        if hasattr(module, "relative_position_index"):
+            sd[f"{name}.relative_position_index"] = module.relative_position_index
+    sd.update({"head.weight": t(1000, 64), "head.bias": t(1000)})
+    del sd["head.t2.fc.weight"], sd["head.t2.fc.bias"], sd["stage_4.0.mlp.fc2.bias"]
+    sd["stage_3.0.attn.relative_position_bias_table"] = t(3 * 3 + 1, 2)
+    sd["meta_temporal_head_1.0.weight"] = t(32, 4)
+    return sd
+
+
+def test_metaformer_init_of_mformer_v0_matches_jax(tmp_path, monkeypatch):
+    """The same seeded MetaFG file through the TPU package's
+    ``load_pretrained`` (source inferred from MODEL.TYPE mFormerV0) and the
+    port's: parameters and running statistics bit for bit, and the same
+    reports, the port's keys taken to Flax paths."""
+    from linnaeus_tpu.models import MFormerV0 as JMFormerV0
+    from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
+    from linnaeus_tpu_torch.utils.convert import (
+        JaxLayout,
+        _v0_stat_entries,
+        load_jax_variables,
+        state_dict_from_variables,
+    )
+
+    jmodel = JMFormerV0(**V0_KW, head_configs={t: {"TYPE": "Linear"} for t in TASKS})
+    variables = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 5))))
+    model = MFormerV0(**V0_KW)
+    load_jax_variables(model, variables)
+    path = tmp_path / "metafg.pth"
+    torch.save({"model": metafg_sd(model, 7)}, path)
+
+    jreports = {}
+    original = jpre._log_report
+
+    def capture(name, report):
+        jreports[name] = {k: list(v) for k, v in report.items()}
+        original(name, report)
+
+    monkeypatch.setattr(jpre, "_log_report", capture)
+    jcfg, tcfg = configs(PRETRAINED=str(path))
+    for cfg in (jcfg, tcfg):
+        cfg.MODEL.TYPE = "mFormerV0"
+    jparams, jstats = jpre.load_pretrained(jcfg, jmodel, variables["params"],
+                                           variables["batch_stats"])
+    reports = tpre.load_pretrained(tcfg, model)
+    want = state_dict_from_variables(model, {"params": jax.tree.map(np.asarray, jparams),
+                                             "batch_stats": jax.tree.map(np.asarray, jstats)})
+    assert_same_weights(model, want)
+    assert list(reports) == list(jreports) == ["MetaFormer", "MetaFormer/bn-stats"]
+    layouts = jax_layouts(model) | {k: JaxLayout("/".join(p), None, None)
+                                    for k, p, _ in _v0_stat_entries(variables["params"], (1, 1))}
+    for name in reports:
+        assert as_flax(reports[name], layouts) == jax_mismatch_keys(jreports[name]), name
+    report = reports["MetaFormer"]
+    assert sorted(report["missing"]) == ["src:head.t2.fc.bias", "src:head.t2.fc.weight",
+                                        "src:stage_4.0.mlp.fc2.bias"]
+    assert sorted(m.split(":")[0] for m in report["shape_mismatch"]) == [
+        "meta_temporal_head_1.0.weight", "stage_3.0.attn.relative_position_bias_table"]
+    assert len(reports["MetaFormer/bn-stats"]["loaded"]) == 18
+    source = tpre.load_torch_state_dict(str(path))
+    for key in report["loaded"] + reports["MetaFormer/bn-stats"]["loaded"]:
+        assert torch.equal(model.state_dict()[key], source[key]), key

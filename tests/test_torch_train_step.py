@@ -39,6 +39,7 @@ import linnaeus_tpu.train.step as jstep
 from linnaeus_tpu.data.augmentation import autoaugment as jaa
 from linnaeus_tpu.configuration.defaults import get_default_config
 from linnaeus_tpu.loss import soft_target_cross_entropy as j_stce
+from linnaeus_tpu.models import MFormerV0 as JMFormerV0
 from linnaeus_tpu.models import MFormerV1 as JMFormerV1
 from linnaeus_tpu.optim import build as j_build
 from linnaeus_tpu.optim import schedules as j_sched
@@ -48,7 +49,9 @@ from linnaeus_tpu_torch.data import collate as tc
 from linnaeus_tpu_torch.data.augmentation import autoaugment as taa
 from linnaeus_tpu_torch.loss import gradnorm as tgn
 from linnaeus_tpu_torch.loss import soft_target_cross_entropy as t_stce
+from linnaeus_tpu_torch.models.blocks.common import BatchNorm
 from linnaeus_tpu_torch.models.build import build_model
+from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
 from linnaeus_tpu_torch.optim.build import build_optimizer
 from linnaeus_tpu_torch.optim.schedules import build_schedule
 from linnaeus_tpu_torch.tools import train_bench
@@ -60,7 +63,13 @@ from linnaeus_tpu_torch.train.step import (
     make_preprocess_fn,
     make_train_step,
 )
-from linnaeus_tpu_torch.utils.convert import adamw_moments_from_optax, state_dict_from_jax
+from linnaeus_tpu_torch.utils.convert import (
+    adamw_moments_from_optax,
+    load_jax_variables,
+    state_dict_from_jax,
+    state_dict_from_variables,
+    v0_state_dict_from_jax,
+)
 from tests.test_torch_augmentation import jax_pipeline_draws
 from tests.test_torch_collate import mixing_draws
 
@@ -352,11 +361,12 @@ def test_drop_path_draws_from_the_step_generator():
 def test_unported_paths_raise_and_the_entry_point_needs_a_card():
     with pytest.raises(NotImplementedError, match="MoE"):
         make_train_step({}, TASKS, tc.MixConfig(), moe_aux_weight=0.01)
-    model = torch.nn.Sequential(torch.nn.BatchNorm1d(3))
+    # BatchNorm running statistics are ported (mFormerV0, the tests below):
+    # the step no longer refuses a model that holds them
+    model = torch.nn.Sequential(BatchNorm(3, eps=1e-5))
     state = TrainState(0, model, torch.optim.SGD(model.parameters(), lr=0.1), None,
                        torch.Generator())
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        make_train_step({}, (), tc.MixConfig())(state, {}, ScheduleScalars.zeros(1))
+    assert model[0].running_var.eq(1).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_bench.build_step(2, 32, arch=SPEC)
@@ -466,3 +476,130 @@ def test_gradnorm_reforwards_what_the_step_consumed(accum, zero_aux):
     np.testing.assert_allclose(float(state.gradnorm.task_weights.sum()), len(TASKS), rtol=1e-6)
     assert bool(state.gradnorm.has_initted)
     assert state.model.training is False or state.model.gradient_checkpointing is False
+
+
+# ------------------------------------------------------------------ mFormerV0
+V0_KW = dict(img_size=(IMG, IMG), stage_dims=(8, 12, 24, 32, 64), mbconv_depths=(1, 1),
+             attn_depths=(1, 1), num_heads=(2, 2), drop_path_rate=0.0, meta_components=META,
+             task_keys=TASKS, num_classes=NC)
+V0_BRIDGE = ((1, 1), (1, 1), ("TEMPORAL", "SPATIAL"), TASKS)
+STATS_TOL = 1e-6
+
+
+def _v0_setup(accum=1):
+    """(jax step, jax state with batch_stats, torch step, torch state) of a
+    tiny mFormerV0 on the same noisy params and running statistics, drop
+    rates 0, mixing off."""
+    jm = JMFormerV0(**V0_KW, head_configs={t: {"TYPE": "Linear"} for t in TASKS})
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((2, IMG, IMG, 3)),
+                                 jnp.zeros((2, 5)))
+    rng = np.random.default_rng(1)
+    variables = jax.tree.map(
+        lambda a: np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(np.float32), variables)
+    variables["batch_stats"] = jax.tree_util.tree_map_with_path(
+        lambda path, a: np.abs(a) + 0.5 if path[-1].key == "var" else a,
+        variables["batch_stats"])
+    mix = {"mixup_enabled": False, "cutmix_enabled": False}
+    jcfg, cfg = _configs()
+    j_schedule = j_sched.build_schedule(jcfg, 100)
+    j_state = j_create_state(jm, jax.tree.map(jnp.asarray, variables["params"]),
+                             j_build.build_optimizer(jcfg, j_schedule), num_tasks=2,
+                             rng=jax.random.PRNGKey(SEED_KEY),
+                             batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]))
+    j_step = jax.jit(jstep.make_train_step(
+        {t: j_stce for t in TASKS}, TASKS, jc.MixConfig(**mix), clip_grad=5.0,
+        accumulation_steps=accum, lr_schedule=j_schedule))
+    model = MFormerV0(**V0_KW)
+    load_jax_variables(model, variables)
+    schedule = build_schedule(cfg, 100)
+    t_state = create_train_state(model, build_optimizer(cfg, schedule, model), num_tasks=2,
+                                 generator=torch.Generator().manual_seed(0), lr_schedule=schedule)
+    t_step = make_train_step({t: t_stce for t in TASKS}, TASKS, tc.MixConfig(**mix),
+                             clip_grad=5.0, accumulation_steps=accum, lr_schedule=schedule)
+    return jm, variables, j_step, j_state, t_step, t_state, jc.MixConfig(**mix)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_mformer_v0_step_with_batch_stats_matches_jax(accum):
+    """One AdamW step of mFormerV0 against JAX's ``make_train_step`` with
+    ``batch_stats``: loss, gradient norms, Adam's first moment, the updated
+    parameters and the running statistics, which JAX carries through its
+    accumulation scan and the port updates once per microbatch, in order."""
+    jm, variables, j_step, j_state, t_step, t_state, mix_cfg = _v0_setup(accum)
+    batch = _batch()
+    j_scalars, t_scalars = _scalars("plain")
+    j_state, j_m = j_step(j_state, _tree(batch, jnp.asarray), j_scalars)
+    draws = (step_draws(0, mix_cfg) if accum == 1
+             else [step_draws(0, mix_cfg, micro=i, rows=B // accum) for i in range(accum)])
+    t_state, t_m = t_step(t_state, _tree(batch, torch.tensor), t_scalars, draws=draws)
+    _compare_metrics(t_m, j_m, loss_atol=1e-4, norm_rtol=1e-3)
+
+    mu, _, count = adamw_moments_from_optax(jax.tree.map(np.asarray, j_state.opt_state),
+                                            *V0_BRIDGE, bridge=v0_state_dict_from_jax)
+    assert count == 1
+    want = state_dict_from_variables(t_state.model, {
+        "params": jax.tree.map(np.asarray, j_state.params),
+        "batch_stats": jax.tree.map(np.asarray, j_state.batch_stats)})
+    mu_scale = max(float(v.abs().max()) for v in mu.values())
+    for name, p in t_state.model.named_parameters():
+        np.testing.assert_allclose(t_state.optimizer.state[p]["exp_avg"].numpy(),
+                                   mu[name].numpy(), rtol=0, atol=1e-4 * mu_scale, err_msg=name)
+        real = mu[name].abs() >= 1e-7  # elsewhere AdamW steps on float noise
+        np.testing.assert_allclose(p.detach()[real].numpy(), want[name][real].numpy(), rtol=0,
+                                   atol=2e-5, err_msg=name)
+    initial = state_dict_from_variables(t_state.model, variables)
+    stats = [k for k in want if "running" in k]
+    assert len(stats) == 2 * (3 + 3 + 3)
+    for key in stats:
+        got = t_state.model.state_dict()[key]
+        assert not torch.equal(got, initial[key]), key  # the step moved it
+        np.testing.assert_allclose(got.numpy(), want[key].numpy(), rtol=STATS_TOL,
+                                   atol=STATS_TOL, err_msg=key)
+
+
+def test_mformer_v0_gradnorm_update_reads_the_statistics_and_leaves_them():
+    """The GradNorm re-forward runs in eval mode, normalising with the
+    running statistics without updating them, as JAX's deterministic
+    re-forward with ``batch_stats`` does; its norms match JAX's."""
+    jm, variables, *_, t_state, _ = _v0_setup()
+    model = t_state.model.train()
+    batch = _batch()
+    targets = {t: torch.tensor(v) for t, v in batch["targets"].items()}
+    trunk = [n for n, _ in model.named_parameters() if not n.startswith(("head", "meta_"))]
+    update = tgn.make_gradnorm_update_fn({t: t_stce for t in TASKS}, TASKS, trunk, alpha=1.5)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state, tm = update(model, torch.tensor(batch["images"]), targets,
+                       torch.tensor(batch["aux"]), t_state.gradnorm)
+    assert all(torch.equal(v, model.state_dict()[k]) for k, v in before.items())
+    assert model.training
+
+    def apply_fn(p, imgs, mta, deterministic=True, gradnorm_mode=True, batch_stats=None):
+        return jm.apply({"params": p, "batch_stats": batch_stats}, imgs, mta,
+                        deterministic=deterministic, gradnorm_mode=gradnorm_mode)
+
+    jtrunk = lambda p: {k: jax.tree.map(  # noqa: E731
+        lambda a: jnp.asarray(0.0 if k == "head" or k.startswith("meta_") else 1.0), v)
+        for k, v in p.items()}
+    jupdate = jax.jit(jgn_update(apply_fn, jtrunk))
+    jstate, jm_ = jupdate(jax.tree.map(jnp.asarray, variables["params"]),
+                          jnp.asarray(batch["images"]),
+                          {t: jnp.asarray(v) for t, v in batch["targets"].items()},
+                          jnp.asarray(batch["aux"]), jgn_state(),
+                          jax.tree.map(jnp.asarray, variables["batch_stats"]))
+    for k in ("gradnorm/norms", "gradnorm/losses"):
+        np.testing.assert_allclose(np.asarray(tm[k]), np.asarray(jm_[k]), rtol=1e-4, err_msg=k)
+    np.testing.assert_allclose(state.task_weights.numpy(), np.asarray(jstate.task_weights),
+                               rtol=1e-4)
+
+
+def jgn_update(apply_fn, trunk_filter):
+    from linnaeus_tpu.loss import gradnorm as jgn
+
+    return jgn.make_gradnorm_update_fn(apply_fn, {t: j_stce for t in TASKS}, TASKS,
+                                       trunk_filter, alpha=1.5)
+
+
+def jgn_state():
+    from linnaeus_tpu.loss import gradnorm as jgn
+
+    return jgn.init_gradnorm_state(len(TASKS))

@@ -230,6 +230,60 @@ def test_trainer_end_to_end_and_resume(data_dir, tmp_path):  # noqa: F811
     again.close()
 
 
+V0_TINY = {"MODEL.TYPE": "mFormerV0", "MODEL.NAME": "tiny_v0",
+           "MODEL.STAGES.DIMS": [8, 12, 24, 32, 64], "MODEL.STAGES.MBCONV_DEPTHS": [1, 1],
+           "MODEL.STAGES.ATTN_DEPTHS": [1, 1], "MODEL.STAGES.NUM_HEADS": [2, 2]}
+
+
+@time_limit(240)
+def test_mformer_v0_trains_an_epoch_and_resumes_with_its_running_statistics(
+        data_dir, tmp_path):  # noqa: F811
+    """mFormerV0 through the Trainer with GradNorm, validation, the EMA and a
+    checkpoint: every BatchNorm's running statistics move and stay finite,
+    the EMA mirrors the parameters only (an EMA evaluation uses the live
+    statistics, as in the TPU package), and a resumed Trainer holds the
+    statistics bit for bit and trains on from them."""
+    from linnaeus_tpu_torch.models.blocks.common import BatchNorm
+    from linnaeus_tpu_torch.models.mformer_v0 import MFormerV0
+    from linnaeus_tpu_torch.utils.checkpoint import snapshot_state
+
+    cfg = port_only(data_dir, tmp_path / "out", epochs=1, **V0_TINY,
+                    **{"TRAIN.EMA.ENABLED": True})
+    trainer = Trainer(cfg, device="cpu")
+    model = trainer.model
+    assert isinstance(model, MFormerV0)
+    bns = {n: m for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    assert len(bns) == 9
+    trainer.train()
+    trainer.close()
+    for name, bn in bns.items():
+        assert bn.running_mean.ne(0).any() and bn.running_var.ne(1).any(), name
+        assert torch.isfinite(bn.running_mean).all() and torch.isfinite(bn.running_var).all()
+    assert trainer.metrics.get(MetricsTracker.VAL, "loss") is not None
+    assert set(trainer.state.ema_params) == {n for n, _ in model.named_parameters()}
+    assert sum(t["gradnorm_updates"] for t in trainer.epoch_timings.values()) == (
+        trainer.progress.global_step // 2)
+
+    cfg2 = port_only(data_dir, tmp_path / "out", epochs=2, **V0_TINY,
+                     **{"TRAIN.EMA.ENABLED": True})
+    again = Trainer(cfg2, device="cpu")
+    assert again.try_resume()
+    saved, loaded = snapshot_state(trainer.state), snapshot_state(again.state)
+    for name, value in saved["model"].items():
+        assert torch.equal(value, loaded["model"][name]), name
+    assert any("running_var" in k for k in saved["model"])
+    for name, value in saved["ema_params"].items():
+        assert torch.equal(value, loaded["ema_params"][name]), name
+    resumed = {n: m.running_var.clone() for n, m in again.model.named_modules()
+               if isinstance(m, BatchNorm)}
+    again.train()
+    again.close()
+    assert again.progress.global_step == 2 * trainer.steps_per_epoch
+    for name, m in again.model.named_modules():
+        if isinstance(m, BatchNorm):
+            assert not torch.equal(m.running_var, resumed[name]), name
+
+
 @time_limit(240)
 def test_resumed_epoch_reads_the_samplers_batches(data_dir, tmp_path):  # noqa: F811
     """Train one epoch, then resume with two: the second epoch reads the
@@ -433,6 +487,18 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
     if option == "DATA.NATIVE_DATAPLANE":
         cfg.DATA.HYBRID.USE_HYBRID = True
         cfg.DATA.HYBRID.IMAGES_DIR = str(tmp_path)
+    if option == "MODEL.TYPE":
+        # ported since: the Trainer builds mFormerV0 (and trains it:
+        # test_mformer_v0_trains_an_epoch_and_resumes_with_its_running_statistics)
+        for key, v in V0_TINY.items():
+            node = cfg
+            for part in key.split(".")[:-1]:
+                node = node[part]
+            node[key.split(".")[-1]] = v
+        trainer = Trainer(cfg, device="cpu")
+        trainer.close()
+        assert type(trainer.model).__name__ == "MFormerV0"
+        return
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         Trainer(cfg, device="cpu").close()
 
@@ -444,3 +510,32 @@ def test_the_cli_needs_a_card_unless_told_otherwise(data_dir, tmp_path):  # noqa
         for extra in ([], ["--throughput"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 tmain.main(["--cfg", path, *extra])
+
+
+def test_profiled_device_rows_keep_lambda_kernels_and_drop_annotations():
+    """The device-busy sum counts every kernel, those whose demangled names
+    hold a lambda's '#' too, and leaves out the user-annotation ranges
+    (``Optimizer.step#AdamW.step``, ``ProfilerStep#3``) that cover kernels
+    with rows of their own."""
+    from types import SimpleNamespace
+
+    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+
+    def row(key, us, device="DeviceType.CUDA", annotation=False):
+        return SimpleNamespace(key=key, device_type=device, is_user_annotation=annotation,
+                               self_device_time_total=us, count=2)
+
+    events = [
+        row("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<"
+            "at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}"
+            "::operator()() const::{lambda(float)#1}>(at::TensorIteratorBase&)>", 3000.0),
+        row("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_TNN", 1000.0),
+        row("Optimizer.step#AdamW.step", 5000.0),
+        row("ProfilerStep#3", 9000.0),
+        row("my_range", 700.0, annotation=True),
+        row("aten::copy_", 3000.0, device="DeviceType.CPU"),
+    ]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    rows = profiled_device_rows(prof)
+    assert [r[0][:12] for r in rows] == ["void at::nat", "nvjet_tst_19"]
+    assert sum(r[1] for r in rows) == 4.0

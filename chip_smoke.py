@@ -95,6 +95,23 @@ MODEL.PRETRAINED_SOURCE 'metaformer' (the same reports as on the CPU); the
 handler serves the training checkpoint directory with the logits of the
 bundle tool's weights.pt bit for bit, then over HTTP. None of the seven
 kernels is on mFormerV0's path, and the phase checks none was launched.
+Then (phase 7f) it goes from phase 1 to phase 2 on the receipt data: K1's
+forward and K2's forward at the rollout's one image (B = 1) and K1's fused
+backward and K2's forward and backward at the PPO update's batch of 128
+rollout steps, each against its plain version at the kernel bars, timed
+beside its bound and the library call; then the counts from zero:
+tools/e2e_train_bench.generate_dataset writes 1,024 learnable 384 px
+samples of 125 species with a tenth null (JPEGs, .npz labels); the CLI trains
+configs/experiments/tpu_trainrun_synth_384.yaml on them for 2 epochs (cut
+from 8, warm-up cut to 8 steps) with the kernels on and again with them
+off (no launch), tools/train_run_receipt distils each run (every field, the
+loss falling), and the val loss at the last step agrees on vs off within
+RECEIPT_VAL_RTOL; then rl/train_abstention fine-tunes the kernels-on
+checkpoint with PPO (configs/experiments/rl_abstention_384.yaml, 2
+iterations of 128 actions, 64 eval samples, abstain prior 0.2): a complete
+finite receipt, the saved policy loaded back, the rollout's ms an action,
+the update's ms an epoch and the device-busy share of one more profiled
+iteration; neither split kernel nor K3 launched in the phase.
 Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints its own time, one
 JSON line about the seven kernels, and as its last line
@@ -2128,6 +2145,336 @@ def v0_phase(dev, card, fa, fm, trainer: dict) -> dict:
             "metaformer": tally, "serve": served, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 7f: phase 1 to phase 2 on the receipt data (tools/e2e_train_bench,
+# the CLI with the kernels on and off, tools/train_run_receipt, rl/)
+RECEIPT_CFG = "configs/experiments/tpu_trainrun_synth_384.yaml"
+RL_CFG = "configs/experiments/rl_abstention_384.yaml"
+RECEIPT_OBS, RECEIPT_NULL_FRAC = 1024, 0.1  # cut from 8,192 (phase 1) and 2,048 (phase 2)
+# species cut with the samples, so that a species holds about as many samples
+# as in the full run (8,192 / 999): the 'mixed-pairs' sampler pairs samples of
+# one genus (here one species a genus), and 1,024 samples of 999 species
+# hold almost no pair
+RECEIPT_SPECIES = 125
+RECEIPT_EPOCHS = 2  # cut from 8
+RECEIPT_WARMUP_STEPS = 8  # cut from 150 with the steps: 24 of the full run's 896
+# val loss kernels on vs off at the last step: the two runs differ only where
+# bf16 rounds (the first step's loss within TRAIN_LOSS_RTOL), from the same
+# seed, data and draws; over 24 AdamW steps the roundings compound into the
+# parameters but stay far below the change the steps make (the loss falls by
+# more than 10%), so a tenth of that change is the bar. It holds for this
+# cut only: over the full run's 896 steps the trajectories part (two runs
+# with the kernels on, one seed, differ by up to 0.8%), and the full-size bar
+# in PERF.md is set from that spread.
+RECEIPT_VAL_RTOL = 1e-2
+RL_ITERATIONS, RL_ROLLOUT, RL_EVAL, RL_PRIOR = 2, 128, 64, 0.2  # iterations cut from 30
+# the shapes no earlier phase launched: the rollout's one image (K1 forward
+# at B=1, K2 forward at 96x96 and 48x48 rows) and the PPO update's whole
+# rollout as one batch (K1 fused backward and K2 forward and backward at
+# B=128)
+K1_SHAPES_B1 = [(1, 580, 6, 64), (1, 148, 12, 64)]
+K1_SHAPES_B128 = [(RL_ROLLOUT, 580, 6, 64), (RL_ROLLOUT, 148, 12, 64)]
+K2_SHAPES_B1 = [(96 * 96, 96), (48 * 48, 192)]
+K2_SHAPES_B128 = [(RL_ROLLOUT * 96 * 96, 96), (RL_ROLLOUT * 48 * 48, 192)]
+
+
+def _k2_operands(g, dev, M, C, dt):
+    y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
+    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+    ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
+    w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
+    w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
+    return y, x, (ln_w, ln_b, w1, b1, w2, b2, gamma)
+
+
+def check_receipt_shapes(dev, fa, fm) -> dict:
+    """K1 forward and K2 forward at the rollout's B=1, K1's fused backward
+    and K2 forward and backward at the PPO update's B=128, bf16, each
+    against its plain version at the kernel bars; times, bounds and the
+    library call. Returns per-kernel lists of timed records."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rec = {"K1": [], "K1_bwd": [], "K2": [], "K2_bwd": []}
+    for B, N, H, D in K1_SHAPES_B1 + K1_SHAPES_B128:
+        q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v)
+        err = max(max_err(out, ref), max_err(lse, ref_lse))
+        ms, spread = cuda_ms_median(lambda: fa.flash_attention_fwd(q, k, v))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
+        lib_ms = sdpa_ms(q, k, v)
+        b = k1_bound((B, N, H, D), dt, False)
+        print(f"K1 flash_attention_fwd bf16 (B,N,H,D)={(B, N, H, D)}: max|err| {err:.3e} "
+              f"(tol {K1_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), plain "
+              f"{plain_ms:.3f} ms, F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        check(err <= K1_TOL[dt], f"K1 {(B, N, H, D)} error {err}")
+        rec["K1"].append(dict(shape=[B, N, H, D], max_abs_err=err, ms=ms, ms_spread=spread,
+                              plain_ms=plain_ms, library_ms=lib_ms, **b))
+        if B == 1:
+            continue
+        check(fa.backward_route(N) == "fused", f"K1's backward route at N={N}")
+        do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
+        got = fa._launch_bwd(q, k, v, out, lse, do, D ** -0.5)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        err = max(rel_err(a, w) for a, w in zip(got, want))
+        abs_err = max(max_err(a, w) for a, w in zip(got, want))
+        del want
+        ms, spread = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, out, lse, do, D ** -0.5))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do),
+                           iters=3)
+        lib_ms = sdpa_ms(q, k, v, do)
+        b = k1_bound((B, N, H, D), dt, True)
+        print(f"K1 flash_attention_bwd bf16 (B,N,H,D)={(B, N, H, D)}: max rel err {err:.3e} "
+              f"(tol {BWD_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), plain "
+              f"{plain_ms:.3f} ms, F.scaled_dot_product_attention backward {lib_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        check(all(torch.isfinite(t).all().item() for t in got) and err <= BWD_TOL[dt],
+              f"K1 bwd {(B, N, H, D)} error {err}")
+        rec["K1_bwd"].append(dict(shape=[B, N, H, D], max_abs_err=abs_err, ms=ms,
+                                  ms_spread=spread, plain_ms=plain_ms, library_ms=lib_ms, **b))
+        del q, k, v, out, lse, do, got
+    for M, C in K2_SHAPES_B1 + K2_SHAPES_B128:
+        y, x, params = _k2_operands(g, dev, M, C, dt)
+        args = (y, x, *params)
+        out = fm.fused_convnext_mlp(*args)
+        ref = fm.fused_convnext_mlp_reference(*args, 1e-6, True)
+        err = max_err(out, ref)
+        del ref
+        iters = 50 if M < 100_000 else 10
+        ms, spread = cuda_ms_median(lambda: fm.fused_convnext_mlp(*args), iters=iters)
+        plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_reference(*args, 1e-6, True), iters=3)
+        chain_ms = mlp_chain_ms(y, x, *params)
+        b = k2_bound((M, C), dt, False)
+        print(f"K2 fused_convnext_mlp bf16 (M,C)={(M, C)} residual=True ({fm.forward_kernel(C, dt)}): "
+              f"max|err| {err:.3e} (tol {K2_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), "
+              f"plain {plain_ms:.3f} ms, the bf16 library chain {chain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        check(torch.isfinite(out).all().item() and err <= K2_TOL[dt], f"K2 {(M, C)} error {err}")
+        rec["K2"].append(dict(shape=[M, C], max_abs_err=err, ms=ms, ms_spread=spread,
+                              plain_ms=plain_ms, library_ms=None, library_chain_ms=chain_ms, **b))
+        del out
+        if M < 100_000:
+            continue
+        bargs = (y, x, *params, 1e-6, True)  # x as dout
+        got = fm._launch_bwd(*bargs)
+        again = fm._launch_bwd(*bargs)
+        want = fm.fused_convnext_mlp_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) for a, w in zip(got, again))
+        del again
+        err = max(rel_err(a, w) for a, w in zip(got, want))
+        abs_err = max_err(got[0], want[0])
+        del want
+        ms, spread = cuda_ms_median(lambda: fm._launch_bwd(*bargs), iters=3)
+        plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_bwd_reference(*bargs), iters=2)
+        b = k2_bound((M, C), dt, True)
+        print(f"K2 fused_convnext_mlp_bwd bf16 (M,C)={(M, C)} ({fm.backward_kernel(C, dt)}): "
+              f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err dy| {abs_err:.3e}, "
+              f"bit-identical over two launches: {same}, kernel {ms:.3f} ms (spread {spread:.3f}), "
+              f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+        check(all(torch.isfinite(t).all().item() for t in got) and err <= BWD_TOL[dt] and same,
+              f"K2 bwd {(M, C)} error {err}, same bits {same}")
+        rec["K2_bwd"].append(dict(shape=[M, C], max_abs_err=abs_err, ms=ms, ms_spread=spread,
+                                  plain_ms=plain_ms, library_ms=None, **b))
+        del got, y, x, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _launch_counts(fa, fm, fb) -> dict:
+    return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
+            "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES,
+            "K3": fb.LAUNCHES}
+
+
+def _zero_counts(fa, fm, fb) -> None:
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    fb.LAUNCHES = 0
+
+
+def _val_loss(receipt: dict) -> tuple[int, float]:
+    last = [v for v in receipt["validation"] if v["phase"] == "val"][-1]
+    return last["step"], last["loss"]
+
+
+def receipt_train(dev, card, d: str, data_opts: list, kernels: bool, fa, fm, fb) -> dict:
+    """Phase 1 of phase 7f: the CLI on the receipt experiment, kernels on or
+    off, then its receipt through tools/train_run_receipt."""
+    import os
+
+    from linnaeus_tpu_torch.tools import train_run_receipt
+    from linnaeus_tpu_torch.train.main import main as train_main
+
+    name = "tpu_trainrun_synth_384" if kernels else "tpu_trainrun_synth_384_off"
+    off = [] if kernels else ["MODEL.USE_FLASH_ATTN", "False", "MODEL.FUSED_CONVNEXT_MLP", "off"]
+    before = _launch_counts(fa, fm, fb)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = train_main(["--cfg", RECEIPT_CFG, "--device", str(dev), "--opts", *data_opts,
+                          "EXPERIMENT.NAME", name, "TRAIN.EPOCHS", str(RECEIPT_EPOCHS),
+                          "LR_SCHEDULER.WARMUP_STEPS", str(RECEIPT_WARMUP_STEPS),
+                          "SCHEDULE.METRICS.WANDB_INTERVAL", "1", *off])
+    seconds = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _launch_counts(fa, fm, fb).items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    run_dir = trainer.config.ENV.OUTPUT.DIRS.EXP_BASE
+    ckpt_dir, spe = trainer.ckpt_dir, trainer.steps_per_epoch
+    steps = trainer.progress.global_step
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    receipt = train_run_receipt.build_receipt(run_dir)
+    path = os.path.join(d, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(receipt, f, indent=1)
+    curve = [loss for _, loss in receipt.get("loss_curve", [])]
+    check(receipt.get("device") == card and receipt.get("backend") == "cuda",
+          f"the receipt's device {receipt.get('device')}")
+    check(receipt.get("steps") == steps == RECEIPT_EPOCHS * spe and len(curve) == steps
+          and all(np.isfinite(curve)), f"{name}: a finite loss at each of {steps} steps")
+    check(len(receipt.get("epochs", [])) == RECEIPT_EPOCHS
+          and receipt.get("img_per_sec_steady", 0) > 0
+          and receipt.get("model_params", 0) > 0
+          and receipt.get("checkpoint_saves") == RECEIPT_EPOCHS + 1
+          and [v["step"] for v in receipt.get("validation", []) if v["phase"] == "val"]
+          == [(e + 1) * spe for e in range(RECEIPT_EPOCHS)],
+          f"{name}: the receipt carries every field: "
+          f"{ {k: v for k, v in receipt.items() if k != 'loss_curve'} }")
+    head, tail = float(np.mean(curve[:4])), float(np.mean(curve[-4:]))
+    check(tail < head, f"{name}: the loss falls ({head:.4f} over the first 4 steps, "
+          f"{tail:.4f} over the last 4)")
+    step, val = _val_loss(receipt)
+    print(f"[{card}] phase 1, kernels {'on' if kernels else 'off'}: {steps} steps "
+          f"({RECEIPT_EPOCHS} epochs of {spe}) in {seconds:.1f} s, "
+          f"{receipt['img_per_sec_steady']} img/s (the receipt's steady epochs), loss "
+          f"{head:.4f} -> {tail:.4f} (means of the first and last 4 steps), val loss "
+          f"{val:.4f} at step {step}, peak {peak:.2f} GiB, launches {launched}; receipt "
+          f"{path}", flush=True)
+    return {"receipt": receipt, "launches": launched, "seconds": seconds, "ckpt_dir": ckpt_dir,
+            "val_loss": val, "val_step": step, "peak_gib": peak, "path": path}
+
+
+def receipt_phase(dev, card, fa, fm, fb) -> dict:
+    """Phase 7f: the receipt data (hybrid), phase 1 with the kernels on and
+    off, phase 2 (PPO abstention fine-tuning) from the kernels-on
+    checkpoint; the kernels at the phase's new shapes before it, the
+    launches counted over the phase from zero. The checks are listed in
+    the module docstring."""
+    import os
+    import tempfile
+
+    from linnaeus_tpu_torch.rl import PPOConfig, train_abstention_ppo
+    from linnaeus_tpu_torch.rl import train_abstention
+    from linnaeus_tpu_torch.tools import e2e_train_bench
+    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+
+    start = time.perf_counter()
+    shapes = check_receipt_shapes(dev, fa, fm)
+    os.environ["CONFIG_DIR"] = os.path.dirname(os.path.abspath(__file__))  # MODEL.BASE paths
+    d = tempfile.mkdtemp(prefix="receipt_", dir="build")
+    t0 = time.perf_counter()
+    labels, images = e2e_train_bench.generate_dataset(
+        os.path.join(d, "data"), RECEIPT_OBS, IMG, learnable=True,
+        null_frac=RECEIPT_NULL_FRAC, species=RECEIPT_SPECIES, hybrid=True)
+    gen_s = time.perf_counter() - t0
+    print(f"phase 7f: the receipt data, {RECEIPT_OBS} samples at {IMG} px (learnable, "
+          f"{RECEIPT_SPECIES} species (of 999), null_frac {RECEIPT_NULL_FRAC}), JPEGs and .npz "
+          f"labels written in {gen_s:.1f} s; "
+          f"cut: {RECEIPT_EPOCHS} epochs (of 8), warm-up {RECEIPT_WARMUP_STEPS} steps (of 150), "
+          f"{RL_ITERATIONS} PPO iterations (of 30), {RL_EVAL} eval samples (of 384)", flush=True)
+    data_opts = ["DATA.H5.LABELS_PATH", labels, "DATA.HYBRID.USE_HYBRID", "True",
+                 "DATA.HYBRID.IMAGES_DIR", images, "DATA.HYBRID.FILE_EXTENSION", ".jpg",
+                 "ENV.OUTPUT.BASE_DIR", os.path.join(d, "out")]
+
+    _zero_counts(fa, fm, fb)
+    on = receipt_train(dev, card, d, data_opts, True, fa, fm, fb)
+    off = receipt_train(dev, card, d, data_opts, False, fa, fm, fb)
+    check(all(on["launches"][k] > 0 for k in ("K1", "K1_bwd", "K2", "K2_bwd"))
+          and sum(off["launches"].values()) == 0,
+          f"phase 1 launches: kernels on {on['launches']}, off {off['launches']}")
+    gap = abs(on["val_loss"] - off["val_loss"]) / abs(off["val_loss"])
+    print(f"[{card}] phase 1 val loss at step {on['val_step']}: kernels on "
+          f"{on['val_loss']:.6f}, off {off['val_loss']:.6f}, relative gap {gap:.3e} (bar "
+          f"{RECEIPT_VAL_RTOL:g})", flush=True)
+    check(on["val_step"] == off["val_step"] and gap <= RECEIPT_VAL_RTOL,
+          f"val loss kernels on vs off: gap {gap}")
+
+    before = _launch_counts(fa, fm, fb)
+    rl_receipt = os.path.join(d, "rl_abstention.json")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = train_abstention.run([
+        "--cfg", RL_CFG, "--checkpoint", on["ckpt_dir"], "--iterations", str(RL_ITERATIONS),
+        "--rollout-steps", str(RL_ROLLOUT), "--eval-samples", str(RL_EVAL),
+        "--abstain-prior", str(RL_PRIOR), "--receipt", rl_receipt, "--device", str(dev),
+        "--opts", *data_opts])
+    rl_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rl_launches = {k: v - before[k] for k, v in _launch_counts(fa, fm, fb).items()}
+    with open(rl_receipt) as f:
+        receipt = json.load(f)
+    keys = {"device", "backend", "mode", "iterations", "steps_per_rollout", "abstain_prior",
+            "warm_start", "reward_curve", "reward_first", "reward_last", "ppo_metrics_last",
+            "eval_before", "eval_after"}
+    numbers = [v for _, v in receipt.get("reward_curve", [])] + list(
+        receipt.get("ppo_metrics_last", {}).values())
+    check(keys <= set(receipt) and receipt["device"] == card
+          and receipt["warm_start"] is not None
+          and len(receipt["reward_curve"]) == RL_ITERATIONS and all(np.isfinite(numbers))
+          and all(receipt[e]["samples"] >= RL_EVAL and set(receipt[e]["per_rank"]) == set(TASKS)
+                  for e in ("eval_before", "eval_after")),
+          f"the RL receipt is complete and finite: {receipt}")
+    state = torch.load(run.policy_path, map_location="cpu", weights_only=True)
+    check(all(torch.equal(state[k], v.cpu()) for k, v in run.policy.state_dict().items())
+          and set(state) == set(run.policy.state_dict()),
+          "the saved policy holds the trained policy's tensors")
+    run.policy.load_state_dict(state, strict=True)
+    action_ms = [t["rollout_ms_per_action"] for t in run.timings]
+    update_ms = [t["update_ms_per_epoch"] for t in run.timings]
+    # one more iteration under torch.profiler: the phase's device-busy share
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_abstention_ppo(run.policy, run.env, PPOConfig(), num_iterations=1,
+                             steps_per_rollout=RL_ROLLOUT)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(ms for _, ms, _ in profiled_device_rows(prof))
+    run.close()
+    phase2 = {k: v - before[k] for k, v in _launch_counts(fa, fm, fb).items()}
+    print(f"[{card}] phase 2 (PPO, mFormerV1_sm {IMG} px bf16 from the kernels-on "
+          f"checkpoint): {RL_ITERATIONS} iterations of {RL_ROLLOUT} actions in {rl_s:.1f} s "
+          f"(with the checkpoint's load and the two evals); rollout "
+          f"{', '.join(f'{v:.2f}' for v in action_ms)} ms an action (B=1, host clock: each "
+          f"action is read back); PPO update {', '.join(f'{v:.2f}' for v in update_ms)} ms an "
+          f"epoch (B={RL_ROLLOUT}, CUDA events); peak {peak:.2f} GiB; reward "
+          f"{receipt['reward_first']} -> {receipt['reward_last']}; eval before "
+          f"{ {k: receipt['eval_before'][k] for k in ('abstain_rate', 'abstain_precision', 'abstain_recall', 'mean_p_abstain_on_null', 'mean_p_abstain_on_known')} }, "
+          f"after { {k: receipt['eval_after'][k] for k in ('abstain_rate', 'abstain_precision', 'abstain_recall', 'mean_p_abstain_on_null', 'mean_p_abstain_on_known')} }; "
+          f"one more iteration under torch.profiler: {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, device-busy share {busy_ms / wall_ms:.3f}; launches {rl_launches} "
+          f"(+ the profiled iteration: {phase2})", flush=True)
+    total = _launch_counts(fa, fm, fb)
+    check(all(total[k] > 0 for k in ("K1", "K1_bwd", "K2", "K2_bwd"))
+          and total["K1_dq"] == total["K1_dkv"] == total["K3"] == 0,
+          f"phase 7f launches {total}: K1 and K2 forward and backward, neither split kernel "
+          "nor K3")
+    check(rl_launches["K1_bwd"] > 0 and rl_launches["K2_bwd"] > 0,
+          f"the PPO update ran K1's and K2's backward: {rl_launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    print(f"phase 7f (phase 1 to phase 2) took {seconds:.1f} s; launches over the phase "
+          f"{total}", flush=True)
+    return {"launches": total, "shapes": shapes, "on": on, "off": off, "gap": gap,
+            "rl": receipt, "seconds": seconds}
+
+
 def serving_config():
     """Every inference option at its default (the hierarchical-consistency
     pass on, data_parallel "auto") but for the batch size, which is the
@@ -2728,7 +3075,12 @@ def main() -> int:
         # the CLI with resume, MetaFormer init and serving from the training
         # checkpoint directory, on phase 7c's dataset
         v0_phase(dev, card, fa, fm, trainer)
-    shutil.rmtree(trainer["dir"], ignore_errors=True)
+        shutil.rmtree(trainer["dir"], ignore_errors=True)
+        # 7f. phase 1 to phase 2: the receipt data, the CLI with the kernels
+        # on and off and their receipts, PPO abstention fine-tuning from the
+        # kernels-on checkpoint; the kernels at the rollout's and the
+        # update's shapes
+        receipt = receipt_phase(dev, card, fa, fm, fb)
 
     # 8. K3's path: the fused-block A/B tool, forward and train
     trained["K3"] = block_ab_phase(dev, fm, fb)
@@ -2769,6 +3121,8 @@ def main() -> int:
                         "default_cfg_launches": default_cfg["launches"].get(key, 0),
                         "trainer_launches": trainer["launches"].get(key, 0),
                         "pretrained_launches": pretrained["launches"].get(key, 0),
+                        "receipt_launches": receipt["launches"].get(key, 0),
+                        "receipt_shapes": receipt["shapes"].get(key, []),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
     print(f"chip_smoke.py took {time.perf_counter() - script_start:.1f} s", flush=True)

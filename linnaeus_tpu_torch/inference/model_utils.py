@@ -35,7 +35,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch.utils import flax_msgpack
-from linnaeus_tpu_torch.utils.checkpoint import STATE_DIR, STATE_FILE
+from linnaeus_tpu_torch.utils.checkpoint import read_model_state
 from linnaeus_tpu_torch.utils.convert import state_dict_from_variables
 
 from .config import InferenceConfig
@@ -99,16 +99,7 @@ def load_weights(model: nn.Module, weights_path: str) -> None:
             f"weights_path {weights_path!r}: hf:// weights are not ported (no downloads); "
             "give a local .msgpack or .pt file")
     if path.is_dir():
-        state_file = path / STATE_DIR / STATE_FILE
-        if state_file.is_file():
-            state = torch.load(state_file, map_location="cpu", weights_only=True)["model"]
-        elif (path / STATE_DIR).is_dir():
-            raise NotImplementedError(
-                f"weights_path {weights_path!r}: an Orbax training checkpoint (the JAX "
-                f"package's) has no {STATE_DIR}/{STATE_FILE}; the port reads no Orbax state. "
-                "Give a port checkpoint directory, a .msgpack or a .pt file")
-        else:
-            raise FileNotFoundError(f"No checkpoint state in {weights_path}")
+        state = read_model_state(weights_path)
     elif not path.is_file():
         raise FileNotFoundError(f"weights file not found: {weights_path}")
     elif path.suffix == ".msgpack":

@@ -289,6 +289,21 @@ def auto_resume_helper(checkpoint_dir: str) -> str | None:
     return None
 
 
+def read_model_state(path: str) -> dict[str, torch.Tensor]:
+    """The model's state_dict from a port checkpoint directory
+    (``<path>/state/state.pt``, on the CPU). An Orbax checkpoint directory
+    (the JAX package's) raises by name: the port reads no Orbax state."""
+    state_file = os.path.join(path, STATE_DIR, STATE_FILE)
+    if os.path.isfile(state_file):
+        return torch.load(state_file, map_location="cpu", weights_only=True)["model"]
+    if os.path.isdir(os.path.join(path, STATE_DIR)):
+        raise NotImplementedError(
+            f"{path!r}: an Orbax training checkpoint (the JAX package's) has no "
+            f"{STATE_DIR}/{STATE_FILE}; the port reads no Orbax state. Give a port "
+            "checkpoint directory, a .msgpack or a .pt file")
+    raise FileNotFoundError(f"No checkpoint state in {path}")
+
+
 def manage_checkpoints(
     checkpoint_dir: str,
     keep_top_n: int = 0,

@@ -302,6 +302,25 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
     model.load_state_dict(state_dict_from_variables(model, variables), strict=True)
 
 
+def policy_state_dict_from_jax(variables: Mapping[str, Any], policy: nn.Module
+                               ) -> dict[str, torch.Tensor]:
+    """The JAX ``LinnaeusPolicyWrapper``'s variables (``policy.init``: nested
+    dicts of arrays under ``params``, or the ``params`` tree itself) as a
+    state_dict of the port's policy (rl/policies.py) over a backbone of the
+    same geometry: ``params/backbone`` through the backbone's bridge, each
+    ``actor_{t}`` and ``critic`` Dense kernel (in, out) as a Linear weight
+    (out, in). The JAX tree holds no classification heads of the backbone
+    (the policy calls only ``forward_features``), so neither does the result:
+    load it with ``strict=False`` and only ``backbone.head.*`` missing."""
+    params = variables.get("params", variables)
+    bridge, args = _bridge_args(policy.backbone)
+    args = args[:-1] + ((),)  # no task heads in the policy's backbone tree
+    state = {f"backbone.{k}": v for k, v in bridge(params["backbone"], *args).items()}
+    for name in [f"actor_{t}" for t in policy.task_keys] + ["critic"]:
+        state.update(_gather(params, _linear(name, (name,))))
+    return state
+
+
 def adamw_moments_from_optax(
     opt_state: Any,
     convnext_depths: tuple[int, ...],

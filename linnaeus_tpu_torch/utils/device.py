@@ -20,6 +20,22 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return torch.device(device)
 
 
+def describe_device() -> tuple[str, str]:
+    """``(device, backend)`` for a receipt: the current card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them and "cuda", or ("cpu", "cpu") where
+    torch sees no card."""
+    import subprocess
+
+    if not torch.cuda.is_available():
+        return "cpu", "cpu"
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return lines[min(torch.cuda.current_device(), len(lines) - 1)], "cuda"
+
+
 def profiled_device_rows(prof) -> list[tuple[str, float, int]]:
     """The device rows of a finished ``torch.profiler.profile``: each
     kernel or copy by name, with its total self device milliseconds and its

@@ -412,36 +412,38 @@ def test_predict_error_paths(server_port):
 @time_limit(60)
 def test_request_deadline_times_out_stalled_device(inference_handler):
     class Stall:
-        """Sync-only proxy (pipeline_depth=0) whose first forward stalls."""
+        """Sync-only proxy (pipeline_depth=0) whose first forward stalls
+        until the test releases it (or 30 s pass)."""
 
         def __init__(self, inner):
             self._inner = inner
-            self.stalled_once = False
+            self.entered = threading.Event()
+            self.release = threading.Event()
 
         def __getattr__(self, name):
             return getattr(self._inner, name)
 
         def predict(self, images, metas=None, options=None):
-            if not self.stalled_once:
-                self.stalled_once = True
-                time.sleep(1.0)  # >> the deadline
+            if not self.entered.is_set():
+                self.entered.set()
+                self.release.wait(30.0)
             return self._inner.predict(images, metas, options)
 
-    server = make_server(Stall(inference_handler), "127.0.0.1", 0,
-                         pipeline_depth=0, request_deadline_ms=200.0)
+    stall = Stall(inference_handler)
+    server = make_server(stall, "127.0.0.1", 0, pipeline_depth=0, request_deadline_ms=200.0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     port = server.server_address[1]
     try:
         b64 = _image_b64()
-        t0 = time.monotonic()
         st, out = _req(port, "/predict", {"instances": [{"image": b64}]})
-        waited = time.monotonic() - t0
+        # answered by the deadline while the batch is still stalled on the device
         assert st == 504 and "deadline" in out["error"]
-        assert waited < 0.9  # answered by the deadline, not the stall
-        time.sleep(1.2)  # let the stalled batch drain
+        assert stall.entered.is_set() and not stall.release.is_set()
+        stall.release.set()  # the stalled batch drains; the next request is served
         st, out = _req(port, "/predict", {"instances": [{"image": b64}]})
         assert st == 200 and len(out["predictions"]) == 1
     finally:
+        stall.release.set()
         server.shutdown()
         server.server_close()
         server.batcher.stop()

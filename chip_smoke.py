@@ -95,6 +95,21 @@ MODEL.PRETRAINED_SOURCE 'metaformer' (the same reports as on the CPU); the
 handler serves the training checkpoint directory with the logits of the
 bundle tool's weights.pt bit for bit, then over HTTP. None of the seven
 kernels is on mFormerV0's path, and the phase checks none was launched.
+Then (phase 7g) mFormerV1_sm_moe (configs/model/archs/mFormerV1_sm_moe.yaml:
+8 experts, top-2, capacity factor 1.25 on stage 3 blocks 1 and 3 and stage
+4 block 1) at 384 px in bf16: the config form's model with seeded weights
+serves 64 images through the handler with its default options (K1 7 and K2
+6 launches a forward), its forward timed against its dense twin's,
+device-busy ms, peak, bf16 against fp32 logits; train_bench --moe steps at
+B=64 with the kernels on and off (the first step's loss within the train
+bar, the statistics finite, the dropped share in [0, 1), K1 7 + 7 and K2
+6 + 6 a step); then the CLI's Trainer upcycles phase 7d's seeded
+ConvNeXt-Tiny and DeiT-S files into it (every expert of every bank the
+dense twin's MLP bit for bit before the first step), trains one epoch on
+phase 7c's dataset with the statistics at every step, the handler serves
+the checkpoint directory with the checkpoint's model's logits bit for bit,
+and tools/export_torch.py exports it to the reference layout, which loads
+strict into mFormerV1_sm.
 Then (phase 7f) it goes from phase 1 to phase 2 on the receipt data: K1's
 forward and K2's forward at the rollout's one image (B = 1) and K1's fused
 backward and K2's forward and backward at the PPO update's batch of 128
@@ -2145,6 +2160,398 @@ def v0_phase(dev, card, fa, fm, trainer: dict) -> dict:
             "metaformer": tally, "serve": served, "seconds": seconds}
 
 
+# phase 7g: mFormerV1_sm_moe (configs/model/archs/mFormerV1_sm_moe.yaml): 8
+# experts, top-2, capacity factor 1.25 on every 2nd RoPE block, so stage 3
+# blocks 1 and 3 (N 580, C 182) and stage 4 block 1 (N 148, C 47); the MoE
+# blocks are RoPE blocks, so K1 and K2 launch as in mFormerV1_sm
+MOE_ARCH = "configs/model/archs/mFormerV1_sm_moe.yaml"
+MOE_SEED = SEED + 40
+MOE_LAYERS = 3
+MOE_STEPS = 3
+# bf16 against fp32 logits of the same weights (the whole-forward bar above):
+# the router runs in float32 on a bf16 activation, so a token whose top-2
+# choice is near a tie may route elsewhere in bf16
+MOE_BF16_TOL = LOGIT_TOL[torch.bfloat16]
+
+
+def moe_config(moe: bool = True):
+    """The default config with mFormerV1_sm_moe.yaml over it at IMG px, the
+    four tasks, the serving config's three metadata sources (TEMPORAL 2,
+    SPATIAL 3, ELEVATION 6); ``moe`` False drops MODEL.MOE (the dense twin,
+    mFormerV1_sm)."""
+    import os
+
+    from linnaeus_tpu_torch.configuration import get_default_config, load_config, merge_configs
+
+    cfg = merge_configs(get_default_config(), load_config(os.path.abspath(MOE_ARCH)))
+    cfg.defrost()
+    cfg.MODEL.IMG_SIZE = IMG
+    cfg.DATA.TASK_KEYS_H5 = list(TASKS)
+    for name, dim in (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6)):
+        cfg.DATA.META.COMPONENTS[name].ENABLED = True
+        cfg.DATA.META.COMPONENTS[name].DIM = dim
+    cfg.MODEL.MOE.ENABLED = moe
+    return cfg
+
+
+def moe_blocks(model) -> list:
+    return [(s, j) for s in (2, 3) for j, b in enumerate(model.stages[s]) if b.use_moe]
+
+
+def moe_serve(dev, card, fa, fm) -> dict:
+    """Phase 7g (a): the MoE model from the config form in bf16 with seeded
+    weights serves BATCH images through the handler with its default
+    options (the consistency pass on); launches per forward; forward ms
+    against the dense twin's (CUDA events, alternated), device-busy ms and
+    peak; bf16 against fp32 logits of the same weights."""
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+
+    cfg = serving_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(moe_config(), dict(TASKS), device=dev, seed=MOE_SEED)
+    check(model.dtype == torch.bfloat16 and model.moe_num_experts == 8
+          and moe_blocks(model) == [(2, 1), (2, 3), (3, 1)]
+          and model.stages[2][1].mlp.top_k == 2 and model.stages[2][1].mlp.wi.shape == (8, 384, 1536),
+          f"mFormerV1_sm_moe from the config form: MoE blocks {moe_blocks(model)}")
+    taxonomy, maps = serving_taxonomy(cfg)
+    handler = LinnaeusInferenceHandler(cfg, model, taxonomy, maps)
+    images, metas = requests(BATCH, np.random.default_rng(MOE_SEED))
+    handler.predict(images[:2], metas[:2])  # warm-up
+    fa.LAUNCHES = fm.LAUNCHES = 0
+    results = handler.predict(images, metas)
+    launched = {"K1": fa.LAUNCHES, "K2": fm.LAUNCHES}
+    nulled = check_results(results, BATCH, taxonomy, maps)
+    check(launched == {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD},
+          f"MoE serving launches {launched} for one forward")
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    x = torch.randn(BATCH, IMG, IMG, 3, generator=g, device=dev)
+    aux = torch.randn(BATCH, 11, generator=g, device=dev)
+    dense = build_model(moe_config(moe=False), dict(TASKS), device=dev, seed=MOE_SEED)
+    with torch.inference_mode():
+        out, stats = model(x, aux, moe_stats=True)
+        times = {}
+        for name, net in (("moe", model), ("dense", dense), ("dense", dense), ("moe", model)):
+            times.setdefault(name, []).append(cuda_ms(lambda: net(x, aux), iters=5))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model(x, aux)
+            torch.cuda.synchronize()
+        model.dtype = torch.float32
+        out32 = model(x, aux)
+        model.dtype = torch.bfloat16
+    fwd = {k: sum(v) / len(v) for k, v in times.items()}
+    busy = sum(ms_ for _, ms_, _ in profiled_device_rows(prof)) / 3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    err = max(max_err(out[t], out32[t]) for t in TASKS)
+    agree = {t: (out[t].argmax(-1) == out32[t].argmax(-1)).float().mean().item() for t in TASKS}
+    check(all(torch.isfinite(out[t]).all() and out[t].shape == (BATCH, TASKS[t]) for t in TASKS),
+          "finite MoE logits of the expected shapes")
+    check(err <= MOE_BF16_TOL, f"MoE bf16 against fp32 logits: max|diff| {err}")
+    st = {k: float(v) for k, v in stats.items()}
+    check(all(np.isfinite(v) for v in st.values()) and 0.0 <= st["moe_drop_frac"] < 1.0,
+          f"MoE statistics of a serving forward {st}")
+    print(f"[{card}] mFormerV1_sm_moe {IMG}px bf16 B={BATCH} served through the handler "
+          f"(default options; the consistency pass nulled {nulled} of {BATCH * len(TASKS)} task "
+          f"results): launches {launched} a forward; forward {fwd['moe']:.2f} ms, the dense twin "
+          f"(mFormerV1_sm, same config) {fwd['dense']:.2f} ms (CUDA events, alternated); device "
+          f"busy {busy:.2f} ms a forward under torch.profiler (share {busy / fwd['moe']:.3f}); "
+          f"peak {peak:.2f} GiB; bf16 against fp32 logits max|diff| {err:.3e} (tol "
+          f"{MOE_BF16_TOL:g}), top-1 agreement " + ", ".join(f"{t} {a:.3f}" for t, a in agree.items())
+          + f"; statistics {st}", flush=True)
+    del model, dense, handler, out, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": fwd["moe"], "dense_ms": fwd["dense"], "busy_ms": busy, "peak_gib": peak,
+            "max_err": err, "launches": launched}
+
+
+def moe_steps(dev, card, fa, fm) -> dict:
+    """Phase 7g (b): ``train_bench --moe`` steps at B=BATCH, kernels on then
+    off from the same seed: the first step's loss within TRAIN_LOSS_RTOL, the
+    statistics finite, drop_frac in [0, 1), launches K1 7 + 7 and K2 6 + 6 a
+    step; step ms, the device-busy ms of two profiled steps against it, peak.
+    (The dense step against the MoE one, each in a process of its own:
+    ``train_bench`` and ``train_bench --moe``, PERF.md.)"""
+    from linnaeus_tpu_torch.tools import train_bench
+    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+
+    def counts():
+        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K2": fm.LAUNCHES,
+                "K2_bwd": fm.BWD_LAUNCHES}
+
+    results = {}
+    for name, kernels in (("on", True), ("off", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run, state = train_bench.build_step(BATCH, IMG, kernels, "mFormerV1_sm", TASKS,
+                                            device=dev, seed=MOE_SEED, moe=True)
+        check(len(moe_blocks(state.model)) == MOE_LAYERS, "train_bench --moe builds 3 MoE layers")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+        history = [run()]
+        launched = counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        history += [run() for _ in range(MOE_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / MOE_STEPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        want = ({"K1": K1_PER_FORWARD, "K1_bwd": K1_PER_FORWARD, "K2": K2_PER_FORWARD,
+                 "K2_bwd": K2_PER_FORWARD} if kernels else dict.fromkeys(launched, 0))
+        check(launched == want, f"MoE train launches {launched} for one step, expected {want}")
+        stats = {k: [float(m[k]) for m in history] for k in ("moe_aux", "moe_z", "moe_drop_frac")}
+        losses = [float(m["loss"]) for m in history]
+        check(all(np.isfinite(v) for vs in stats.values() for v in vs)
+              and all(0.0 <= v < 1.0 for v in stats["moe_drop_frac"])
+              and all(np.isfinite(losses)), f"MoE statistics {stats}, losses {losses}")
+        busy = None
+        if kernels:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    run()
+                torch.cuda.synchronize()
+            busy = sum(ms_ for _, ms_, _ in profiled_device_rows(prof)) / 2
+        print(f"[{card}] mFormerV1_sm_moe {IMG}px B={BATCH} bf16 train step (train_bench --moe), "
+              f"kernels {name}: {ms:.2f} ms a step (CUDA events over {MOE_STEPS} steps), peak "
+              f"{peak:.2f} GiB; loss " + " ".join(f"{v:.4f}" for v in losses)
+              + "; moe_aux " + " ".join(f"{v:.4f}" for v in stats["moe_aux"])
+              + ", moe_z " + " ".join(f"{v:.3f}" for v in stats["moe_z"])
+              + ", moe_drop_frac " + " ".join(f"{v:.4f}" for v in stats["moe_drop_frac"])
+              + f"; launches {launched} a step"
+              + (f"; device busy {busy:.2f} ms a step under torch.profiler (share {busy / ms:.3f} "
+                 f"of the step above)" if kernels else ""),
+              flush=True)
+        results[name] = {"loss": losses[0], "ms": ms, "peak_gib": peak, "launches": launched,
+                         "busy_ms": busy, "stats": stats}
+        del run, state, history
+    on, off = results["on"], results["off"]
+    d_loss = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    print(f"first MoE train step, kernels on vs off: loss {on['loss']:.5f} vs {off['loss']:.5f} "
+          f"(rel {d_loss:.2e}, tol {TRAIN_LOSS_RTOL:g})", flush=True)
+    check(d_loss <= TRAIN_LOSS_RTOL, f"first MoE step's loss, kernels on vs off: rel {d_loss}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def moe_trainer_yaml(d: str, data: dict, cn_path: str, rv_path: str) -> str:
+    """Phase 7c's experiment with mFormerV1_sm_moe, upcycled from the seeded
+    ConvNeXt-Tiny and DeiT-S files (MODEL.PRETRAINED_CONVNEXT / _ROPEVIT),
+    one epoch, a checkpoint at its end."""
+    import os
+
+    import yaml
+
+    exp = {
+        "EXPERIMENT": {"NAME": "trainer_moe", "PROJECT": "chip_smoke", "GROUP": "phase7g"},
+        "ENV": {"OUTPUT": {"BASE_DIR": os.path.join(d, "out_moe")}},
+        "MODEL": {"BASE": [os.path.abspath(MOE_ARCH)], "IMG_SIZE": IMG,
+                  "PRETRAINED_CONVNEXT": cn_path, "PRETRAINED_ROPEVIT": rv_path},
+        "DATA": {
+            "IMG_SIZE": IMG, "BATCH_SIZE": BATCH, "BATCH_SIZE_VAL": BATCH,
+            "TASK_KEYS_H5": list(TASKS), "PARTIAL": {"LEVELS": True},
+            "H5": {"LABELS_PATH": data["labels"], "TRAIN_VAL_SPLIT_RATIO": 0.8},
+            "HYBRID": {"USE_HYBRID": True, "IMAGES_DIR": data["images"],
+                       "FILE_EXTENSION": ".jpg"},
+            "META": {"COMPONENTS": {"ELEVATION": {"ENABLED": True, "SOURCE": "elevation"}}},
+        },
+        "TRAIN": {"EPOCHS": 1},
+        "LOSS": {"GRAD_WEIGHTING": {"TASK": {"UPDATE_INTERVAL": TRAINER_GRADNORM_INTERVAL}}},
+        "SCHEDULE": {"CHECKPOINT": {"INTERVAL_EPOCHS": 1, "KEEP_LAST_N": TRAINER_KEEP_LAST},
+                     "METRICS": {"CONSOLE_INTERVAL": 1, "WANDB_INTERVAL": 1}},
+    }
+    path = os.path.join(d, "trainer_moe.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(exp, f)
+    return path
+
+
+def moe_cli(dev, card, fa, fm, trainer: dict) -> dict:
+    """Phase 7g (c)-(e): the CLI's Trainer upcycles the seeded files into
+    the MoE model (every expert of every bank the dense twin's MLP bit for
+    bit, the routers their seeded init), trains one epoch on phase 7c's
+    dataset and writes a checkpoint; the handler serves that checkpoint
+    directory with the checkpoint's model's logits bit for bit;
+    ``tools/export_torch.py`` exports it, and the export loads strict into
+    mFormerV1_sm, whose forward runs."""
+    import os
+
+    import yaml
+
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.tools.export_torch import main as export_main
+    from linnaeus_tpu_torch.tools.prepare_inference_bundle import prepare_bundle
+    from linnaeus_tpu_torch.train.main import build_trainer
+    from linnaeus_tpu_torch.utils import checkpoint as ckpt
+    from linnaeus_tpu_torch.utils import pretrained as tpre
+
+    d = trainer["dir"]
+    cn_path, rv_path = (os.path.join(d, n) for n in ("convnext_tiny.pth",
+                                                     "rope_mixed_deit_small.pth"))
+    if not (os.path.isfile(cn_path) and os.path.isfile(rv_path)):
+        cn_path, rv_path = write_pretrained_files(d, SEED + 20)
+    cfg_path = moe_trainer_yaml(d, trainer["data"], cn_path, rv_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = build_trainer(["--cfg", cfg_path, "--device", str(dev)])
+    build_s = time.perf_counter() - t0
+    # the dense twin's MLP of each bank, read from the files through the
+    # loaders' tables: the DeiT-S block's where its shape fits (stage 3), else
+    # the dense template's zeros (stage 4 is 768 wide, the file 384)
+    rv = tpre.load_torch_state_dict(rv_path)
+    sources = {dst: src for src, dst in tpre.ropevit_entries(rv, (5, 2))}
+    weights = run.model.state_dict()
+    exact, n_banks = True, 0
+    for s, j in moe_blocks(run.model):
+        for leaf, suffix in (("wi", "fc1.weight"), ("bi", "fc1.bias"), ("wo", "fc2.weight"),
+                             ("bo", "fc2.bias")):
+            bank = weights[f"stages.{s}.{j}.mlp.{leaf}"].cpu()
+            src = rv.get(sources.get(f"stages.{s}.{j}.mlp.{suffix}", ""))
+            dense = src.t() if src is not None and src.dim() == 2 else src
+            if dense is None or tuple(dense.shape) != tuple(bank.shape[1:]):
+                dense = torch.zeros(bank.shape[1:])
+            exact &= all(torch.equal(bank[e], dense) for e in range(bank.shape[0]))
+            n_banks += 1
+    routers = [weights[f"stages.{s}.{j}.mlp.router"] for s, j in moe_blocks(run.model)]
+    check(exact and n_banks == 4 * MOE_LAYERS,
+          f"every expert of every bank ({n_banks} banks) equals the dense twin's MLP bit for bit")
+    check(all(float(r.abs().sum()) > 0 for r in routers), "the routers keep their seeded init")
+    t0 = time.perf_counter()
+    try:
+        run.train()
+    finally:
+        run.close()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launched = {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K2": fm.LAUNCHES,
+                "K2_bwd": fm.BWD_LAUNCHES}
+    rows = {}
+    with open(os.path.join(run.config.ENV.OUTPUT.DIRS.LOGS, "metrics.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            if "train/loss" in row:
+                rows[row["step"]] = row
+    steps = run.progress.global_step
+    check(sorted(rows) == list(range(1, steps + 1)) and all(
+        np.isfinite(r[k]) for r in rows.values()
+        for k in ("train/loss", "train/moe_aux", "train/moe_z", "train/moe_drop_frac")),
+        "finite loss and MoE statistics at every step of the CLI's epoch")
+    n_val = len(run.val_loader) if run.val_loader is not None else 0
+    n_gn = sum(t["gradnorm_updates"] for t in run.epoch_timings.values())
+    val_forwards = n_val * len(run.validation_seconds)
+    want = {k: steps * K1_PER_REMAT_STEP[k] + n_gn * PER_GRADNORM[k] for k in launched}
+    want["K1"] += val_forwards * K1_PER_FORWARD
+    want["K2"] += val_forwards * K2_PER_FORWARD
+    check(launched == want, f"MoE trainer launches {launched}, expected {want}")
+    last = ckpt.auto_resume_helper(run.ckpt_dir)
+    timing = run.epoch_timings[0]
+    summary = run.metrics.phase_summary("val")
+    print(f"[{card}] mFormerV1_sm_moe upcycled by the CLI's Trainer (built in {build_s:.1f} s; "
+          f"{n_banks} banks bit for bit the dense twin's MLP) and trained 1 epoch on phase 7c's "
+          f"dataset: {steps} steps, {n_gn} GradNorm updates, median step "
+          f"{timing['median_step_ms']:.2f} ms (cold epoch), validation loss "
+          f"{summary['loss']:.4f}, moe_aux {rows[steps]['train/moe_aux']:.4f}, moe_z "
+          f"{rows[steps]['train/moe_z']:.3f}, moe_drop_frac {rows[steps]['train/moe_drop_frac']:.4f} "
+          f"at the last step; launches {launched} (expected {want}); peak {peak:.2f} GiB; "
+          f"{train_s:.1f} s", flush=True)
+
+    # (d) the handler from the checkpoint directory
+    bundle_dir = os.path.join(d, "bundle_moe")
+    prepare_bundle(last, run.config.ENV.OUTPUT.DIRS.ASSETS, bundle_dir, "mFormerV1_sm",
+                   list(TASKS), [run.num_classes[t] for t in TASKS], image_size=IMG)
+    variant = os.path.join(bundle_dir, "variant.yaml")
+    with open(variant, "w") as f:
+        yaml.safe_dump({"MODEL": json.loads(json.dumps(run.config.MODEL)), "TRAIN": {
+            "MIXED_PRECISION": json.loads(json.dumps(run.config.TRAIN.MIXED_PRECISION))}}, f)
+    with open(os.path.join(bundle_dir, "config.yaml")) as f:
+        bundle_cfg = yaml.safe_load(f)
+    bundle_cfg["model"]["architecture_variant_config_path"] = variant
+    bundle_cfg["model"]["weights_path"] = os.path.abspath(last)
+    config_path = os.path.join(bundle_dir, "config_dir.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(bundle_cfg, f, sort_keys=False)
+    handler = LinnaeusInferenceHandler.load_from_artifacts(config_path)
+    check(handler.model.moe_num_experts == 8 and handler.model.dtype == torch.bfloat16,
+          "the handler serves the MoE checkpoint in bf16")
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED + 2)
+    x = torch.randn(BATCH, IMG, IMG, 3, generator=g, device=dev)
+    aux = torch.randn(BATCH, handler.config.aux_vector_length(), generator=g, device=dev)
+    run.model.eval()
+    with torch.inference_mode():
+        a, b = handler.model(x, aux), run.model(x, aux)
+    check(all(torch.equal(a[t], b[t]) for t in TASKS),
+          "the handler's logits from the checkpoint directory equal the checkpoint's model's "
+          "bit for bit")
+    del handler
+    gc.collect()
+
+    # (e) the export to the reference layout, loaded strict into mFormerV1_sm
+    out = os.path.join(d, "moe_reference.pth")
+    export_main(["--cfg", cfg_path, "--checkpoint", last, "--out", out])
+    exported = torch.load(out, weights_only=True)
+    with open(cfg_path) as f:
+        dense_cfg = yaml.safe_load(f)
+    dense_cfg["MODEL"]["BASE"] = [os.path.abspath("configs/model/archs/mFormerV1_sm.yaml")]
+    del dense_cfg["MODEL"]["PRETRAINED_CONVNEXT"], dense_cfg["MODEL"]["PRETRAINED_ROPEVIT"]
+    dense_path = os.path.join(d, "dense_twin.yaml")
+    with open(dense_path, "w") as f:
+        yaml.safe_dump(dense_cfg, f)
+    from linnaeus_tpu_torch.configuration import build_config
+
+    dense = build_model(build_config(dense_path), run.num_classes, device=dev, seed=MOE_SEED)
+    check(not dense.moe_num_experts, "the export's target is the dense mFormerV1_sm")
+    dense.load_state_dict(exported, strict=True)
+    with torch.inference_mode():
+        logits = dense(x, aux)
+    check(all(torch.isfinite(logits[t]).all() for t in TASKS),
+          "the exported weights load strict into mFormerV1_sm and its forward runs")
+    # the bank's mean on the card against the export's on the host: two
+    # summation orders, so within a few float32 roundings of the largest entry
+    mean = run.model.state_dict()["stages.2.1.mlp.wi"].float().mean(0).t().cpu()
+    err = max_err(exported["stages.2.1.mlp.fc1.weight"], mean)
+    check(err <= 1e-6 * mean.abs().max().item(), f"the export holds each bank's mean: {err}")
+    print(f"MoE checkpoint {os.path.basename(last)} served by the handler from its directory, "
+          f"logits bit for bit the checkpoint's model's on {BATCH} images; exported by "
+          f"tools/export_torch.py ({len(exported)} tensors, the dense twin with each bank "
+          f"averaged): loads strict into mFormerV1_sm, forward finite", flush=True)
+    del run, dense, exported
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launched, "steps": steps, "median_step_ms": timing["median_step_ms"],
+            "peak_gib": peak, "train_s": train_s}
+
+
+def moe_phase(dev, card, fa, fm, trainer: dict) -> dict:
+    """Phase 7g: (a) serving, (b) steps, (c) upcycling through the CLI, (d)
+    serving the checkpoint, (e) the export. K1 and K2 launch on the MoE path
+    as on mFormerV1_sm's; the split backward and K3 do not."""
+    t0 = time.perf_counter()
+    served = moe_serve(dev, card, fa, fm)
+    steps = moe_steps(dev, card, fa, fm)
+    cli = moe_cli(dev, card, fa, fm, trainer)
+    check(fa.DQ_LAUNCHES == fa.DKV_LAUNCHES == 0, "no split backward on the MoE path")
+    seconds = time.perf_counter() - t0
+    print(f"phase 7g (mFormerV1_sm_moe) took {seconds:.1f} s", flush=True)
+    return {"serve": served, "steps": steps, "cli": cli, "seconds": seconds,
+            "launches": {"K1": served["launches"]["K1"], "K2": served["launches"]["K2"],
+                         "K1_bwd": steps["on"]["launches"]["K1_bwd"],
+                         "K2_bwd": steps["on"]["launches"]["K2_bwd"]}}
+
+
 # ---------------------------------------------------------------------------
 # phase 7f: phase 1 to phase 2 on the receipt data (tools/e2e_train_bench,
 # the CLI with the kernels on and off, tools/train_run_receipt, rl/)
@@ -3075,6 +3482,9 @@ def main() -> int:
         # the CLI with resume, MetaFormer init and serving from the training
         # checkpoint directory, on phase 7c's dataset
         v0_phase(dev, card, fa, fm, trainer)
+        # 7g. mFormerV1_sm_moe: serving, train_bench --moe steps, upcycling
+        # from 7d's files through the CLI, serving the checkpoint, the export
+        moe = moe_phase(dev, card, fa, fm, trainer)
         shutil.rmtree(trainer["dir"], ignore_errors=True)
         # 7f. phase 1 to phase 2: the receipt data, the CLI with the kernels
         # on and off and their receipts, PPO abstention fine-tuning from the
@@ -3122,6 +3532,7 @@ def main() -> int:
                         "trainer_launches": trainer["launches"].get(key, 0),
                         "pretrained_launches": pretrained["launches"].get(key, 0),
                         "receipt_launches": receipt["launches"].get(key, 0),
+                        "moe_launches": moe["launches"].get(key, 0),
                         "receipt_shapes": receipt["shapes"].get(key, []),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})

@@ -1,0 +1,150 @@
+"""Mixture-of-Experts MLP (V-MoE style).
+
+Port of linnaeus_tpu/models/blocks/moe.py. A bank of E expert MLPs replaces
+the dense transformer MLP on selected RoPE blocks, and each token goes to
+its top-k experts. The parameters keep the TPU package's layout and names
+(``router`` (D, E), ``wi`` (E, D, F), ``bi`` (E, F), ``wo`` (E, F, D),
+``bo`` (E, D)), so the weight bridge (utils/convert.py) is an identity for
+them and the parameter filters and Muon see the tensors the TPU package
+sees.
+
+The routing is the TPU package's: the router runs in float32, the experts in
+the compute dtype; top-k takes the lower expert index first on ties (a
+stable descending sort: ``torch.topk`` promises no order on ties, where
+``jax.lax.top_k`` does); the k gates are renormalised with a 1e-9 floor;
+within each image all rank-0 choices fill expert slots in token order
+before any rank-1 choice, and a choice past the C = ceil(k N f / E) slots of
+its expert is dropped (its output is zero, so the block's residual passes
+the token through).
+
+The dispatch differs in form only. Where the TPU package builds one-hot
+(B, N, E, C) dispatch and combine tensors and contracts them on the MXU,
+this module writes each kept (token, choice) into an (E, B C, D) slot buffer
+by its flat slot index (one extra row takes the dropped choices and is
+discarded), runs the experts as two batched products and gathers each
+token's k outputs back, weighted by its gates in an elementwise sum. At
+mFormerV1_sm_moe's stage 3 (B 64, N 580, E 8, C 182) each one-hot tensor
+would hold 216 MB in float32.
+
+``forward`` returns the output and the layer's statistics (float32
+scalars): the Switch load-balance loss E * sum_e f_e P_e (f from the top-1
+choice before capacity, P the mean router probability; 1.0 at uniform
+routing), the router z-loss mean(logsumexp(logits)^2) and the share of
+dropped choices. They leave the model through its forward's return value
+(models/mformer_v1.py), never through module state, so a checkpointed
+block's recompute adds no second copy. Router noise (``noise_std`` > 0, in
+units of 1/E, training mode only) draws from ``generator``, which
+``create_train_state`` sets to the step's generator.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import Dropout, gelu, trunc_normal_
+
+
+class MoEStats(NamedTuple):
+    """One MoE layer's statistics, float32 scalars."""
+
+    aux: torch.Tensor
+    z: torch.Tensor
+    drop_frac: torch.Tensor
+
+
+def capacity(num_tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
+    """Slots per expert per image: ceil(k N f / E), at least 1."""
+    k = min(int(top_k), int(num_experts))
+    return max(1, int(math.ceil(k * num_tokens * capacity_factor / num_experts)))
+
+
+def route(logits: torch.Tensor, top_k: int, cap: int):
+    """The routing of float32 router ``logits`` (B, N, E): (probs, gates
+    (B, N, K) renormalised, experts (B, N, K), slots (B, N, K) the position
+    of each choice in its expert's queue for this image, keep (B, N, K))."""
+    B, N, E = logits.shape
+    K = min(int(top_k), E)
+    probs = torch.softmax(logits, dim=-1)
+    # a stable sort keeps the lower expert index first among equal probabilities
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[..., :K], experts[..., :K]
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # rank-major order: (B, K * N) choices, all rank-0 choices first
+    chosen = experts.transpose(1, 2).reshape(B, K * N)
+    onehot = F.one_hot(chosen, E)
+    position = onehot.cumsum(dim=1).gather(2, chosen[..., None])[..., 0] - 1
+    slots = position.view(B, K, N).transpose(1, 2)
+    return probs, gates, experts, slots, slots < cap
+
+
+class MoEMlp(nn.Module):
+    """Drop-in replacement for ``Mlp`` on (B, N, D) tokens; ``forward``
+    returns ``(y, MoEStats)``. ``hidden_features`` is each expert's hidden
+    width; ``drop`` acts after the activation and after the output, as in
+    ``Mlp``. The weights are drawn from ``generator`` (trunc-normal router
+    and expert kernels, zero biases), as the TPU package initialises them."""
+
+    def __init__(self, dim: int, hidden_features: int, num_experts: int = 8, top_k: int = 2,
+                 capacity_factor: float = 1.25, noise_std: float = 0.0, drop: float = 0.0,
+                 act_exact: bool = False, generator: torch.Generator | None = None):
+        super().__init__()
+        E, F_ = int(num_experts), int(hidden_features)
+        self.num_experts, self.top_k = E, min(int(top_k), E)
+        self.capacity_factor = float(capacity_factor)
+        self.noise_std = float(noise_std)
+        self.act_exact = act_exact
+        self.router = nn.Parameter(torch.empty(dim, E))
+        self.wi = nn.Parameter(torch.empty(E, dim, F_))
+        self.bi = nn.Parameter(torch.zeros(E, F_))
+        self.wo = nn.Parameter(torch.empty(E, F_, dim))
+        self.bo = nn.Parameter(torch.zeros(E, dim))
+        self.drop1 = Dropout(drop)
+        self.drop2 = Dropout(drop)
+        self.generator: torch.Generator | None = None  # the router noise's
+        init = generator if generator is not None else torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in (self.router, self.wi, self.wo):
+                trunc_normal_(p, init)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, MoEStats]:
+        B, N, D = x.shape
+        E, K, dt = self.num_experts, self.top_k, x.dtype
+        C = capacity(N, E, K, self.capacity_factor)
+        logits = x.float() @ self.router.float()  # (B, N, E)
+        if self.noise_std > 0.0 and self.training:
+            noise = torch.randn(logits.shape, device=logits.device, generator=self.generator)
+            logits = logits + noise * (self.noise_std / E)
+        probs, gates, experts, slots, keep = route(logits, K, C)
+
+        # dispatch: choice (b, n, k) -> row experts * B C + b C + slot; every
+        # dropped choice -> the extra last row
+        rows = experts * (B * C) + torch.arange(B, device=x.device)[:, None, None] * C + slots
+        rows = torch.where(keep, rows, torch.full_like(rows, E * B * C)).reshape(-1)
+        tokens = x[:, :, None, :].expand(B, N, K, D).reshape(B * N * K, D)
+        buf = x.new_zeros(E * B * C + 1, D).index_put((rows,), tokens)
+        xe = buf[:-1].view(E, B * C, D)
+
+        # the experts, as batched products in the compute dtype
+        h = torch.baddbmm(self.bi.to(dt)[:, None, :], xe, self.wi.to(dt))
+        h = self.drop1(gelu(h, self.act_exact))
+        ye = self.drop2(torch.baddbmm(self.bo.to(dt)[:, None, :], h, self.wo.to(dt)))
+
+        # combine: each token's k outputs weighted by its gates (in the compute
+        # dtype, as the TPU package casts them), zero where dropped, summed in
+        # float32 and rounded once; an elementwise sum, since a batched product
+        # of B N (1, K) x (K, D) matrices is a pathological GEMM
+        picked = ye.reshape(E * B * C, D).index_select(0, rows.clamp_max(E * B * C - 1))
+        weights = torch.where(keep, gates, torch.zeros_like(gates)).to(dt)
+        y = (weights.float()[..., None] * picked.view(B, N, K, D).float()).sum(dim=2).to(dt)
+
+        # the auxiliary statistics, float32
+        f = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
+        aux = E * (f * probs.mean(dim=(0, 1))).sum()
+        z = torch.logsumexp(logits, dim=-1).square().mean()
+        drop_frac = 1.0 - keep.sum().float() / float(B * N * K)
+        return y, MoEStats(aux, z, drop_frac)

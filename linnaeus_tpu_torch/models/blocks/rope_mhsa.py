@@ -3,9 +3,11 @@
 Port of linnaeus_tpu/models/blocks/rope_mhsa.py. Image-grid tokens get 2D
 rotary embeddings (learnable mixed or fixed axial frequencies); the leading
 extra tokens (CLS and metadata) pass through unrotated; the block is pre-LN
-attention plus a pre-LN MLP, each with a drop-path residual. q, k and v
-stay token-major (B, N, H, D) views of the qkv projection, which is the
-layout the K1 kernel reads.
+attention plus a pre-LN MLP, each with a drop-path residual; with
+``use_moe`` the MLP is a routed expert bank (blocks/moe.py) under the same
+``mlp`` name, and the block returns its statistics beside its output. q, k
+and v stay token-major (B, N, H, D) views of the qkv projection, which is
+the layout the K1 kernel reads.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from linnaeus_tpu_torch.ops import rope
 from linnaeus_tpu_torch.ops.attention import scaled_dot_product_attention
 
 from .common import Dropout, DropPath, LayerNorm, Linear, Mlp
+from .moe import MoEMlp, MoEStats
 
 ROPE_FIDELITIES = ("rotate", "reference_cos")
 
@@ -93,7 +96,10 @@ class RoPE2DAttention(nn.Module):
 
 
 class RoPE2DMHSABlock(nn.Module):
-    """Pre-LN transformer block with 2D-RoPE attention (LN eps 1e-5)."""
+    """Pre-LN transformer block with 2D-RoPE attention (LN eps 1e-5).
+    ``use_moe`` swaps the dense MLP for :class:`MoEMlp` (``moe_*`` its
+    expert count, top-k, capacity factor and router noise); ``forward`` then
+    returns ``(x, MoEStats)``."""
 
     def __init__(self, dim: int, img_grid_size: tuple[int, int],
                  extra_token_num: int = 1, num_heads: int = 8,
@@ -102,8 +108,11 @@ class RoPE2DMHSABlock(nn.Module):
                  use_flash_attn: bool = False, rope_fidelity: str = "rotate",
                  act_exact: bool = False, attn_fp32_softmax: bool = True,
                  drop: float = 0.0, attn_drop: float = 0.0,
+                 use_moe: bool = False, moe_num_experts: int = 8, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25, moe_noise_std: float = 0.0,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.use_moe = use_moe
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = RoPE2DAttention(
             dim, img_grid_size, extra_token_num=extra_token_num,
@@ -113,9 +122,18 @@ class RoPE2DMHSABlock(nn.Module):
             generator=generator,
         )
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act_exact=act_exact, drop=drop)
+        if use_moe:
+            self.mlp = MoEMlp(dim, int(dim * mlp_ratio), num_experts=moe_num_experts,
+                              top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+                              noise_std=moe_noise_std, drop=drop, act_exact=act_exact,
+                              generator=generator)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act_exact=act_exact, drop=drop)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor | tuple[torch.Tensor, MoEStats]:
         x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        if not self.use_moe:
+            return x + self.drop_path(self.mlp(self.norm2(x)))
+        y, stats = self.mlp(self.norm2(x))
+        return x + self.drop_path(y), stats

@@ -8,8 +8,8 @@ Port of linnaeus_tpu/models/build.py, in two forms:
   ``MODEL.*``, ``DATA.TASK_KEYS_H5``, ``DATA.META.COMPONENTS`` and
   ``TRAIN.MIXED_PRECISION`` decide it, as in the JAX package;
   ``TRAIN.GRADIENT_CHECKPOINTING.ENABLED_NORMAL_STEPS`` and ``POLICY`` set
-  mFormerV1's per-block rematerialisation. ``MODEL.MOE.ENABLED`` raises by
-  name (not ported).
+  mFormerV1's per-block rematerialisation; ``MODEL.MOE.*`` its MoE MLPs
+  (mFormerV0 with MoE raises, as in the JAX package).
 * ``build_model(arch, img_size, num_classes, ...)``: the preset (a name from
   configuration/archs.py, or a dict of the same shape) fixes the depths and
   widths, and keywords carry the rest.
@@ -115,12 +115,11 @@ def build_model_from_config(
     matrices = _hierarchy_matrices(head_configs, taxonomy_tree)
 
     moe = config.MODEL.get("MOE", {})
-    if bool(moe.get("ENABLED", False)):
-        if model_type != "mFormerV1":
-            raise ValueError(
-                "MODEL.MOE.ENABLED requires MODEL.TYPE=mFormerV1 (the MoE MLP replaces "
-                "RoPE-block MLPs; mFormerV0 has no MoE substrate)")
-        raise NotImplementedError("MODEL.MOE.ENABLED: the MoE MLP is not ported yet (M9)")
+    moe_enabled = bool(moe.get("ENABLED", False))
+    if moe_enabled and model_type != "mFormerV1":
+        raise ValueError(
+            "MODEL.MOE.ENABLED requires MODEL.TYPE=mFormerV1 (the MoE MLP replaces "
+            "RoPE-block MLPs; mFormerV0 has no MoE substrate)")
 
     img_size = config.MODEL.IMG_SIZE
     img_size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
@@ -149,6 +148,11 @@ def build_model_from_config(
         rs = config.MODEL.ROPE_STAGES
         fused = str(config.MODEL.get("FUSED_CONVNEXT_MLP", "auto")).lower()
         model = MFormerV1(
+            moe_num_experts=int(moe.get("NUM_EXPERTS", 8)) if moe_enabled else 0,
+            moe_top_k=int(moe.get("TOP_K", 2)),
+            moe_capacity_factor=float(moe.get("CAPACITY_FACTOR", 1.25)),
+            moe_every_n=int(moe.get("EVERY_N", 2)),
+            moe_noise_std=float(moe.get("NOISE_STD", 0.0)),
             convnext_depths=tuple(cs.DEPTHS),
             convnext_dims=tuple(cs.DIMS),
             convnext_ls_init=float(cs.get("LAYER_SCALE_INIT_VALUE", 1e-6)),
@@ -216,7 +220,9 @@ def build_model_from_arch(
     preset (``MFORMER_V0_ARCHS``, or a dict with ``DIMS`` and
     ``MBCONV_DEPTHS``) builds an mFormerV0; ``fused_convnext_mlp`` and
     ``rope_fidelity`` have nothing to act on there, and ``use_flash_attn``
-    is accepted and unused, as in the JAX package.
+    is accepted and unused, as in the JAX package. A dict preset may carry
+    ``MOE`` (``NUM_EXPERTS``, ``TOP_K``, ``CAPACITY_FACTOR``, ``EVERY_N``,
+    ``NOISE_STD``: the keys of ``MODEL.MOE``) for an mFormerV1 with MoE MLPs.
     """
     device = resolve_device(device)
     spec = (MFORMER_V1_ARCHS | MFORMER_V0_ARCHS)[arch] if isinstance(arch, str) else arch
@@ -243,9 +249,15 @@ def build_model_from_arch(
             seed=seed,
         )
         return model.to(device).eval()
+    moe = spec.get("MOE") or {}
     model = MFormerV1(
         img_size=(img_size, img_size),
         in_chans=in_chans,
+        moe_num_experts=int(moe.get("NUM_EXPERTS", 0)),
+        moe_top_k=int(moe.get("TOP_K", 2)),
+        moe_capacity_factor=float(moe.get("CAPACITY_FACTOR", 1.25)),
+        moe_every_n=int(moe.get("EVERY_N", 2)),
+        moe_noise_std=float(moe.get("NOISE_STD", 0.0)),
         convnext_depths=tuple(spec["CONVNEXT"]["DEPTHS"]),
         convnext_dims=tuple(spec["CONVNEXT"]["DIMS"]),
         rope_depths=tuple(spec["ROPE"]["DEPTHS"]),

@@ -14,8 +14,16 @@ Images are NHWC, as in the TPU package. Parameters are float32; ``dtype``
 is the compute dtype. ``aggregation`` (MODEL.AGGREGATION.TYPE) 'Conv1d' or
 'default' is the dual-CLS ``aggregate``; another registered aggregation
 (models/aggregation.py) is built as ``aggregate_alt`` over the (B, 2, C)
-stack of the two CLS tokens, as the TPU package routes it. MoE, ring
-attention and pipelining are not ported yet and raise. ``gradient_checkpointing`` recomputes every ConvNeXt and
+stack of the two CLS tokens, as the TPU package routes it.
+``moe_num_experts`` > 0 puts a routed expert bank (blocks/moe.py) in place
+of the dense MLP on every ``moe_every_n``-th block of each RoPE stage (the
+TPU package's V-MoE placement: blocks n-1, 2n-1, ... within a stage);
+``forward(..., moe_stats=True)`` returns, beside the logits, the layers'
+statistics averaged over the MoE layers (None without one), which is how
+the train step reads them: they come from the forward whose graph the loss
+uses, under remat too. Ring attention and pipelining are not ported and
+raise; MoE with pipelining raises as in the TPU package.
+``gradient_checkpointing`` recomputes every ConvNeXt and
 RoPE block of the towers in the backward, keeping what ``remat_policy``
 names (models/utils.py); the flag may be flipped between calls, as the
 GradNorm re-forward does. Dropout (``drop_rate`` in the RoPE blocks' MLP
@@ -50,6 +58,7 @@ from linnaeus_tpu_torch.models.blocks.convnext import (
     ConvNeXtDownsampleLayer,
     ConvNeXtStem,
 )
+from linnaeus_tpu_torch.models.blocks.moe import MoEStats
 from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
 from linnaeus_tpu_torch.models.factory import AGGREGATION_REGISTRY, register_model
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
@@ -87,6 +96,10 @@ class MFormerV1(nn.Module):
         head_configs: Mapping[str, Mapping[str, Any]] | None = None,
         hierarchy_matrices: Mapping[str, np.ndarray] | None = None,
         moe_num_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
+        moe_every_n: int = 2,
+        moe_noise_std: float = 0.0,
         ring_attention: bool = False,
         pipeline_stages: int = 0,
         gradient_checkpointing: bool = False,
@@ -95,8 +108,11 @@ class MFormerV1(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
+        if pipeline_stages and moe_num_experts > 0:
+            raise ValueError(
+                "pipeline parallelism requires uniform tower blocks — MoE placement varies per "
+                "block (disable MODEL.MOE or PARALLEL.PIPELINE)")
         for name, value in (
-            ("moe_num_experts", moe_num_experts),
             ("ring_attention", ring_attention),
             ("pipeline_stages", pipeline_stages),
         ):
@@ -122,6 +138,12 @@ class MFormerV1(nn.Module):
         self.grid3 = (img_size[0] // 16, img_size[1] // 16)
         self.grid4 = (img_size[0] // 32, img_size[1] // 32)
 
+        self.moe_num_experts = max(int(moe_num_experts), 0)
+        every_n = max(int(moe_every_n), 1)
+
+        def use_moe(i: int) -> bool:
+            return self.moe_num_experts > 0 and i % every_n == every_n - 1
+
         total_depth = sum(convnext_depths[:2]) + sum(rope_depths)
         dpr = iter(float(r) for r in np.linspace(0.0, drop_path_rate, total_depth))
 
@@ -146,9 +168,12 @@ class MFormerV1(nn.Module):
                     drop_path=next(dpr), use_flash_attn=use_flash_attn,
                     rope_fidelity=rope_fidelity, act_exact=act_exact,
                     attn_fp32_softmax=attn_fp32_softmax, drop=drop_rate,
-                    attn_drop=attn_drop_rate, generator=generator,
+                    attn_drop=attn_drop_rate, use_moe=use_moe(i),
+                    moe_num_experts=max(self.moe_num_experts, 1), moe_top_k=moe_top_k,
+                    moe_capacity_factor=moe_capacity_factor, moe_noise_std=moe_noise_std,
+                    generator=generator,
                 )
-                for _ in range(rope_depths[s])
+                for i in range(rope_depths[s])
             )
             for s, grid in ((0, self.grid3), (1, self.grid4))
         ]
@@ -208,9 +233,24 @@ class MFormerV1(nn.Module):
             start += dim
         return torch.cat(tokens, dim=1)
 
+    def _rope_stage(self, blocks: nn.ModuleList, x: torch.Tensor,
+                    moe: list[MoEStats]) -> torch.Tensor:
+        for blk in blocks:
+            out = self._block(blk, x)
+            if blk.use_moe:
+                x, stats = out
+                moe.append(stats)
+            else:
+                x = out
+        return x
+
     def forward_features(
-        self, x: torch.Tensor, meta: torch.Tensor | None = None
+        self, x: torch.Tensor, meta: torch.Tensor | None = None,
+        moe: list[MoEStats] | None = None,
     ) -> torch.Tensor:
+        """The aggregated features; the statistics of each MoE layer this
+        forward ran are appended to ``moe`` when given."""
+        moe = [] if moe is None else moe
         B = x.shape[0]
         if meta is None and self.meta_components:
             # absent metadata is the fully masked (all-zero) aux vector
@@ -230,8 +270,7 @@ class MFormerV1(nn.Module):
         h3, w3 = self.grid3
         x = x.reshape(B, h3 * w3, self.rope_dims[0])
         x = torch.cat([self._extras(1, meta, B), x], dim=1)
-        for blk in self.stages[2]:
-            x = self._block(blk, x)
+        x = self._rope_stage(self.stages[2], x, moe)
         x = self.norm_1(x)
         if not self.only_last_cls:
             cls_1 = self.cl_1_fc(x[:, 0:1, :])
@@ -241,8 +280,7 @@ class MFormerV1(nn.Module):
         h4, w4 = self.grid4
         x = x.reshape(B, h4 * w4, self.rope_dims[1])
         x = torch.cat([self._extras(2, meta, B), x], dim=1)
-        for blk in self.stages[3]:
-            x = self._block(blk, x)
+        x = self._rope_stage(self.stages[3], x, moe)
         x = self.norm_2(x)
         cls_2 = x[:, 0:1, :]
         if self.only_last_cls:
@@ -254,8 +292,21 @@ class MFormerV1(nn.Module):
 
     def forward(
         self, x: torch.Tensor, meta: torch.Tensor | None = None, gradnorm_mode: bool = False,
-    ) -> dict[str, torch.Tensor]:
+        moe_stats: bool = False,
+    ):
         """NHWC images (and the packed aux vector) -> float32 logits by task;
         ``gradnorm_mode`` skips the hierarchical refinement (the GradNorm
-        re-forward's linear heads)."""
-        return self.head(self.forward_features(x, meta), gradnorm_mode=gradnorm_mode)
+        re-forward's linear heads). With ``moe_stats``: ``(logits, stats)``,
+        ``stats`` the MoE layers' ``moe_aux``, ``moe_z`` and ``moe_drop_frac``
+        averaged over the layers (the TPU package's ``_collect_moe_stats``),
+        or None for a model without MoE layers."""
+        layers: list[MoEStats] = []
+        logits = self.head(self.forward_features(x, meta, layers), gradnorm_mode=gradnorm_mode)
+        if not moe_stats:
+            return logits
+        if not layers:
+            return logits, None
+        n = len(layers)
+        return logits, {key: sum(getattr(s, field) for s in layers) / n
+                        for key, field in (("moe_aux", "aux"), ("moe_z", "z"),
+                                           ("moe_drop_frac", "drop_frac"))}

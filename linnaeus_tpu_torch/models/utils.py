@@ -62,14 +62,16 @@ def checkpoint_block(block: torch.nn.Module, *args, context_fn: Callable | None 
     """``block(*args)`` under a non-reentrant checkpoint with ``context_fn``.
 
     The recompute draws the block's random numbers again: its DropPath and
-    Dropout masks come from explicit ``torch.Generator``s, which the
-    checkpoint does not preserve (it stashes the global generators only).
+    Dropout masks and its MoE router noise come from explicit
+    ``torch.Generator``s, which the checkpoint does not preserve (it stashes
+    the global generators only).
     So the generators' states are taken before the first forward, set back
     for every recompute, and put back after it, and the recompute draws the
     masks of the first forward without moving the generators."""
     gens = list({id(m.generator): m.generator for m in block.modules()
                  if getattr(m, "generator", None) is not None and m.training
-                 and getattr(m, "rate", 0.0) > 0.0}.values())
+                 and max(getattr(m, "rate", 0.0), getattr(m, "noise_std", 0.0)) > 0.0
+                 }.values())
     starts = [g.get_state() for g in gens]
     calls = []
 

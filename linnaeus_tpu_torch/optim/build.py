@@ -13,8 +13,9 @@ multiplier (train/state.py), as the TPU package scales each group's
 schedule.
 
 Weight decay is decoupled. AdamW and SGD skip parameters of one dimension
-(biases, norm scales, layer scales); Muon and AdEMAMix decay every
-parameter, as the TPU package chains their decay without a mask.
+(biases, norm scales, layer scales) and the MoE expert biases; Muon and
+AdEMAMix decay every parameter, as the TPU package chains their decay
+without a mask.
 """
 
 from __future__ import annotations
@@ -42,8 +43,12 @@ logger = logging.getLogger(__name__)
 
 def _no_decay_mask(named_parameters: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
     """name -> True where decoupled weight decay applies: parameters of more
-    than one dimension. Biases, norm scales and layer scales are skipped."""
-    return {name: p.dim() > 1 for name, p in named_parameters}
+    than one dimension. Biases, norm scales and layer scales are skipped, and
+    so are the MoE expert biases ``bi`` and ``bo`` (models/blocks/moe.py) by
+    name: they carry a leading expert axis, so they are 2-D, but remain
+    biases."""
+    return {name: p.dim() > 1 and name.rsplit(".", 1)[-1] not in ("bi", "bo")
+            for name, p in named_parameters}
 
 
 class MultiOptimizer:

@@ -15,6 +15,12 @@ compute dtype, the TPU tool's default; ``--fp32-scores`` computes them in
 float32. ``--remat`` checkpoints every tower block (``--remat-policy``
 full, dots or dots_no_batch).
 
+``--moe`` trains mFormerV1_sm_moe (configs/model/archs/mFormerV1_sm_moe.yaml:
+8 experts, top-2, capacity factor 1.25, on every 2nd RoPE block, so
+stage 3 blocks 1 and 3 and stage 4 block 1) with the preset's load-balance
+and router z-loss weights in the step; its metrics then carry ``moe_aux``,
+``moe_z`` and ``moe_drop_frac``.
+
 ``--default-config`` builds the step from the default config instead
 (``default_train_config``: GradNorm every UPDATE_INTERVAL steps,
 AutoAugment, colour jitter, random erasing, remat 'dots', AdamW on a cosine
@@ -30,6 +36,7 @@ no card and no such request it raises.
     python -m linnaeus_tpu_torch.tools.train_bench --profile 3
     python -m linnaeus_tpu_torch.tools.train_bench --remat --remat-policy dots
     python -m linnaeus_tpu_torch.tools.train_bench --default-config --steps 4
+    python -m linnaeus_tpu_torch.tools.train_bench --moe
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
+from linnaeus_tpu_torch.configuration.archs import MFORMER_V1_ARCHS
 from linnaeus_tpu_torch.configuration.train_presets import train_preset
 from linnaeus_tpu_torch.data.collate import MixConfig
 from linnaeus_tpu_torch.loss.basic import soft_target_cross_entropy
@@ -51,12 +59,15 @@ from linnaeus_tpu_torch.optim.build import build_optimizer
 from linnaeus_tpu_torch.optim.schedules import build_schedule
 from linnaeus_tpu_torch.train.build import build_training
 from linnaeus_tpu_torch.train.state import TrainState, create_train_state
-from linnaeus_tpu_torch.train.step import ScheduleScalars, make_train_step
+from linnaeus_tpu_torch.train.step import MOE_KEYS, ScheduleScalars, make_train_step
 from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
 
 NUM_CLASSES = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
 TOTAL_STEPS = 8 * 115  # the preset's 8 epochs of 7372 training samples at batch 64
+# MODEL.MOE of configs/model/archs/mFormerV1_sm_moe.yaml
+MOE_PRESET = {"NUM_EXPERTS": 8, "TOP_K": 2, "CAPACITY_FACTOR": 1.25, "EVERY_N": 2,
+              "AUX_LOSS_WEIGHT": 0.01, "ROUTER_Z_LOSS_WEIGHT": 0.001}
 # the port's own kernels, by the names the profiler shows them under
 PORT_KERNELS = (
     "flash_fwd_wgmma_kernel", "flash_fwd_fp32_kernel", "flash_bwd_wgmma_kernel",
@@ -134,6 +145,7 @@ def build_step(
     remat: bool | None = None,
     remat_policy: str | None = None,
     config=None,
+    moe: bool = False,
 ) -> tuple[BenchStep, TrainState]:
     """Model, state and step on a synthetic batch. ``kernels`` routes the
     attention of stages 3-4 through K1 and the ConvNeXt MLP tails of stages
@@ -156,13 +168,17 @@ def build_step(
     ``kernels``, ``dtype``, ``meta_components`` and ``fp32_scores`` are then
     the config's. GradNorm's initial task weights are INIT_WEIGHTS, or equal
     weights (the 'inverse_density' strategy needs the class counts of a
-    dataset). Returns ``(run, state)``: ``run()`` takes one optimizer step
-    on the batch and returns its metrics."""
+    dataset). ``moe`` puts MOE_PRESET's expert banks into ``arch`` and
+    its loss weights into the step (with a config, MODEL.MOE decides).
+    Returns ``(run, state)``: ``run()`` takes one optimizer step on the
+    batch and returns its metrics."""
     device = resolve_device(device)
     if config is not None:
         return _build_from_config(config, batch, num_classes, device, seed,
                                   accumulation_steps, remat, remat_policy)
     cfg = train_preset("tpu_trainrun_synth_512" if img == 512 else "tpu_trainrun_synth_384")
+    if moe:
+        arch = dict(MFORMER_V1_ARCHS[arch] if isinstance(arch, str) else arch, MOE=MOE_PRESET)
     model = build_model(
         arch, img, dict(num_classes), tuple(meta_components), dtype=dtype,
         use_flash_attn=kernels, fused_convnext_mlp=kernels,
@@ -188,6 +204,8 @@ def build_step(
                   cutmix_enabled=bool(mix.CUTMIX.ENABLED), chunk_bounds=bounds),
         clip_grad=float(cfg.TRAIN.CLIP_GRAD), accumulation_steps=accumulation_steps,
         has_meta=True, lr_schedule=schedule, num_classes=dict(num_classes),
+        moe_aux_weight=MOE_PRESET["AUX_LOSS_WEIGHT"] if moe else 0.0,
+        moe_z_weight=MOE_PRESET["ROUTER_Z_LOSS_WEIGHT"] if moe else 0.0,
     )
     data = synthetic_batch(batch, img, num_classes, meta_dim, device, seed + 1)
     return BenchStep(state, step, data, _bench_scalars(meta_dim, device)), state
@@ -265,6 +283,7 @@ def measure(batch: int = 64, img: int = 384, kernels: bool = True, warmup: int =
         "task_weights": [float(w) for w in state.gradnorm.task_weights],
         "remat": state.model.gradient_checkpointing, "remat_policy": state.model.remat_policy,
         "final_step": state.step,
+        **{k: [float(m[k]) for m in history] for k in MOE_KEYS if k in history[0]},
     }
 
 
@@ -370,6 +389,9 @@ def main(argv=None) -> None:
                         "'dots', AdamW on cosine) at --img, kernels as --no-kernels says")
     p.add_argument("--config", default=None,
                    help="build the step from this experiment yaml (loaded over the defaults)")
+    p.add_argument("--moe", action="store_true",
+                   help="mFormerV1_sm_moe: 8-expert top-2 MoE MLP on every 2nd RoPE block, "
+                        "with its load-balance and router z-loss terms in the step")
     args = p.parse_args(argv)
     build_kw = {"device": args.device, "accumulation_steps": args.accum,
                 "fp32_scores": args.fp32_scores,
@@ -383,6 +405,10 @@ def main(argv=None) -> None:
         build_kw["config"] = default_train_config(args.img, not args.no_kernels)
     elif build_kw["remat"] is None:
         build_kw["remat"] = False
+    if args.moe:
+        if "config" in build_kw:
+            raise SystemExit("--moe builds the bench's own step; with a config, MODEL.MOE decides")
+        build_kw["moe"] = True
     if args.profile:
         out = profile(args.batch, args.img, not args.no_kernels, steps=args.profile,
                       trace_path=args.trace, forward_only=args.forward, **build_kw)

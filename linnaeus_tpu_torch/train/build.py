@@ -138,6 +138,7 @@ def build_training(
     if accumulation_steps is None:
         accumulation_steps = int(config.TRAIN.ACCUMULATION_STEPS)
     moe = config.MODEL.get("MOE", {})
+    moe_on = bool(moe.get("ENABLED", False))
 
     def optimizer_and_step(schedules: dict[str, Callable]):
         optimizer = build_optimizer(config, schedules["default"], model, schedules)
@@ -148,8 +149,8 @@ def build_training(
             phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
             has_meta=meta_dim > 0, lr_schedule=schedules["default"],
             num_classes=dict(num_classes), augment_fn=augment, keep_collated=gradnorm_on,
-            moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01))
-                            if bool(moe.get("ENABLED", False)) else 0.0),
+            moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01)) if moe_on else 0.0),
+            moe_z_weight=(float(moe.get("ROUTER_Z_LOSS_WEIGHT", 0.001)) if moe_on else 0.0),
             ema_decay=float(ema.DECAY) if ema_on else 0.0,
         )
         return optimizer, train_step

@@ -19,6 +19,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.loss.gradnorm import GradNormState, init_gradnorm_state
 from linnaeus_tpu_torch.models.blocks.common import Dropout, DropPath
+from linnaeus_tpu_torch.models.blocks.moe import MoEMlp
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
 
 Schedule = Callable[[int], float]
@@ -82,14 +83,15 @@ def create_train_state(
 ) -> TrainState:
     """``generator`` must live on the model's device; it is handed to every
     DropPath and Dropout of the model, so stochastic depth and dropout draw
-    from it too, and to its heads, whose gumbel routing draws from it."""
+    from it too, to its MoE MLPs' router noise, and to its heads, whose
+    gumbel routing draws from it."""
     device = next(model.parameters()).device
     if generator.device.type != device.type:
         raise ValueError(
             f"create_train_state: the generator is on {generator.device}, the model on {device}"
         )
     for module in model.modules():
-        if isinstance(module, (DropPath, Dropout, MultiTaskHeads)):
+        if isinstance(module, (DropPath, Dropout, MoEMlp, MultiTaskHeads)):
             module.generator = generator
     return TrainState(
         step=0,

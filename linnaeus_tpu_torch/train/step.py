@@ -38,7 +38,17 @@ and the metadata. At 384 px and B = 64 in bfloat16 that is 57 MB of images
 held from one step to the next; no augmentation or mixing runs twice.
 
 Gradient accumulation runs the microbatches in a Python loop, summing the
-gradients on the parameters. MoE statistics are not ported.
+gradients on the parameters.
+
+MoE. With ``moe_aux_weight`` or ``moe_z_weight`` above zero the step asks
+the model for its MoE statistics (``model(..., moe_stats=True)``: the
+load-balance loss, the router z-loss and the dropped share, averaged over
+the MoE layers; models/mformer_v1.py), adds ``moe_aux_weight * aux +
+moe_z_weight * z`` to the loss it differentiates and reports that total as
+``loss``, with the three statistics as ``moe_aux``, ``moe_z`` and
+``moe_drop_frac`` (averaged over microbatches under accumulation), as the
+TPU package's step collects its ``intermediates``. The eval step, the
+GradNorm re-forward and serving never ask for them.
 
 BatchNorm running statistics (mFormerV0; models/blocks/common.py::BatchNorm)
 are buffers that a training-mode forward updates, so they follow the TPU
@@ -69,6 +79,7 @@ from linnaeus_tpu_torch.loss.hierarchical import weighted_hierarchical_loss
 from .state import Collated, TrainState
 
 Draws = Mapping[str, Any]
+MOE_KEYS = ("moe_aux", "moe_z", "moe_drop_frac")
 
 
 class ScheduleScalars(NamedTuple):
@@ -241,12 +252,8 @@ def make_train_step(
     after their [0, 1] conversion. ``keep_collated`` leaves what the forward
     consumed in ``state.last_collated`` for the GradNorm step.
     """
-    if moe_aux_weight > 0.0 or moe_z_weight > 0.0:
-        raise NotImplementedError(
-            "make_train_step: MoE auxiliary losses are not ported yet (MoE is not on "
-            "mFormerV1's path)"
-        )
     accum = max(int(accumulation_steps), 1)
+    collect_moe = moe_aux_weight > 0.0 or moe_z_weight > 0.0
     task_keys = tuple(task_keys)
     preprocess = make_preprocess_fn(mix_cfg, has_meta=has_meta, num_classes=num_classes,
                                     augment_fn=augment_fn)
@@ -259,7 +266,11 @@ def make_train_step(
         if keep_collated:
             kept.append(Collated(images.detach().to(state.model.dtype), targets,
                                  None if meta is None else meta.detach()))
-        outputs = state.model(images, meta)
+        moe = None
+        if collect_moe and hasattr(state.model, "moe_num_experts"):
+            outputs, moe = state.model(images, meta, moe_stats=True)
+        else:
+            outputs = state.model(images, meta)
         total, components = weighted_hierarchical_loss(
             outputs, targets, criteria, state.gradnorm.task_weights,
             scalars.null_mask_prob, state.generator, (draws or {}).get("null_coins"),
@@ -268,6 +279,10 @@ def make_train_step(
             apply_class_weights=apply_class_weights,
             task_keys=task_keys,
         )
+        if moe is not None:
+            # the reported total is the optimised one, aux terms included
+            total = total + moe_aux_weight * moe["moe_aux"] + moe_z_weight * moe["moe_z"]
+            components = dict(components, **{k: v.detach() for k, v in moe.items()})
         total.backward()
         outputs = {t: v.detach() for t, v in outputs.items()}
         return total.detach(), outputs, components, mixed_mask
@@ -291,6 +306,7 @@ def make_train_step(
                 metrics[f"loss/{t}"] = components["tasks"][t].detach()
             metrics.update(_accuracy_metrics(outputs, batch["targets"]))
             metrics["mixed_frac"] = mixed_mask.float().mean()
+            metrics.update({k: components[k] for k in MOE_KEYS if k in components})
         else:
             micro = split_microbatches(batch, accum, has_meta)
             per_micro = list(draws) if draws is not None else [None] * accum
@@ -305,6 +321,9 @@ def make_train_step(
                     state, mb, scalars, mb_draws, kept)
                 total = total + mb_total
                 add("mixed", mb_mixed.float().sum())
+                if collect_moe:
+                    for k in MOE_KEYS:
+                        add(k, mb_comp.get(k, 0.0))
                 # accuracy counts against the raw microbatch targets
                 # (before mixing), like the accum == 1 path
                 for t in task_keys:
@@ -317,6 +336,9 @@ def make_train_step(
             torch._foreach_div_([p.grad for p in params if p.grad is not None], accum)
             total = total / accum
             metrics["mixed_frac"] = stats["mixed"] / float(batch["images"].shape[0])
+            if collect_moe:
+                for k in MOE_KEYS:
+                    metrics[k] = stats[k] / accum
             for t in task_keys:
                 metrics[f"loss/{t}"] = stats[f"loss/{t}"] / accum
                 denom = stats[f"valid/{t}"].clamp_min(1.0)

@@ -17,6 +17,10 @@ other way), with its ``batch_stats`` collection mapped onto the BatchNorms'
 ``running_mean`` / ``running_var`` buffers; :func:`load_jax_variables` puts a
 whole ``{"params", "batch_stats"}`` tree into a live model of either kind.
 
+An MoE MLP's five leaves (``router``, ``wi``, ``bi``, ``wo``, ``bo``) keep
+the Flax layout and names in the port, so they map onto
+``stages.{s}.{j}.mlp.<leaf>`` as they are.
+
 The map only renames and transposes, so ``state_dict_from_jax`` carries any
 tree shaped like the params just as well, a JAX gradient tree for one, and
 :func:`adamw_moments_from_optax` applies it to the first and second moments
@@ -55,6 +59,7 @@ def _conv1d(k: np.ndarray) -> np.ndarray:
 
 
 Entry = tuple[str, tuple[str, ...], Callable[[np.ndarray], np.ndarray] | None]
+MOE_LEAVES = ("router", "wi", "bi", "wo", "bo")
 
 
 def _linear(dst: str, src: tuple[str, ...]) -> list[Entry]:
@@ -99,8 +104,12 @@ def _entries(
             if "freqs" in params[src]["attn"]:
                 out.append((f"{dst}.attn.freqs", (src, "attn", "freqs"), None))
             out += _norm(f"{dst}.norm2", (src, "norm2"))
-            out += _linear(f"{dst}.mlp.fc1", (src, "mlp", "Dense_0"))
-            out += _linear(f"{dst}.mlp.fc2", (src, "mlp", "Dense_1"))
+            if "router" in params[src].get("mlp", {}):
+                # an MoE MLP keeps the Flax layout and names (models/blocks/moe.py)
+                out += [(f"{dst}.mlp.{leaf}", (src, "mlp", leaf), None) for leaf in MOE_LEAVES]
+            else:
+                out += _linear(f"{dst}.mlp.fc1", (src, "mlp", "Dense_0"))
+                out += _linear(f"{dst}.mlp.fc2", (src, "mlp", "Dense_1"))
     out += _norm("norm_1", ("norm_1",)) + _norm("norm_2", ("norm_2",))
     out += [("cls_token_1", ("cls_token_1",), None), ("cls_token_2", ("cls_token_2",), None)]
     if "cl_1_fc" in params:
@@ -415,7 +424,8 @@ def _skeleton(model: nn.Module) -> dict[str, Any]:
     for s, name in ((2, "stage3"), (3, "stage4")):
         for j, blk in enumerate(model.stages[s]):
             tree[f"{name}_block{j}"] = {"attn": {"freqs": True} if blk.attn.freqs is not None
-                                        else {}}
+                                        else {},
+                                        "mlp": {"router": True} if blk.use_moe else {}}
     if hasattr(model, "cl_1_fc"):
         tree["cl_1_fc"] = True
     if hasattr(model, "aggregate"):

@@ -1,12 +1,13 @@
 """Pretrained initialisation of mFormerV1 and mFormerV0 from torch checkpoints.
 
 Port of linnaeus_tpu/utils/pretrained.py (reference parity:
-utils/checkpoint.py:117-513) without its MoE and export parts: the stitched
-ConvNeXt + RoPE-ViT init (``load_stitched_pretrained``), the reference
-framework's own mFormerV1 ``state_dict`` (``load_reference_mformer_v1``), a
-MetaFG ("MetaFormer") checkpoint into mFormerV0
-(``load_metaformer_into_mformer_v0``, running statistics included) and the
-config-driven ``load_pretrained``. The port's modules hold the reference's key layout, so
+utils/checkpoint.py:117-513): the stitched ConvNeXt + RoPE-ViT init
+(``load_stitched_pretrained``), the reference framework's own mFormerV1
+``state_dict`` (``load_reference_mformer_v1``) and the way back
+(``export_reference_mformer_v1``), a MetaFG ("MetaFormer") checkpoint into
+mFormerV0 (``load_metaformer_into_mformer_v0``, running statistics
+included), sparse upcycling into an MoE mFormerV1 and the config-driven
+``load_pretrained``. The port's modules hold the reference's key layout, so
 every entry maps a source key onto one of the model's own ``state_dict``
 keys and the tensor is copied as it is: no layout changes. The official
 ConvNeXt layout differs from the reference's by one downsampler index: its
@@ -22,9 +23,18 @@ parameters, so the optimizer and the EMA, built afterwards, see the loaded
 values. Each loader returns its report: ``{"loaded": [...], "missing":
 [...], "shape_mismatch": [...]}``, keys by the port's names.
 
-What the port does not run raises by name: an MoE model (sparse upcycling,
-M9) and ``hf://`` or ``b2://`` paths (remote checkpoints are not part of the
-port).
+MoE (models/blocks/moe.py). The loaders map onto the dense layout, so an
+MoE model loads through its dense twin: ``densify_moe_params`` turns its
+state_dict into the dense one (zeros for each bank's MLP, routers dropped),
+the loaders fill that, and ``upcycle_dense_to_moe`` copies the dense MLP
+into every expert of each bank (sparse upcycling, Komatsuzaki et al. 2023),
+the router keeping its fresh init. ``average_experts_into_dense`` is the
+export's way down: each bank's mean in the dense layout. A bank ``wi`` is
+(E, D, F) in the Flax layout and a dense ``fc1.weight`` (F, D), so each
+expert is the transpose of the dense weight, bit for bit.
+
+``hf://`` or ``b2://`` paths raise by name (remote checkpoints are not part
+of the port).
 """
 
 from __future__ import annotations
@@ -65,11 +75,13 @@ def _new_report() -> Report:
     return {"loaded": [], "missing": [], "shape_mismatch": []}
 
 
-def apply_entries(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+def apply_entries(target: nn.Module | dict[str, torch.Tensor],
+                  state_dict: Mapping[str, torch.Tensor],
                   entries: list[Entry], report: Report) -> None:
-    """Copy each entry's source tensor into the model's tensor of that key
-    (cast to its dtype, in place), recording the outcome in ``report``."""
-    targets = model.state_dict(keep_vars=True)
+    """Copy each entry's source tensor into the target's tensor of that key
+    (cast to its dtype, in place), recording the outcome in ``report``; the
+    target is a model or a state_dict (an MoE model's dense twin)."""
+    targets = target.state_dict(keep_vars=True) if isinstance(target, nn.Module) else target
     with torch.no_grad():
         for src, dst in entries:
             if src not in state_dict:
@@ -157,33 +169,38 @@ def ropevit_entries(state_dict: Mapping[str, torch.Tensor],
     return entries
 
 
-def load_convnext_into_mformer_v1(model: nn.Module,
-                                  state_dict: Mapping[str, torch.Tensor]) -> Report:
+def load_convnext_into_mformer_v1(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                                  into: dict[str, torch.Tensor] | None = None) -> Report:
+    """``into``: a state_dict of the model's geometry to load instead of the
+    model (an MoE model's dense twin)."""
     report = _new_report()
-    apply_entries(model, state_dict, convnext_entries(_depths(model)[0]), report)
+    apply_entries(model if into is None else into, state_dict,
+                  convnext_entries(_depths(model)[0]), report)
     log_report("ConvNeXt", report)
     return report
 
 
-def load_ropevit_into_mformer_v1(model: nn.Module,
-                                 state_dict: Mapping[str, torch.Tensor]) -> Report:
+def load_ropevit_into_mformer_v1(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                                 into: dict[str, torch.Tensor] | None = None) -> Report:
     report = _new_report()
-    apply_entries(model, state_dict, ropevit_entries(state_dict, _depths(model)[1]), report)
+    apply_entries(model if into is None else into, state_dict,
+                  ropevit_entries(state_dict, _depths(model)[1]), report)
     log_report("RoPE-ViT", report)
     return report
 
 
 def load_stitched_pretrained(model: nn.Module, convnext_path: str | None,
-                             ropevit_path: str | None) -> dict[str, Report]:
+                             ropevit_path: str | None,
+                             into: dict[str, torch.Tensor] | None = None) -> dict[str, Report]:
     """mFormerV1 stitched init (reference: checkpoint.py:216-340); the
     reports by loader, "ConvNeXt" and "RoPE-ViT"."""
     reports = {}
     if convnext_path:
         reports["ConvNeXt"] = load_convnext_into_mformer_v1(
-            model, load_torch_state_dict(convnext_path))
+            model, load_torch_state_dict(convnext_path), into)
     if ropevit_path:
         reports["RoPE-ViT"] = load_ropevit_into_mformer_v1(
-            model, load_torch_state_dict(ropevit_path))
+            model, load_torch_state_dict(ropevit_path), into)
     return reports
 
 
@@ -192,7 +209,14 @@ def reference_entries(model: nn.Module) -> list[Entry]:
     layout, so every key maps onto itself (the TPU package's
     ``_reference_v1_entries`` over the model's stages, metadata heads and
     tasks)."""
-    (cd, rd) = _depths(model)
+    return reference_v1_entries(*_depths(model), tuple(n for n, _ in model.meta_components),
+                                tuple(model.head.task_keys))
+
+
+def reference_v1_entries(cd: tuple[int, ...], rd: tuple[int, int],
+                         meta_names: tuple[str, ...] = (),
+                         task_keys: tuple[str, ...] = ()) -> list[Entry]:
+    """:func:`reference_entries` from the geometry alone."""
     entries = [(k, k) for k in ("stem.0.weight", "stem.0.bias", "stem.1.weight", "stem.1.bias")]
     for s in (0, 1):
         for j in range(cd[s]):
@@ -209,13 +233,13 @@ def reference_entries(model: nn.Module) -> list[Entry]:
              "cl_1_fc.0.fc2.bias", "cl_1_fc.1.weight", "cl_1_fc.1.bias", "aggregate.weight",
              "aggregate.bias", "final_norm.weight", "final_norm.bias"]
     for s in (1, 2):
-        for name, _ in model.meta_components:
+        for name in meta_names:
             head = f"meta_{name.lower()}_head_{s}"
             plain += [f"{head}.{p}" for p in (
                 "0.weight", "0.bias", "2.weight", "2.bias", "3.w1.weight", "3.w1.bias",
                 "3.norm_fn1.weight", "3.norm_fn1.bias", "3.w2.weight", "3.w2.bias",
                 "3.norm_fn2.weight", "3.norm_fn2.bias")]
-    for task in model.head.task_keys:
+    for task in task_keys:
         plain += [f"head.{task}.fc.weight", f"head.{task}.fc.bias"]
     return entries + [(k, k) for k in plain]
 
@@ -228,6 +252,121 @@ def load_reference_mformer_v1(model: nn.Module,
     apply_entries(model, state_dict, reference_entries(model), report)
     log_report("reference-mFormerV1", report)
     return report
+
+
+def export_reference_mformer_v1(
+    state_dict: Mapping[str, torch.Tensor],
+    convnext_depths: tuple[int, ...],
+    rope_depths: tuple[int, int],
+    meta_names: tuple[str, ...] = (),
+    task_keys: tuple[str, ...] = (),
+) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`load_reference_mformer_v1`: the state_dict the
+    reference's own mFormerV1 loads, walked over the same entries. The
+    port holds the reference's layout, so every tensor is taken as it is.
+    Entries the state_dict lacks are skipped, as in the TPU package: an MoE
+    bank's dense MLP (export :func:`average_experts_into_dense` of it), a
+    head other than a Linear one (a Conv1d head's 3-D weight has no
+    reference analog, nor has its bias)."""
+    out = {}
+    for src, dst in reference_v1_entries(convnext_depths, rope_depths, meta_names, task_keys):
+        value = state_dict.get(dst)
+        if value is None:
+            continue
+        if src.startswith("head.") and src.endswith(".fc.weight") and value.dim() != 2:
+            continue
+        out[src] = value
+    for task in task_keys:  # a head's bias goes with its weight
+        if f"head.{task}.fc.weight" not in out:
+            out.pop(f"head.{task}.fc.bias", None)
+    return out
+
+
+# ---------------------------------------------------------------------- MoE
+# an MoE bank leaf -> (the dense layer's key suffix, bank[e] -> dense tensor)
+_MOE_LEAF_TO_DENSE = {
+    "wi": ("fc1.weight", lambda t: t.t()),
+    "bi": ("fc1.bias", lambda t: t),
+    "wo": ("fc2.weight", lambda t: t.t()),
+    "bo": ("fc2.bias", lambda t: t),
+}
+
+
+def _moe_leaf(key: str) -> tuple[str, str] | None:
+    """(the mlp module's key, the leaf) of an MoE MLP tensor, else None."""
+    base, _, leaf = key.rpartition(".")
+    if (leaf in _MOE_LEAF_TO_DENSE or leaf == "router") and f".{base}".endswith(".mlp"):
+        return base, leaf
+    return None
+
+
+def _moe_to_dense_walk(moe_params: Mapping[str, torch.Tensor], bank_to_dense) -> dict:
+    """Each MoE bank in the dense layout (``bank_to_dense(bank)`` the dense
+    tensor in the Flax layout of one expert), routers dropped, everything
+    else as it is."""
+    out = {}
+    for key, value in moe_params.items():
+        found = _moe_leaf(key)
+        if found is None:
+            out[key] = value
+        elif found[1] != "router":
+            suffix, to_dense = _MOE_LEAF_TO_DENSE[found[1]]
+            out[f"{found[0]}.{suffix}"] = to_dense(bank_to_dense(value)).contiguous()
+    return out
+
+
+def densify_moe_params(moe_params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The dense twin of an MoE state_dict as a zero template for each MLP
+    (the other tensors cloned), so the loaders, which map onto the dense
+    layout, run unchanged; :func:`upcycle_dense_to_moe` then takes what they
+    loaded into the banks."""
+    dense = _moe_to_dense_walk(moe_params, lambda bank: torch.zeros_like(bank[0]))
+    return {k: v.detach().clone() for k, v in dense.items()}
+
+
+def average_experts_into_dense(moe_params: Mapping[str, torch.Tensor]
+                               ) -> dict[str, torch.Tensor]:
+    """Each (E, ...) bank collapsed to its mean in the dense layout: the
+    export's way down (exact while the experts are replicas, as when freshly
+    upcycled; a best-effort distillation otherwise)."""
+    return _moe_to_dense_walk(moe_params, lambda bank: bank.mean(dim=0))
+
+
+def upcycle_dense_to_moe(dense_params: Mapping[str, torch.Tensor],
+                         moe_params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Sparse upcycling (Komatsuzaki et al. 2023, arXiv:2212.05055): the
+    MoE state_dict with the dense MLP of ``dense_params`` copied into every
+    expert of each bank. The routers keep the MoE model's fresh init (a zero
+    router would send every token to experts 0..k-1 and overflow their
+    capacity); the other tensors come from ``dense_params`` where it has
+    them. With identical experts and normalised gates the upcycled forward
+    equals the dense one up to capacity drops. ``dense_params``: the dense
+    twin's state_dict, or :func:`densify_moe_params` after a loader."""
+    out = {}
+    n_upcycled = 0
+    for key, target in moe_params.items():
+        found = _moe_leaf(key)
+        if found is not None and found[1] != "router":
+            suffix, to_dense = _MOE_LEAF_TO_DENSE[found[1]]
+            src_key = f"{found[0]}.{suffix}"
+            if src_key not in dense_params:
+                raise KeyError(f"upcycle: dense source missing for {key} (expected {src_key})")
+            expert = to_dense(dense_params[src_key])  # the transpose is its own inverse
+            if tuple(expert.shape) != tuple(target.shape[1:]):
+                raise ValueError(f"upcycle: {key} expert shape {tuple(target.shape[1:])} != "
+                                 f"dense {tuple(expert.shape)}")
+            out[key] = expert.to(target.dtype).unsqueeze(0).expand_as(target).contiguous()
+            n_upcycled += 1
+        elif found is not None or key not in dense_params:
+            out[key] = target  # a router keeps its fresh init
+        else:
+            out[key] = dense_params[key].to(target.dtype)
+    logger.info(f"Sparse upcycling: replicated {n_upcycled} dense MLP leaves into expert banks")
+    return out
+
+
+def _is_moe_params(params: Mapping[str, torch.Tensor]) -> bool:
+    return any((found := _moe_leaf(k)) is not None and found[1] == "wi" for k in params)
 
 
 _BN_STATS = ("running_mean", "running_var")
@@ -325,8 +464,10 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
       MODEL.PRETRAINED_CONVNEXT  ConvNeXt trunk checkpoint (stitched init)
       MODEL.PRETRAINED_ROPEVIT   RoPE-ViT checkpoint (stitched init)
 
-    The Trainer calls this only when no auto-resume checkpoint exists
-    (resume wins, as in the reference)."""
+    For an MoE model the checkpoint is loaded into the dense twin and
+    upcycled into the expert banks (the routers keep their init). The
+    Trainer calls this only when no auto-resume checkpoint exists (resume
+    wins, as in the reference)."""
     paths = pretrained_paths(config)
     if not paths:
         return {}
@@ -335,9 +476,6 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
             raise NotImplementedError(
                 f"MODEL.{key} {path!r}: hf:// and b2:// checkpoints (utils/remote_sync.py) are "
                 "not part of the port; give a local file")
-    if bool(config.MODEL.get("MOE", {}).get("ENABLED", False)):
-        raise NotImplementedError(
-            "MODEL.PRETRAINED* into an MoE model: sparse upcycling is not ported yet (M9)")
     cn_path, rv_path = paths.get("PRETRAINED_CONVNEXT"), paths.get("PRETRAINED_ROPEVIT")
     source = config.MODEL.get("PRETRAINED_SOURCE")
     if not source:
@@ -350,14 +488,25 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
     source = str(source).lower()
     if source.startswith("stitched"):  # e.g. 'stitched_convnext_ropevit'
         source = "stitched"
-    if source == "stitched":
-        return load_stitched_pretrained(model, cn_path, rv_path)
+    if source not in ("stitched", "metaformer", "reference"):
+        raise ValueError(
+            f"Unknown MODEL.PRETRAINED_SOURCE {source!r} "
+            "(expected 'metaformer', 'reference', or 'stitched')"
+        )
     if source == "metaformer":
         return load_metaformer_into_mformer_v0(model, load_torch_state_dict(paths["PRETRAINED"]))
-    if source == "reference":
-        return {"reference-mFormerV1": load_reference_mformer_v1(
-            model, load_torch_state_dict(paths["PRETRAINED"]))}
-    raise ValueError(
-        f"Unknown MODEL.PRETRAINED_SOURCE {source!r} "
-        "(expected 'metaformer', 'reference', or 'stitched')"
-    )
+    # an MoE model loads into its dense twin, which is then upcycled
+    moe = _is_moe_params(model.state_dict())
+    into = densify_moe_params(model.state_dict()) if moe else None
+    if source == "stitched":
+        reports = load_stitched_pretrained(model, cn_path, rv_path, into)
+    else:
+        report = _new_report()
+        apply_entries(model if into is None else into,
+                      load_torch_state_dict(paths["PRETRAINED"]), reference_entries(model), report)
+        log_report("reference-mFormerV1", report)
+        reports = {"reference-mFormerV1": report}
+    if moe:
+        model.load_state_dict(upcycle_dense_to_moe(into, model.state_dict()), strict=True)
+        logger.info("Pretrained weights sparse-upcycled into the MoE banks")
+    return reports

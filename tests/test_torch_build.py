@@ -102,7 +102,8 @@ def test_num_classes_from_the_config():
 @pytest.mark.parametrize("change, error, name", [
     ({"MODEL": {"TYPE": "mFormerV0"}}, NotImplementedError, "MODEL.TYPE"),
     ({"MODEL": {"TYPE": "resnet"}}, ValueError, "Unknown MODEL.TYPE"),
-    ({"MODEL": {"MOE": {"ENABLED": True}}}, NotImplementedError, "MODEL.MOE.ENABLED"),
+    ({"MODEL": {"MOE": {"ENABLED": True, "EVERY_N": 1}}}, NotImplementedError,
+     "MODEL.MOE.ENABLED"),
     ({"MODEL": {"AGGREGATION": {"TYPE": "Concatenation"}}}, NotImplementedError,
      "MODEL.AGGREGATION.TYPE"),
     ({"TRAIN": {"GRADIENT_CHECKPOINTING": {"ENABLED_NORMAL_STEPS": True}}},
@@ -111,12 +112,15 @@ def test_num_classes_from_the_config():
 def test_unported_config_raises_by_name(change, error, name):
     tcfg, jcfg = _both()
     tcfg.merge_from_other_cfg(change)
-    if name in ("MODEL.TYPE", "MODEL.AGGREGATION.TYPE"):
-        # ported since (tests/test_torch_mformer_v0.py, tests/test_torch_model_zoo.py):
-        # the config builds the model the JAX package builds
+    if name in ("MODEL.TYPE", "MODEL.AGGREGATION.TYPE", "MODEL.MOE.ENABLED"):
+        # ported since (tests/test_torch_mformer_v0.py, tests/test_torch_model_zoo.py,
+        # tests/test_torch_moe.py): the config builds the model the JAX package builds
         jcfg.merge_from_other_cfg(change)
         ours, theirs = build_model(tcfg, NC, device="cpu"), jbuild_model(jcfg, NC)
         assert type(ours).__name__ == type(theirs).__name__
+        if name == "MODEL.MOE.ENABLED":
+            assert ours.moe_num_experts == theirs.moe_num_experts == 8
+            assert all(b.use_moe for s in (2, 3) for b in ours.stages[s])
         if name == "MODEL.AGGREGATION.TYPE":
             assert theirs.aggregation == "Concatenation"
             assert type(ours.aggregate_alt).__name__ == "ConcatenationAggregation"

@@ -171,14 +171,15 @@ def test_state_dict_from_jax_equals_reference_export():
     {"drop_rate": 0.1}, {"attn_drop_rate": 0.1},
 ])
 def test_unported_options_raise(kw):
-    """MoE, ring attention and pipelining raise. Gradient checkpointing,
-    dropout and the other aggregations, once here, are ported: such a model
+    """Ring attention and pipelining raise. Gradient checkpointing, dropout,
+    the other aggregations and MoE, once here, are ported: such a model
     builds, trains and gives gradients (test_remat_*,
-    tests/test_torch_build.py and tests/test_torch_model_zoo.py hold what
-    they compute)."""
+    tests/test_torch_build.py, tests/test_torch_model_zoo.py and
+    tests/test_torch_moe.py hold what they compute)."""
     build = functools.partial(MFormerV1, img_size=(64, 64), convnext_dims=(8, 16, 32, 64),
                               rope_dims=(32, 64), **kw)
-    if set(kw) & {"gradient_checkpointing", "drop_rate", "attn_drop_rate", "aggregation"}:
+    if set(kw) & {"gradient_checkpointing", "drop_rate", "attn_drop_rate", "aggregation",
+                  "moe_num_experts"}:
         model = build().train()
         model.forward_features(torch.zeros(1, 64, 64, 3)).sum().backward()
         assert model.training and all(p.grad is not None for p in model.stem.parameters())

@@ -261,10 +261,15 @@ def test_nothing_configured_loads_nothing_and_what_waits_raises(initial, tmp_pat
     _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"), PRETRAINED_SOURCE="other")
     with pytest.raises(ValueError, match="Unknown MODEL.PRETRAINED_SOURCE 'other'"):
         tpre.load_pretrained(cfg, model)
+    # MoE is ported (sparse upcycling, tests/test_torch_moe_pretrained.py): the
+    # model's own tensors decide, as the params tree does in the JAX package,
+    # so MODEL.MOE with a dense model loads it as a dense one
+    torch.save(model.state_dict(), tmp_path / "w.pth")
     _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"))
     cfg.MODEL.MOE.ENABLED = True
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tpre.load_pretrained(cfg, model)
+    reports = tpre.load_pretrained(cfg, model)
+    assert len(reports["reference-mFormerV1"]["loaded"]) == len(before)
+    assert_same_weights(model, before)
     with pytest.raises(NotImplementedError, match="hf://"):
         tpre.load_torch_state_dict("hf://org/repo/w.pth")
 

@@ -499,6 +499,15 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
         trainer.close()
         assert type(trainer.model).__name__ == "MFormerV0"
         return
+    if option == "MODEL.MOE.ENABLED":
+        # ported since: the Trainer builds the MoE model and its step carries the
+        # auxiliary losses (tests/test_torch_moe_step.py)
+        cfg.MODEL.MOE.EVERY_N = 1
+        trainer = Trainer(cfg, device="cpu")
+        trainer.close()
+        assert trainer.model.moe_num_experts == 8
+        assert all(b.use_moe for s in (2, 3) for b in trainer.model.stages[s])
+        return
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         Trainer(cfg, device="cpu").close()
 

@@ -26,10 +26,20 @@ config.yaml (the same model and options), an architecture variant file (K1
 on, HierarchicalSoftmax heads), taxonomy.json, class_map.json and a
 state_dict, loads them with LinnaeusInferenceHandler.load_from_artifacts,
 and serves the handler through tools/serve.make_server to concurrent HTTP
-clients sending base64 JPEG and PNG images with metadata: every answer held
+clients (8 clients x 32 requests x 4 images, some seconds of traffic)
+sending base64 JPEG and PNG images with metadata: every answer held
 to the tree and to handler.predict on the same bytes, K1 and K2 launches
 counted against the forwards the batcher ran, requests/s and p50/p95/p99
-latency printed with the host side of one 64-image predict. It compares the whole
+latency printed with the host side of one 64-image predict. Then (phase 7h
+(a)-(c)) the host data plane (linnaeus_tpu_torch/native/: the batched JPEG
+decode with DCT prescale and area resize over cv2, in threads off the GIL)
+under that handler: 64 seeded photo-size JPEGs (640x480 to 4032x3024, one
+grayscale, one progressive, one shorter than 384 px on one side) through
+the data plane against the per-image PIL path at the TPU package's bars,
+the batch decode with cv2's own threads and with one, the host side of one
+predict of them with the data plane and with LINNAEUS_TPU_NATIVE=0, and
+the HTTP run again with JPEG-only requests (the batch decode takes only
+batches of JPEG bytes: the mixed run measures PIL). It compares the whole
 forward with the kernels on and off and reports serving throughput. Then it
 trains: a few steps of make_train_step through tools/train_bench at the
 same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
@@ -65,10 +75,13 @@ the resumed epoch reads the sampler's batches for its epoch; it prints the
 step under the Trainer against phase 7b's, the span between each step's
 CUDA events, the device-busy share of seven profiled steps of the resumed
 epoch (torch.profiler), the loader's rate and wait, peak memory, and the
-validation, checkpoint and resume seconds. Then (phase 7d) it goes from
-pretrained weights to a served bundle on the same dataset: it prints the
-probe of the compiler and libjpeg's header that the native JPEG decode
-would need (not ported: serving decodes with PIL), writes seeded
+validation, checkpoint and resume seconds; the loader reads the JPEG
+directory a batch at a time through the host data plane (phase 7h (e):
+its batch calls counted). Phase 7h (d) then runs
+tools/pipeline_benchmark on 2,048 photo-like 1024x768 JPEGs at 384 px and
+B = 64, one epoch of the train split a run, the loader on the card, with
+the data plane on and off. Then (phase 7d) it goes from
+pretrained weights to a served bundle on the same dataset: it writes seeded
 ConvNeXt-Tiny and RoPE-ViT DeiT-Small checkpoints in the official layouts,
 builds the Trainer of configs/experiments/generic_mformer_example.yaml
 through the CLI's construction (train.main.build_trainer) with AutoBatch for
@@ -1143,6 +1156,7 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
     import tempfile
 
     from linnaeus_tpu_torch.data.sampler import build_sampler
+    from linnaeus_tpu_torch.native import get_dataplane
     from linnaeus_tpu_torch.train.loop import Trainer
     from linnaeus_tpu_torch.train.main import main as train_main
     from linnaeus_tpu_torch.train.main import parse_option
@@ -1169,7 +1183,10 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
           f"{TRAINER_GRADNORM_INTERVAL} steps (default 100), {TRAINER_EPOCHS} + 1 epochs",
           flush=True)
 
-    # run 1: train from scratch
+    # run 1: train from scratch; the loader reads the JPEG directory a batch
+    # at a time through the host data plane (phase 7h (e))
+    plane = get_dataplane()
+    file_batches = plane.file_batches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero()
@@ -1177,6 +1194,9 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
     first = train_main(argv)
     run1_s = time.perf_counter() - t0
     launched = counts()
+    bulk_reads = plane.file_batches - file_batches
+    check(first.bundle["train_dataset"]._can_bulk_read() and bulk_reads > 0,
+          f"the Trainer's loader read through the data plane's bulk path: {bulk_reads} calls")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     steps1 = first.progress.global_step
     spe = first.steps_per_epoch
@@ -1311,10 +1331,16 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
           f"{async_block:.3f} s (async), its file {fmt(async_write)} s, a sync save "
           f"{sync.last_save_seconds:.3f} s; resume {resume_s:.3f} s; runs {run1_s:.1f} + "
           f"{run2_s:.1f} s", flush=True)
+    print(f"[{card}] phase 7h(e): run 1 of the CLI read its JPEG directory through the data "
+          f"plane's bulk path in {bulk_reads} batch calls; the loader's wait "
+          f"{pipeline1['avg_wait_ms']:.2f} ms a batch, the step under the Trainer "
+          + ", ".join(f"{fmt(t['median_step_ms'])}" for t in timing) + " ms (epochs 0, 1, 2)",
+          flush=True)
     del second
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": total, "run1_launches": launched, "timing": timing,
+            "bulk_reads": bulk_reads,
             "pipeline": [pipeline1, pipeline2], "peak_gib": peak, "validation_s": val_s,
             "resume_s": resume_s, "profile": prof, "dir": d, "data": data,
             "yaml": cfg_path}
@@ -1324,22 +1350,6 @@ def trainer_phase(dev, card, fa, fm, synthetic_step_ms: float) -> dict:
 PRETRAINED_MEMORY_FRACTION = 0.10  # cut: AutoBatch's budget, 8 GB of the card's 80
 PRETRAINED_BOUNDS, PRETRAINED_BOUNDS_VAL = (16, 512), (16, 256)
 PRETRAINED_CLIENTS, PRETRAINED_REQUESTS, PRETRAINED_IMAGES = 8, 2, 4
-
-
-def native_decode_probe() -> bool:
-    """The compiler and libjpeg's header the native JPEG decode would need;
-    prints both probes and returns whether the header compiles."""
-    if shutil.which("g++") is None:
-        print("native decode probe: no g++ on this machine", flush=True)
-        return False
-    version = subprocess.run(["g++", "--version"], capture_output=True, text=True)
-    header = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
-                            input="#include <cstdio>\n#include <jpeglib.h>\n",
-                            capture_output=True, text=True)
-    print(f"native decode probe: {version.stdout.splitlines()[0]}; jpeglib.h: "
-          + ("compiles" if header.returncode == 0 else header.stderr.strip().splitlines()[0]),
-          flush=True)
-    return header.returncode == 0
 
 
 def write_pretrained_files(d: str, seed: int) -> tuple[str, str]:
@@ -1434,10 +1444,6 @@ def pretrained_phase(dev, card, fa, fm, trainer: dict) -> dict:
     # the example's MODEL.BASE names its preset relative to $CONFIG_DIR, the
     # repository's root, from which this script runs
     os.environ.setdefault("CONFIG_DIR", os.getcwd())
-    native = native_decode_probe()
-    print("native JPEG decode: not ported in this tree "
-          + ("(this machine could build it)" if native else "(this machine has no jpeglib.h)")
-          + "; DATA.NATIVE_DATAPLANE 'off', serving decodes with PIL", flush=True)
     d = trainer["dir"]
     t0 = time.perf_counter()
     cn_path, rv_path = write_pretrained_files(d, SEED + 20)
@@ -1676,8 +1682,8 @@ def pretrained_phase(dev, card, fa, fm, trainer: dict) -> dict:
     lat = sorted(latencies)
     http = {"requests_per_s": n_req / wall, "images_per_s": n_req * PRETRAINED_IMAGES / wall,
             "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99)}
-    print(f"[{card}] HTTP serving of the trained bundle (PIL decode; a smoke reading, too few "
-          f"requests for a rate), {PRETRAINED_CLIENTS} "
+    print(f"[{card}] HTTP serving of the trained bundle (the data plane's decode; a smoke "
+          f"reading, too few requests for a rate), {PRETRAINED_CLIENTS} "
           f"clients x {PRETRAINED_REQUESTS} requests x {PRETRAINED_IMAGES} JPEGs: "
           f"{http['requests_per_s']:.2f} req/s ({http['images_per_s']:.1f} img/s), p50 "
           f"{http['p50_ms']:.1f} ms, p99 {http['p99_ms']:.1f} ms", flush=True)
@@ -2995,7 +3001,9 @@ def compare_forward(on, off, dt, n: int, dev) -> tuple[float, dict]:
 # the direct call, and the library's matrix products and convolutions pick
 # other algorithms for other shapes, so logits move by a few bf16 steps
 PROB_TOL = 2e-2
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_IMAGES = 8, 4, 4  # 128 images of traffic
+# 256 requests of 1,024 images a run, some seconds of traffic: enough for a
+# rate and a p99 (the 99th percentile of 256 latencies, not their largest)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_IMAGES = 8, 32, 4
 
 
 def write_bundle(d, dev) -> dict:
@@ -3041,9 +3049,10 @@ def write_bundle(d, dev) -> dict:
     return model
 
 
-def encoded_requests(rng) -> list[dict]:
+def encoded_requests(rng, formats=("PNG", "JPEG")) -> list[dict]:
     """SERVE_CLIENTS x SERVE_REQUESTS /predict bodies of SERVE_IMAGES
-    base64 images each, JPEG and PNG alternating, with metadata."""
+    base64 images each, with metadata, the ``formats`` taking turns (by
+    default JPEG and PNG alternating within every request)."""
     import base64
     import io
 
@@ -3055,10 +3064,8 @@ def encoded_requests(rng) -> list[dict]:
         instances = []
         for i, (image, meta) in enumerate(zip(images, metas)):
             buf = io.BytesIO()
-            if (r + i) % 2:
-                Image.fromarray(image).save(buf, "JPEG", quality=90)
-            else:
-                Image.fromarray(image).save(buf, "PNG")
+            fmt = formats[(r + i) % len(formats)]
+            Image.fromarray(image).save(buf, fmt, **({"quality": 90} if fmt == "JPEG" else {}))
             instances.append({"image": base64.b64encode(buf.getvalue()).decode(),
                               "metadata": meta})
         bodies.append({"instances": instances})
@@ -3155,68 +3162,255 @@ def predict_breakdown(handler, images, metas, card) -> dict:
     return ms
 
 
-def bundle_phase(dev, card, fa, fm) -> dict:
-    """Serve a bundle from disk: write it (under build/, removed afterwards),
-    load it with ``LinnaeusInferenceHandler.load_from_artifacts``, check the
-    handler (card, bf16, hierarchical heads with the tree's matrices, warmup,
-    logits bit-identical to the in-memory model's), serve it with
-    ``tools.serve.make_server`` to concurrent clients over HTTP, check every
-    answer against the tree and against ``handler.predict`` on the same
-    bytes, and count K1's and K2's launches against the forwards the
-    batcher ran. Returns the launches and the measurements."""
-    import base64
+# ---------------------------------------------------------------------------
+# phase 7h: the host data plane (linnaeus_tpu_torch/native/): the batched
+# JPEG decode with DCT prescale and area resize, in threads off the GIL
+DP_SIZES = [(640, 480), (1024, 768), (2048, 1536), (4032, 3024)]  # photo sizes, width x height
+DP_PIL_BAR, DP_NORM_BAR = 3.0, 0.05  # tests/test_native_dataplane.py:59 and :251, mean |diff|
+DP_LOADER_FILES, DP_LOADER_SIZE = 2048, (1024, 768)  # 28 batches in the train split's epoch
+DP_LOADER_DISTINCT = 128  # images among the loader's files (numpy's draws hold the GIL)
+
+
+def photo_jpegs(n: int, seed: int) -> tuple[list[bytes], list[str]]:
+    """``n`` seeded JPEGs of photo sizes, DP_SIZES in turn (smooth colour
+    waves with noise), among them one grayscale, one progressive and one
+    smaller than IMG on one side (1024 x 300); made and encoded in threads.
+    Returns the bytes and what each is."""
+    import io
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        w, h = DP_SIZES[i % len(DP_SIZES)]
+        kind = {1: "grayscale", 2: "progressive", 3: "short side"}.get(i, "colour")
+        if kind == "short side":
+            w, h = 1024, 300
+        image = photo(w, h, np.random.default_rng((seed, i)))
+        if kind == "grayscale":
+            image = image.convert("L")
+        buf = io.BytesIO()
+        image.save(buf, "JPEG", quality=90, progressive=kind == "progressive")
+        return buf.getvalue(), f"{w}x{h} {kind}"
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        made = list(pool.map(one, range(n)))
+    return [b for b, _ in made], [k for _, k in made]
+
+
+def photo(w: int, h: int, rng: np.random.Generator):
+    """A w x h RGB PIL image: smooth colour waves with noise."""
+    from PIL import Image
+
+    freq, phase = rng.uniform(1, 6, (3, 2)), rng.uniform(0, 2 * np.pi, (3, 2))
+    xs, ys = np.linspace(0, 1, w, dtype=np.float32), np.linspace(0, 1, h, dtype=np.float32)
+    waves = np.stack([127 + 60 * np.sin(2 * np.pi * freq[c, 0] * xs + phase[c, 0])[None, :]
+                      + 50 * np.cos(2 * np.pi * freq[c, 1] * ys + phase[c, 1])[:, None]
+                      for c in range(3)], -1)
+    pixels = np.clip(waves + 8 * rng.standard_normal((h, w, 3), np.float32), 0, 255)
+    return Image.fromarray(pixels.astype(np.uint8))
+
+
+def dataplane_serving(handler, dev, card, fa, fm) -> dict:
+    """Phase 7h (a)-(c) under phase 3b's handler. (a) The data plane is
+    the cv2 one; BATCH photo-size JPEGs through ``preprocess_image_batch``
+    (the data plane) against the per-image PIL path, ``preprocess_image_u8``,
+    within the TPU package's bars for every image, in uint8 and normalised;
+    the batch decode in the pool, with cv2's own threads at 1, and in the
+    calling thread alone. (b) ``predict_breakdown`` of those images through
+    the data plane and again with LINNAEUS_TPU_NATIVE=0 (the singleton
+    reset), K1 7 and K2 6 launches a forward. (c) Phase 3b's HTTP run with
+    JPEG-only requests (the batch decode takes only batches of JPEG bytes)."""
+    import os
+
+    import cv2
+
+    import linnaeus_tpu_torch.native as native
+    from linnaeus_tpu_torch.inference.preprocessing import (
+        preprocess_image_batch,
+        preprocess_image_u8,
+    )
+
+    phase_start = time.perf_counter()
+    plane = native.get_dataplane()
+    check(isinstance(plane, native.DataPlane) and plane.version == 3,
+          f"the cv2 data plane is selected: {plane}")
+    t0 = time.perf_counter()
+    jpegs, kinds = photo_jpegs(BATCH, SEED + 50)
+    made_s = time.perf_counter() - t0
+    mb = sum(len(b) for b in jpegs) / 2**20
+    print(f"phase 7h: the host data plane, cv2 {cv2.__version__} (cv2 threads "
+          f"{cv2.getNumThreads()}), a pool of {plane.default_threads - 1} workers and the "
+          f"caller, os.cpu_count() {os.cpu_count()}; {BATCH} JPEGs of {sorted(set(kinds))} "
+          f"({mb:.1f} MiB) made in {made_s:.1f} s", flush=True)
+
+    # (a) against the per-image PIL path
+    cfg = handler.config
+    _, status = plane.decode_jpeg_mem_batch(jpegs, IMG)
+    check((status == 0).all(), f"every photo decodes: {status.tolist()}")
+    t0 = time.perf_counter()
+    rows = preprocess_image_batch(jpegs, cfg)
+    plane_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pil = np.stack([preprocess_image_u8(b, cfg) for b in jpegs])
+    pil_ms = 1e3 * (time.perf_counter() - t0)
+    std = np.asarray(cfg.input_preprocessing.image_std, np.float32)
+    u8 = np.abs(rows.astype(np.float32) - pil).mean(axis=(1, 2, 3))
+    norm = (np.abs((rows.astype(np.float32) - pil) / 255.0 / std)).mean(axis=(1, 2, 3))
+    worst = int(np.argmax(u8))
+    print(f"[{card}] phase 7h(a): {BATCH} photo JPEGs at {IMG} px, the data plane "
+          f"{plane_ms:.1f} ms for the batch, PIL one at a time {pil_ms:.1f} ms; mean |diff| per "
+          f"image {u8.min():.3f}..{u8.max():.3f} u8 (bar {DP_PIL_BAR}; worst {kinds[worst]}), "
+          f"normalised {norm.min():.4f}..{norm.max():.4f} (bar {DP_NORM_BAR})", flush=True)
+    check(u8.max() < DP_PIL_BAR and norm.max() < DP_NORM_BAR,
+          "the data plane against PIL within the TPU package's bars")
+    # the pool against the calling thread alone, and whether cv2's own
+    # threads inside the pool's resizes oversubscribe the host (one
+    # decode with them at 1)
+    default = cv2.getNumThreads()
+    t0 = time.perf_counter()
+    plane.decode_jpeg_mem_batch(jpegs, IMG)
+    pool_ms = 1e3 * (time.perf_counter() - t0)
+    cv2.setNumThreads(1)
+    try:
+        t0 = time.perf_counter()
+        plane.decode_jpeg_mem_batch(jpegs, IMG)
+        cv2_one_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        cv2.setNumThreads(default)
+    t0 = time.perf_counter()
+    plane.decode_jpeg_mem_batch(jpegs, IMG, threads=1)
+    serial_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[{card}] phase 7h(a): the batch decode in the pool {pool_ms:.1f} ms with cv2's "
+          f"threads at {default} (the process's setting, kept), {cv2_one_ms:.1f} ms at 1; in "
+          f"the calling thread alone (threads=1) {serial_ms:.1f} ms", flush=True)
+
+    # (b) the host side of one predict, with and without the data plane
+    metas = requests(BATCH, np.random.default_rng(SEED + 51))[1]
+    before = plane.mem_batches
+    fa.LAUNCHES = fm.LAUNCHES = 0
+    on = predict_breakdown(handler, jpegs, metas, card)
+    on_launches = {"K1": fa.LAUNCHES, "K2": fm.LAUNCHES}
+    check(plane.mem_batches - before == 2, "both preprocessings of the breakdown took the data "
+          f"plane: {plane.mem_batches - before} calls")
+    saved, env = native._CACHED, os.environ.get("LINNAEUS_TPU_NATIVE")
+    os.environ["LINNAEUS_TPU_NATIVE"] = "0"
+    native._CACHED = False
+    try:
+        fa.LAUNCHES = fm.LAUNCHES = 0
+        off = predict_breakdown(handler, jpegs, metas, card)
+        off_launches = {"K1": fa.LAUNCHES, "K2": fm.LAUNCHES}
+        check(native.get_dataplane() is None, "LINNAEUS_TPU_NATIVE=0 turns the data plane off")
+    finally:
+        native._CACHED = saved
+        if env is None:
+            del os.environ["LINNAEUS_TPU_NATIVE"]
+        else:
+            os.environ["LINNAEUS_TPU_NATIVE"] = env
+    check(plane.mem_batches - before == 2, "no data-plane call with LINNAEUS_TPU_NATIVE=0")
+    want = {"K1": 2 * K1_PER_FORWARD, "K2": 2 * K2_PER_FORWARD}
+    check(on_launches == want and off_launches == want,
+          f"K1 {K1_PER_FORWARD} and K2 {K2_PER_FORWARD} a forward: {on_launches}, {off_launches}")
+    print(f"[{card}] phase 7h(b): one predict of {BATCH} photo JPEGs, mFormerV1_sm {IMG}px bf16, "
+          f"ms with the data plane / with PIL (LINNAEUS_TPU_NATIVE=0): preprocessing "
+          f"{on['preprocess']:.1f} / {off['preprocess']:.1f}, upload {on['upload']:.2f} / "
+          f"{off['upload']:.2f}, forward (CUDA events) {on['forward_events']:.2f} / "
+          f"{off['forward_events']:.2f}, the whole predict {on['predict']:.1f} / "
+          f"{off['predict']:.1f}; launches a forward K1 {on_launches['K1'] // 2}, K2 "
+          f"{on_launches['K2'] // 2}", flush=True)
+
+    # (c) HTTP with JPEG-only requests: the same images as phase 3b's run
+    before = plane.mem_batches
+    http = serve_http(handler, encoded_requests(np.random.default_rng(SEED + 11), ("JPEG",)),
+                      fa, fm, card, "JPEG only")
+    calls = plane.mem_batches - before
+    # a call for every batch the batcher dispatched, and for each body's two
+    # direct predicts (with and without the consistency pass)
+    check(calls == http["stats"]["forwards"] + 2 * len(http["bodies"]),
+          f"every dispatched batch and every direct predict took the data plane: {calls} calls")
+    seconds = time.perf_counter() - phase_start
+    print(f"phase 7h (a)-(c) took {seconds:.1f} s", flush=True)
+    return {"parity_u8": float(u8.max()), "parity_norm": float(norm.max()),
+            "plane_ms": plane_ms, "pil_ms": pil_ms, "pool_ms": pool_ms,
+            "cv2_one_thread_ms": cv2_one_ms, "serial_ms": serial_ms,
+            "on": on, "off": off, "http": http["stats"], "launches": on_launches}
+
+
+def loader_phase(dev, card) -> dict:
+    """Phase 7h (d): tools/pipeline_benchmark on DP_LOADER_FILES photo-like
+    1024 x 768 JPEGs (DP_LOADER_DISTINCT images from ``photo``, encoded in
+    threads, each written under DP_LOADER_FILES / DP_LOADER_DISTINCT names
+    into the tool's directory, which keeps them; every file is read and
+    decoded on its own; the tool writes the labels) at IMG px and
+    B = BATCH, one whole epoch a run, the loader on the card, with
+    DATA.NATIVE_DATAPLANE 'on' (the bulk path) and 'off' (per sample),
+    alternated on, off, off, on."""
+    import io
+    import os
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from linnaeus_tpu_torch.tools import pipeline_benchmark
+
+    os.makedirs("build", exist_ok=True)
+    d = tempfile.mkdtemp(prefix="pipebench_", dir="build")
+    prefix = os.path.join(d, "pb")
+    images_dir = prefix + "_jpegs"  # the tool's layout
+    os.makedirs(images_dir)
+    w, h = DP_LOADER_SIZE
+
+    def encode(i):
+        buf = io.BytesIO()
+        photo(w, h, np.random.default_rng((SEED + 52, i))).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        distinct = list(pool.map(encode, range(DP_LOADER_DISTINCT)))
+    for i in range(DP_LOADER_FILES):
+        with open(os.path.join(images_dir, f"img_{i:06d}.jpg"), "wb") as f:
+            f.write(distinct[i % DP_LOADER_DISTINCT])
+    made_s = time.perf_counter() - t0
+    runs: dict[str, list] = {}
+    for mode in ("on", "off", "off", "on"):
+        out = pipeline_benchmark.main([
+            "--gen-jpeg", str(DP_LOADER_FILES), "--stored-size", f"{w}x{h}",
+            "--img-size", str(IMG), "--batch-size", str(BATCH), "--native", mode,
+            "--max-batches", str(DP_LOADER_FILES), "--gen-prefix", prefix,
+            "--device", str(dev)])[0]
+        # the whole epoch: the train split's (0.9 of the files) full batches
+        check(out["bulk_read"] == (mode == "on")
+              and out["samples"] == int(0.9 * DP_LOADER_FILES) // BATCH * BATCH,
+              f"pipeline_benchmark --native {mode}: {out}")
+        runs.setdefault(mode, []).append(out)
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[{card}] phase 7h(d): pipeline_benchmark, {DP_LOADER_FILES} photo-like JPEGs of "
+          f"{w}x{h} ({DP_LOADER_DISTINCT} distinct, written in {made_s:.1f} s), {out['samples'] // BATCH} batches a run (the "
+          f"train split's epoch) at {IMG} px, B={BATCH}, "
+          f"the loader on the card: " + "; ".join(
+              f"--native {m}: " + ", ".join(f"{r['samples_per_sec']:.1f} img/s (wait "
+                                           f"{r['wait_ms_per_batch']:.2f} ms a batch, {r['seconds']:.2f} s)"
+                                           for r in runs[m]) for m in ("on", "off")),
+          flush=True)
+    return runs
+
+
+def serve_http(handler, bodies, fa, fm, card, what: str) -> dict:
+    """Serve ``handler`` through ``tools.serve.make_server`` to SERVE_CLIENTS
+    concurrent clients sending ``bodies``; check every answer against the
+    tree and against ``handler.predict`` on the same bytes, and K1's and
+    K2's launches against the forwards the batcher ran. Returns the
+    launches and the measurements (req/s, img/s, p50/p95/p99, the batcher's
+    dispatch and finish seconds)."""
+    import base64
     import threading
     import urllib.request
     from dataclasses import replace
-    from pathlib import Path
 
     from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
     from linnaeus_tpu_torch.inference.postprocessing import enforce_hierarchical_consistency
     from linnaeus_tpu_torch.tools.serve import make_server
     from linnaeus_tpu_torch.tools.serve_latency_bench import percentile
 
-    Path("build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir="build", prefix="smoke_bundle_") as tmp:
-        d = Path(tmp).resolve()
-        start = time.perf_counter()
-        reference = write_bundle(d, dev)
-        written = time.perf_counter() - start
-        start = time.perf_counter()
-        handler = LinnaeusInferenceHandler.load_from_artifacts(d / "config.yaml")
-        loaded = time.perf_counter() - start
-    model = handler.model
-    print(f"bundle written in {written:.1f} s, loaded by load_from_artifacts in {loaded:.1f} s",
-          flush=True)
-    check(all(p.device.type == "cuda" for p in model.parameters()), "the parameters are on the card")
-    check(model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters()),
-          "bf16 compute over float32 parameters")
-    matrices = handler.taxonomy.taxonomy_tree.build_hierarchy_matrices()
-    heads = model.head
-    check(all(heads.head_configs[t]["TYPE"] == "HierarchicalSoftmax" for t in TASKS)
-          and sorted(heads.pairs) == sorted(matrices)
-          and all(torch.equal(heads.matrix(k).cpu(), torch.tensor(m, dtype=torch.float32))
-                  for k, m in matrices.items()), "hierarchical heads with the tree's matrices")
-    check(all(b.attn.use_flash_attn for s in (2, 3) for b in model.stages[s])
-          and all(b.fused_mlp is None for s in (0, 1) for b in model.stages[s]),
-          "the variant's USE_FLASH_ATTN and the default FUSED_CONVNEXT_MLP auto")
-    buckets = handler.warmup()
-    check(buckets == int(np.log2(BATCH)) + 1, f"warmup ran {buckets} buckets")
-    g = torch.Generator(device=dev).manual_seed(SEED + 10)
-    x = torch.randn(8, IMG, IMG, 3, generator=g, device=dev)
-    aux = torch.randn(8, 11, generator=g, device=dev)
-    with torch.inference_mode():
-        a, b = model(x, aux), reference(x, aux)
-    check(all(torch.equal(a[t], b[t]) for t in TASKS),
-          "the loaded model's logits equal the in-memory model's bit for bit")
-    del reference
-    torch.cuda.empty_cache()
-    print(f"handler from disk: {sum(p.numel() for p in model.parameters())} float32 parameters "
-          f"on {next(model.parameters()).device}, bf16 compute, HierarchicalSoftmax over "
-          f"{sorted(matrices)}, warmup ran {buckets} buckets, logits bit-identical to the "
-          f"in-memory model", flush=True)
-
-    bodies = encoded_requests(np.random.default_rng(SEED + 11))
     # where the batcher's host time goes: its worker thread dispatches
     # (decode, preprocessing, upload, launches) through predict_async and
     # its completion thread runs the finisher (fetch, results, the pass)
@@ -3290,9 +3484,9 @@ def bundle_phase(dev, card, fa, fm) -> dict:
     check(not errors, f"HTTP errors: {errors[:3]}")
     check(sum(batches) == n_images, f"the batcher ran {sum(batches)} images, not {n_images}")
     forwards = len(batches)  # each collated batch (at most 32 images) is one forward
-    print(f"served {len(bodies)} /predict requests of {SERVE_IMAGES} images from {SERVE_CLIENTS} "
-          f"concurrent clients over HTTP: {forwards} forwards of {batches} images; launches "
-          f"K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
+    print(f"served {len(bodies)} /predict requests of {SERVE_IMAGES} images ({what}) from "
+          f"{SERVE_CLIENTS} concurrent clients over HTTP: {forwards} forwards of {batches} "
+          f"images; launches K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
     check(launches == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards},
           f"bundle launch counts {launches} for {forwards} forwards")
 
@@ -3300,7 +3494,7 @@ def bundle_phase(dev, card, fa, fm) -> dict:
     raw_handler = LinnaeusInferenceHandler(
         replace(handler.config, inference_options=replace(
             opts, enable_hierarchical_consistency_check=False)),
-        model, handler.taxonomy, handler.class_maps)
+        handler.model, handler.taxonomy, handler.class_maps)
     flips, worst, nulled = 0, 0.0, 0
     for body, answer in zip(bodies, answers):
         got = [as_result(p) for p in answer["predictions"]]
@@ -3324,7 +3518,7 @@ def bundle_phase(dev, card, fa, fm) -> dict:
              "p99_ms": percentile(lat, 99), "mean_batch": sum(batches) / forwards,
              "forwards": forwards, "wall_s": wall,
              "dispatch_s": busy["dispatch"], "finish_s": busy["finish"]}
-    print(f"[{card}] HTTP serving of the bundle, mFormerV1_sm {IMG}px bf16, make_server "
+    print(f"[{card}] HTTP serving of the bundle ({what}), mFormerV1_sm {IMG}px bf16, make_server "
           f"defaults (max_batch 32, batch timeout 5 ms, pipeline depth 2), {SERVE_CLIENTS} "
           f"clients x {SERVE_REQUESTS} requests x {SERVE_IMAGES} images: "
           f"{stats['requests_per_s']:.2f} req/s ({stats['images_per_s']:.1f} img/s), latency "
@@ -3333,15 +3527,82 @@ def bundle_phase(dev, card, fa, fm) -> dict:
           f"the run the batcher's worker spent {busy['dispatch']:.3f} s dispatching (decode, "
           f"preprocessing, upload, launches) and its completion thread {busy['finish']:.3f} s "
           f"finishing (waiting on the device, fetch, results)", flush=True)
+    del raw_handler
+    gc.collect()  # the server's request-handler class forms cycles
+    return {"launches": launches, "stats": stats, "bodies": bodies}
+
+
+def bundle_phase(dev, card, fa, fm) -> dict:
+    """Serve a bundle from disk: write it (under build/, removed afterwards),
+    load it with ``LinnaeusInferenceHandler.load_from_artifacts``, check the
+    handler (card, bf16, hierarchical heads with the tree's matrices, warmup,
+    logits bit-identical to the in-memory model's), serve it with
+    ``tools.serve.make_server`` to concurrent clients over HTTP, check every
+    answer against the tree and against ``handler.predict`` on the same
+    bytes, and count K1's and K2's launches against the forwards the
+    batcher ran (``serve_http``); then phase 7h (a)-(c), the host data
+    plane under the same handler (``dataplane_serving``). Returns the
+    launches and the measurements."""
+    import base64
+    import tempfile
+    from pathlib import Path
+
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+
+    Path("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="smoke_bundle_") as tmp:
+        d = Path(tmp).resolve()
+        start = time.perf_counter()
+        reference = write_bundle(d, dev)
+        written = time.perf_counter() - start
+        start = time.perf_counter()
+        handler = LinnaeusInferenceHandler.load_from_artifacts(d / "config.yaml")
+        loaded = time.perf_counter() - start
+    model = handler.model
+    print(f"bundle written in {written:.1f} s, loaded by load_from_artifacts in {loaded:.1f} s",
+          flush=True)
+    check(all(p.device.type == "cuda" for p in model.parameters()), "the parameters are on the card")
+    check(model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16 compute over float32 parameters")
+    matrices = handler.taxonomy.taxonomy_tree.build_hierarchy_matrices()
+    heads = model.head
+    check(all(heads.head_configs[t]["TYPE"] == "HierarchicalSoftmax" for t in TASKS)
+          and sorted(heads.pairs) == sorted(matrices)
+          and all(torch.equal(heads.matrix(k).cpu(), torch.tensor(m, dtype=torch.float32))
+                  for k, m in matrices.items()), "hierarchical heads with the tree's matrices")
+    check(all(b.attn.use_flash_attn for s in (2, 3) for b in model.stages[s])
+          and all(b.fused_mlp is None for s in (0, 1) for b in model.stages[s]),
+          "the variant's USE_FLASH_ATTN and the default FUSED_CONVNEXT_MLP auto")
+    buckets = handler.warmup()
+    check(buckets == int(np.log2(BATCH)) + 1, f"warmup ran {buckets} buckets")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn(8, IMG, IMG, 3, generator=g, device=dev)
+    aux = torch.randn(8, 11, generator=g, device=dev)
+    with torch.inference_mode():
+        a, b = model(x, aux), reference(x, aux)
+    check(all(torch.equal(a[t], b[t]) for t in TASKS),
+          "the loaded model's logits equal the in-memory model's bit for bit")
+    del reference
+    torch.cuda.empty_cache()
+    print(f"handler from disk: {sum(p.numel() for p in model.parameters())} float32 parameters "
+          f"on {next(model.parameters()).device}, bf16 compute, HierarchicalSoftmax over "
+          f"{sorted(matrices)}, warmup ran {buckets} buckets, logits bit-identical to the "
+          f"in-memory model", flush=True)
+
+    mixed = serve_http(handler, encoded_requests(np.random.default_rng(SEED + 11)), fa, fm, card,
+                       "JPEG and PNG alternating within each request")
+    launches, stats, bodies = mixed["launches"], mixed["stats"], mixed["bodies"]
     images = [base64.b64decode(inst["image"]) for body in bodies[:BATCH // SERVE_IMAGES]
               for inst in body["instances"]]
     metas = [inst["metadata"] for body in bodies[:BATCH // SERVE_IMAGES]
              for inst in body["instances"]]
     stats["host_ms"] = predict_breakdown(handler, images, metas, card)
-    del handler, raw_handler, model
-    gc.collect()  # the server's request-handler class and the model form cycles
+    # phase 7h (a)-(c): the host data plane under this handler
+    dataplane = dataplane_serving(handler, dev, card, fa, fm)
+    del handler, model
+    gc.collect()  # the model forms cycles
     torch.cuda.empty_cache()
-    return {"launches": launches, "stats": stats}
+    return {"launches": launches, "stats": stats, "dataplane": dataplane}
 
 
 def main() -> int:
@@ -3474,6 +3735,10 @@ def main() -> int:
         trainer = trainer_phase(dev, card, fa, fm, default_cfg["step_ms"])
         for key in ("K1", "K1_bwd", "K2", "K2_bwd"):
             check(trainer["launches"][key] > 0, f"{key} was not launched through the Trainer")
+        # 7h (d). the loader alone on generated photo-size JPEGs, the host
+        # data plane on and off ((a)-(c) ran under phase 3b's handler, (e)
+        # in phase 7c)
+        loader_phase(dev, card)
         # 7d. from pretrained files to a served bundle: the example
         # experiment with AutoBatch, one epoch, the bundle tool, serving,
         # --throughput and inspect_checkpoints, on phase 7c's dataset

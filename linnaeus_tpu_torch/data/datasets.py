@@ -11,9 +11,9 @@ read concurrently; raw decoded images go through a byte-budgeted LRU cache.
 Port of linnaeus_tpu/data/datasets.py. The readers run on the host in the
 loader's threads and touch no CUDA state. h5py is imported where an HDF5
 file is opened and cv2 where an image is decoded (PIL where cv2 is not
-installed, as in the original). The native batched JPEG decode
-(DATA.NATIVE_DATAPLANE) is not ported: 'auto' takes the per-sample path and
-says so once, 'on' raises by name.
+installed, as in the original). A directory of JPEGs reads a batch at a time
+through the host data plane (linnaeus_tpu_torch/native/) under
+DATA.NATIVE_DATAPLANE 'auto' or 'on'.
 """
 
 from __future__ import annotations
@@ -260,19 +260,44 @@ class DirImageSource(ImageSource):
         self.img_size = img_size
         self.ext = file_extension
         self.allow_missing = allow_missing
-        # DATA.NATIVE_DATAPLANE: 'auto' and 'off' decode per sample with
-        # cv2/PIL; 'on' (the native batched decode) raises: not ported
-        if str(native) == "on":
-            raise NotImplementedError(
-                "DATA.NATIVE_DATAPLANE 'on': the native batched JPEG decode "
-                "(linnaeus_tpu/native/) is not ported yet; use 'auto' or 'off'"
-            )
-        if str(native) == "auto" and file_extension.lower() in (".jpg", ".jpeg"):
-            logger.info(
-                "DirImageSource: DATA.NATIVE_DATAPLANE 'auto' decodes per sample "
-                f"with {'cv2' if _HAS_CV2 else 'PIL'} (the native batched decode "
-                "is not ported)"
-            )
+        # 'auto': the host data plane's batch decode when it can be had and
+        # the files are JPEG; 'off': always the per-sample cv2/PIL path;
+        # 'on': raise where the data plane is unavailable (DATA.NATIVE_DATAPLANE)
+        self.native_mode = str(native)
+        self._dataplane = False  # not resolved yet
+
+    def _native_plane(self):
+        if self._dataplane is False:
+            if self.native_mode == "off" or self.ext.lower() not in (".jpg", ".jpeg"):
+                self._dataplane = None
+            else:
+                from linnaeus_tpu_torch.native import get_dataplane
+
+                self._dataplane = get_dataplane()
+                if self._dataplane is None and self.native_mode == "on":
+                    raise RuntimeError(
+                        "DATA.NATIVE_DATAPLANE='on' but the host data plane is unavailable "
+                        "(cv2 cannot be imported, or LINNAEUS_TPU_NATIVE=0)")
+        return self._dataplane
+
+    def supports_batch_read(self) -> bool:
+        return self._native_plane() is not None
+
+    def read_batch_rows(self, indices: np.ndarray) -> np.ndarray:
+        """File read, JPEG decode (DCT prescale) and area resize of a whole
+        batch in the data plane's threads, one call. Missing files zero-fill
+        under ALLOW_MISSING (the placeholder of ``read``) and raise
+        otherwise. A row the data plane cannot parse (PNG content behind a
+        .jpg name, a CMYK JPEG) goes through the per-sample decoder ``read``
+        instead of failing the batch."""
+        dp = self._native_plane()
+        idx = np.asarray(indices)
+        paths = [self._path(int(i)) for i in idx]
+        images, status = dp.decode_jpeg_batch(
+            paths, self.img_size, allow_missing=self.allow_missing)
+        for pos in np.nonzero(status == 2)[0]:
+            images[pos] = self.read(int(idx[pos]))
+        return images
 
     def _path(self, idx: int) -> str:
         ident = self.identifiers[idx]
@@ -390,7 +415,8 @@ class PrefetchingDataset:
 
     def _can_bulk_read(self) -> bool:
         """Batch-at-a-time reads apply when the source does the whole batch
-        in one call (H5ImageSource's direct-chunk gather) and no
+        in one call (H5ImageSource's direct-chunk gather, DirImageSource's
+        data-plane decode) and no
         per-sample hook (transform, HPC read simulation, verbose read
         logging) needs the per-sample path."""
         return (
@@ -404,7 +430,8 @@ class PrefetchingDataset:
     def _bulk_images(self, indices: np.ndarray, pool=None) -> np.ndarray:
         """One-gather batch read: cache hits are taken per index, the
         misses go through the source's single batch call
-        (H5ImageSource.read_batch_rows), and rows land in their requested
+        (``read_batch_rows``: the direct-chunk gather, or the data plane's
+        file read, decode and resize), and rows land in their requested
         order."""
         idx = np.asarray(indices, np.int64)
         if len(idx) == 0:

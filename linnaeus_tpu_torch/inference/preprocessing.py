@@ -3,9 +3,12 @@ aux vector.
 
 Port of linnaeus_tpu/inference/preprocessing.py. Normalisation happens on
 the device (the handler's forward); here images are only brought to uint8
-(H, W, C) at the configured size. PIL is imported only to decode bytes or
-PIL images and to resize: a uint8 array already at size needs neither. The
-batched native JPEG decode of the TPU package is not ported yet.
+(H, W, C) at the configured size. A batch of JPEG bytes decodes in one call
+to the host data plane (linnaeus_tpu_torch/native/: DCT-prescaled decode and
+area resize in threads off the GIL); any other input, and any row the data
+plane cannot decode, goes through PIL one image at a time. PIL is imported
+only to decode bytes or PIL images and to resize: a uint8 array already at
+size needs neither.
 """
 
 from __future__ import annotations
@@ -69,7 +72,29 @@ def preprocess_image_u8(image: Any, cfg: InferenceConfig) -> np.ndarray:
 
 
 def preprocess_image_batch(images: list[Any], cfg: InferenceConfig) -> np.ndarray:
-    """-> uint8 (B, H, W, C)."""
+    """-> uint8 (B, H, W, C).
+
+    When the target is square, the interpolation bilinear and every input
+    JPEG bytes, the whole batch decodes in the host data plane
+    (``get_dataplane()``; area resize, the anti-aliased downscale PIL's
+    resize also applies). A row it cannot decode goes through
+    ``preprocess_image_u8``, so it raises what the PIL path raises; any
+    other batch goes through that path whole."""
+    c, h, w = cfg.input_preprocessing.image_size
+    if (
+        h == w
+        and cfg.input_preprocessing.image_interpolation == "bilinear"
+        and images
+        and all(isinstance(im, bytes) and im[:2] == b"\xff\xd8" for im in images)
+    ):
+        from linnaeus_tpu_torch.native import get_dataplane
+
+        dp = get_dataplane()
+        if dp is not None:
+            arr, status = dp.decode_jpeg_mem_batch(list(images), h)
+            for i in np.nonzero(status != 0)[0]:
+                arr[i] = preprocess_image_u8(images[i], cfg)
+            return arr
     return np.stack([preprocess_image_u8(im, cfg) for im in images])
 
 

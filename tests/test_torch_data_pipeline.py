@@ -14,7 +14,8 @@ image source, and the loaders' batches and their order over two epochs
 ``device=None``; on ``device="cpu"`` the same values as tensors; on the
 card, tests/test_torch_cuda.py). Each
 decode runs the same library (cv2 where it is installed, else PIL) on
-both sides; the TPU package's native JPEG decode is turned off there.
+both sides; the native JPEG decode of both packages is turned off there
+(tests/test_torch_native.py holds the two data planes against each other).
 """
 
 import importlib.util
@@ -118,7 +119,7 @@ def config(side, labels=None, images=None, two_file=None, **overrides):
     cfg.DATA.BATCH_SIZE_VAL = 8
     cfg.DATA.H5.TRAIN_VAL_SPLIT_RATIO = 0.75
     cfg.DATA.PREFETCH.MEM_CACHE_SIZE = 1 << 20
-    cfg.DATA.NATIVE_DATAPLANE = "off" if side == "jax" else "auto"
+    cfg.DATA.NATIVE_DATAPLANE = "off"
     cfg.SCHEDULE.MIX.GROUP_LEVELS = ["taxa_L20", "taxa_L10"]
     cfg.DATA.SAMPLER.GROUPED_MODE = "mixed-pairs"
     cfg.DATA.META.COMPONENTS.SPATIAL.COLUMNS = ["lon", "lat", "alt"]
@@ -230,7 +231,7 @@ SOURCES = {
     "h5_direct_chunk": lambda m, f, labels: m.H5ImageSource(f["chunked"], 16, direct_chunk="on"),
     "h5_resized": lambda m, f, labels: m.H5ImageSource(f["images"], 12),
     "dir_jpg": lambda m, f, labels: m.DirImageSource(
-        f["dir"], labels.img_identifiers, 32, ".jpg", native="off" if m is jds else "auto"),
+        f["dir"], labels.img_identifiers, 32, ".jpg", native="off"),
     "dir_png": lambda m, f, labels: m.DirImageSource(f["dir"], labels.img_identifiers, 24, ".png",
                                                      native="off"),
     "synthetic": lambda m, f, labels: m.SyntheticImageSource(16, seed=3),
@@ -373,10 +374,8 @@ def test_memcache_copy_matches_jax():
 
 
 def test_unported_feed_options_raise_by_name(files):
-    with pytest.raises(NotImplementedError, match="NATIVE_DATAPLANE 'on'"):
-        tbuild.build_datasets(config("torch", files["h5"], None, **{
-            "DATA.HYBRID.USE_HYBRID": True, "DATA.HYBRID.IMAGES_DIR": files["dir"],
-            "DATA.NATIVE_DATAPLANE": "on"}))
+    # DATA.NATIVE_DATAPLANE 'on' is ported since (tests/test_torch_native.py;
+    # the Trainer under it: tests/test_torch_trainer.py)
     for key, value in (("PARALLEL.MESH.DATA", 2), ("PARALLEL.MULTI_HOST", True),
                        ("PARALLEL.PARAM_SHARDING", "fsdp"), ("PARALLEL.MESH.MODEL", 2),
                        ("PARALLEL.SEQUENCE_PARALLEL", True), ("PARALLEL.PIPELINE.STAGES", 2)):

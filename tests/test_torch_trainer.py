@@ -508,6 +508,14 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
         assert trainer.model.moe_num_experts == 8
         assert all(b.use_moe for s in (2, 3) for b in trainer.model.stages[s])
         return
+    if option == "DATA.NATIVE_DATAPLANE":
+        # ported since: the Trainer's loader reads a JPEG directory a batch at
+        # a time through the host data plane (tests/test_torch_native.py)
+        trainer = Trainer(cfg, device="cpu")
+        trainer.close()
+        dataset = trainer.bundle["train_dataset"]
+        assert dataset.source.supports_batch_read() and dataset._can_bulk_read()
+        return
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         Trainer(cfg, device="cpu").close()
 

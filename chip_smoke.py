@@ -5,8 +5,8 @@
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
-each one (K1 forward, fused backward and the split dQ and dK/dV backward
-pair; K2 forward and backward; K3, the fused ConvNeXt block) against its
+each one (K1 forward and backward, the backward's dQ and dK/dV kernels
+also alone; K2 forward and backward; K3, the fused ConvNeXt block) against its
 plain PyTorch version at the shapes its path gives it, in float32 and in
 bfloat16 (all of K1, K2 and K3's MLP tail then run on the tensor cores, in
 float32 on the CUDA cores; K1's and K2's times are medians of three repeats,
@@ -46,7 +46,7 @@ same width (B = 64, bf16 compute over float32 parameters, AdamW, cosine
 schedule, clip 5.0), with launch counters proving every step went through
 all four kernels, against the same steps from the same seed with the
 kernels off. Then it trains the same model at 512 px, where stage 3 holds
-1028 tokens and K1's backward takes the split dQ and dK/dV kernels. Then
+1028 tokens (where the TPU package too splits its backward). Then
 (phase 7b) it trains it from the default config: AutoAugment, colour
 jitter and random erasing on the device, per-block rematerialisation
 ('dots') on normal and GradNorm steps, GradNorm's task-weight update every
@@ -139,7 +139,27 @@ checkpoint with PPO (configs/experiments/rl_abstention_384.yaml, 2
 iterations of 128 actions, 64 eval samples, abstain prior 0.2): a complete
 finite receipt, the saved policy loaded back, the rollout's ms an action,
 the update's ms an epoch and the device-busy share of one more profiled
-iteration; neither split kernel nor K3 launched in the phase.
+iteration; K3 not launched in the phase.
+Before 7f, phase 7i (more than one GPU, at world size 1: the card is one
+H100 and NCCL refuses two ranks on one card) runs phase 7c's experiment cut
+to 8 steps through the CLI in this process, then under ``python -m
+torch.distributed.run --standalone --nproc_per_node 1`` with
+PARALLEL.PARAM_SHARDING 'replicated' and 'fsdp' (FSDP2) over NCCL: every
+step's loss and pre-clip norm against the one-process run's (bit-equality
+printed, the first step held to the train bars), the step ms, the
+device-busy share of a profiled window and the kernels' launches, counted
+from 0 in the run's own process (``chip_smoke.py --train-child``), for
+each; the fsdp run's checkpoint
+(whole, the one-process format) resumed bit for bit in a one-process
+Trainer and served through the handler against the one-process
+checkpoint's answers within PROB_TOL; data_parallel 'auto' resolving to 1
+and 2 raising the ValueError that names the device count; a probe of
+whether gloo takes CUDA tensors for the step's collectives and, if it does,
+two gloo ranks on the one card each taking 32 rows of the B=64 step (the
+first step within the train bars); estimate_model_complexity of
+mFormerV1_sm at 384 px (params exactly the stored table's, FLOPs within
+5%, the activation MB printed beside the stored one); and F10: K1's
+backward twice on the same operands, bit for bit, and its time.
 Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints its own time, one
 JSON line about the seven kernels, and as its last line
@@ -169,7 +189,8 @@ BATCH = 64
 TASKS = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 # K1: stage 3 (24x24 + 4 extra tokens, 6 heads) and stage 4 (12x12 + 4, 12 heads)
 K1_SHAPES = [(BATCH, 580, 6, 64), (BATCH, 148, 12, 64), (2, 37, 3, 64)]
-# at 512 px: stage 3 (32x32 + 4, past 1024: the split backward) and stage 4 (16x16 + 4)
+# at 512 px: stage 3 (32x32 + 4, past 1024, where the TPU package splits its
+# backward) and stage 4 (16x16 + 4)
 IMG_LARGE = 512
 K1_SHAPES_LARGE = [(BATCH, 1028, 6, 64), (BATCH, 260, 12, 64)]
 # K3: stage 1 and stage 2 of the 384 px model, and a small odd image
@@ -183,8 +204,8 @@ K1_STAGE3, K1_STAGE4 = 5, 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
 K1_PER_FORWARD = K1_STAGE3 + K1_STAGE4
 K2_PER_FORWARD = 3 + 3  # ConvNeXt blocks of stages 1 and 2
 # backward kernels against their plain versions, relative to each gradient's
-# largest magnitude: fp32 runs the same math in another summation order (dQ
-# through float32 atomics); in bf16 a rounding of P, dS, h1 or da1 that
+# largest magnitude: fp32 runs the same math in another summation order;
+# in bf16 a rounding of P, dS, h1 or da1 that
 # falls the other way moves a sum by a bf16 step (2**-8) or two
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 3
@@ -250,7 +271,8 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
 
 
 def k1_bound(shape, dtype, kind) -> dict:
-    """``kind``: False/"fwd", True/"bwd" (the fused backward), "dq" or "dkv"."""
+    """``kind``: False/"fwd", True/"bwd" (the whole backward: its least work
+    is the one-pass kernel's five products), "dq" or "dkv"."""
     B, N, H, D = shape
     elems, size = B * N * H * D, torch.finfo(dtype).bits // 8
     product = 2 * B * H * N * N * D  # one N x N x D matrix product per head
@@ -546,17 +568,18 @@ def check_backward_kernels(dev, fa, fm) -> dict:
 
 
 def check_split_backward(dev, fa) -> dict:
-    """The split backward's dQ and dK/dV kernels against their plain versions
-    at the 512 px stage-3 shape; the split route forced at two shapes the
-    fused kernel serves, against its plain versions and against the fused
-    kernel; dQ bit-identical over two launches; dK and dV bit-identical to
-    the fused kernel's (both come from one key-tile body). Returns
-    per-kernel records."""
+    """K1's backward is its dQ and dK/dV kernels (after the delta prologue)
+    at every length: each launched alone against its plain version at the
+    two 384 px stages' shapes, the 512 px stage-3 shape and a ragged small
+    one; dQ bit-identical over two launches; dK and dV of the kernel alone
+    the same bits as the whole backward's. Each kernel's time at the main
+    path's shapes (64, 580, 6, 64), then (64, 148, 12, 64) and (64, 1028,
+    6, 64) under ``other_shapes``. Returns per-kernel records."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    rec = {"dq": {"max_abs_err": 0.0}, "dkv": {"max_abs_err": 0.0}}
-    shape = K1_SHAPES_LARGE[0]
+    rec = {"dq": {"max_abs_err": 0.0, "other_shapes": []},
+           "dkv": {"max_abs_err": 0.0, "other_shapes": []}}
     for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in (shape, K1_SHAPES[0], K1_SHAPES[2]):
+        for B, N, H, D in (K1_SHAPES[0], K1_SHAPES[1], K1_SHAPES_LARGE[0], K1_SHAPES[2]):
             scale = D ** -0.5
             q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
             do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
@@ -565,12 +588,11 @@ def check_split_backward(dev, fa) -> dict:
             dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
             dq_again = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
             dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
-            _, fused_dk, fused_dv = fa._launch_bwd(q, k, v, o, lse, do, scale)
+            whole = fa._launch_bwd(q, k, v, o, lse, do, scale)
             torch.cuda.synchronize()
             same = torch.equal(dq, dq_again)
-            # one key-tile body serves the dK/dV kernel and the fused kernel
-            same_dkv = torch.equal(dk, fused_dk) and torch.equal(dv, fused_dv)
-            del fused_dk, fused_dv
+            same_whole = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), whole))
+            del whole
             want_delta = fa.attention_delta(o, do)
             want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, want_delta, scale)
             want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
@@ -580,27 +602,18 @@ def check_split_backward(dev, fa) -> dict:
             abs_dq = max_err(dq, want_dq)
             abs_dkv = max(max_err(dk, want_dk), max_err(dv, want_dv))
             del want_dq, want_dk, want_dv
-            print(f"K1 split backward {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: max rel err "
+            print(f"K1 dQ and dK/dV kernels {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: max rel err "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                   + f" (tol {BWD_TOL[dt]:g}); dQ bit-identical over two launches: {same}; "
-                  f"dK and dV bit-identical to the fused kernel's: {same_dkv}", flush=True)
+                  f"the kernels alone give the whole backward's bits: {same_whole}", flush=True)
             check(all(torch.isfinite(t).all().item() for t in (dq, dk, dv)),
-                  f"K1 split bwd {dt} finite")
+                  f"K1 dQ, dK/dV kernels {dt} finite")
             check(max(errs.values()) <= BWD_TOL[dt],
-                  f"K1 split bwd {dt} {(B, N, H, D)} errors {errs}")
-            check(same, f"dQ of the split route differs between two launches, {dt} N={N}")
-            check(same_dkv, f"dK or dV of the dK/dV kernel differ from the fused kernel's, "
-                            f"{dt} N={N}")
-            if N == 580:
-                # the whole split route through autograd, against the fused kernel
-                got = fa._launch_bwd_split(q, k, v, o, lse, do, scale)
-                fused = fa._launch_bwd(q, k, v, o, lse, do, scale)
-                torch.cuda.synchronize()
-                err = max(rel_err(a, b) for a, b in zip(got, fused))
-                print(f"   split route vs fused kernel at N=580: max rel err {err:.3e}",
-                      flush=True)
-                check(err <= BWD_TOL[dt], f"split vs fused backward {dt}: {err}")
-            if (B, N, H, D) != shape or dt != torch.bfloat16:
+                  f"K1 dQ, dK/dV kernels {dt} {(B, N, H, D)} errors {errs}")
+            check(same, f"dQ differs between two launches, {dt} N={N}")
+            check(same_whole, f"the dQ and dK/dV kernels alone differ from the whole backward, "
+                              f"{dt} N={N}")
+            if dt != torch.bfloat16 or B != BATCH:
                 continue
             lib_ms = sdpa_ms(q, k, v, do)
             print(f"   F.scaled_dot_product_attention backward (dq, dk and dv in one call) "
@@ -614,18 +627,17 @@ def check_split_backward(dev, fa) -> dict:
                  lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)),
             ):
                 (ms, spread), plain_ms = cuda_ms_median(run), cuda_ms(plain, iters=3)
+                b = k1_bound((B, N, H, D), dt, key)
                 print(f"   {key} kernel {ms:.4f} ms (median of 3 x 50 calls, spread "
-                      f"{spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
-                rec[key].update(max_abs_err=abs_err, ms=ms, ms_spread=spread, plain_ms=plain_ms,
-                                shape=[B, N, H, D], library_ms=lib_ms,
-                                **k1_bound((B, N, H, D), dt, key))
-            fused_ms, _ = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, o, lse, do, scale))
-            split_ms, _ = cuda_ms_median(
-                lambda: fa._launch_bwd_split(q, k, v, o, lse, do, scale))
-            print(f"   whole backward at this shape: split route {split_ms:.4f} ms (delta, dQ, "
-                  f"dK/dV), fused kernel {fused_ms:.4f} ms", flush=True)
-            rec["dkv"]["fused_ms_at_this_shape"] = fused_ms
-            rec["dkv"]["split_route_ms"] = split_ms
+                      f"{spread:.4f}), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                      f"({b['bound_by']})", flush=True)
+                rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], abs_err)
+                timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
+                             library_ms=lib_ms, **b)
+                if N == 580:
+                    rec[key].update(timed)
+                else:
+                    rec[key]["other_shapes"].append(timed)
     return rec
 
 
@@ -724,16 +736,15 @@ def block_ab_phase(dev, fm, fb) -> int:
 def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
     """A few train steps of mFormerV1_sm at ``img`` px with the kernels on,
     then the same steps from the same seed with them off; returns the launch
-    counts. K1's backward takes the fused kernel for a stage of at most 1024
-    tokens and the split pair past that (stage 3 at 512 px)."""
+    counts. K1's backward is one call of its dQ and dK/dV kernels a block at
+    every length (stage 3 at 512 px holds 1028 tokens, where the TPU package
+    too takes its split pair)."""
     from linnaeus_tpu_torch.tools import train_bench
 
     def counts():
         return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
                 "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
 
-    split = [fa.backward_route((img // px) ** 2 + 4) == "split" for px in (16, 32)]
-    n_split = K1_STAGE3 * split[0] + K1_STAGE4 * split[1]
     results = {}
     for name, kernels in (("on", True), ("off", False)):
         run, state = train_bench.build_step(BATCH, img, kernels, "mFormerV1_sm", TASKS,
@@ -781,8 +792,8 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
               f"{changed} of {len(before)} parameter tensors changed; stuck: {stuck}")
         check(state.step == len(history), f"step counter {state.step}")
         n = len(history)
-        want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * (K1_PER_FORWARD - n_split),
-                 "K1_dq": n * n_split, "K1_dkv": n * n_split,
+        want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * K1_PER_FORWARD,
+                 "K1_dq": n * K1_PER_FORWARD, "K1_dkv": n * K1_PER_FORWARD,
                  "K2": n * K2_PER_FORWARD, "K2_bwd": n * K2_PER_FORWARD} if kernels
                 else dict.fromkeys(launched, 0))
         check(launched == want, f"train launch counts {launched}, expected {want}")
@@ -809,6 +820,7 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
 DEFAULT_CFG_STEPS = 6
 GRADNORM_INTERVAL = 2
 K1_PER_REMAT_STEP = {"K1": 2 * K1_PER_FORWARD, "K1_bwd": K1_PER_FORWARD,
+                     "K1_dq": K1_PER_FORWARD, "K1_dkv": K1_PER_FORWARD,
                      "K2": 2 * K2_PER_FORWARD, "K2_bwd": K2_PER_FORWARD}
 PER_GRADNORM = {k: len(TASKS) * v for k, v in K1_PER_REMAT_STEP.items()}
 
@@ -1720,6 +1732,388 @@ def pretrained_phase(dev, card, fa, fm, trainer: dict) -> dict:
             "build_s": build_s, "train_s": train_s, "epoch_peak_bytes": epoch_peak}
 
 
+# phase 7i: more than one GPU (parallel/), run at world size 1 over NCCL, the
+# card being one H100: NCCL refuses two ranks on one card
+MULTI_STEPS = 8
+MULTI_PROFILE = (4, 6)  # DEBUG.PROFILE window: steps 5-6
+
+
+def multi_yaml(d: str, trainer: dict, name: str) -> str:
+    """Phase 7c's experiment (mFormerV1_sm at IMG px, B = BATCH, bf16, the
+    default config) cut to MULTI_STEPS steps of one epoch, GradNorm every 4,
+    a checkpoint at the end, a profiled window, under ``d/name``."""
+    import os
+
+    import yaml
+
+    with open(trainer["yaml"]) as f:
+        exp = yaml.safe_load(f)
+    exp["EXPERIMENT"]["NAME"] = name
+    exp["ENV"]["OUTPUT"]["BASE_DIR"] = os.path.join(d, "out")
+    exp["TRAIN"]["EPOCHS"] = 1
+    exp["LOSS"]["GRAD_WEIGHTING"]["TASK"]["UPDATE_INTERVAL"] = 4
+    exp["DEBUG"] = {"EARLY_EXIT_AFTER_N_OPTIMIZER_STEPS": MULTI_STEPS,
+                    "PROFILE": {"START_STEP": MULTI_PROFILE[0], "END_STEP": MULTI_PROFILE[1]}}
+    path = os.path.join(d, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(exp, f)
+    return path
+
+
+def _run_rows(run_dir: str) -> tuple[dict, dict, dict | None]:
+    """(loss by step, pre-clip norm by step, the profiled window) of a run's
+    logs."""
+    import ast
+    import os
+
+    losses, norms, prof, timing = {}, {}, None, None
+    with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            if "train/loss" in row:
+                losses[row["step"]] = row["train/loss"]
+                norms[row["step"]] = row["train/grad_norm_pre_clip"]
+    with open(os.path.join(run_dir, "logs", "main_p0.log")) as f:
+        for line in f:
+            if "profiled steps" in line:
+                prof = ast.literal_eval(line[line.index("{", line.index("profiled steps")):])
+            if "timing {" in line:
+                timing = json.loads(line[line.index("timing {") + len("timing "):])
+    return losses, norms, {"profile": prof, "timing": timing}
+
+
+CHILD_COUNTS = "train child launches: "
+
+
+def kernel_counts(fa, fm) -> dict:
+    return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
+            "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+
+
+def train_child(argv: list[str]) -> int:
+    """``chip_smoke.py --train-child <training CLI arguments>``, started by
+    torch.distributed.run in phase 7i: the training CLI in this process with
+    the kernels' counts set to 0 just before it; after the run each rank
+    prints, on a line that starts with CHILD_COUNTS, its rank, the process
+    group's backend, whether FSDP2 wrapped the model, and its counts."""
+    import os
+
+    import torch.distributed as dist
+
+    import linnaeus_tpu_torch.ops.flash_attention as fa
+    import linnaeus_tpu_torch.ops.fused_mlp as fm
+    from linnaeus_tpu_torch.train.main import main as train_main
+
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    run = train_main(argv)
+    row = {"rank": int(os.environ.get("RANK", "0")),
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "fsdp": hasattr(next(run.model.parameters()), "to_local"),
+           "launches": kernel_counts(fa, fm)}
+    print(CHILD_COUNTS + json.dumps(row), flush=True)
+    return 0
+
+
+def _torchrun(cfg_path: str, extra: list[str], nproc: int = 1, timeout: int = 300):
+    """``python -m torch.distributed.run --standalone`` of the training CLI
+    (through :func:`train_child`); returns (seconds, exit code, the tail of
+    its output, each rank's CHILD_COUNTS line by rank)."""
+    import os
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), "--train-child",
+           "--cfg", cfg_path] + extra
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    counts = {}
+    for line in run.stdout.splitlines():
+        if CHILD_COUNTS in line:
+            row = json.loads(line[line.index(CHILD_COUNTS) + len(CHILD_COUNTS):])
+            counts[row.pop("rank")] = row
+    return secs, run.returncode, (run.stdout + run.stderr)[-3000:], counts
+
+
+def gloo_cuda_probe() -> str | None:
+    """Whether this machine's gloo takes CUDA tensors for every collective
+    the train step uses (all_gather_into_tensor, all_reduce, broadcast,
+    all_gather_object): two processes on the one card; None when it does,
+    else the error."""
+    import subprocess
+
+    code = r"""
+import os, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="file://" + sys.argv[2], rank=rank, world_size=2)
+dev = torch.device("cuda", 0)
+x = torch.full((4,), float(rank + 1), device=dev)
+out = torch.empty(8, device=dev)
+dist.all_gather_into_tensor(out, x)
+dist.all_reduce(x)
+dist.broadcast(x, src=0)
+objs = [None, None]
+dist.all_gather_object(objs, {"r": rank})
+assert out.is_cuda and float(x[0]) == 3.0 and objs == [{"r": 0}, {"r": 1}], (out, x, objs)
+dist.destroy_process_group()
+"""
+    import tempfile
+
+    store = tempfile.mktemp(prefix="gloo_store_", dir="build")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), store],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            return "the probe did not finish in 120 s"
+    bad = [o for p, o in zip(procs, outs) if p.returncode != 0]
+    return bad[0][-800:] if bad else None
+
+
+def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
+    """Phase 7i (module docstring): (a) the CLI under torch.distributed.run at
+    world size 1 over NCCL with PARAM_SHARDING 'replicated' and 'fsdp' against
+    the one-process CLI on the same config and seed, each run's kernel
+    launches counted in its own process; (b) the fsdp run's
+    checkpoint through the handler against the one-process checkpoint's, and
+    resumed in a one-process Trainer; the handler's data_parallel rule;
+    (c) two ranks on the one card over gloo, after a probe; (d) the
+    complexity estimator on mFormerV1_sm at IMG px; (e) F10: K1's backward
+    twice on the same operands, and its time. Returns the kernels' launches
+    by run ('one', 'replicated', 'fsdp')."""
+    import os
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from linnaeus_tpu_torch.evaluation.complexity import estimate_all_archs
+    from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
+    from linnaeus_tpu_torch.tools.prepare_inference_bundle import prepare_bundle
+    from linnaeus_tpu_torch.train.loop import Trainer
+    from linnaeus_tpu_torch.train.main import main as train_main
+    from linnaeus_tpu_torch.train.main import parse_option
+    from linnaeus_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="multi_", dir="build")
+    runs = {}
+    fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
+
+    def run_dir(name):
+        return os.path.join(d, "out", "chip_smoke", "phase9", name)
+
+    # (a) the one-process CLI in this process, then the same config under
+    # torch.distributed.run, replicated and fsdp; each run's kernel launches
+    # are counted from 0 in the process that makes them (the children's by
+    # train_child)
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+    one_yaml = multi_yaml(d, trainer, "one")
+    t0 = time.perf_counter()
+    one = train_main(["--cfg", one_yaml, "--device", str(dev)])
+    runs["one"] = time.perf_counter() - t0
+    launched = {"one": kernel_counts(fa, fm)}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {"one": _run_rows(run_dir("one"))}
+    for mode in ("replicated", "fsdp"):
+        cfg_path = multi_yaml(d, trainer, mode)
+        # MULTI_HOST: at world size 1 the process group starts only when asked
+        secs, rc, tail, ranks = _torchrun(cfg_path, ["--opts", "PARALLEL.MULTI_HOST", "True",
+                                                     "PARALLEL.PARAM_SHARDING", mode])
+        check(rc == 0, f"torch.distributed.run, PARAM_SHARDING {mode}: exit {rc}\n{tail}")
+        check(list(ranks) == [0] and ranks[0]["backend"] == "nccl"
+              and ranks[0]["fsdp"] == (mode == "fsdp"),
+              f"{mode}: one rank over NCCL, FSDP2 {mode == 'fsdp'}: {ranks}\n{tail}")
+        launched[mode] = ranks[0]["launches"]
+        for key, n in launched[mode].items():
+            check(n > 0, f"{key} was not launched in the {mode} run under torch.distributed.run")
+        runs[mode] = secs
+        rows[mode] = _run_rows(run_dir(mode))
+    losses1, norms1, extra1 = rows["one"]
+    check(sorted(losses1) == list(range(1, MULTI_STEPS + 1)),
+          f"the one-process CLI took {MULTI_STEPS} steps: {sorted(losses1)}")
+    summary = {}
+    for mode in ("replicated", "fsdp"):
+        losses, norms, extra = rows[mode]
+        check(sorted(losses) == sorted(losses1), f"{mode}: the same steps as one process")
+        same = all(losses[k] == losses1[k] and norms[k] == norms1[k] for k in losses1)
+        d_loss = abs(losses[1] - losses1[1]) / abs(losses1[1])
+        d_norm = abs(norms[1] - norms1[1]) / abs(norms1[1])
+        worst = max(abs(losses[k] - losses1[k]) / abs(losses1[k]) for k in losses1)
+        check(d_loss <= TRAIN_LOSS_RTOL and d_norm <= TRAIN_GRAD_NORM_RTOL,
+              f"{mode}: first-step loss rel {d_loss} (tol {TRAIN_LOSS_RTOL}), norm rel {d_norm} "
+              f"(tol {TRAIN_GRAD_NORM_RTOL})")
+        prof, timing = extra["profile"], extra["timing"]
+        summary[mode] = {"bits_equal": same, "first_loss_rel": d_loss, "first_norm_rel": d_norm,
+                         "worst_loss_rel": worst, "seconds": runs[mode],
+                         "median_step_ms": timing and timing["median_step_ms"],
+                         "profile": prof, "launches": launched[mode]}
+        print(f"[{card}] phase 7i(a) torch.distributed.run world 1 nccl, PARAM_SHARDING {mode}: "
+              f"{MULTI_STEPS} steps, losses and pre-clip norms equal to the one-process CLI's "
+              f"bit for bit: {same}; first step loss rel {d_loss:.3e}, norm rel {d_norm:.3e}; "
+              f"worst step loss rel {worst:.3e}; step {fmt(timing and timing['median_step_ms'])} "
+              f"ms (one process {fmt(extra1['timing'] and extra1['timing']['median_step_ms'])}); "
+              f"profiled steps {MULTI_PROFILE[0] + 1}-{MULTI_PROFILE[1]}: {prof} (one process "
+              f"{extra1['profile']}); the run took {runs[mode]:.1f} s with its start "
+              f"(one process {runs['one']:.1f} s); kernel launches in the run's own process "
+              f"{launched[mode]} (one process {launched['one']}; equal: "
+              f"{launched[mode] == launched['one']})", flush=True)
+
+    # (b) serving the fsdp checkpoint against the one-process checkpoint, and
+    # a one-process Trainer resuming it
+    one_last, fsdp_last = (ckpt.auto_resume_helper(os.path.join(run_dir(name), "checkpoints"))
+                           for name in ("one", "fsdp"))
+    check(one_last is not None and fsdp_last is not None, "both runs wrote a checkpoint")
+    state_one = torch.load(os.path.join(one_last, "state", "state.pt"), weights_only=True)
+    state_fsdp = torch.load(os.path.join(fsdp_last, "state", "state.pt"), weights_only=True)
+    check(state_one["model"].keys() == state_fsdp["model"].keys()
+          and all(state_one["model"][k].shape == state_fsdp["model"][k].shape
+                  for k in state_one["model"]),
+          "the fsdp run's checkpoint holds the whole model in the one-process format")
+    argv = ["--cfg", multi_yaml(d, trainer, "fsdp"), "--device", str(dev),
+            "--opts", "TRAIN.EPOCHS", "2"]
+    _, probe_cfg = parse_option(argv)
+    probe = Trainer(probe_cfg, device=dev)
+    check(probe.try_resume(), "a one-process Trainer resumes the fsdp run's checkpoint")
+    got = probe.model.state_dict()
+    check(all(torch.equal(got[k].cpu(), v) for k, v in state_fsdp["model"].items()),
+          "the resumed one-process model holds the fsdp checkpoint bit for bit")
+    num_classes = dict(probe.num_classes)
+    val_ids = probe.bundle["val_dataset"].labels.img_identifiers
+    val_idx = probe.bundle["val_indices"][:BATCH]
+    probe.close()
+    del probe
+    gc.collect()
+    jpegs = []
+    for i in val_idx:
+        with open(os.path.join(trainer["data"]["images"], f"{val_ids[i]}.jpg"), "rb") as f:
+            jpegs.append(f.read())
+    probs = {}
+    for name, last in (("one", one_last), ("fsdp", fsdp_last)):
+        bdir = os.path.join(d, f"bundle_{name}")
+        prepare_bundle(last, os.path.join(run_dir(name), "assets"), bdir, "mFormerV1_sm",
+                       list(TASKS), [num_classes[t] for t in TASKS], image_size=IMG)
+        with open(os.path.join(bdir, "config.yaml")) as f:
+            bundle_cfg = yaml.safe_load(f)
+        bundle_cfg["model"]["weights_path"] = os.path.abspath(last)
+        bundle_cfg["inference_options"]["batch_size"] = BATCH
+        bundle_cfg["inference_options"]["enable_hierarchical_consistency_check"] = False
+        path = os.path.join(bdir, "config_dir.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(bundle_cfg, f, sort_keys=False)
+        handler = LinnaeusInferenceHandler.load_from_artifacts(path)
+        results = handler.predict(jpegs)
+        probs[name] = [[p for task in r.tasks for _, p in task.predictions] for r in results]
+        ids = [[tid for task in r.tasks for tid, _ in task.predictions] for r in results]
+        probs[name + "_ids"] = ids
+        if name == "fsdp":
+            opts = handler.config.inference_options
+            from dataclasses import replace
+
+            auto = LinnaeusInferenceHandler(
+                replace(handler.config, inference_options=replace(opts, data_parallel="auto")),
+                handler.model, handler.taxonomy, handler.class_maps)
+            check(auto._dp == 1, f"data_parallel 'auto' on one card resolves to {auto._dp}")
+            try:
+                LinnaeusInferenceHandler(
+                    replace(handler.config, inference_options=replace(opts, data_parallel=2)),
+                    handler.model, handler.taxonomy, handler.class_maps)
+                check(False, "data_parallel 2 on one card raised nothing")
+            except ValueError as err:
+                dp_error = str(err)
+                check("only 1 devices are visible" in dp_error, f"data_parallel 2: {dp_error}")
+        del handler
+        gc.collect()
+    gap = max(abs(a - b) for ra, rb in zip(probs["one"], probs["fsdp"]) for a, b in zip(ra, rb))
+    same_top = sum(a[0] == b[0] for a, b in zip(probs["one_ids"], probs["fsdp_ids"]))
+    check(gap <= PROB_TOL, f"the fsdp checkpoint's answers against the one-process one's: top-k "
+          f"probabilities within {gap} (tol {PROB_TOL})")
+    print(f"[{card}] phase 7i(b): the fsdp run's checkpoint (whole, one-process format) resumed "
+          f"in a one-process Trainer bit for bit and served {len(jpegs)} validation JPEGs: top-k "
+          f"probabilities within {gap:.2e} of the one-process checkpoint's (tol {PROB_TOL}), "
+          f"top-1 of the first task equal on {same_top}/{len(jpegs)}; data_parallel 'auto' -> 1, "
+          f"2 -> ValueError: {dp_error}", flush=True)
+
+    # (c) two ranks on the one card over gloo, replicated: first the probe
+    probe_err = gloo_cuda_probe()
+    gloo = {"takes_cuda_tensors": probe_err is None, "error": probe_err}
+    if probe_err is None:
+        cfg_path = multi_yaml(d, trainer, "gloo2")
+        secs, rc, tail, ranks = _torchrun(
+            cfg_path, ["--backend", "gloo", "--opts", "DEBUG.EARLY_EXIT_AFTER_N_OPTIMIZER_STEPS",
+                       "1", "DEBUG.PROFILE.END_STEP", "0"], nproc=2)
+        check(rc == 0, f"two ranks on one card over gloo: exit {rc}\n{tail}")
+        counts = {r: row["launches"] for r, row in ranks.items()}
+        check(sorted(ranks) == [0, 1] and all(row["backend"] == "gloo" for row in ranks.values())
+              and all(c["K1"] > 0 and c["K2"] > 0 for c in counts.values()),
+              f"both gloo ranks launched K1 and K2: {ranks}")
+        losses, norms, _ = _run_rows(run_dir("gloo2"))
+        d_loss = abs(losses[1] - losses1[1]) / abs(losses1[1])
+        d_norm = abs(norms[1] - norms1[1]) / abs(norms1[1])
+        check(d_loss <= TRAIN_LOSS_RTOL and d_norm <= TRAIN_GRAD_NORM_RTOL,
+              f"two gloo ranks: first-step loss rel {d_loss}, norm rel {d_norm}")
+        gloo.update(first_loss_rel=d_loss, first_norm_rel=d_norm, seconds=secs,
+                    launches=counts)
+        print(f"[{card}] phase 7i(c): gloo takes CUDA tensors for all_gather_into_tensor, "
+              f"all_reduce, broadcast and all_gather_object; two ranks on the one card, 32 rows "
+              f"each of the B={BATCH} step with K1 and K2 live: first-step loss rel {d_loss:.3e} "
+              f"(tol {TRAIN_LOSS_RTOL}), norm rel {d_norm:.3e} (tol {TRAIN_GRAD_NORM_RTOL}) "
+              f"against the one-process step ({secs:.1f} s with the start); launches by rank "
+              f"{counts}", flush=True)
+    else:
+        print(f"[{card}] phase 7i(c): left out: this machine's gloo does not take CUDA tensors "
+              f"for the step's collectives: {probe_err[-300:]}", flush=True)
+
+    # (d) the complexity estimator: mFormerV1_sm at IMG px, on the card
+    stored = json.load(open("docs/models/model_complexity_estimates.json"))["mFormerV1_sm"]
+    t0 = time.perf_counter()
+    cx = estimate_all_archs(["mFormerV1_sm"], img_size=IMG, device=dev)["mFormerV1_sm"]
+    cx_s = time.perf_counter() - t0
+    check(cx["params"] == stored["params"],
+          f"complexity params {cx['params']} == stored {stored['params']}")
+    rel = abs(cx["flops_per_sample"] - stored["flops_per_sample"]) / stored["flops_per_sample"]
+    check(rel <= 0.05, f"complexity FLOPs {cx['gflops_per_sample']} within 5% of stored "
+          f"{stored['gflops_per_sample']}: {rel}")
+    print(f"[{card}] phase 7i(d): complexity of mFormerV1_sm at {IMG} px: {cx['params']:,} "
+          f"params (stored {stored['params']:,}), {cx['gflops_per_sample']:.4f} GFLOPs a sample "
+          f"(stored {stored['gflops_per_sample']:.4f}, {100 * rel:.2f}% under: products and "
+          f"convolutions only), activation {cx['activation_memory_mb']:.1f} MB (stored "
+          f"{stored['activation_memory_mb']:.1f}, XLA's temporaries) in {cx_s:.1f} s", flush=True)
+
+    # (e) F10: K1's backward twice, bit for bit, and its time at the two
+    # stages' shapes
+    f10 = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for B, N, H, D in K1_SHAPES[:2]:
+        q, k, v, do = (torch.randn(B, N, H, D, generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, D ** -0.5)
+        first = [t.clone() for t in fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5)]
+        second = fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"K1 backward at {(B, N, H, D)}: dQ, dK, dV the same bits over two calls")
+        ms, spread = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5))
+        f10[f"{B}x{N}x{H}x{D}"] = {"ms": ms, "ms_spread": spread}
+        print(f"[{card}] phase 7i(e) F10: K1 backward bf16 {(B, N, H, D)} the same bits over "
+              f"two calls; the backward (delta, dQ kernel, dK/dV kernel, no workspace) "
+              f"{ms:.4f} ms (spread {spread:.4f})", flush=True)
+        del q, k, v, do, o, lse, first, second
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 7i took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launched, "summary": summary, "gloo": gloo, "complexity": cx,
+            "f10": f10}
+
+
 # phase 7e: the mFormerV0 family (mFormerV0_sm) on phase 7c's dataset
 V0_ARCH = "configs/model/archs/mFormerV0_sm.yaml"
 V0_SEED = SEED + 30
@@ -2287,8 +2681,7 @@ def moe_steps(dev, card, fa, fm) -> dict:
     from linnaeus_tpu_torch.utils.device import profiled_device_rows
 
     def counts():
-        return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K2": fm.LAUNCHES,
-                "K2_bwd": fm.BWD_LAUNCHES}
+        return kernel_counts(fa, fm)
 
     results = {}
     for name, kernels in (("on", True), ("off", False)):
@@ -2310,8 +2703,9 @@ def moe_steps(dev, card, fa, fm) -> dict:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / MOE_STEPS
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        want = ({"K1": K1_PER_FORWARD, "K1_bwd": K1_PER_FORWARD, "K2": K2_PER_FORWARD,
-                 "K2_bwd": K2_PER_FORWARD} if kernels else dict.fromkeys(launched, 0))
+        want = ({"K1": K1_PER_FORWARD, "K1_bwd": K1_PER_FORWARD, "K1_dq": K1_PER_FORWARD,
+                 "K1_dkv": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K2_bwd": K2_PER_FORWARD}
+                if kernels else dict.fromkeys(launched, 0))
         check(launched == want, f"MoE train launches {launched} for one step, expected {want}")
         stats = {k: [float(m[k]) for m in history] for k in ("moe_aux", "moe_z", "moe_drop_frac")}
         losses = [float(m["loss"]) for m in history]
@@ -2544,18 +2938,17 @@ def moe_cli(dev, card, fa, fm, trainer: dict) -> dict:
 def moe_phase(dev, card, fa, fm, trainer: dict) -> dict:
     """Phase 7g: (a) serving, (b) steps, (c) upcycling through the CLI, (d)
     serving the checkpoint, (e) the export. K1 and K2 launch on the MoE path
-    as on mFormerV1_sm's; the split backward and K3 do not."""
+    as on mFormerV1_sm's; K3 does not."""
     t0 = time.perf_counter()
     served = moe_serve(dev, card, fa, fm)
     steps = moe_steps(dev, card, fa, fm)
     cli = moe_cli(dev, card, fa, fm, trainer)
-    check(fa.DQ_LAUNCHES == fa.DKV_LAUNCHES == 0, "no split backward on the MoE path")
     seconds = time.perf_counter() - t0
     print(f"phase 7g (mFormerV1_sm_moe) took {seconds:.1f} s", flush=True)
     return {"serve": served, "steps": steps, "cli": cli, "seconds": seconds,
             "launches": {"K1": served["launches"]["K1"], "K2": served["launches"]["K2"],
-                         "K1_bwd": steps["on"]["launches"]["K1_bwd"],
-                         "K2_bwd": steps["on"]["launches"]["K2_bwd"]}}
+                         **{k: steps["on"]["launches"][k]
+                            for k in ("K1_bwd", "K1_dq", "K1_dkv", "K2_bwd")}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2583,7 +2976,7 @@ RECEIPT_VAL_RTOL = 1e-2
 RL_ITERATIONS, RL_ROLLOUT, RL_EVAL, RL_PRIOR = 2, 128, 64, 0.2  # iterations cut from 30
 # the shapes no earlier phase launched: the rollout's one image (K1 forward
 # at B=1, K2 forward at 96x96 and 48x48 rows) and the PPO update's whole
-# rollout as one batch (K1 fused backward and K2 forward and backward at
+# rollout as one batch (K1 backward and K2 forward and backward at
 # B=128)
 K1_SHAPES_B1 = [(1, 580, 6, 64), (1, 148, 12, 64)]
 K1_SHAPES_B128 = [(RL_ROLLOUT, 580, 6, 64), (RL_ROLLOUT, 148, 12, 64)]
@@ -2601,7 +2994,7 @@ def _k2_operands(g, dev, M, C, dt):
 
 
 def check_receipt_shapes(dev, fa, fm) -> dict:
-    """K1 forward and K2 forward at the rollout's B=1, K1's fused backward
+    """K1 forward and K2 forward at the rollout's B=1, K1's backward
     and K2 forward and backward at the PPO update's B=128, bf16, each
     against its plain version at the kernel bars; times, bounds and the
     library call. Returns per-kernel lists of timed records."""
@@ -2626,7 +3019,6 @@ def check_receipt_shapes(dev, fa, fm) -> dict:
                               plain_ms=plain_ms, library_ms=lib_ms, **b))
         if B == 1:
             continue
-        check(fa.backward_route(N) == "fused", f"K1's backward route at N={N}")
         do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
         got = fa._launch_bwd(q, k, v, out, lse, do, D ** -0.5)
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
@@ -2875,9 +3267,9 @@ def receipt_phase(dev, card, fa, fm, fb) -> dict:
           f"(+ the profiled iteration: {phase2})", flush=True)
     total = _launch_counts(fa, fm, fb)
     check(all(total[k] > 0 for k in ("K1", "K1_bwd", "K2", "K2_bwd"))
-          and total["K1_dq"] == total["K1_dkv"] == total["K3"] == 0,
-          f"phase 7f launches {total}: K1 and K2 forward and backward, neither split kernel "
-          "nor K3")
+          and total["K1_dq"] == total["K1_dkv"] == total["K1_bwd"] and total["K3"] == 0,
+          f"phase 7f launches {total}: K1 and K2 forward and backward (one dQ and one dK/dV "
+          "launch a K1 backward), not K3")
     check(rl_launches["K1_bwd"] > 0 and rl_launches["K2_bwd"] > 0,
           f"the PPO update ran K1's and K2's backward: {rl_launches}")
     shutil.rmtree(d, ignore_errors=True)
@@ -3717,10 +4109,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = train_phase(dev, card, fa, fm)["on"]["launches"]
 
-    # 7. train at 512 px: stage 3 holds 1028 tokens, so K1's backward takes
-    # the split dQ and dK/dV kernels there and the fused kernel at stage 4
+    # 7. train at 512 px: stage 3 holds 1028 tokens, where the TPU package
+    # takes its split backward pair
     trained_large = train_phase(dev, card, fa, fm, IMG_LARGE)["on"]["launches"]
-    trained["K1_dq"], trained["K1_dkv"] = trained_large["K1_dq"], trained_large["K1_dkv"]
 
     # 7b. train from the default config: AutoAugment, GradNorm's update,
     # remat "dots", the heads' parameter group at 10x, AdamW on cosine;
@@ -3750,6 +4141,14 @@ def main() -> int:
         # 7g. mFormerV1_sm_moe: serving, train_bench --moe steps, upcycling
         # from 7d's files through the CLI, serving the checkpoint, the export
         moe = moe_phase(dev, card, fa, fm, trainer)
+        # 7i. more than one GPU at world size 1 over NCCL (replicated, FSDP2)
+        # against one process, serving and resuming the sharded run's
+        # checkpoint, two ranks on the card over gloo, the complexity
+        # estimator, F10's deterministic dQ
+        multi = multi_phase(dev, card, fa, fm, trainer)
+        for mode, counts in multi["launches"].items():
+            for key, n in counts.items():
+                check(n > 0, f"{key} was not launched in phase 7i's {mode} run")
         shutil.rmtree(trainer["dir"], ignore_errors=True)
         # 7f. phase 1 to phase 2: the receipt data, the CLI with the kernels
         # on and off and their receipts, PPO abstention fine-tuning from the
@@ -3765,7 +4164,8 @@ def main() -> int:
         (rec["K1"], "K1", "flash_attention_fwd",
          "linnaeus_tpu_torch/csrc/flash_attention_fwd.cu", "linnaeus_tpu/ops/flash_attention.py:57"),
         (rec_bwd["K1"], "K1_bwd", "flash_attention_bwd",
-         "linnaeus_tpu_torch/csrc/flash_attention_bwd.cu", "linnaeus_tpu/ops/flash_attention.py:156"),
+         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
+         "linnaeus_tpu/ops/flash_attention.py:156"),
         (rec["K2"], "K2", "fused_convnext_mlp_fwd",
          "linnaeus_tpu_torch/csrc/fused_mlp_fwd_wgmma.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
         (rec_bwd["K2"], "K2_bwd", "fused_convnext_mlp_bwd",
@@ -3780,9 +4180,10 @@ def main() -> int:
          "linnaeus_tpu_torch/csrc/fused_dwconv_mlp_fwd.cu",
          "linnaeus_tpu/ops/fused_dwconv_mlp.py:50"),
     ):
-        # launches: over its path's run (the 384 px train steps; the 512 px
-        # train steps for the split backward; the A/B tool for K3), counted
-        # from zero; the forwards also served the requests
+        # launches: over its path's run (the 384 px train steps; the A/B tool
+        # for K3), counted from zero; the forwards also served the requests.
+        # flash_attention_bwd counts calls of K1's backward, each one launch
+        # of flash_attention_bwd_dq and one of flash_attention_bwd_dkv
         check(trained[key] > 0, f"kernel {name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": trained[key], "max_abs_err": r["max_abs_err"],
@@ -3798,6 +4199,8 @@ def main() -> int:
                         "pretrained_launches": pretrained["launches"].get(key, 0),
                         "receipt_launches": receipt["launches"].get(key, 0),
                         "moe_launches": moe["launches"].get(key, 0),
+                        "multi_launches": {mode: counts.get(key, 0) for mode, counts
+                                           in multi["launches"].items()},
                         "receipt_shapes": receipt["shapes"].get(key, []),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
@@ -3810,4 +4213,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-child"]:
+        sys.exit(train_child(sys.argv[2:]))
     sys.exit(main())

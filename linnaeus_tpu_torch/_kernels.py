@@ -45,7 +45,6 @@ _SIGNATURES = {
     "lt_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "lt_fused_mlp_fwd": [_P] * 10 + [_L, _I, _I, _F, _I, _I, _P],
     "lt_fused_mlp_fwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
-    "lt_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_fused_mlp_bwd": [_P] * 3 + [_L, _I, _I, _F, _I, _I, _I, _I, _P],
     "lt_fused_mlp_bwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
     "lt_flash_attention_bwd_delta": [_P] * 3 + [_I] * 4 + [_P, _I, _P],

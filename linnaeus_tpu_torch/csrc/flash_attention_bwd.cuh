@@ -1,13 +1,12 @@
-// Device code shared by K1's backward kernels: the fused one
-// (flash_attention_bwd.cu) and the split dQ and dK/dV pair
-// (flash_attention_bwd_split.cu). Everything here has internal linkage: each
-// source that includes this header compiles its own copy.
+// Device code of K1's backward kernels (flash_attention_bwd_split.cu).
+// Everything here has internal linkage: each source that includes this
+// header compiles its own copy.
 //
-// Two bodies for the block that owns a key tile, chosen by dtype in the C
-// entry points:
-//   `key_tile_backward_wgmma<kWithDQ>`, bfloat16: one warpgroup, all four
-//   (with kWithDQ five) tile products on the tensor cores (see its note);
-//   `key_tile_backward_fp32<kWithDQ>`, float32: 64 x 64 tiles in padded
+// Two bodies for the block that owns a key tile (dK and dV), chosen by dtype
+// in the C entry points:
+//   `key_tile_backward_wgmma`, bfloat16: one warpgroup, all four tile
+//   products on the tensor cores (see its note);
+//   `key_tile_backward_fp32`, float32: 64 x 64 tiles in padded
 //   float32 shared memory, a 16 x 16 grid of threads that each own a 4 x 4
 //   patch of a tile product, float32 FMAs on the CUDA cores. float32 has no
 //   tensor-core product that keeps its 2e-5 agreement with the plain version.
@@ -34,13 +33,11 @@ struct Strides {
 };
 
 // delta = rowsum(dO * O) in float32, one warp per (b, n, h) row, written as
-// (B, H, N). With kZeroWorkspace it also zeroes that row of the float32 dQ
-// workspace of the fused kernel.
-template <typename T, bool kZeroWorkspace>
+// (B, H, N).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
-                 float* __restrict__ delta, float* __restrict__ dq_acc,
-                 long long rows, int N, int H, Strides sdo) {
+                 float* __restrict__ delta, long long rows, int N, int H, Strides sdo) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -54,23 +51,17 @@ __global__ void __launch_bounds__(kThreads)
   float s = lt::to_float(dp[lane]) * lt::to_float(op[lane]) +
             lt::to_float(dp[lane + 32]) * lt::to_float(op[lane + 32]);
   s = lt::warp_sum(s);
-  if constexpr (kZeroWorkspace) {
-    dq_acc[row * kD + lane] = 0.f;
-    dq_acc[row * kD + lane + 32] = 0.f;
-  }
   if (lane == 0) delta[(b * H + h) * N + n] = s;
 }
 
-template <typename T, bool kZeroWorkspace>
-cudaError_t launch_delta(const void* dout, const void* o, float* delta,
-                         float* dq_acc, int B, int N, int H, Strides sdo,
-                         cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_delta(const void* dout, const void* o, float* delta, int B, int N,
+                         int H, Strides sdo, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * N * H;
   const unsigned row_blocks =
       static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  delta_kernel<T, kZeroWorkspace><<<row_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(o), delta, dq_acc,
-      rows, N, H, sdo);
+  delta_kernel<T><<<row_blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(dout), static_cast<const T*>(o), delta, rows, N, H, sdo);
   return cudaGetLastError();
 }
 
@@ -184,17 +175,14 @@ __device__ __forceinline__ void add_ds_k(const float* __restrict__ dss,
 
 // float32 on the CUDA cores. The work of a block (kThreads threads) that owns
 // one 64-key tile of one (b, h): K and V of the tile in shared memory, dK and
-// dV in registers, a walk over the query tiles. With kWithDQ each tile pair's dS K is added to the float32 dQ
-// workspace with atomicAdd (the fused kernel); without it no dQ work is done
-// and `dq_acc` is not touched (the dK/dV kernel of the split pair). `smem`
-// holds kKeyTileSmemBytes.
-template <bool kWithDQ>
+// dV in registers, a walk over the query tiles. `smem` holds
+// kKeyTileSmemBytes.
 __device__ __forceinline__ void key_tile_backward_fp32(
     float* __restrict__ smem, const float* __restrict__ q,
     const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq_acc, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dk, float* __restrict__ dv,
     int N,
     int H, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
     Strides sdv, float scale) {
@@ -264,24 +252,6 @@ __device__ __forceinline__ void key_tile_backward_fp32(
           dk_acc[i][j] = fmaf(da[i], qb4[j], dk_acc[i][j]);
         }
     }
-
-    if constexpr (kWithDQ) {
-      // this key tile's share of dQ = dS K: queries ty*4 + i, dims tx + 16 j
-      float dq[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
-      add_ds_k(dss, ks, ty, tx, dq);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + ty * 4 + i;
-        if (r >= N) continue;
-        float* row = dq_acc + ((b * N + r) * H + h) * kD;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) atomicAdd(row + tx + 16 * j, dq[i][j]);
-      }
-    }
   }
 
 #pragma unroll
@@ -301,7 +271,7 @@ __device__ __forceinline__ void key_tile_backward_fp32(
 // bfloat16 on the tensor cores. The work of a block of one warpgroup that
 // owns one 64-key tile of one (b, h) and walks the query tiles.
 //
-// What bounds it: 8 (with kWithDQ 10) N^2 D operations for a few N D
+// What bounds it: 8 N^2 D operations for a few N D
 // elements, so arithmetic, and so the tensor cores. K and V of the tile
 // (8 KB each, swizzled) are loaded once; Q and dO tiles of 64 queries, with
 // their lse and delta, go through a ring of two stages filled by `cp.async`
@@ -314,26 +284,19 @@ __device__ __forceinline__ void key_tile_backward_fp32(
 // transposed through the descriptor): P and dS never touch shared memory
 // for dK and dV, which stay in registers over the whole walk. lse and delta
 // run along columns here: a thread reads its sixteen of each from shared
-// memory. With kWithDQ, dS^T is also stored (bf16, 8 KB) and dS K is a fifth
-// product whose A operand is that tile read transposed; its 64 x 64 float32
-// result is added to the dQ workspace with two-float atomics (dQ of a query
-// row is a sum over key tiles that other blocks own), in no fixed order.
-// dK and dV are the same bits with and without kWithDQ: the same
-// operations on the same values in the same order.
+// memory.
 // What is left against the bound: one warpgroup a block computes its
 // exponentials and its products in turn, so the tensor cores work only
 // while another block of the SM is in its products: the kernels are held to
 // 168 registers a thread (kWgmmaKeyTileBlocksPerSM; a thread holds five
 // 64 x 64 fragments) so that three blocks share an SM, which measured 12 to
-// 21% faster than the two that 175 registers allow. With kWithDQ the atomics
-// (64 N float32 adds a block) share the memory pipe with the tile loads;
-// four-float atomics measured no faster than two-float ones.
+// 21% faster than the two that 175 registers allow.
 constexpr int kWgmmaKeyTileBlocksPerSM = 3;
 constexpr int kStatsBytes = 2 * kBQ * sizeof(float);  // lse and delta of a query tile
-// the slack to align the tiles, K and V, two stages of Q and dO, dS^T, the
-// two stages' lse and delta
+// the slack to align the tiles, K and V, two stages of Q and dO, the two
+// stages' lse and delta
 constexpr size_t kWgmmaKeyTileSmemBytes =
-    1024 + 2 * hp::kTileBytes + 2 * 2 * hp::kTileBytes + hp::kTileBytes + 2 * kStatsBytes;
+    1024 + 2 * hp::kTileBytes + 2 * 2 * hp::kTileBytes + 2 * kStatsBytes;
 
 // Q and dO rows q0 .. q0 + 63 with their lse and delta into one stage.
 __device__ __forceinline__ void load_query_stage(
@@ -348,12 +311,11 @@ __device__ __forceinline__ void load_query_stage(
   hp::cp_async_4(stats + threadIdx.x * sizeof(float), src, live);
 }
 
-template <bool kWithDQ>
 __device__ __forceinline__ void key_tile_backward_wgmma(
     uint8_t* __restrict__ smem_raw, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq_acc,
+    const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int H,
     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
     float scale) {
@@ -362,8 +324,7 @@ __device__ __forceinline__ void key_tile_backward_wgmma(
   uint8_t* k_tile = smem_raw + pad;
   uint8_t* v_tile = k_tile + hp::kTileBytes;
   uint8_t* ring_tiles = v_tile + hp::kTileBytes;        // stage s: Q then dO
-  uint8_t* dst_tile = ring_tiles + 4 * hp::kTileBytes;  // dS^T, [key][query]
-  uint8_t* ring_stats = dst_tile + hp::kTileBytes;      // stage s: lse then delta
+  uint8_t* ring_stats = ring_tiles + 4 * hp::kTileBytes;  // stage s: lse then delta
   const uint32_t k_addr = hp::smem_addr(k_tile), v_addr = hp::smem_addr(v_tile);
   const uint32_t ring_addr = hp::smem_addr(ring_tiles);
   const uint32_t stats_addr = hp::smem_addr(ring_stats);
@@ -390,7 +351,6 @@ __device__ __forceinline__ void key_tile_backward_wgmma(
   const float c = scale * kLog2e;  // P = exp2(S c - lse log2 e)
   const bool key_live[2] = {k0 + row < N, k0 + row + 8 < N};
   const uint64_t k_desc = hp::descriptor(k_addr), v_desc = hp::descriptor(v_addr);
-  const uint64_t dst_desc = hp::descriptor(hp::smem_addr(dst_tile));
 
   float dk_acc[32], dv_acc[32];  // [key][dim] as accumulator fragments
 #pragma unroll
@@ -401,7 +361,7 @@ __device__ __forceinline__ void key_tile_backward_wgmma(
     const int q0 = t * kBQ;
     const int s = t & 1;
     // tile t has landed, and every thread is done with tile t - 1 (its
-    // stage, which the next copies overwrite, and the dS^T tile)
+    // stage, which the next copies overwrite)
     hp::cp_async_wait_all();
     hp::fence_async_proxy();
     __syncthreads();
@@ -470,36 +430,7 @@ __device__ __forceinline__ void key_tile_backward_wgmma(
       hp::wgmma_rs_n64(dk_acc, dst + 4 * ks, q_desc + hp::mn_major_step(ks));
     hp::wgmma_commit();
 
-    if constexpr (kWithDQ) {
-      // this key tile's share of dQ = dS K while those two run: A is the
-      // dS^T tile read transposed, B is K's tile read transposed
-      hp::store_fragment(dst_tile, dst);
-      hp::fence_async_proxy();
-      __syncthreads();
-      float dq[32];  // [query][dim]
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-      hp::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks)
-        hp::wgmma_ss_n64<1, 1>(dq, dst_desc + hp::mn_major_step(ks),
-                               k_desc + hp::mn_major_step(ks), ks > 0);
-      hp::wgmma_commit();
-      hp::wgmma_wait_all();
-      hp::fence_registers(dq);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = q0 + row + 8 * half;
-        if (r >= N) continue;
-        float* out = dq_acc + ((b * N + r) * H + h) * kD + col;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          atomicAdd(reinterpret_cast<float2*>(out + 8 * j),
-                    make_float2(dq[4 * j + 2 * half], dq[4 * j + 2 * half + 1]));
-      }
-    } else {
-      hp::wgmma_wait_all();
-    }
+    hp::wgmma_wait_all();
     hp::fence_registers(dv_acc);
     hp::fence_registers(dk_acc);
   }

@@ -9,14 +9,28 @@
 // is cast to the input dtype, before dQ = dS K * scale. In the dK/dV kernel P
 // is cast before dV = P^T dO and dS before dK = dS^T Q * scale. Each kernel
 // recomputes S and dP for itself, as the TPU pair does: 3 + 4 + 2 = 9 tile
-// products against the fused kernel's 5.
+// products against a one-pass kernel's 5.
 //
-// Layout: as flash_attention_bwd.cu. q, k, v and dO are token-major
-// (B, N, H, D) read through their strides, O is contiguous (B, N, H, D), lse
-// and delta are (B, H, N) float32, and dQ, dK, dV are written through
-// strides of their own. The TPU kernels' padded copies and their -inf mask
-// on padded keys are not carried over: the loops are bounded by N and pairs
-// past N contribute zero.
+// On the H100 this pair is K1's whole backward at every length, so it also
+// replaces the one-pass Pallas kernel `_flash_bwd_fused_kernel`, which
+// computes each dQ in one program per (b, h) holding a head's whole row in
+// VMEM. A head's row does not fit an SM's shared memory, so a one-pass
+// kernel here owns a 64-key tile, and dQ of one query row becomes a sum over
+// key tiles that different blocks own. Summing it with float32 atomics
+// (0.538 ms at (64, 580, 6, 64)) made dQ differ from run to run in its last
+// bits: two training runs of one seed parted by up to 0.77% in val loss over
+// 896 steps. A workspace of one float32 partial per key tile, summed in tile
+// order by a last launch, repeated but wrote and read 570 MB there: 0.691
+// ms. This pair took 0.478 ms and gives the same bits on every call
+// (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 7i(e)).
+//
+// Layout: q, k, v and dO are token-major (B, N, H, D) read through their
+// strides (unit-stride head dim), so the views out of a qkv projection need
+// no copy; O is contiguous (B, N, H, D), lse and delta are (B, H, N)
+// float32, and dQ, dK, dV are written through strides of their own, so they
+// may be the three slices of one (B, N, 3, H, D) buffer. The TPU kernels'
+// padded copies and their -inf mask on padded keys are not carried over:
+// the loops are bounded by N and pairs past N contribute zero.
 //
 // Design. Three launches, each with a C entry point of its own:
 //   1. `delta_kernel` (flash_attention_bwd.cuh): delta in float32, one warp
@@ -26,8 +40,7 @@
 //      dQ * scale once, cast to the input dtype. No atomics and no float32
 //      workspace: dQ is the same from run to run.
 //   3. the dK/dV kernel: a block owns one 64-key tile and walks the query
-//      tiles: the key-tile body of the fused kernel without its dQ part
-//      (flash_attention_bwd.cuh), so dK and dV of the two are the same bits.
+//      tiles (the key-tile body of flash_attention_bwd.cuh).
 //
 // What bounds them on the H100: 6 N^2 D (dQ) and 8 N^2 D (dK/dV) operations
 // for a few N D elements moved, so arithmetic, and the card's arithmetic is
@@ -285,8 +298,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                               Strides sk, Strides sv, Strides sdo, Strides sdk,
                               Strides sdv, float scale) {
   extern __shared__ float smem[];
-  key_tile_backward_fp32<false>(smem, q, k, v, dout, lse, delta, nullptr, dk, dv, N, H,
-                                sq, sk, sv, sdo, sdk, sdv, scale);
+  key_tile_backward_fp32(smem, q, k, v, dout, lse, delta, dk, dv, N, H, sq, sk, sv, sdo,
+                         sdk, sdv, scale);
 }
 
 __global__ void __launch_bounds__(hp::kWarpgroup, kWgmmaKeyTileBlocksPerSM)
@@ -301,8 +314,8 @@ __global__ void __launch_bounds__(hp::kWarpgroup, kWgmmaKeyTileBlocksPerSM)
                                Strides sq, Strides sk, Strides sv, Strides sdo,
                                Strides sdk, Strides sdv, float scale) {
   extern __shared__ uint8_t smem_bytes[];
-  key_tile_backward_wgmma<false>(smem_bytes, q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                 N, H, sq, sk, sv, sdo, sdk, sdv, scale);
+  key_tile_backward_wgmma(smem_bytes, q, k, v, dout, lse, delta, dk, dv, N, H, sq, sk, sv,
+                          sdo, sdk, sdv, scale);
 }
 
 // The tensor-core kernel puts the query tiles of one (b, h) next to each
@@ -373,10 +386,9 @@ extern "C" int lt_flash_attention_bwd_delta(const void* o, const void* dout,
   const Strides sdo = strides_at(dout_strides, 0);
   switch (dtype) {
     case lt::kFloat32:
-      return launch_delta<float, false>(dout, o, dl, nullptr, B, N, H, sdo, st);
+      return launch_delta<float>(dout, o, dl, B, N, H, sdo, st);
     case lt::kBFloat16:
-      return launch_delta<__nv_bfloat16, false>(dout, o, dl, nullptr, B, N, H,
-                                                sdo, st);
+      return launch_delta<__nv_bfloat16>(dout, o, dl, B, N, H, sdo, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,8 +6,12 @@ Supports the reference's four scenarios (docs/dev/98_architecture_notes.md):
   3. single label file, hybrid image dir     (+ DATA.HYBRID.USE_HYBRID)
   4. train-only (no validation file)
 
-Port of linnaeus_tpu/data/build.py for one process (index 0 of 1): a
-PARALLEL setting past one device raises by name. The labels may be
+Port of linnaeus_tpu/data/build.py. The sampler runs with the host's
+index and the number of hosts as its process index and count, as the TPU
+package's does (one process a host there), so each host reads its
+DATA.BATCH_SIZE rows; with a mesh (parallel/mesh.py) each rank's loader
+reads and decodes only its rows of them (``rank_rows``: the rows of its data
+coordinate, the same along the model axis). The labels may be
 ``.npz`` (data/processor.py::open_labels). The host augmentation path
 (AUG.SINGLE_AUG_DEVICE 'cpu') runs the port's augmentation pipeline on CPU
 tensors in the loader's thread.
@@ -58,7 +62,6 @@ def _image_source(config, labels: ProcessedLabels, images_path: str | None):
 def build_datasets(config) -> dict[str, Any]:
     """Returns {train_dataset, val_dataset, processor, taxonomy_tree,
     num_classes, train_indices, val_indices}."""
-    check_one_process(config)
     processor = DatasetProcessor(config)
     h5 = config.DATA.H5
 
@@ -186,40 +189,18 @@ def _make_host_augment(config):
     return host_aug
 
 
-def check_one_process(config) -> None:
-    """The port's feed and Trainer run one process on one device: every
-    PARALLEL setting past that raises by name (multi-device training is not
-    ported)."""
-    par = config.get("PARALLEL")
-    if par is None:
-        return
-    mesh = par.get("MESH", {})
-    beyond = {
-        "PARALLEL.MULTI_HOST": bool(par.get("MULTI_HOST", False)),
-        "PARALLEL.MESH.DATA": int(mesh.get("DATA", 0) or 0) > 1,
-        "PARALLEL.MESH.MODEL": int(mesh.get("MODEL", 1) or 1) > 1,
-        "PARALLEL.PARAM_SHARDING": str(par.get("PARAM_SHARDING", "replicated"))
-        != "replicated",
-        "PARALLEL.SEQUENCE_PARALLEL": bool(par.get("SEQUENCE_PARALLEL", False)),
-        "PARALLEL.PIPELINE.STAGES": int(par.get("PIPELINE", {}).get("STAGES", 1) or 1) > 1,
-    }
-    asked = [k for k, v in beyond.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: training on more than one device (mesh, "
-            "multi-host, FSDP, TP, SP, EP, PP) is not ported; the port trains "
-            "on one device"
-        )
-
-
 def build_loaders(
     config,
     bundle: dict[str, Any],
     device: torch.device | str | None = None,
+    mesh=None,
 ) -> tuple[H5DataLoader, H5DataLoader | None]:
     """Train and val loaders (the val loader is None without a val split);
-    ``device`` is where they put their batches (data/loader.py)."""
-    pidx, pcnt = 0, 1
+    ``device`` is where they put their batches (data/loader.py); with a
+    ``mesh`` each reads this rank's rows of the host's batches."""
+    from linnaeus_tpu_torch.parallel.mesh import get_process_count, get_process_index, rank_rows
+
+    pidx, pcnt = get_process_index(), get_process_count()
     prefetch = config.DATA.PREFETCH
     host_augment_fn = _make_host_augment(config)
 
@@ -241,6 +222,7 @@ def build_loaders(
         max_processed_batches=int(prefetch.MAX_PROCESSED_BATCHES),
         device_prefetch_depth=int(prefetch.get("DEVICE_PREFETCH_DEPTH", 2)),
         device=device,
+        rows=rank_rows(int(config.DATA.BATCH_SIZE), mesh),
         sleep_time=float(prefetch.SLEEP_TIME),
         host_augment_fn=host_augment_fn,
         debug=check_debug_flag(config, "DEBUG.DATALOADER"),
@@ -267,6 +249,7 @@ def build_loaders(
             max_processed_batches=int(prefetch.MAX_PROCESSED_BATCHES),
             device_prefetch_depth=int(prefetch.get("DEVICE_PREFETCH_DEPTH", 2)),
             device=device,
+            rows=rank_rows(int(config.DATA.BATCH_SIZE_VAL), mesh),
             debug=check_debug_flag(config, "DEBUG.DATALOADER"),
         )
         if len(val_loader) == 0:

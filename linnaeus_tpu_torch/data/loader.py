@@ -103,6 +103,7 @@ class H5DataLoader:
         max_processed_batches: int = 10,
         device_prefetch_depth: int = 2,
         device: torch.device | str | None = None,
+        rows: tuple[int, int] | None = None,
         sleep_time: float = 0.0,
         host_augment_fn=None,
         debug: bool = False,
@@ -111,9 +112,12 @@ class H5DataLoader:
         optional batched augmentation applied to each host batch before
         device transfer (AUG.SINGLE_AUG_DEVICE='cpu'; the 'device' path runs
         augmentation inside the train step instead). ``device``: where the
-        batches go (module docstring); None yields numpy batches."""
+        batches go (module docstring); None yields numpy batches. ``rows``
+        (start, end): read only those rows of each sampled batch (a rank's
+        share under parallel/; None: all)."""
         self.dataset = dataset
         self.sampler = sampler
+        self.rows = None if rows is None else (int(rows[0]), int(rows[1]))
         self.host_augment_fn = host_augment_fn
         self.debug = debug  # DEBUG.DATALOADER
         self._epoch = 0
@@ -169,6 +173,8 @@ class H5DataLoader:
     def __iter__(self):
         pool = self._ensure_pool()
         batches = self.sampler.batches()
+        if self.rows is not None:
+            batches = [b[self.rows[0]:self.rows[1]] for b in batches]
         self.epoch_indices = list(batches)
         if self.debug:
             logger.debug(

@@ -1,4 +1,4 @@
-"""LinnaeusInferenceHandler on one CUDA (or CPU) device.
+"""LinnaeusInferenceHandler on one or several CUDA (or CPU) devices.
 
 Port of linnaeus_tpu/inference/handler.py. :meth:`load_from_artifacts`
 assembles a bundle from disk: its config.yaml (relative paths resolve
@@ -15,13 +15,22 @@ Results are ``HierarchicalClassificationResult``s.
 
 With ``enable_hierarchical_consistency_check`` on (the default) every
 result goes through :func:`enforce_hierarchical_consistency` against the
-taxonomy tree the handler was given. ``data_parallel`` 1, "1", "off", False
-or None is one device, and "auto" resolves to one: this handler serves on
-one device; several devices raise (not ported yet, M10).
+taxonomy tree the handler was given.
+
+Data-parallel serving (``inference_options.data_parallel``), by the TPU
+package's rule: 1, "1", "off", False or None is one device; "auto" the
+largest count of the visible devices (every card for a model on the card)
+that divides ``batch_size``; a count above the visible devices or one that
+does not divide the batch raises its ``ValueError``. The weights get one
+replica a device; the padded batch (buckets are multiples of the count) is
+split into equal rows, each share runs on its device, and the outputs are
+concatenated on the first: per-sample compute has no cross-batch reduction,
+so the results are those of one device.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Any, Callable
 
@@ -53,22 +62,42 @@ _MAX_INFLIGHT_CHUNKS = 2
 RequestOptions = InferenceRequestMetadata | list[InferenceRequestMetadata | None] | None
 
 
-def _resolve_data_parallel(spec) -> int:
-    """1, "1", "off", False, None and "auto" -> one device; anything else
-    asks for data-parallel serving, which this handler does not do."""
-    if spec in (1, "1", "off", False, None, "auto"):
+def _resolve_data_parallel(spec, n_devices: int, batch_size: int) -> int:
+    """'auto' -> the largest device count <= n_devices dividing batch_size;
+    an int -> validated as-is; 1/'off' -> single device."""
+    if spec in (1, "1", "off", False, None):
         return 1
-    raise NotImplementedError(f"data_parallel={spec!r}: this handler serves on one device")
+    if spec == "auto":
+        d = n_devices
+        while d > 1 and batch_size % d:
+            d -= 1
+        return d
+    d = int(spec)
+    if d < 1 or d > n_devices:
+        raise ValueError(f"data_parallel={spec} but only {n_devices} devices are visible")
+    if batch_size % d:
+        raise ValueError(f"data_parallel={d} must divide inference batch_size={batch_size}")
+    return d
 
 
 class LinnaeusInferenceHandler:
     """``taxonomy_data`` may be None only with
-    ``inference_options.enable_hierarchical_consistency_check`` off."""
+    ``inference_options.enable_hierarchical_consistency_check`` off.
+    ``devices``: the devices data-parallel serving may use, the model's
+    first (default: every visible card for a model on a card, else the
+    model's device alone)."""
 
     def __init__(self, config: InferenceConfig, model: nn.Module,
-                 taxonomy_data: TaxonomyData | None, class_maps: ClassIndexMapData):
+                 taxonomy_data: TaxonomyData | None, class_maps: ClassIndexMapData,
+                 devices: list[torch.device] | None = None):
         opts = config.inference_options
-        self._dp = _resolve_data_parallel(opts.data_parallel)
+        first = next(model.parameters()).device
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if first.type == "cuda" else [first])
+            devices = [first] + [d for d in devices if d != first]
+        self._dp = _resolve_data_parallel(opts.data_parallel, len(devices),
+                                          int(opts.batch_size))
         if opts.enable_hierarchical_consistency_check and taxonomy_data is None:
             raise ValueError(
                 "enable_hierarchical_consistency_check is on but taxonomy_data is None: "
@@ -78,6 +107,8 @@ class LinnaeusInferenceHandler:
         self.taxonomy = taxonomy_data
         self.config = config
         self.model = model.eval()
+        # one replica a further device
+        self._replicas = [copy.deepcopy(self.model).to(d) for d in devices[1:self._dp]]
         self.class_maps = class_maps
         self.task_keys = list(config.model.model_task_keys_ordered)
         self._n_classes = [int(n) for n in config.model.num_classes_per_task]
@@ -120,9 +151,21 @@ class LinnaeusInferenceHandler:
         """uint8 (B, H, W, C) and aux (B, A) on the device -> packed
         (B, 2 * n_tasks, k) float32: per task its top-k probabilities, then
         their class indices; tasks with fewer than k classes pad with -1.0
-        and index 0."""
-        x = (images_u8.float() / 255.0 - self._mean) / self._std
-        outputs = self.model(x, aux)
+        and index 0. Under data parallelism the batch's rows are split evenly
+        over the replicas, each share's forward launched on its device before
+        any is waited on, and the packs concatenated on the first device."""
+        if self._dp == 1:
+            return self._pack(self.model, images_u8, aux, k)
+        outs = [self._pack(model, imgs, a, k) for model, imgs, a in zip(
+            [self.model] + self._replicas, images_u8.chunk(self._dp), aux.chunk(self._dp))]
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _pack(self, model: nn.Module, images_u8: torch.Tensor, aux: torch.Tensor,
+              k: int) -> torch.Tensor:
+        dev = next(model.parameters()).device
+        images_u8, aux = images_u8.to(dev, non_blocking=True), aux.to(dev, non_blocking=True)
+        x = (images_u8.float() / 255.0 - self._mean.to(dev)) / self._std.to(dev)
+        outputs = model(x, aux)
         packed = []
         for task, n_t in zip(self.task_keys, self._n_classes):
             p = torch.softmax(outputs[task].float(), dim=-1)
@@ -135,8 +178,9 @@ class LinnaeusInferenceHandler:
         return torch.stack(packed, dim=1)
 
     def _bucket(self, n: int) -> int:
-        """Smallest power of two >= n, capped at the batch size."""
-        b = 1
+        """Smallest power of two >= n (multiples of the data-parallel count
+        when split), capped at the batch size."""
+        b = max(self._dp, 1)
         while b < n:
             b *= 2
         return min(b, self._max_batch)

@@ -16,6 +16,16 @@ GRADNORM_ACCUM_STEPS sub-batches inner, their gradients averaged. The
 re-forward flips the model's ``gradient_checkpointing`` flag to
 TRAIN.GRADIENT_CHECKPOINTING.ENABLED_GRADNORM_STEPS for the call, on the
 same module and weights.
+
+More than one rank (``mesh``, parallel/): the collated rows are this
+rank's; the re-forward's logits and the targets are gathered over the data
+axis, so each loss is the global batch's, and each rank's share of a
+task's trunk gradient is summed over the model axis (for the
+``model_split`` parameters) and the data axis, and its norm is the whole
+gradient's (parallel/model.py::grad_norm: a share's squares summed over
+its axis). Under FSDP the trunk's parameters are shards: the task's
+gradient is taken by ``backward`` (FSDP2 sums the shards' gradients over
+the data axis).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import torch
 from torch import nn
 
 from linnaeus_tpu_torch.ops_schedule.ops_schedule import gradnorm_due
+from linnaeus_tpu_torch.parallel.model import grad_norm
+from linnaeus_tpu_torch.parallel.ops import all_reduce_, gather_rows
 
 
 @dataclass
@@ -94,6 +106,8 @@ def make_gradnorm_update_fn(
     use_linear_heads: bool = True,
     accum_steps: int = 1,
     remat: bool | None = None,
+    mesh=None,
+    model_split: Sequence[str] = (),
 ) -> Callable:
     """Build the GradNorm update.
 
@@ -113,9 +127,32 @@ def make_gradnorm_update_fn(
     """
     accum = max(int(accum_steps), 1)
     task_keys = tuple(task_keys)
+    data_group = None if mesh is None else mesh.group("data")
+    model_group = None if mesh is None else mesh.group("model")
+    split_idx = [i for i, n in enumerate(trunk_names) if n in set(model_split)]
+
+    def task_grads(loss, trunk):
+        """This task's whole trunk gradient (parallel/: summed over ranks)."""
+        if any(hasattr(p, "to_local") for p in trunk):  # FSDP2 shards
+            for p in trunk:
+                p.grad = None
+            loss.backward()
+            g = [torch.zeros_like(p.to_local()) if p.grad is None else p.grad.to_local()
+                 for p in trunk]
+            for p in trunk:
+                p.grad = None
+            return g
+        g = torch.autograd.grad(loss, trunk, allow_unused=True)
+        g = [torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, trunk)]
+        if mesh is not None:
+            all_reduce_([g[i] for i in split_idx], model_group)
+            all_reduce_(g, data_group)
+        return g
 
     def update(model: nn.Module, images: torch.Tensor, targets: dict[str, torch.Tensor],
                meta: torch.Tensor | None, state: GradNormState):
+        if hasattr(model, "reshard"):  # FSDP2: the shards are the parameters
+            model.reshard()
         named = dict(model.named_parameters())
         trunk = [named[n] for n in trunk_names]
         meta_in = torch.zeros_like(meta) if zero_aux_info and meta is not None else meta
@@ -140,16 +177,15 @@ def make_gradnorm_update_fn(
                         outputs = model(micro_images[i],
                                         None if micro_meta is None else micro_meta[i],
                                         gradnorm_mode=use_linear_heads)
-                        unweighted = criteria[task](outputs[task], micro_targets[i]).mean()
-                        g = torch.autograd.grad(weights[ti] * unweighted, trunk,
-                                                allow_unused=True)
-                        g = [torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, trunk)]
+                        logits = gather_rows(outputs[task], data_group)
+                        unweighted = criteria[task](
+                            logits, gather_rows(micro_targets[i], data_group)).mean()
+                        g = task_grads(weights[ti] * unweighted, trunk)
                         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                         total = total + unweighted.detach().float()
                     if accum > 1:
                         grads = [gi / accum for gi in grads]
-                    norms.append(torch.stack([gi.float().square().sum() for gi in grads]).sum()
-                                 .sqrt())
+                    norms.append(grad_norm(list(zip(trunk, grads)), data_group))
                     losses.append(total / accum)
         finally:
             model.train(was_training)

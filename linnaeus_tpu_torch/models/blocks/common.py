@@ -17,13 +17,50 @@ from torch import nn
 INIT_STD = 0.02  # trunc_normal(std=0.02), the ViT/ConvNeXt init
 
 
+def draw_rows(draw, shape, device, generator, group=None, dim: int = 0) -> torch.Tensor:
+    """``draw(shape, generator=..., device=...)`` (``torch.rand`` /
+    ``torch.randn``) for this rank's rows along ``dim``. With a data group
+    (parallel/: the global batch split over ranks) every rank draws the
+    global batch's tensor from the same generator state and keeps its own
+    rows, so the draws are those of the one-process run."""
+    if group is None:
+        return draw(shape, generator=generator, device=device)
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    full = list(shape)
+    full[dim] *= n
+    return draw(full, generator=generator, device=device).narrow(dim, r * shape[dim],
+                                                                 shape[dim])
+
+
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if p is None else p.to(dtype)
 
 
 class Linear(nn.Linear):
+    """``nn.Linear`` in the input's dtype. Under tensor parallelism
+    (parallel/model.py sets ``tp`` and leaves the layer its rank's share of
+    the weights) it computes that share: ``("col", group)`` its output
+    features of the whole input (Megatron's f before it: the input's
+    gradient is summed over the group), ``("row", group)`` from the input
+    features it is given, summed over the group (Megatron's g) before the
+    whole bias, and ``("col_gather", group)`` a column share whose outputs
+    are gathered back in rank order."""
+
+    tp = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        if self.tp is None:
+            return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        from linnaeus_tpu_torch.parallel.ops import gather_rows, sum_backward, sum_forward
+
+        mode, group = self.tp
+        if mode == "row":
+            y = sum_forward(F.linear(x, self.weight.to(x.dtype)), group)
+            return y if self.bias is None else y + self.bias.to(x.dtype)
+        y = F.linear(sum_backward(x, group), self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        return gather_rows(y, group, dim=-1) if mode == "col_gather" else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -81,6 +118,8 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        # data-parallel group (parallel/): the statistics are the global batch's
+        self.data_group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -90,8 +129,19 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             x32 = x.float()
-            mean = x32.mean(axes)
-            var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            if self.data_group is None:
+                mean = x32.mean(axes)
+                var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                # the global batch's statistics: sums of x and x^2 in float32
+                # over the data group, as Flax reduces them under SPMD
+                from linnaeus_tpu_torch.parallel.ops import all_reduce_sum, group_size
+
+                count = x32.numel() // x32.shape[-1] * group_size(self.data_group)
+                sums = all_reduce_sum(torch.stack([x32.sum(axes), (x32 * x32).sum(axes)]),
+                                      self.data_group)
+                mean = sums[0] / count
+                var = (sums[1] / count - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -119,13 +169,14 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = generator
+        self.data_group = None  # parallel/: draw the global batch's mask
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device, generator=self.generator) < keep
+        mask = draw_rows(torch.rand, shape, x.device, self.generator, self.data_group) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -139,12 +190,17 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = generator
+        # parallel/: draw the global batch's mask; ``batch_dim`` is the axis
+        # that holds this rank's rows
+        self.data_group = None
+        self.batch_dim = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
+        mask = draw_rows(torch.rand, x.shape, x.device, self.generator, self.data_group,
+                         self.batch_dim) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dropout, gelu, trunc_normal_
+from .common import Dropout, draw_rows, gelu, trunc_normal_
 
 
 class MoEStats(NamedTuple):
@@ -105,7 +105,13 @@ class MoEMlp(nn.Module):
         self.bo = nn.Parameter(torch.zeros(E, dim))
         self.drop1 = Dropout(drop)
         self.drop2 = Dropout(drop)
+        # the slot buffer's rows of one rank are contiguous along its axis 1
+        self.drop1.batch_dim = self.drop2.batch_dim = 1
         self.generator: torch.Generator | None = None  # the router noise's
+        # parallel/: the data group (global statistics and draws) and the
+        # model group the expert banks split over (expert parallelism)
+        self.data_group = None
+        self.expert_group = None
         init = generator if generator is not None else torch.Generator().manual_seed(0)
         with torch.no_grad():
             for p in (self.router, self.wi, self.wo):
@@ -117,7 +123,8 @@ class MoEMlp(nn.Module):
         C = capacity(N, E, K, self.capacity_factor)
         logits = x.float() @ self.router.float()  # (B, N, E)
         if self.noise_std > 0.0 and self.training:
-            noise = torch.randn(logits.shape, device=logits.device, generator=self.generator)
+            noise = draw_rows(torch.randn, logits.shape, logits.device, self.generator,
+                              self.data_group)
             logits = logits + noise * (self.noise_std / E)
         probs, gates, experts, slots, keep = route(logits, K, C)
 
@@ -129,10 +136,7 @@ class MoEMlp(nn.Module):
         buf = x.new_zeros(E * B * C + 1, D).index_put((rows,), tokens)
         xe = buf[:-1].view(E, B * C, D)
 
-        # the experts, as batched products in the compute dtype
-        h = torch.baddbmm(self.bi.to(dt)[:, None, :], xe, self.wi.to(dt))
-        h = self.drop1(gelu(h, self.act_exact))
-        ye = self.drop2(torch.baddbmm(self.bo.to(dt)[:, None, :], h, self.wo.to(dt)))
+        ye = self._experts(xe) if self.expert_group is None else self._expert_parallel(xe)
 
         # combine: each token's k outputs weighted by its gates (in the compute
         # dtype, as the TPU package casts them), zero where dropped, summed in
@@ -143,8 +147,62 @@ class MoEMlp(nn.Module):
         y = (weights.float()[..., None] * picked.view(B, N, K, D).float()).sum(dim=2).to(dt)
 
         # the auxiliary statistics, float32
-        f = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
-        aux = E * (f * probs.mean(dim=(0, 1))).sum()
-        z = torch.logsumexp(logits, dim=-1).square().mean()
-        drop_frac = 1.0 - keep.sum().float() / float(B * N * K)
-        return y, MoEStats(aux, z, drop_frac)
+        if self.data_group is None:
+            f = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
+            aux = E * (f * probs.mean(dim=(0, 1))).sum()
+            z = torch.logsumexp(logits, dim=-1).square().mean()
+            drop_frac = 1.0 - keep.sum().float() / float(B * N * K)
+            return y, MoEStats(aux, z, drop_frac)
+        # the global batch's: this rank's sums gathered from every rank and
+        # added in rank order (the loss that reads them is the same on every
+        # rank, so each rank's sums take their slice of its gradient)
+        from linnaeus_tpu_torch.parallel.ops import gather_rows, group_size
+
+        sums = torch.cat([F.one_hot(experts[..., 0], E).float().sum(dim=(0, 1)),
+                          probs.sum(dim=(0, 1)),
+                          torch.logsumexp(logits, dim=-1).square().sum()[None],
+                          keep.sum().float()[None]])
+        sums = gather_rows(sums[None], self.data_group).sum(dim=0)
+        count = float(B * N * group_size(self.data_group))
+        aux = E * ((sums[:E] / count) * (sums[E:2 * E] / count)).sum()
+        return y, MoEStats(aux, sums[2 * E] / count, 1.0 - sums[2 * E + 1] / (count * K))
+
+    def _experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """The banks this module holds on their (e, S, D) slot rows, as
+        batched products in the compute dtype."""
+        dt = xe.dtype
+        h = torch.baddbmm(self.bi.to(dt)[:, None, :], xe, self.wi.to(dt))
+        h = self.drop1(gelu(h, self.act_exact))
+        return self.drop2(torch.baddbmm(self.bo.to(dt)[:, None, :], h, self.wo.to(dt)))
+
+    def _expert_parallel(self, xe: torch.Tensor) -> torch.Tensor:
+        """Expert parallelism over ``expert_group`` (P ranks, E / P experts
+        each, the ranks' tokens the same): rank m keeps the m-th block of
+        the (E, S, D) buffer's slots, sends each expert's rows of it to the
+        rank that owns that expert and receives its own experts' rows of
+        every rank's block (``all_to_all_single``, differentiable), runs its
+        experts (the banks hold this rank's E / P of them, parallel/model.py)
+        on all S slots, and the outputs go back the same way and are
+        gathered over the slot blocks."""
+        from torch.distributed.nn.functional import all_to_all_single
+
+        from linnaeus_tpu_torch.parallel.ops import gather_rows, group_size, split_rows
+
+        group = self.expert_group
+        P = group_size(group)
+        E, S, D = xe.shape
+        if E % P or S % P:
+            raise ValueError(f"expert parallelism: {E} experts and {S} slots must divide over "
+                             f"the {P}-way model axis")
+        if self.drop1.rate > 0 or self.drop2.rate > 0:
+            raise ValueError("expert parallelism with MLP dropout: the expert buffers' masks "
+                             "are not drawn as the one-process run draws them")
+        el = E // P
+        block = split_rows(xe, group, dim=1)  # (E, S / P, D): expert-major
+        mine = all_to_all_single(torch.empty_like(block), block.contiguous(), group=group)
+        # (P, el, S / P, D) from ranks 0 .. P-1 -> (el, S, D) in slot order
+        mine = mine.view(P, el, S // P, D).transpose(0, 1).reshape(el, S, D)
+        ye = self._experts(mine)
+        back = ye.view(el, P, S // P, D).transpose(0, 1).contiguous().view(E, S // P, D)
+        ye = all_to_all_single(torch.empty_like(back), back, group=group)
+        return gather_rows(ye, group, dim=1)

@@ -52,6 +52,13 @@ class RoPE2DAttention(nn.Module):
         self.rope_fidelity = rope_fidelity
         self.use_flash_attn = use_flash_attn
         self.attn_fp32_softmax = attn_fp32_softmax
+        # parallel/model.py: ``ring_group`` splits the token axis of the
+        # attention over the model axis (ops/ring_attention.py; with
+        # ``ring_attention`` and no group, a ring of one); ``tp_heads``
+        # (first, count) are this rank's heads under tensor parallelism
+        self.ring_attention = False
+        self.ring_group = None
+        self.tp_heads: tuple[int, int] | None = None
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
         self.attn_drop = Dropout(0.0 if use_flash_attn else attn_drop)
@@ -84,15 +91,35 @@ class RoPE2DAttention(nn.Module):
         n_img = self.grid[0] * self.grid[1]
         if N != n_img + self.extra_token_num:
             raise ValueError(f"seq len {N} != {n_img} + {self.extra_token_num}")
-        q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim).unbind(2)
+        first, heads = self.tp_heads or (0, self.num_heads)
+        q, k, v = self.qkv(x).view(B, N, 3, heads, self.head_dim).unbind(2)
         cos, sin = self._cos_sin()
+        if cos.shape[1] != heads:  # whole axial angles; mixed ones come from the rank's freqs
+            cos, sin = cos[:, first:first + heads], sin[:, first:first + heads]
         q, k = rope.apply_rotary_emb_bnhd(q, k, cos, sin, n_extra=self.extra_token_num)
-        out = scaled_dot_product_attention(
-            q, k, v, scale=self.scale, use_flash=self.use_flash_attn, layout="bnhd",
-            fp32_softmax=self.attn_fp32_softmax,
-        )
+        if self.ring_attention:
+            out = self._ring(q, k, v)
+        else:
+            out = scaled_dot_product_attention(
+                q, k, v, scale=self.scale, use_flash=self.use_flash_attn, layout="bnhd",
+                fp32_softmax=self.attn_fp32_softmax,
+            )
         out = self.attn_drop(out)
-        return self.proj_drop(self.proj(out.reshape(B, N, C)))
+        return self.proj_drop(self.proj(out.reshape(B, N, heads * self.head_dim)))
+
+    def _ring(self, q, k, v):
+        """Sequence parallelism: head-major, N padded to a multiple of the
+        ring (the padded keys masked exactly through ``n_valid``), the ring,
+        then sliced and back to token-major, as the TPU package does."""
+        from linnaeus_tpu_torch.ops.ring_attention import ring_attention
+        from linnaeus_tpu_torch.parallel.ops import group_size
+
+        N = q.shape[1]
+        pad = (-N) % group_size(self.ring_group)
+        qh, kh, vh = (torch.nn.functional.pad(t.transpose(1, 2), (0, 0, 0, pad))
+                      for t in (q, k, v))
+        out = ring_attention(qh, kh, vh, self.ring_group, scale=self.scale, n_valid=N)
+        return out[:, :, :N].transpose(1, 2)
 
 
 class RoPE2DMHSABlock(nn.Module):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from linnaeus_tpu_torch.models.blocks.common import Conv1d, Linear
+from linnaeus_tpu_torch.models.blocks.common import Conv1d, Linear, draw_rows
 from linnaeus_tpu_torch.models.factory import register_head
 
 HIERARCHICAL_TYPES = ("HierarchicalSoftmax", "ConditionalClassifier")
@@ -59,16 +59,18 @@ class Conv1dHead(nn.Module):
 
 
 def gumbel_noise(shape: torch.Size, generator: torch.Generator,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, group=None) -> torch.Tensor:
     """Standard Gumbel draws, -log(-log(u)) with u uniform in (0, 1) from
-    ``generator``, float32."""
+    ``generator``, float32 (this rank's rows of the global batch's draws
+    with a data ``group``)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device).clamp_min(tiny)
+    u = draw_rows(torch.rand, shape, device, generator, group).clamp_min(tiny)
     return -torch.log(-torch.log(u))
 
 
 def routing_probs(logits: torch.Tensor, strategy: str, temperature: float,
-                  deterministic: bool, generator: torch.Generator | None) -> torch.Tensor:
+                  deterministic: bool, generator: torch.Generator | None,
+                  group=None) -> torch.Tensor:
     """Routing probabilities (ConditionalClassifier strategies)."""
     if strategy == "hard" and deterministic:
         return nn.functional.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
@@ -77,7 +79,7 @@ def routing_probs(logits: torch.Tensor, strategy: str, temperature: float,
             raise ValueError(
                 "ConditionalClassifier ROUTING_STRATEGY 'gumbel' in training needs the "
                 "heads' generator (MultiTaskHeads.generator); there is no global RNG")
-        g = gumbel_noise(logits.shape, generator, logits.device)
+        g = gumbel_noise(logits.shape, generator, logits.device, group)
         return torch.softmax((logits + g) / temperature, dim=-1)
     return torch.softmax(logits / temperature, dim=-1)
 
@@ -116,6 +118,7 @@ class MultiTaskHeads(nn.ModuleDict):
         self.task_keys = tuple(task_keys)
         self.head_configs = configs
         self.generator = generator
+        self.data_group = None  # parallel/: the gumbel draws are the global batch's
         self.pairs = []
         for key, matrix in (hierarchy_matrices or {}).items():
             self.register_buffer(_MATRIX_PREFIX + key,
@@ -147,7 +150,8 @@ class MultiTaskHeads(nn.ModuleDict):
             if str(cfg.get("TYPE")) == "ConditionalClassifier":
                 parent_probs = routing_probs(
                     refined[parent], str(cfg.get("ROUTING_STRATEGY", "soft")),
-                    float(cfg.get("TEMPERATURE", 1.0)), deterministic, self.generator)
+                    float(cfg.get("TEMPERATURE", 1.0)), deterministic, self.generator,
+                    self.data_group)
             else:  # HierarchicalSoftmax
                 parent_probs = torch.softmax(refined[parent], dim=-1)
             refined[child] = base[child] + torch.log(parent_probs @ m + 1e-10)

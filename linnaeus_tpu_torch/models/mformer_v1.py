@@ -21,8 +21,14 @@ TPU package's V-MoE placement: blocks n-1, 2n-1, ... within a stage);
 ``forward(..., moe_stats=True)`` returns, beside the logits, the layers'
 statistics averaged over the MoE layers (None without one), which is how
 the train step reads them: they come from the forward whose graph the loss
-uses, under remat too. Ring attention and pipelining are not ported and
-raise; MoE with pipelining raises as in the TPU package.
+uses, under remat too. ``ring_attention`` runs every RoPE attention as a
+ring over ``model_mesh``'s model axis (ops/ring_attention.py; one process:
+a ring of one); ``pipeline_stages`` S > 0 runs each RoPE tower whose depth
+S divides GPipe-pipelined over that axis (parallel/pipeline.py,
+``pipeline_microbatches`` or S microbatches; one process: the microbatches
+through every layer in turn), with the TPU package's checks (no MoE, no
+dropout or drop path, stage-3 depth divisible by S, not with the ring);
+parallel/model.py sets ``model_mesh``.
 ``gradient_checkpointing`` recomputes every ConvNeXt and
 RoPE block of the towers in the backward, keeping what ``remat_policy``
 names (models/utils.py); the flag may be flipped between calls, as the
@@ -102,22 +108,16 @@ class MFormerV1(nn.Module):
         moe_noise_std: float = 0.0,
         ring_attention: bool = False,
         pipeline_stages: int = 0,
+        pipeline_microbatches: int = 0,
         gradient_checkpointing: bool = False,
         remat_policy: str = "dots",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
     ):
         super().__init__()
-        if pipeline_stages and moe_num_experts > 0:
-            raise ValueError(
-                "pipeline parallelism requires uniform tower blocks — MoE placement varies per "
-                "block (disable MODEL.MOE or PARALLEL.PIPELINE)")
-        for name, value in (
-            ("ring_attention", ring_attention),
-            ("pipeline_stages", pipeline_stages),
-        ):
-            if value:
-                raise NotImplementedError(f"MFormerV1: {name} is not ported yet")
+        self._rates = (drop_rate, attn_drop_rate, drop_path_rate)
+        self.pipeline_stages = 0
+        self.model_mesh = None  # parallel/model.py: the mesh of the ring and the pipeline
         if tuple(rope_dims) != tuple(convnext_dims[2:4]):
             raise ValueError(
                 f"RoPE dims {tuple(rope_dims)} must match ConvNeXt dims[2:4] "
@@ -208,6 +208,13 @@ class MFormerV1(nn.Module):
         self.head = MultiTaskHeads(
             rope_dims[1], tuple(task_keys), num_classes or {}, head_configs, hierarchy_matrices)
 
+        if ring_attention:
+            for stage in self.stages[2:]:
+                for blk in stage:
+                    blk.attn.ring_attention = True
+        if pipeline_stages:
+            self.set_pipeline(int(pipeline_stages), int(pipeline_microbatches))
+
         init_parameters(self, generator)
         with torch.no_grad():
             trunc_normal_(self.cls_token_1, generator)
@@ -235,6 +242,9 @@ class MFormerV1(nn.Module):
 
     def _rope_stage(self, blocks: nn.ModuleList, x: torch.Tensor,
                     moe: list[MoEStats]) -> torch.Tensor:
+        S = self.pipeline_stages
+        if S and len(blocks) % S == 0:
+            return self._pipelined(blocks, x)
         for blk in blocks:
             out = self._block(blk, x)
             if blk.use_moe:
@@ -243,6 +253,44 @@ class MFormerV1(nn.Module):
             else:
                 x = out
         return x
+
+    def set_pipeline(self, stages: int, microbatches: int = 0) -> None:
+        """Pipeline the RoPE towers over ``stages`` stages, with the TPU
+        package's checks (its ``ValueError``s)."""
+        if any(blk.attn.ring_attention for stage in self.stages[2:] for blk in stage):
+            raise ValueError(
+                "pipeline_mesh and ring_mesh both claim the model mesh axis (pp and sp "
+                "are mutually exclusive)")
+        if self.moe_num_experts > 0:
+            raise ValueError(
+                "pipeline parallelism requires uniform tower blocks — MoE placement varies per "
+                "block (disable MODEL.MOE or PARALLEL.PIPELINE)")
+        if any(self._rates):
+            raise ValueError(
+                "pipeline parallelism requires DROP_RATE, ATTN_DROP_RATE and "
+                "DROP_PATH_RATE all 0: stochastic depth/dropout RNGs do not thread "
+                "through the pipelined scan (parallel/pipeline.py)")
+        if len(self.stages[2]) % stages:
+            raise ValueError(
+                f"pipeline parallelism: stage-3 depth {len(self.stages[2])} is not divisible "
+                f"by the {stages}-way 'model' mesh axis")
+        self.pipeline_stages, self.pipeline_microbatches = int(stages), int(microbatches)
+
+    def _pipelined(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """A RoPE tower through parallel/pipeline.py: the blocks' parameters
+        stacked on a layer axis, block 0 (uniform by the checks above) as
+        the function of one layer."""
+        from linnaeus_tpu_torch.parallel.pipeline import pipeline_forward, stack_layer_params
+
+        proto = blocks[0]
+        stacked = stack_layer_params([dict(b.named_parameters()) for b in blocks])
+
+        def block_fn(params, h):
+            return torch.func.functional_call(proto, params, (h,))
+
+        return pipeline_forward(block_fn, stacked, x, self.model_mesh,
+                                num_microbatches=self.pipeline_microbatches
+                                or self.pipeline_stages)
 
     def forward_features(
         self, x: torch.Tensor, meta: torch.Tensor | None = None,

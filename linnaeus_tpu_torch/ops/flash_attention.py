@@ -2,18 +2,17 @@
 kernels.
 
 Port of linnaeus_tpu/ops/flash_attention.py: ``_flash_fwd_kernel`` (via
-``_flash_forward_padded`` and ``_flash_fwd_rule``), the fused backward
-``_flash_bwd_fused_kernel`` and the split backward pair
-``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``, with the host part of
-``_flash_bwd_rule``. The kernels are ``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_split.cu``;
-they read token-major (B, N, H, D) operands through their strides, so the
-q/k/v views out of a qkv projection need no transpose, and never write the
-(N, N) scores to device memory. Attention at the model's shapes is bound by
+``_flash_forward_padded`` and ``_flash_fwd_rule``), the backward kernels
+``_flash_bwd_fused_kernel``, ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``, with the host part of ``_flash_bwd_rule``. The
+kernels are ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd_split.cu``; they read token-major (B, N, H, D)
+operands through their strides, so the q/k/v views out of a qkv projection
+need no transpose, and never write the (N, N) scores to device memory. Attention at the model's shapes is bound by
 arithmetic on the H100 (4 N^2 D operations forward and 10 to 14 N^2 D
 backward for a few N D elements moved), and the card's arithmetic is in its
-tensor cores: in bfloat16 every kernel of K1 (forward, fused backward, the
-split pair's dQ and dK/dV kernels) runs its matrix products there (``wgmma``
+tensor cores: in bfloat16 every kernel of K1 (the forward, the backward's
+dQ and dK/dV kernels) runs its matrix products there (``wgmma``
 from shared-memory tiles filled by 16-byte asynchronous copies, so pointers
 and strides must be 16-byte aligned: :func:`misalignment`), with P and dS
 cast in registers as the next product's operand. In float32, where no
@@ -21,15 +20,18 @@ tensor-core product keeps the 2e-5 bar, all of K1 runs on the CUDA cores.
 
 ``flash_attention_fwd`` and ``flash_attention`` are differentiable: a
 ``torch.autograd.Function`` saves q, k, v, O and the log-sum-exp, and its
-backward produces dq, dk and dv either from one recomputed P (the fused
-kernel, whose dQ goes through float32 atomics) or from the split pair (a dQ
-kernel that owns query tiles and a dK/dV kernel that owns key tiles, each
-recomputing P: more arithmetic, no atomics, dQ the same from run to run).
-:func:`backward_route` holds the rule that chooses. CUDA tensors launch the
-kernels or raise; CPU tensors run the plain PyTorch versions of the same
-math: :func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`,
-:func:`flash_attention_bwd_dq_reference` and
-:func:`flash_attention_bwd_dkv_reference`.
+backward produces dq, dk and dv at every length from one pair of kernels:
+a dQ kernel that owns query tiles and a dK/dV kernel that owns key tiles,
+each recomputing P. The pair stands in for the TPU package's one-pass
+kernel as well as for its split pair (csrc/flash_attention_bwd_split.cu
+says why: a one-pass kernel's dQ needs atomics, which do not repeat, or a
+workspace, which is slower), so the backward gives the same bits from run
+to run. CUDA tensors launch the kernels or raise; CPU tensors run the plain
+PyTorch versions of the same math: :func:`flash_attention_reference`,
+:func:`attention_delta`, :func:`flash_attention_bwd_dq_reference` and
+:func:`flash_attention_bwd_dkv_reference`. :func:`flash_attention_bwd_reference`
+is the plain version of the TPU package's one-pass kernel; it agrees with
+the pair to float32 rounding where q, k, v and dO share a dtype.
 """
 
 from __future__ import annotations
@@ -42,27 +44,13 @@ from linnaeus_tpu_torch import _kernels
 
 HEAD_DIM = 64  # the only head dim compiled into the kernels
 
-# kernel launches in this process (forward, fused backward, split backward's
-# dQ and dK/dV kernels): the proof that a path went through the kernels
+# kernel launches in this process (forward; backward calls, each one launch
+# of the dQ kernel and one of the dK/dV kernel): the proof that a path went
+# through the kernels
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
-
-# longest sequence whose backward takes the fused kernel under bwd="auto"
-FUSED_BWD_MAX_SEQ = 1024
-BWD_ROUTES = ("auto", "fused", "split")
-
-
-def backward_route(n: int) -> str:
-    """"fused" or "split": the backward that ``bwd="auto"`` takes at sequence
-    length ``n``. The split pair runs where the TPU package runs it, past
-    1024 tokens (there the padded row no longer fits one block and its fused
-    kernel does not apply). Both routes of this port take any length; the
-    line follows the TPU package, and it is what puts the split pair on a
-    path that training drives (512 px). PERF.md holds both routes' times at
-    1028 tokens."""
-    return "split" if n > FUSED_BWD_MAX_SEQ else "fused"
 
 
 def flash_attention_reference(
@@ -182,35 +170,35 @@ def flash_attention_bwd_dkv_reference(
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
+def plain_attention_bwd(q, k, v, o, lse, do, scale):
+    """dq, dk, dv from the plain versions of the backward's kernels: the
+    delta prologue, the dQ kernel and the dK/dV kernel."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """(q, k, v, scale, bwd) -> (O, lse); lse carries no gradient. ``bwd`` is
-    the backward's route, "fused" or "split"."""
+    """(q, k, v, scale) -> (O, lse); lse carries no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, bwd):
+    def forward(ctx, q, k, v, scale):
         if q.device.type == "cpu":
             o, lse = flash_attention_reference(q, k, v, scale)
         else:
             o, lse = _launch_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.bwd = scale, bwd
+        ctx.scale = scale
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        on_cpu = q.device.type == "cpu"
-        if ctx.bwd == "fused":
-            run = flash_attention_bwd_reference if on_cpu else _launch_bwd
-            dq, dk, dv = run(q, k, v, o, lse, do, ctx.scale)
-        elif on_cpu:
-            delta = attention_delta(o, do)
-            dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, ctx.scale)
-            dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, ctx.scale)
-        else:
-            dq, dk, dv = _launch_bwd_split(q, k, v, o, lse, do, ctx.scale)
-        return dq, dk, dv, None, None
+        run = plain_attention_bwd if q.device.type == "cpu" else _launch_bwd
+        dq, dk, dv = run(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention_fwd(
@@ -218,23 +206,17 @@ def flash_attention_fwd(
     k: torch.Tensor,
     v: torch.Tensor,
     scale: float | None = None,
-    bwd: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention on token-major (B, N, H, D) operands -> (O, lse).
 
     O is a new contiguous (B, N, H, D) tensor in the inputs' dtype; lse is
     (B, H, N) float32 (saved for the backward pass; it carries no
-    gradient). Differentiable in q, k and v; ``bwd`` chooses the backward:
-    "fused", "split", or "auto" for :func:`backward_route` of N. CPU tensors
-    take the plain versions; CUDA tensors launch the kernels or raise.
+    gradient). Differentiable in q, k and v. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise.
     """
-    if bwd not in BWD_ROUTES:
-        raise ValueError(f"flash_attention: bwd {bwd!r} not in {BWD_ROUTES}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if bwd == "auto":
-        bwd = backward_route(q.shape[1])
-    return _FlashAttention.apply(q, k, v, float(scale), bwd)
+    return _FlashAttention.apply(q, k, v, float(scale))
 
 
 def _launch_fwd(q, k, v, scale):
@@ -283,31 +265,8 @@ def _grad_buffer(q):
     return torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device).unbind(2)
 
 
-def _launch_bwd(q, k, v, o, lse, do, scale):
-    """dq, dk, dv from the fused backward kernel."""
-    B, N, H, D = q.shape
-    do = _check_dout(q, do)
-    _check_aligned(q=q, k=k, v=v)
-    dq, dk, dv = _grad_buffer(q)
-    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
-    lib = _kernels.library()
-    err = lib.lt_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, N, H, D, _strides(q, k, v, do, dq, dk, dv),
-        float(scale), _kernels.DTYPE_CODES[q.dtype],
-        _kernels.stream_handle(q.device),
-    )
-    _kernels.check(err, "flash_attention_bwd")
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
-    return dq, dk, dv
-
-
 def _launch_delta(o, do):
-    """delta (B, H, N) float32 from the split backward's prologue kernel."""
+    """delta (B, H, N) float32 from the backward's prologue kernel."""
     B, N, H, D = o.shape
     delta = torch.empty((B, H, N), dtype=torch.float32, device=o.device)
     err = _kernels.library().lt_flash_attention_bwd_delta(
@@ -319,7 +278,7 @@ def _launch_delta(o, do):
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=None):
-    """dq from the split backward's dQ kernel, written into ``out`` (any
+    """dq from the backward's dQ kernel, written into ``out`` (any
     (B, N, H, D) view with a unit-stride head dim) or a new tensor."""
     B, N, H, D = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
@@ -336,7 +295,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=None):
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=None):
-    """(dk, dv) from the split backward's dK/dV kernel, written into the pair
+    """(dk, dv) from the backward's dK/dV kernel, written into the pair
     ``out`` or new tensors."""
     B, N, H, D = q.shape
     if out is None:
@@ -355,14 +314,16 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=None):
     return dk, dv
 
 
-def _launch_bwd_split(q, k, v, o, lse, do, scale):
-    """dq, dk, dv from the split backward: the delta prologue, the dQ kernel
-    and the dK/dV kernel, three launches and no workspace."""
+def _launch_bwd(q, k, v, o, lse, do, scale):
+    """dq, dk, dv from the backward: the delta prologue, the dQ kernel and
+    the dK/dV kernel, three launches and no workspace."""
     do = _check_dout(q, do)
     dq, dk, dv = _grad_buffer(q)
     delta = _launch_delta(o, do)
     _launch_bwd_dq(q, k, v, do, lse, delta, scale, out=dq)
     _launch_bwd_dkv(q, k, v, do, lse, delta, scale, out=(dk, dv))
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -371,10 +332,9 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     scale: float | None = None,
-    bwd: str = "auto",
 ) -> torch.Tensor:
     """Attention output only, (B, N, H, D); see :func:`flash_attention_fwd`."""
-    return flash_attention_fwd(q, k, v, scale, bwd)[0]
+    return flash_attention_fwd(q, k, v, scale)[0]
 
 
 ALIGN_BYTES = 16  # one asynchronous copy of the tensor-core kernels

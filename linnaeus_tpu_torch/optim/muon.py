@@ -88,6 +88,19 @@ class Muon(torch.optim.Optimizer):
         return self.layouts.get(id(p), (_identity, _identity))[0]
 
     def _orthogonal_update(self, p: torch.Tensor, d: torch.Tensor, group) -> torch.Tensor:
+        """The orthogonalised update of the whole matrix: a shard of a split
+        parameter (FSDP2's DTensor, or a share of the model axis, parallel/)
+        is gathered first and the update split back as the parameter is."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        if isinstance(d, DTensor):
+            full = self._orthogonal_update(p, d.full_tensor(), group)
+            return distribute_tensor(full, d.device_mesh, d.placements, src_data_rank=None)
+        share = getattr(p, "share", None)
+        if share is not None and tuple(d.shape) != share.shape:
+            from linnaeus_tpu_torch.parallel.model import own_share, whole
+
+            return own_share(self._orthogonal_update(p, whole(d, share), group), share)
         to_jax, from_jax = self.layouts.get(id(p), (_identity, _identity))
         dj = to_jax(d)
         shape = tuple(dj.shape)
@@ -114,7 +127,10 @@ class Muon(torch.optim.Optimizer):
                     state["momentum_buffer"] = torch.zeros_like(p)
                 buf = state["momentum_buffer"]
                 buf.mul_(m).add_(g, alpha=1.0 - m)
-                if is_muon_param(tuple(self._to_jax(p)(g).shape)):
+                # a share of the model axis is judged by its whole parameter
+                share = getattr(p, "share", None)
+                probe = g if share is None else torch.empty(share.shape, device="meta")
+                if is_muon_param(tuple(self._to_jax(p)(probe).shape)):
                     d = g * (1.0 - m) + buf * m if group["nesterov"] else buf
                     update = self._orthogonal_update(p, d, group)
                 else:

@@ -29,6 +29,8 @@ from linnaeus_tpu_torch.loss.utils import prepare_loss_functions
 from linnaeus_tpu_torch.models.build import build_model
 from linnaeus_tpu_torch.optim.build import build_optimizer
 from linnaeus_tpu_torch.optim.schedules import build_group_schedules
+from linnaeus_tpu_torch.parallel.mesh import replicate
+from linnaeus_tpu_torch.parallel.model import apply_fsdp, check_parallel, shard_model
 from linnaeus_tpu_torch.utils.meta import compute_meta_chunk_bounds, total_meta_dim
 from linnaeus_tpu_torch.utils.param_filters import (
     resolve_gradnorm_exclude,
@@ -98,13 +100,17 @@ def build_training(
     remat_policy: str | None = None,
     init_task_weights=None,
     pretrained: bool = False,
+    mesh=None,
 ) -> TrainParts:
     """The training parts ``config`` names, on ``device``, the model drawn
     from ``seed`` and the state's generator seeded with it. ``remat`` /
     ``remat_policy`` override the config's for normal and GradNorm steps;
     ``accumulation_steps`` TRAIN.ACCUMULATION_STEPS; GradNorm's initial task
     weights are ``init_task_weights``, else INIT_WEIGHTS, else equal;
-    ``pretrained`` loads MODEL.PRETRAINED* into the model first."""
+    ``pretrained`` loads MODEL.PRETRAINED* into the model first. ``mesh``
+    (parallel/mesh.py) puts the model on the ranks by PARALLEL (the checks,
+    the ring, the pipeline, the TP / EP shares, FSDP2) before the optimizer
+    and the EMA are built on it, and the steps reduce over it."""
     tasks = tuple(config.DATA.TASK_KEYS_H5)
     if tuple(num_classes) != tasks:
         raise ValueError(f"DATA.TASK_KEYS_H5 {list(tasks)} must name the tasks of "
@@ -120,6 +126,17 @@ def build_training(
     gc = config.TRAIN.GRADIENT_CHECKPOINTING
     model = build_model(config, dict(num_classes), taxonomy_tree, device=device, seed=seed)
     reports = load_pretrained(config, model) if pretrained else {}
+    split: list[str] = []
+    if mesh is not None:
+        par = config.PARALLEL
+        mode = str(par.get("PARAM_SHARDING", "replicated"))
+        check_parallel(config, mesh, model)
+        replicate(model, mesh)
+        pipe = par.get("PIPELINE", {})
+        split = shard_model(model, mesh, mode, bool(par.get("SEQUENCE_PARALLEL", False)),
+                            int(pipe.get("STAGES", 1) or 1), int(pipe.get("MICROBATCHES", 0) or 0))
+        if mode == "fsdp":
+            apply_fsdp(model, mesh)
     schedules = build_group_schedules(config, total_steps, steps_per_epoch)
     gw = config.LOSS.GRAD_WEIGHTING.TASK
     if init_task_weights is None:
@@ -152,6 +169,7 @@ def build_training(
             moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01)) if moe_on else 0.0),
             moe_z_weight=(float(moe.get("ROUTER_Z_LOSS_WEIGHT", 0.001)) if moe_on else 0.0),
             ema_decay=float(ema.DECAY) if ema_on else 0.0,
+            mesh=mesh, model_split=split,
         )
         return optimizer, train_step
 
@@ -170,6 +188,7 @@ def build_training(
             use_linear_heads=bool(gw.USE_LINEAR_HEADS_FOR_GRADNORM_REFORWARD),
             accum_steps=max(int(gw.get("GRADNORM_ACCUM_STEPS", 1) or 1), 1),
             remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
+            mesh=mesh, model_split=split,
         ))
     return TrainParts(model, state, train_step, gradnorm_step, augment, train_criteria,
                       val_criteria, schedules, mix_cfg, meta_dim, optimizer_and_step, reports)

@@ -1,4 +1,4 @@
-"""Trainer — full training orchestration on one device.
+"""Trainer — full training orchestration, on one rank or many.
 
 Port of linnaeus_tpu/train/loop.py (reference parity: linnaeus/main.py:
 426-2537 + train.py:13-443 + validation.py:49-637):
@@ -34,10 +34,21 @@ reads allocator peaks, which move with what else the process holds, so a
 run that finds an auto-resume checkpoint does not search again: it takes
 the batches and the base LR that the checkpoint records.
 
-What the port does not run raises by name: the mesh, multi-host, FSDP, TP,
-SP, EP and PP branches (data/build.py::check_one_process), remote output
-sync (ENV.OUTPUT.BUCKET), and, through build_model, make_train_step and
-load_pretrained, MoE and remote pretrained paths. mFormerV0 trains here as
+More than one rank (parallel/): the Trainer starts the process group where
+``torch.distributed.run`` asks for one (``initialize_multi_host``), builds
+the (data, model) mesh from PARALLEL.MESH and hands it to the loaders (each
+rank reads its rows of its host's batch) and to ``build_training`` (the
+TPU package's checks of PARALLEL, then replicated, FSDP2, TP or EP, the
+ring and the pipeline). Rank 0 alone writes the console log, the metrics
+files, wandb and the checkpoints (whole, in the one-process format); every
+rank takes the snapshot (a sharded state is gathered) and every rank loads
+a checkpoint on resume. Validation sums each batch's counts over the data
+axis. AutoBatch aligns the batch to the data axis's size, as the TPU
+package does (and to 2 under 'mixed-pairs').
+
+What the port does not run raises by name: remote output sync
+(ENV.OUTPUT.BUCKET), and, through build_model, make_train_step and
+load_pretrained, remote pretrained paths. mFormerV0 trains here as
 mFormerV1 does: its BatchNorm running statistics are buffers of the model,
 so the step updates them, and checkpoints, resume and AutoBatch's snapshot
 carry them with the model's state_dict (train/step.py).
@@ -56,6 +67,8 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
+import os
 import statistics
 import time
 
@@ -69,6 +82,7 @@ from linnaeus_tpu_torch.metrics.tracker import MetricsTracker
 from linnaeus_tpu_torch.ops_schedule import EarlyStopState, OpsSchedule, TrainingProgress
 from linnaeus_tpu_torch.ops_schedule.training_progress import TrainingStage
 from linnaeus_tpu_torch.optim.build import lr_dict_for_logging
+from linnaeus_tpu_torch.parallel.mesh import create_mesh, initialize_multi_host, is_main_process
 from linnaeus_tpu_torch.utils import checkpoint as ckpt
 from linnaeus_tpu_torch.utils.debug import check_debug_flag
 from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
@@ -115,7 +129,11 @@ def _cuda_event(device: torch.device):
 class Trainer:
     def __init__(self, config, skip_validation: bool = False,
                  device: torch.device | str | None = None):
+        # the process group first (before a card is touched), then the mesh
+        initialize_multi_host(config, device)
         self.device = resolve_device(device)
+        self.mesh = create_mesh(config, device_type=self.device.type)
+        self.is_main = is_main_process()
         self.config = config
         self.skip_validation = skip_validation
         check_trainer_options(config)
@@ -143,14 +161,14 @@ class Trainer:
         self.taxonomy_tree = self.bundle["taxonomy_tree"]
         # persist class maps / densities / taxonomy so a finished run
         # carries what a serving bundle needs
-        if config.ENV.OUTPUT.DIRS.get("ASSETS"):
+        if config.ENV.OUTPUT.DIRS.get("ASSETS") and self.is_main:
             from linnaeus_tpu_torch.data.processor import process_and_save_dataset_metadata
 
             process_and_save_dataset_metadata(
                 self.bundle["processor"], config.ENV.OUTPUT.DIRS.ASSETS
             )
         self.train_loader, self.val_loader = build_loaders(
-            config, self.bundle, device=self.device
+            config, self.bundle, device=self.device, mesh=self.mesh
         )
         self.shutdown.register(self.train_loader)
         if self.val_loader is not None:
@@ -202,9 +220,9 @@ class Trainer:
 
         from linnaeus_tpu_torch.metrics.step_logger import StepMetricsLogger, initialize_wandb
 
-        self.wandb_run = initialize_wandb(config)
+        self.wandb_run = initialize_wandb(config) if self.is_main else None
         jsonl_path = None
-        if config.ENV.OUTPUT.DIRS.LOGS:
+        if config.ENV.OUTPUT.DIRS.LOGS and self.is_main:
             jsonl_path = f"{config.ENV.OUTPUT.DIRS.LOGS}/metrics.jsonl"
         self.step_logger = StepMetricsLogger(
             config, self.ops_schedule, self.metrics,
@@ -237,7 +255,7 @@ class Trainer:
             config, self.num_classes, self.taxonomy_tree, device=self.device,
             seed=int(config.MISC.SEED), total_steps=total_steps,
             steps_per_epoch=self.steps_per_epoch,
-            init_task_weights=init_weights or None, pretrained=pretrained,
+            init_task_weights=init_weights or None, pretrained=pretrained, mesh=self.mesh,
         )
         self.model, self.state = parts.model, parts.state
         # the loaders' reports by name ("ConvNeXt", "RoPE-ViT", ...), empty
@@ -425,7 +443,7 @@ class Trainer:
             if old is not None:
                 self.shutdown.unregister(old)
         self.train_loader, self.val_loader = build_loaders(
-            self.config, self.bundle, device=self.device)
+            self.config, self.bundle, device=self.device, mesh=self.mesh)
         self.shutdown.register(self.train_loader)
         if self.val_loader is not None:
             self.shutdown.register(self.val_loader)
@@ -486,7 +504,7 @@ class Trainer:
         pairs = self.train_loader.sampler.mode == "mixed-pairs"
         found = self._search("train", run_trial, float(ab.TARGET_MEMORY_FRACTION),
                              int(ab.MIN_BATCH_SIZE), int(ab.MAX_BATCH_SIZE),
-                             multiple_of=2 if pairs else 1)
+                             multiple_of=math.lcm(self.mesh.data, 2 if pairs else 1))
         self.autobatch["train"].update(batch_before=old_bs, base_lr_before=old_lr,
                                        base_lr_after=old_lr)
         if found == old_bs:
@@ -543,7 +561,7 @@ class Trainer:
         self.config.freeze()
         # wandb run continuity (reference: checkpoint.py:1051-1054)
         run_id = sidecar.get("wandb_run_id")
-        if run_id and self.wandb_run is None:
+        if run_id and self.wandb_run is None and self.is_main:
             from linnaeus_tpu_torch.metrics.step_logger import initialize_wandb
 
             self.wandb_run = initialize_wandb(self.config, resume_run_id=run_id)
@@ -781,7 +799,8 @@ class Trainer:
         )
         logger.info(
             f"epoch {epoch} done: {n_seen} samples in {elapsed:.1f}s "
-            f"({n_seen / max(elapsed, 1e-9):.1f} img/s)"
+            f"({n_seen / max(elapsed, 1e-9):.1f} img/s); timing "
+            f"{json.dumps(self.epoch_timings[epoch])}"
         )
 
     def _epoch_timing(self, wall_s: float) -> dict:
@@ -935,14 +954,22 @@ class Trainer:
                 cc, ct = chain_accuracy_counts(
                     outputs, soft_targets(batch["targets"], self.num_classes), self.task_keys)
                 host = to_host({**metrics, "_chain_correct": cc, "_chain_total": ct})
-                chain_correct += float(host.pop("_chain_correct"))
-                chain_total += float(host.pop("_chain_total"))
+                ranks = [host]
+                if self.mesh.group("data") is not None:
+                    # every data rank's share of the batch, added in rank order
+                    ranks = [None] * self.mesh.data
+                    torch.distributed.all_gather_object(ranks, host,
+                                                        group=self.mesh.group("data"))
+                host = ranks[0]
+                chain_correct += sum(float(h.pop("_chain_correct")) for h in ranks)
+                chain_total += sum(float(h.pop("_chain_total")) for h in ranks)
                 if check_debug_flag(self.config, "DEBUG.VALIDATION_METRICS"):
                     logger.debug(
                         f"[VALIDATION_METRICS] {phase} batch={i} "
                         + " ".join(f"{k}={float(v):.4f}" for k, v in sorted(host.items()))
                     )
-                totals, count = accumulate_batch(totals, count, host)
+                for h in ranks:
+                    totals, count = accumulate_batch(totals, count, h)
                 self.progress.partial_validation_indices[phase] = {
                     "next_index": i + 1,
                     "totals": dict(totals),
@@ -1010,9 +1037,24 @@ class Trainer:
             )
         metric = self.metrics.get(MetricsTracker.VAL, "loss")
         wandb_run_id = getattr(self.wandb_run, "id", None) if self.wandb_run else None
+        # every rank takes the snapshot (a sharded state is gathered whole);
+        # rank 0 alone writes it
+        # (an FSDP2 model may be between a forward and a backward, unsharded:
+        # the config says whether it gathers; a share of the model axis is
+        # tagged for good)
+        sharded = (self.mesh.device_mesh is not None
+                   and str(self.config.PARALLEL.get("PARAM_SHARDING", "replicated")) == "fsdp"
+                   ) or any(getattr(p, "share", None) is not None
+                            for p in self.model.parameters())
+        if not self.is_main:
+            if sharded:
+                ckpt.snapshot_state(self.state)  # its part of the gathers
+            return os.path.join(os.path.abspath(self.ckpt_dir),
+                                f"checkpoint_step_{int(self.state.step):010d}")
+        snapshot = ckpt.snapshot_state(self.state)
         path = self.ckpt_writer.save(
             self.ckpt_dir,
-            self.state,
+            snapshot,
             training_progress=self.progress,
             metrics_state=self.metrics.state_dict(),
             ops_schedule_state=self.ops_schedule.state_dict(),

@@ -1,13 +1,23 @@
 """CLI: ``python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --opts K V ...``
 
 Port of linnaeus_tpu/train/main.py (reference parity: linnaeus/main.py:
-356-423 parse_option + 2550-2643 bootstrap) for one device. It trains on
+356-423 parse_option + 2550-2643 bootstrap). It trains on
 the CUDA device unless ``--device`` names another (``--device cpu`` for a
 machine without a card); without a card and without ``--device`` it raises.
 ``--throughput`` runs the synthetic throughput test of the config's model
 (evaluation/throughput.py) instead of training. ``build_trainer`` is
 everything ``main`` does before ``Trainer.train``. ENV.COMPILE_CACHE
 configures the TPU package's XLA cache and has nothing to do here.
+
+More than one rank: one process per card, started by
+``torch.distributed.run``, which sets the environment the process group
+starts from (parallel/mesh.py::initialize_multi_host: ``nccl`` on the
+cards, ``gloo`` under ``--device cpu``), before the first touch of a card;
+each rank logs to ``logs/main_p<rank>.log`` and rank 0 alone to the
+console, the metrics files, wandb and the checkpoints (train/loop.py).
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m linnaeus_tpu_torch.train.main --cfg exp.yaml
 
     python -m linnaeus_tpu_torch.train.main --cfg exp.yaml
     python -m linnaeus_tpu_torch.train.main --cfg exp.yaml --device cpu
@@ -39,6 +49,11 @@ def parse_option(argv=None):
         help="run the synthetic throughput test instead of training",
     )
     parser.add_argument(
+        "--backend", default=None, choices=("nccl", "gloo"),
+        help="the process group's backend under torch.distributed.run (default: nccl on "
+             "the card, gloo on the CPU; gloo on the card puts several ranks on one card)",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help='where to train: "cuda" (default; raises without a card), "cuda:N" or "cpu"',
     )
@@ -53,8 +68,12 @@ def setup(argv=None):
     directories and the loggers, and save the merged config; returns
     (args, config, device)."""
     args, config = parse_option(argv)
+    from linnaeus_tpu_torch.parallel.mesh import initialize_multi_host
+    from linnaeus_tpu_torch.parallel.ops import get_rank_safely
     from linnaeus_tpu_torch.utils.device import resolve_device
 
+    initialize_multi_host(config, args.device, args.backend)
+    rank = get_rank_safely()
     device = resolve_device(None if args.device == "cuda" else args.device)
     from linnaeus_tpu_torch.configuration.utils import setup_output_dirs
 
@@ -66,15 +85,16 @@ def setup(argv=None):
     level_h5 = config.EXPERIMENT.LOG_LEVEL_H5DATA
     if bool(config.DEBUG.get("VERBOSE_DEBUG", False)):
         level_main = level_h5 = "DEBUG"
-    create_logger(log_dir, level=level_main)
-    create_h5data_logger(log_dir, level=level_h5)
+    create_logger(log_dir, level=level_main, process_index=rank)
+    create_h5data_logger(log_dir, level=level_h5, process_index=rank)
     if config.EXPERIMENT.CODE_VERSION:
         # reference parity: surface the experiment's code version at startup
         # (main.py:458-459)
         from linnaeus_tpu_torch.utils.logging import get_main_logger
 
         get_main_logger().critical(f"CODE VERSION: {config.EXPERIMENT.CODE_VERSION}")
-    save_config(config, f"{config.ENV.OUTPUT.DIRS.CONFIGS}/merged_config.yaml")
+    if rank == 0:
+        save_config(config, f"{config.ENV.OUTPUT.DIRS.CONFIGS}/merged_config.yaml")
     return args, config, device
 
 

@@ -40,6 +40,23 @@ held from one step to the next; no augmentation or mixing runs twice.
 Gradient accumulation runs the microbatches in a Python loop, summing the
 gradients on the parameters.
 
+More than one rank (``mesh``, parallel/mesh.py). Every rank computes what
+the one-process step computes on the global batch, as the TPU package's
+step does under ``jit`` over its mesh: each rank is handed its rows; the
+step gathers the global (micro)batch over the data axis and collates it on
+every rank alike (augmentation, mixing partners that may sit on another
+rank, meta-masking: one generator, the same draws everywhere); the forward
+runs on this rank's rows (the model's draws and BatchNorm statistics are
+the global batch's, parallel/model.py); the logits are gathered back
+(``gather_rows``), so the loss, its global denominators and every metric
+are the global batch's, the same bits on every rank; the backward leaves
+each rank its rows' share of the gradients, which are summed over the data
+axis (one flat all-reduce in a fixed order; under FSDP2 its reduce-scatter,
+summing), and, for the parameters ``model_split`` names (the pipeline's
+towers), over the model axis first. The clip's norm is the whole
+gradient's (parallel/model.py::grad_norm: FSDP2's shards and the model
+axis's shares summed over their axes).
+
 MoE. With ``moe_aux_weight`` or ``moe_z_weight`` above zero the step asks
 the model for its MoE statistics (``model(..., moe_stats=True)``: the
 load-balance loss, the router z-loss and the dropped share, averaged over
@@ -75,6 +92,8 @@ from linnaeus_tpu_torch.data.collate import (
 )
 from linnaeus_tpu_torch.loss.basic import one_hot
 from linnaeus_tpu_torch.loss.hierarchical import weighted_hierarchical_loss
+from linnaeus_tpu_torch.parallel.model import grad_norm
+from linnaeus_tpu_torch.parallel.ops import all_reduce_, gather_rows, split_rows
 
 from .state import Collated, TrainState
 
@@ -239,6 +258,8 @@ def make_train_step(
     ema_decay: float = 0.0,
     augment_fn: Callable | None = None,
     keep_collated: bool = False,
+    mesh=None,
+    model_split: Sequence[str] = (),
 ):
     """Build the train step.
 
@@ -250,9 +271,14 @@ def make_train_step(
     ``lr_schedule`` only reports the rate in the metrics; the rate that is
     applied is ``state.lr_schedule``'s. ``augment_fn`` augments the images
     after their [0, 1] conversion. ``keep_collated`` leaves what the forward
-    consumed in ``state.last_collated`` for the GradNorm step.
+    consumed in ``state.last_collated`` for the GradNorm step. ``mesh``:
+    the batch is this rank's rows (module docstring); ``model_split`` the
+    parameters whose gradients are summed over the model axis.
     """
     accum = max(int(accumulation_steps), 1)
+    data_group = None if mesh is None else mesh.group("data")
+    model_group = None if mesh is None else mesh.group("model")
+    model_split = frozenset(model_split)
     collect_moe = moe_aux_weight > 0.0 or moe_z_weight > 0.0
     task_keys = tuple(task_keys)
     preprocess = make_preprocess_fn(mix_cfg, has_meta=has_meta, num_classes=num_classes,
@@ -263,14 +289,19 @@ def make_train_step(
         gradients are added onto the parameters' ``.grad``; with
         ``keep_collated`` the collated tensors are appended to ``kept``."""
         images, targets, meta, mixed_mask = preprocess(batch, scalars, state.generator, draws)
+        # this rank's rows of the collated global batch
+        images_in = split_rows(images, data_group).detach()
+        meta_in = None if meta is None else split_rows(meta, data_group).detach()
         if keep_collated:
-            kept.append(Collated(images.detach().to(state.model.dtype), targets,
-                                 None if meta is None else meta.detach()))
+            kept.append(Collated(images_in.to(state.model.dtype),
+                                 {t: split_rows(v, data_group) for t, v in targets.items()},
+                                 meta_in))
         moe = None
         if collect_moe and hasattr(state.model, "moe_num_experts"):
-            outputs, moe = state.model(images, meta, moe_stats=True)
+            outputs, moe = state.model(images_in, meta_in, moe_stats=True)
         else:
-            outputs = state.model(images, meta)
+            outputs = state.model(images_in, meta_in)
+        outputs = {t: gather_rows(v, data_group) for t, v in outputs.items()}
         total, components = weighted_hierarchical_loss(
             outputs, targets, criteria, state.gradnorm.task_weights,
             scalars.null_mask_prob, state.generator, (draws or {}).get("null_coins"),
@@ -291,9 +322,14 @@ def make_train_step(
                    draws: Draws | Sequence[Draws] | None = None):
         model = state.model
         model.train()
+        if hasattr(model, "reshard"):
+            # FSDP2 leaves a model unsharded after a forward without a
+            # backward (validation): the parameters are the shards again
+            model.reshard()
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
+        batch = gather_batch(batch, data_group)
 
         metrics: dict[str, torch.Tensor | float] = {}
         kept: list[Collated] = []
@@ -333,7 +369,7 @@ def make_train_step(
                     add(f"correct3/{t}",
                         _topk_correct(mb_out[t], raw, min(3, mb_out[t].shape[-1])).float())
                     add(f"valid/{t}", _valid_mask(raw).sum().float())
-            torch._foreach_div_([p.grad for p in params if p.grad is not None], accum)
+            torch._foreach_div_([local(p.grad) for p in params if p.grad is not None], accum)
             total = total / accum
             metrics["mixed_frac"] = stats["mixed"] / float(batch["images"].shape[0])
             if collect_moe:
@@ -351,14 +387,16 @@ def make_train_step(
                 {t: torch.cat([k.targets[t] for k in kept]) for t in kept[0].targets},
                 None if kept[0].meta is None else torch.cat([k.meta for k in kept]))
 
+        if mesh is not None:
+            reduce_gradients(model, model_split, data_group, model_group)
         # the parameters are float32, so are their gradients: the clip and
         # the update run in float32
-        grads = [p.grad for p in params if p.grad is not None]
-        pre_clip_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        grads = [local(p.grad) for p in params if p.grad is not None]
+        pre_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
         if clip_grad and clip_grad > 0:
             scale = (clip_grad / (pre_clip_norm + 1e-6)).clamp(max=1.0)
             torch._foreach_mul_(grads, scale)
-        post_clip_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        post_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
 
         step_before = state.step
         state.apply_gradients()
@@ -380,6 +418,41 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def local(t):
+    """The local tensor of a DTensor (a shard under FSDP), else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def gather_batch(batch: dict, group) -> dict:
+    """A batch of every rank's rows in rank order: the global batch."""
+    if group is None:
+        return batch
+
+    def cat(x):
+        return None if x is None else gather_rows(x, group)
+
+    return {k: ({t: cat(v) for t, v in val.items()} if isinstance(val, dict) else cat(val))
+            for k, val in batch.items()}
+
+
+def reduce_gradients(model, model_split, data_group, model_group) -> None:
+    """Each rank's share of the gradients summed into the whole: over the
+    model axis for the ``model_split`` parameters (a rank that did not
+    touch one holds zeros), then over the data axis, unless FSDP2 summed
+    them there in its reduce-scatter (the gradients are DTensors then)."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if model_group is not None and model_split:
+        split = []
+        for n, p in named:
+            if n in model_split:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                split.append(local(p.grad))
+        all_reduce_(split, model_group)
+    plain = [p.grad for _, p in named if p.grad is not None and not hasattr(p.grad, "to_local")]
+    all_reduce_(plain, data_group)
 
 
 def make_gradnorm_step(update: Callable) -> Callable:

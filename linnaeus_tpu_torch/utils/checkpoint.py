@@ -17,6 +17,14 @@ to host memory before it returns (the snapshot), and its thread only writes
 that copy. The state file is written under ``state.tmp/`` and the directory
 renamed to ``state/`` when it is complete, so a save cut off mid-flight
 leaves no ``state/`` and auto-resume skips it.
+
+More than one rank (parallel/): every rank takes the snapshot, which gathers
+a split tensor (FSDP2's DTensor, a share of the model axis) into the whole
+one, so the file holds the whole state in the one-process format whatever
+the mesh; rank 0 alone writes it (train/loop.py). Every rank loads the same
+file and splits what it loads as its parameters are split, so a run saved
+at one world size resumes at
+another.
 """
 
 from __future__ import annotations
@@ -46,8 +54,11 @@ def _ckpt_name(step: int) -> str:
 
 
 def _to_host(obj):
-    """A copy of ``obj`` with every tensor copied to host memory."""
+    """A copy of ``obj`` with every tensor copied to host memory (a sharded
+    tensor gathered whole first: a collective every rank takes part in)."""
     if isinstance(obj, torch.Tensor):
+        if hasattr(obj, "full_tensor"):
+            obj = obj.full_tensor()
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_host(v) for k, v in obj.items()}
@@ -63,15 +74,15 @@ def snapshot_state(state) -> dict[str, Any]:
     gn = state.gradnorm
     return {
         "step": int(state.step),
-        "model": _to_host(state.model.state_dict()),
-        "optimizer": _to_host(state.optimizer.state_dict()),
+        "model": _to_host(_whole_model(state.model)),
+        "optimizer": _to_host(_whole_optimizer(state.optimizer)),
         "gradnorm": {
             "task_weights": _to_host(gn.task_weights),
             "initial_losses": _to_host(gn.initial_losses),
             "has_initted": _to_host(gn.has_initted),
         },
         "generator": state.generator.get_state().clone(),
-        "ema_params": _to_host(state.ema_params) if state.ema_params is not None else None,
+        "ema_params": (_to_host(_whole_ema(state)) if state.ema_params is not None else None),
     }
 
 
@@ -227,12 +238,89 @@ def read_sidecar(path: str) -> dict:
         return json.load(f)
 
 
+def _whole_ema(state) -> dict:
+    """The EMA with every share of the model axis gathered whole."""
+    from linnaeus_tpu_torch.parallel.model import whole
+
+    named = dict(state.model.named_parameters())
+    return {n: (whole(v, named[n].share) if getattr(named[n], "share", None) is not None
+                else v) for n, v in state.ema_params.items()}
+
+
+def _whole_model(model) -> dict:
+    """The model's state_dict in the one-process layout (parallel/)."""
+    from linnaeus_tpu_torch.parallel.model import whole_state_dict
+
+    return whole_state_dict(model)
+
+
+def _split(params) -> bool:
+    return any(hasattr(p, "device_mesh") or getattr(p, "share", None) is not None
+               for p in params)
+
+
+def _whole_optimizer(optimizer) -> dict:
+    """The optimizer's state_dict with every per-parameter tensor of a share
+    of the model axis gathered whole (FSDP2's DTensors are gathered by
+    ``_to_host``)."""
+    saved = optimizer.state_dict()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if not any(getattr(p, "share", None) is not None for p in params):
+        return saved
+    from linnaeus_tpu_torch.parallel.model import whole
+
+    state = {}
+    for key, entry in saved["state"].items():
+        share = getattr(params[int(key)], "share", None)
+        state[key] = {k: (whole(v, share) if share is not None and isinstance(v, torch.Tensor)
+                          and v.shape == params[int(key)].shape else v)
+                      for k, v in entry.items()}
+    return dict(saved, state=state)
+
+
+def _like(value, target):
+    """``value`` (a whole tensor) as ``target`` holds it: this rank's shard
+    when ``target`` is an FSDP2 DTensor or a share of the model axis, else
+    as it is."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    if hasattr(target, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(value.to(target.device), target.device_mesh,
+                                 target.placements, src_data_rank=None)
+    share = getattr(target, "share", None)
+    if share is not None:
+        from linnaeus_tpu_torch.parallel.model import own_share
+
+        return own_share(value.to(target.device), share)
+    return value
+
+
+def _optimizer_like(optimizer, saved: dict) -> dict:
+    """An optimizer state_dict whose per-parameter tensors are split as the
+    parameters they belong to are."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if not _split(params):
+        return saved
+    state = {}
+    for key, entry in saved["state"].items():
+        p = params[int(key)]
+        whole_shape = getattr(getattr(p, "share", None), "shape", tuple(p.shape))
+        state[key] = {k: (_like(v, p) if isinstance(v, torch.Tensor)
+                          and tuple(v.shape) == tuple(whole_shape) else v)
+                      for k, v in entry.items()}
+    return dict(saved, state=state)
+
+
 def restore_snapshot(state, saved: dict[str, Any]) -> None:
     """Put a :func:`snapshot_state` back into ``state`` in place: the
     parameters, the optimizer's state (moments it did not hold are
-    dropped), the step, the GradNorm state, the generator and the EMA."""
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    dropped), the step, the GradNorm state, the generator and the EMA;
+    each whole tensor sharded as its target is (parallel/)."""
+    current = state.model.state_dict(keep_vars=True)
+    state.model.load_state_dict({k: _like(v, current.get(k)) for k, v in saved["model"].items()})
+    state.optimizer.load_state_dict(_optimizer_like(state.optimizer, saved["optimizer"]))
     state.step = int(saved["step"])
     device = state.gradnorm.task_weights.device
     gn = saved["gradnorm"]
@@ -252,9 +340,11 @@ def restore_snapshot(state, saved: dict[str, Any]) -> None:
                 n: p.detach().clone() for n, p in state.model.named_parameters()
             }
         else:
+            named = dict(state.model.named_parameters())
             with torch.no_grad():
                 for name, value in saved["ema_params"].items():
-                    state.ema_params[name].copy_(value)
+                    target = state.ema_params[name]
+                    target.copy_(_like(value.to(target.dtype), named[name]))
     elif saved["ema_params"] is not None:
         logger.warning(
             "Checkpoint carries ema_params but EMA is disabled; the stored EMA "

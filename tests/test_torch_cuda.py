@@ -9,11 +9,11 @@ interpret mode). On a GPU machine, from the repository root:
 not need.) Forward tolerances are the TPU kernel tests' bars: K1 fp32 2e-5,
 bf16 3e-2; K2 fp32 1e-5, bf16 5e-2. The backward kernels are held to their
 plain versions relative to each gradient's largest magnitude: fp32 2e-5
-(another summation order; dQ through float32 atomics), bf16 2e-2 (a
-rounding of P, dS, h1 or da1 that falls the other way moves a sum by a
-bf16 step or two). The split backward's dQ and dK/dV kernels and K3 (the
-fused ConvNeXt block, held to K2's bars) are checked the same way. In
-bfloat16 all four K1 kernels run on the tensor cores and are held at every
+(another summation order), bf16 2e-2 (a rounding of P, dS, h1 or da1
+that falls the other way moves a sum by a bf16 step or two). K1's backward
+is its dQ and dK/dV kernels at every length, each checked alone too, and
+two calls give the same bits; K3 (the fused ConvNeXt block) is held to
+K2's bars. In bfloat16 all three K1 kernels run on the tensor cores and are held at every
 K1 shape of chip_smoke.py and around the tile edges; float32 stays on the
 CUDA cores at its 2e-5. K2's forward and backward and K3's MLP tail run on
 the tensor cores in bfloat16 at widths that are multiples of 32 (up to 256,
@@ -254,7 +254,7 @@ def test_k1_backward_matches_plain_on_strided_views(dev, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 1), (2, 37, 3), (2, 130, 3), (3, 1028, 2), (1, 1100, 1)])
 def test_k1_split_backward_matches_plain_on_strided_views(dev, dtype, shape):
-    """bwd="split" through autograd: the delta prologue, the dQ kernel and
+    """The backward through autograd: the delta prologue, the dQ kernel and
     the dK/dV kernel against their plain versions; dQ the same bits twice."""
     B, n, H = shape
     g = torch.Generator(device=dev).manual_seed(n)
@@ -262,11 +262,11 @@ def test_k1_split_backward_matches_plain_on_strided_views(dev, dtype, shape):
     q, k, v = qkv.unbind(2)
     do = torch.randn(B, n, H, 64, generator=g, device=dev).to(dtype)
     before = (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
-    out, lse = fa.flash_attention_fwd(q, k, v, scale=0.2, bwd="split")
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=0.2)
     out.backward(do)
     torch.cuda.synchronize()
     assert (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (
-        before[0], before[1] + 1, before[2] + 1)
+        before[0] + 1, before[1] + 1, before[2] + 1)
     delta = fa.attention_delta(out.detach(), do)
     assert _rel_err(fa._launch_delta(out.detach(), do), delta) <= BWD_TOL[dtype]
     want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, 0.2)
@@ -318,8 +318,9 @@ def test_k1_bf16_tensor_core_forward_matches_plain(dev, shape, layout):
 @pytest.mark.parametrize("layout", ["qkv_slices", "contiguous"])
 @pytest.mark.parametrize("shape", K1_SMOKE_SHAPES + K1_EDGE_SHAPES)
 def test_k1_bf16_tensor_core_backward_matches_plain(dev, shape, layout):
-    """The fused kernel and the dK/dV kernel against their plain versions;
-    dK and dV of the two the same bits (one key-tile body serves both)."""
+    """The backward, and its dK/dV kernel launched alone, against their
+    plain versions (the one-pass one and the dK/dV one); dK and dV of the
+    two the same bits."""
     q, k, v, do = _k1_operands(dev, shape, layout)
     scale = 0.125
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
@@ -328,7 +329,7 @@ def test_k1_bf16_tensor_core_backward_matches_plain(dev, shape, layout):
     delta = fa._launch_delta(o, do)
     dk_split, dv_split = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    assert (fa.BWD_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (fa.BWD_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 2)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
     want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
         q, k, v, do, lse, fa.attention_delta(o, do), scale)
@@ -340,6 +341,23 @@ def test_k1_bf16_tensor_core_backward_matches_plain(dev, shape, layout):
         bar = BWD_TOL[torch.bfloat16] * max(ref.float().abs().max().item(), 1e-3)
         assert _max_err(got, ref) <= bar, name
     assert torch.equal(dk_split, dk) and torch.equal(dv_split, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_SMOKE_SHAPES + K1_EDGE_SHAPES)
+def test_k1_backward_is_the_same_bits_twice(dev, dtype, shape):
+    """dQ is summed over the key tiles in order by the block that owns the
+    query tile, and dK, dV over the query tiles by the block that owns the
+    key tile, so two calls on the same operands give dQ, dK and dV equal bit
+    for bit."""
+    q, k, v, do = _k1_operands(dev, shape, "qkv_slices")
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    first = [t.clone() for t in fa._launch_bwd(q, k, v, o, lse, do, 0.125)]
+    second = fa._launch_bwd(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 3), (2, 130, 3), (2, 580, 6)])
@@ -424,6 +442,9 @@ def test_k1_bf16_rejects_misaligned_views_and_copies_a_misaligned_dout(dev):
 
 
 def test_k1_auto_route_takes_the_split_kernels_past_1024_tokens(dev):
+    """Past 1024 tokens, where the TPU package takes its split pair, and
+    below, where it takes its one-pass kernel: one backward call, one dQ and
+    one dK/dV launch."""
     counts = []
     for n in (1024, 1025):
         qkv = torch.randn(1, n, 3, 1, 64, device=dev, requires_grad=True)
@@ -431,7 +452,7 @@ def test_k1_auto_route_takes_the_split_kernels_past_1024_tokens(dev):
         fa.flash_attention(*qkv.unbind(2)).sum().backward()
         after = (fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
         counts.append(tuple(a - b for a, b in zip(after, before)))
-    assert counts == [(1, 0, 0), (0, 1, 1)]
+    assert counts == [(1, 1, 1), (1, 1, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -571,13 +592,9 @@ def test_k2_backward_rejects_wide_rows(dev):
         out.sum().backward()
 
 
-@pytest.mark.parametrize("bwd", ["auto", "split"])
-def test_tiny_model_trains_kernels_on_vs_off(dev, bwd, monkeypatch):
-    """Loss and every parameter gradient of a tiny model, kernels on vs off,
-    with K1's backward on its own route (fused at these lengths) and forced
-    onto the split dQ and dK/dV kernels."""
-    if bwd == "split":
-        monkeypatch.setattr(fa, "backward_route", lambda n: "split")
+def test_tiny_model_trains_kernels_on_vs_off(dev):
+    """Loss and every parameter gradient of a tiny model, kernels on vs off;
+    K1's backward launches its dQ and dK/dV kernels once a block."""
     spec = {
         "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [16, 32, 128, 256]},
         "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
@@ -607,7 +624,7 @@ def test_tiny_model_trains_kernels_on_vs_off(dev, bwd, monkeypatch):
         loss.backward()
         losses.append(loss.item())
     launched = tuple(a - b for a, b in zip(counters(), counts))
-    assert launched == ((2, 2, 0, 0, 3, 3) if bwd == "auto" else (2, 0, 2, 2, 3, 3))
+    assert launched == (2, 2, 2, 2, 3, 3)
     assert abs(losses[0] - losses[1]) <= 1e-5 * max(1.0, abs(losses[1]))
     # a gradient that is zero in exact arithmetic (the bias in front of the
     # aggregation's softmax) is float32 noise on both routes: hold each
@@ -679,9 +696,7 @@ def test_kernels_under_checkpoint_give_the_same_gradients(dev, dtype, policy):
     recompute relaunches each block's forward kernel once (the policies see
     no product inside a kernel), the backward kernels run once, and the
     gradients are those of the run without checkpointing, to the backward
-    kernels' bars relative to each gradient's largest magnitude (K1's
-    float32 dQ sums through atomics, so two runs need not be the same
-    bits)."""
+    kernels' bars relative to each gradient's largest magnitude."""
     plain, n_plain = _remat_run(dev, dtype, False, policy)
     remat, n_remat = _remat_run(dev, dtype, True, policy)
     # 2 RoPE blocks (K1), 3 ConvNeXt blocks at 96 and 192 (K2)

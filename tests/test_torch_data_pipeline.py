@@ -374,13 +374,21 @@ def test_memcache_copy_matches_jax():
 
 
 def test_unported_feed_options_raise_by_name(files):
-    # DATA.NATIVE_DATAPLANE 'on' is ported since (tests/test_torch_native.py;
-    # the Trainer under it: tests/test_torch_trainer.py)
+    """DATA.NATIVE_DATAPLANE 'on' is ported since (tests/test_torch_native.py;
+    the Trainer under it: tests/test_torch_trainer.py), and so are the
+    PARALLEL settings: the datasets build as the TPU package's do (the mesh
+    and its checks are the Trainer's; a rank's rows are the loader's,
+    tests/test_torch_multiprocess_trainer.py)."""
     for key, value in (("PARALLEL.MESH.DATA", 2), ("PARALLEL.MULTI_HOST", True),
                        ("PARALLEL.PARAM_SHARDING", "fsdp"), ("PARALLEL.MESH.MODEL", 2),
                        ("PARALLEL.SEQUENCE_PARALLEL", True), ("PARALLEL.PIPELINE.STAGES", 2)):
-        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-            tbuild.build_datasets(config("torch", files["h5"], files["images"], **{key: value}))
+        ours = tbuild.build_datasets(config("torch", files["h5"], files["images"],
+                                            **{key: value}))
+        theirs = jbuild.build_datasets(config("jax", files["h5"], files["images"],
+                                              **{key: value}))
+        for part in ("train_indices", "val_indices"):
+            np.testing.assert_array_equal(ours[part], theirs[part], err_msg=key)
+        assert ours["num_classes"] == theirs["num_classes"]
 
 
 def test_host_augmentation_runs_in_the_loader(files):

@@ -143,8 +143,8 @@ def _split_inputs(dtype, seed=7, B=1, H=2, N=300, D=32):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_split_backward_matches_pallas_split_kernels(dtype):
-    """dq, dk and dv of the port's Function with bwd="split" (plain route)
-    against jax.grad through the Pallas dQ and dK/dV kernels (interpret
+    """dq, dk and dv of the port's Function (plain route: the dQ and dK/dV
+    kernels' plain versions) against jax.grad through the Pallas dQ and dK/dV kernels (interpret
     mode, 128 x 128 blocks over 300 tokens: three blocks a side, the last
     one ragged), at (1, 2, 300, 32). fp32: atol 2e-3, the TPU kernel test's
     bar; bf16: two bf16 steps of the largest gradient, as for the fused
@@ -160,7 +160,7 @@ def test_plain_split_backward_matches_pallas_split_kernels(dtype):
     want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
     t.requires_grad_()
     q, k, v = t.unbind(2)
-    out = tfa.flash_attention(q, k, v, bwd="split")
+    out = tfa.flash_attention(q, k, v)
     (out.float() * torch.tensor(g)).sum().backward()
     assert t.grad.dtype == t.dtype
     for name, got, ref in zip("qkv", t.grad.unbind(2), want):
@@ -198,22 +198,26 @@ def _jax_takes_split_backward(n: int) -> bool:
     return not (nq_pad == block_q and nk_pad == block_k)
 
 
-@pytest.mark.parametrize("n", [148, 580, 1024, 1025, 1028, 4100])
-def test_backward_route_follows_the_tpu_package(n):
-    assert tfa.backward_route(n) == ("split" if _jax_takes_split_backward(n) else "fused")
-
-
-def test_backward_route_can_be_forced_and_is_checked():
-    _, t, g = _split_inputs("float32", seed=9, B=1, H=1, N=9, D=64)
+@pytest.mark.parametrize("n", [1, 148, 580, 1024, 1025, 1028])
+def test_the_backward_is_the_pair_on_both_sides_of_the_tpu_switch(n):
+    """The TPU package takes its one-pass kernel up to 1024 tokens and its
+    split pair past them; the port's backward is the pair at every length:
+    its gradients are the pair's plain versions bit for bit, and the
+    one-pass plain version's to float32 rounding."""
+    assert _jax_takes_split_backward(n) == (n > 1024)
+    _, t, g = _split_inputs("float32", seed=n, B=1, H=1, N=n, D=64)
     q, k, v = t.requires_grad_().unbind(2)
-    grads = {}
-    for bwd in ("auto", "fused", "split"):
-        out = tfa.flash_attention(q, k, v, bwd=bwd)
-        grads[bwd] = torch.autograd.grad((out * torch.tensor(g)).sum(), t)[0]
-    np.testing.assert_allclose(_np(grads["auto"]), _np(grads["fused"]), atol=0)
-    np.testing.assert_allclose(_np(grads["split"]), _np(grads["fused"]), atol=1e-6)
-    with pytest.raises(ValueError):
-        tfa.flash_attention(q, k, v, bwd="kernel")
+    do = torch.tensor(g)
+    out = tfa.flash_attention(q, k, v, 0.125)
+    got = torch.autograd.grad((out * do).sum(), t)[0].unbind(2)
+    q, k, v = (a.detach() for a in (q, k, v))
+    o, lse = tfa.flash_attention_reference(q, k, v, 0.125)
+    pair = tfa.plain_attention_bwd(q, k, v, o, lse, do, 0.125)
+    one_pass = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, 0.125)
+    for name, a, b, c in zip("qkv", got, pair, one_pass):
+        assert torch.equal(a, b), name
+        np.testing.assert_allclose(_np(a), _np(c), rtol=0,
+                                   atol=1e-6 * max(float(c.abs().max()), 1.0), err_msg=name)
 
 
 # ------------------------------------------- the tensor-core kernels' arithmetic
@@ -281,8 +285,9 @@ def _emulate_transposed_backward(q, k, v, o, lse, do, scale, tile=64):
     over the 64-query tiles with the scores transposed, S^T = K Q^T and
     dP^T = V dO^T, P^T = exp2(S^T c - lse log2 e) and dS^T = P^T (dP^T -
     delta) zero past N and cast to the input dtype per tile pair, dV += P^T dO
-    and dK += dS^T Q in float32, dQ summed over the key tiles in float32 (the
-    kernel's workspace), dK and dQ scaled at the end."""
+    and dK += dS^T Q in float32, dK scaled at the end. dQ, which the kernel
+    leaves to the dQ kernel, is summed here over the key tiles in float32 as
+    a one-pass key-tile kernel would, and scaled at the end."""
     B, N, H, D = q.shape
     qf, kf, vf, of, dof = (t.transpose(1, 2).float() for t in (q, k, v, o, do))
     delta = (dof * of).sum(-1)  # (B, H, N)
@@ -360,6 +365,27 @@ def _emulate_tiled_dq(q, k, v, do, lse, delta, scale, tile=64):
             ds = torch.where(key_live[ks], ds, torch.zeros(()))
             dq[:, :, qs] += ds.to(q.dtype).float() @ kf[:, :, ks]
     return (dq * scale)[:, :, :N].transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 148, 200])
+def test_fixed_order_dq_sum_stays_inside_the_kernel_bar_and_repeats(dtype, n):
+    """K1's dQ is summed in a fixed order: the block that owns a query tile
+    adds dS K over the key tiles in order (the dQ kernel's arithmetic,
+    :func:`_emulate_tiled_dq`). That sum holds the one-pass plain backward's
+    dQ (the TPU package's fused kernel, cast for cast) at the kernel bar,
+    and a second call is the same bits."""
+    _, (q, k, v) = _qkv(n, 64, dtype, seed=n + 3)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(n + 3)).to(q.dtype)
+    scale = 64 ** -0.5
+    o, lse = tfa.flash_attention_reference(q, k, v, scale)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)[0]
+    delta = tfa.attention_delta(o, do)
+    got = _emulate_tiled_dq(q, k, v, do, lse, delta, scale)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=BWD_TOL[dtype] * float(want.float().abs().max()))
+    assert torch.equal(got, _emulate_tiled_dq(q, k, v, do, lse, delta, scale))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

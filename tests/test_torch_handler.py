@@ -249,15 +249,40 @@ def test_data_parallel_one_device_spellings_construct(handlers, spec):
 
 
 def test_unported_serving_options_raise(handlers):
-    """Several devices are not ported; the consistency pass without a tree
-    raises by name."""
-    _, handler = handlers
+    """Several devices serve by the TPU package's rule (the batch of 4 split
+    over 2 or 4 replicas, here all on the CPU, against the JAX handler
+    split over as many of its 8 CPU devices: the same predictions), and
+    raise its ``ValueError`` past the visible devices or for a count that
+    does not divide the batch; the consistency pass without a tree raises
+    by name."""
+    jax_handler, handler = handlers
     opts = handler.config.inference_options
-    for spec in (2, "2", 4):
-        with pytest.raises(NotImplementedError, match="data_parallel"):
+    images, metas = _requests(5, seed=11)
+    cpus = [torch.device("cpu")] * 4
+    for spec in (2, "2", 4, "auto"):
+        built = LinnaeusInferenceHandler(
+            replace(handler.config, inference_options=replace(opts, data_parallel=spec)),
+            handler.model, handler.taxonomy, handler.class_maps, devices=cpus)
+        assert built._dp == (4 if spec == "auto" else int(spec))
+        assert [built._bucket(n) for n in (1, 3, 5)] == [built._dp, 4, 4]
+        jcfg = jax_handler.config.model_copy(deep=True)
+        jcfg.inference_options.data_parallel = built._dp
+        theirs = JHandler(jcfg, jax_handler.model, jax_handler.variables, jax_handler.taxonomy,
+                          jax_handler.class_maps)
+        assert theirs._dp == built._dp
+        ours, want = built.predict(images, metas), theirs.predict(images, metas)
+        for a, b in zip(ours, want):
+            for ta, tb in zip(a.tasks, b.tasks):
+                assert [tid for tid, _ in ta.predictions] == [tid for tid, _ in tb.predictions]
+                np.testing.assert_allclose([p for _, p in ta.predictions],
+                                           [p for _, p in tb.predictions], atol=1e-5)
+    for spec, devices, match in ((2, None, "only 1 devices are visible"),
+                                 (8, cpus, "only 4 devices are visible"),
+                                 (3, cpus, "must divide inference batch_size=4")):
+        with pytest.raises(ValueError, match=match):
             LinnaeusInferenceHandler(
                 replace(handler.config, inference_options=replace(opts, data_parallel=spec)),
-                handler.model, handler.taxonomy, handler.class_maps)
+                handler.model, handler.taxonomy, handler.class_maps, devices=devices)
     checked = replace(handler.config, inference_options=replace(
         opts, enable_hierarchical_consistency_check=True))
     with pytest.raises(ValueError, match="enable_hierarchical_consistency_check"):

@@ -43,6 +43,13 @@ def test_the_walk_finds_the_port():
             "linnaeus_tpu_torch/optim/ademamix.py",
             "linnaeus_tpu_torch/optim/muon.py",
             "linnaeus_tpu_torch/optim/build.py",
+            "linnaeus_tpu_torch/parallel/__init__.py",
+            "linnaeus_tpu_torch/parallel/mesh.py",
+            "linnaeus_tpu_torch/parallel/ops.py",
+            "linnaeus_tpu_torch/parallel/model.py",
+            "linnaeus_tpu_torch/parallel/pipeline.py",
+            "linnaeus_tpu_torch/ops/ring_attention.py",
+            "linnaeus_tpu_torch/evaluation/complexity.py",
             "linnaeus_tpu_torch/models/utils.py",
             "linnaeus_tpu_torch/loss/gradnorm.py",
             "linnaeus_tpu_torch/data/augmentation/policies.py",

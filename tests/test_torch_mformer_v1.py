@@ -171,11 +171,15 @@ def test_state_dict_from_jax_equals_reference_export():
     {"drop_rate": 0.1}, {"attn_drop_rate": 0.1},
 ])
 def test_unported_options_raise(kw):
-    """Ring attention and pipelining raise. Gradient checkpointing, dropout,
-    the other aggregations and MoE, once here, are ported: such a model
-    builds, trains and gives gradients (test_remat_*,
-    tests/test_torch_build.py, tests/test_torch_model_zoo.py and
-    tests/test_torch_moe.py hold what they compute)."""
+    """Every option here is ported since. Gradient checkpointing, dropout,
+    the other aggregations and MoE build, train and give gradients
+    (test_remat_*, tests/test_torch_build.py, tests/test_torch_model_zoo.py
+    and tests/test_torch_moe.py hold what they compute). Ring attention (a
+    ring of one in one process) and pipelining (two stages of stage 3's two
+    blocks, drop path 0 as the TPU package requires; one process runs every
+    layer) give JAX's sequential logits on the same weights
+    (tests/test_torch_ring_attention.py and tests/test_torch_pipeline.py
+    hold them across ranks)."""
     build = functools.partial(MFormerV1, img_size=(64, 64), convnext_dims=(8, 16, 32, 64),
                               rope_dims=(32, 64), **kw)
     if set(kw) & {"gradient_checkpointing", "drop_rate", "attn_drop_rate", "aggregation",
@@ -184,8 +188,30 @@ def test_unported_options_raise(kw):
         model.forward_features(torch.zeros(1, 64, 64, 3)).sum().backward()
         assert model.training and all(p.grad is not None for p in model.stem.parameters())
         return
-    with pytest.raises(NotImplementedError):
-        build().train()
+    images, meta = _inputs()
+    depths = (1, 1) if "ring_attention" in kw else (2, 1)
+    jm = JMFormerV1(
+        img_size=(64, 64), convnext_depths=DEPTHS, convnext_dims=(8, 16, 32, 64),
+        rope_depths=depths, rope_dims=(32, 64), rope_num_heads=(2, 2), drop_path_rate=0.0,
+        meta_components=META, task_keys=TASKS, num_classes=NC,
+        head_configs={t: {"TYPE": "Linear"} for t in TASKS})
+    params = _perturbed_params(jm, images, meta)
+    ref = jm.apply({"params": params}, jnp.asarray(images), jnp.asarray(meta))
+    model = MFormerV1(img_size=(64, 64), convnext_depths=DEPTHS, convnext_dims=(8, 16, 32, 64),
+                      rope_depths=depths, rope_dims=(32, 64), rope_num_heads=(2, 2),
+                      drop_path_rate=0.0, meta_components=META, task_keys=TASKS,
+                      num_classes=NC, **kw)
+    model.load_state_dict(state_dict_from_jax(params, DEPTHS, depths, ("TEMPORAL", "SPATIAL"),
+                                              TASKS), strict=True)
+    assert model.pipeline_stages == kw.get("pipeline_stages", 0)
+    assert all(b.attn.ring_attention == bool(kw.get("ring_attention"))
+               for s in (2, 3) for b in model.stages[s])
+    out = model(torch.tensor(images), torch.tensor(meta))
+    for t in TASKS:
+        np.testing.assert_allclose(out[t].detach().numpy(), np.asarray(ref[t]), atol=ATOL,
+                                   err_msg=t)
+    out[TASKS[0]].sum().backward()
+    assert all(p.grad is not None for p in model.stages[2].parameters())
 
 
 REMAT_POLICIES = ("full", "dots", "dots_no_batch")

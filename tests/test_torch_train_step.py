@@ -209,15 +209,14 @@ def test_three_train_steps_match_jax(case):
 
 
 def test_three_train_steps_match_jax_with_the_split_backward(monkeypatch):
-    """The same three steps with K1's backward forced onto its split route
-    (dQ and dK/dV plain versions) in both RoPE stages of the port. A stage
-    past 1024 tokens, where the route is taken by itself, is too slow for the
-    CPU; the JAX side takes its plain attention backward either way."""
+    """The same three steps, counting that K1's backward in both RoPE stages
+    of the port is its dQ and dK/dV kernels' plain versions (the pair the
+    TPU package takes past 1024 tokens, which the port takes at every
+    length); the JAX side takes its plain attention backward."""
     import linnaeus_tpu_torch.ops.flash_attention as tfa
 
     calls = []
     plain_dq = tfa.flash_attention_bwd_dq_reference
-    monkeypatch.setattr(tfa, "backward_route", lambda n: "split")
     monkeypatch.setattr(tfa, "flash_attention_bwd_dq_reference",
                         lambda *a: calls.append(a[0].shape[1]) or plain_dq(*a))
     _three_train_steps("mixed_masked")

@@ -516,6 +516,33 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
         dataset = trainer.bundle["train_dataset"]
         assert dataset.source.supports_batch_read() and dataset._can_bulk_read()
         return
+    if option.startswith("PARALLEL."):
+        # ported since (parallel/; tests/test_torch_multiprocess_trainer.py):
+        # on one process the TPU package's checks decide, as on one device
+        # there; FSDP over one rank shards nothing
+        if option == "PARALLEL.PARAM_SHARDING":
+            trainer = Trainer(cfg, device="cpu")
+            trainer.close()
+            assert trainer.mesh.shape == {"data": 1, "model": 1}
+            assert not any(hasattr(p, "device_mesh") for p in trainer.model.parameters())
+            return
+        if option == "PARALLEL.MULTI_HOST":
+            # the process group starts from torch.distributed.run's
+            # environment, which a plain process does not have
+            with pytest.raises(ValueError, match="env:// rendezvous"):
+                Trainer(cfg, device="cpu").close()
+            return
+        from linnaeus_tpu.parallel.mesh import create_mesh as j_create_mesh
+
+        with pytest.raises(ValueError) as ours:
+            Trainer(cfg, device="cpu").close()
+        with pytest.raises(ValueError) as theirs:
+            if option == "PARALLEL.MESH.MODEL":
+                j_create_mesh(cfg, devices=jax.devices()[:1])
+            else:
+                JTrainer(cfg)
+        assert str(ours.value) == str(theirs.value)
+        return
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         Trainer(cfg, device="cpu").close()
 

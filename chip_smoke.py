@@ -12,7 +12,8 @@ bfloat16 (all of K1, K2 and K3's MLP tail then run on the tensor cores, in
 float32 on the CUDA cores; K1's and K2's times are medians of three repeats,
 with the spread; K2 must give the same bits twice, forward and backward; the
 bf16 library chain LN -> linear -> GELU -> linear is timed beside K2 and K3
-as a yardstick of several calls). It checks the width rule of the ConvNeXt
+as a yardstick of several calls, and its backward, through autograd, beside
+K2's backward). It checks the width rule of the ConvNeXt
 block: left to choose, a block runs at the lg and xl presets' widths through
 the route the rule names, and told to fuse past the kernels' widths it
 raises by name. Then it serves mFormerV1_sm at
@@ -57,7 +58,10 @@ a cosine schedule: the first step against the same step without remat
 step's and one GradNorm update's launches of K1 and K2 against the counts
 the recompute implies, six steps counted from zero (finite, clipped, the
 task weights move, stay positive and sum to the task count, the heads'
-group at 10x), the augmentation's range, the step's, the update's and the
+group at 10x), the GradNorm re-forward's batch collated again from the
+step's saved generator states against what the step's forward consumed (bit
+for bit) with the step's peak memory with such a batch held across it and
+without, the augmentation's range, the step's, the update's and the
 augmentation's times, then one Muon and one AdEMAMix step. Then (phase 7c)
 it trains through the Trainer: it writes 1,280 observations (a seeded
 four-rank taxonomy whose heads, with the null class, are 1000/400/100/30
@@ -149,7 +153,8 @@ step's loss and pre-clip norm against the one-process run's (bit-equality
 printed, the first step held to the train bars), the step ms, the
 device-busy share of a profiled window and the kernels' launches, counted
 from 0 in the run's own process (``chip_smoke.py --train-child``), for
-each; the fsdp run's checkpoint
+each (both bit for bit; FSDP2 wraps each block and the root, a unit a
+block); the fsdp run's checkpoint
 (whole, the one-process format) resumed bit for bit in a one-process
 Trainer and served through the handler against the one-process
 checkpoint's answers within PROB_TOL; data_parallel 'auto' resolving to 1
@@ -159,8 +164,14 @@ two gloo ranks on the one card each taking 32 rows of the B=64 step (the
 first step within the train bars); estimate_model_complexity of
 mFormerV1_sm at 384 px (params exactly the stored table's, FLOPs within
 5%, the activation MB printed beside the stored one); and F10: K1's
-backward twice on the same operands, bit for bit, and its time.
-Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
+backward twice on the same operands, bit for bit, and its time. Then
+(phase 7j) tools/shard_plan for mFormerV1_sm at 384 px, 64 rows a data
+rank, under dp (data 8), fsdp (data 8), tp (data 4, model 2) and pp (data 4,
+model 5): rank 0's bytes, its step's collectives over the fake process
+group, the partner rows fetched at each mixup group level of the default
+config ('mixed-pairs' batches of scale_receipt's labels) and the steps'
+peak; no image row all-gathered under dp, FSDP2's largest gather one
+unit's. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints its own time, one
 JSON line about the seven kernels, and as its last line
 
@@ -340,6 +351,23 @@ def mlp_chain_ms(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma) -> float:
         return residual + h * g
 
     return cuda_ms_median(chain, iters=20)[0]
+
+
+def mlp_chain_bwd_ms(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma) -> float:
+    """Time of K2's backward as autograd of the same chain of PyTorch's
+    own operators in y's dtype (layer_norm, linear, gelu, linear, scale):
+    the eight gradients K2's backward gives, through torch.autograd.grad,
+    the forward's saved activations in device memory. The yardstick where
+    no single call exists, used nowhere in the port. Timed as K2 is."""
+    import torch.nn.functional as F
+
+    dt = y.dtype
+    ins = [t.detach().to(dt).requires_grad_() for t in (y, ln_w, ln_b, w1, b1, w2, b2, gamma)]
+    yy, lw, lb, w1c, b1c, w2c, b2c, g = ins
+    h = F.layer_norm(yy, (yy.shape[-1],), lw, lb, 1e-6)
+    out = F.linear(F.gelu(F.linear(h, w1c, b1c), approximate="tanh"), w2c, b2c) * g
+    return cuda_ms_median(lambda: torch.autograd.grad(out, ins, dout, retain_graph=True),
+                          iters=10)[0]
 
 
 def check_kernels(dev, fa, fm) -> dict:
@@ -558,8 +586,13 @@ def check_backward_kernels(dev, fa, fm) -> dict:
                 if dt == torch.bfloat16:
                     rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], abs_err)
                     if M > 70 and approx:
+                        chain_ms = mlp_chain_bwd_ms(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)
+                        print(f"   the bf16 library chain's backward (autograd of layer_norm, "
+                              f"linear, gelu, linear) on the same operands: {chain_ms:.4f} ms",
+                              flush=True)
                         timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[M, C],
-                                     library_ms=None, **k2_bound((M, C), dt, True))
+                                     library_ms=None, library_chain_ms=chain_ms,
+                                     **k2_bound((M, C), dt, True))
                         if C == 96:
                             rec["K2"].update(timed)
                         else:
@@ -965,6 +998,43 @@ def default_config_phase(dev, card, fa, fm) -> dict:
     check(moved >= 0.9 * len(before_params), f"{moved} parameter tensors changed")
     check(launched == want, f"default-config launch counts {launched}, expected {want}")
 
+    # the GradNorm re-forward's batch, collated again from the step's batch
+    # and its saved generator states, against what the step's forward
+    # consumed (kept by a hook, as the port kept it before); the step's
+    # peak memory with such a kept batch held across it and without
+    seen = []
+    hook = state.model.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].detach().to(state.model.dtype),
+                                       args[1].detach().clone())))
+    bench.train()
+    hook.remove()
+    images, _, meta = bench.step.collated(state, bench.data, bench.scalars)
+    regen_same = torch.equal(images, seen[0][0]) and torch.equal(meta, seen[0][1])
+    kept_mb = sum(t.numel() * t.element_size() for t in seen[0]) / 1e6
+    del images, meta
+    peaks = {}
+    for kept in (True, False):  # the peak of a step, the kept batch held or not
+        if not kept:
+            seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bench.train()
+        torch.cuda.synchronize()
+        peaks[kept] = torch.cuda.max_memory_allocated(dev) / 2**20
+    torch.cuda.reset_peak_memory_stats(dev)
+    bench.gradnorm()
+    torch.cuda.synchronize()
+    gn_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"[{card}] GradNorm's batch collated again on the card from the step's generator "
+          f"states: bit for bit what the step's forward consumed: {regen_same} (images "
+          f"{tuple(bench.data['images'].shape)} in {str(state.model.dtype)[6:]} and metadata, "
+          f"{kept_mb:.1f} MB, no longer held between steps); peak memory of the "
+          f"default-config step {peaks[True]:.1f} MiB with such a batch held across it (the "
+          f"earlier layout), {peaks[False]:.1f} MiB without ({peaks[True] - peaks[False]:.1f} "
+          f"MiB less); of a GradNorm update {gn_peak:.1f} MiB", flush=True)
+    check(regen_same, "the GradNorm batch collated again on the card differs from the one the "
+          "step consumed")
+
     # the augmentation alone, on the batch in [0, 1]
     x = bench.data["images"].float() * (1.0 / 255.0)
     a, b = bench.augment(x, state.generator), bench.augment(x, state.generator)
@@ -1005,7 +1075,8 @@ def default_config_phase(dev, card, fa, fm) -> dict:
         del bench, state
         torch.cuda.empty_cache()
     return {"launches": launched, "step_ms": step_ms, "gradnorm_ms": gn_ms, "aug_ms": aug_ms,
-            "peak_gib": peak, "no_remat_ms": first[False]["ms"]}
+            "peak_gib": peak, "no_remat_ms": first[False]["ms"], "regen_same": regen_same,
+            "step_peak_mib": peaks, "gradnorm_peak_mib": gn_peak}
 
 
 # the Trainer phase (7c): the CLI trains from a dataset on disk
@@ -1795,7 +1866,8 @@ def train_child(argv: list[str]) -> int:
     torch.distributed.run in phase 7i: the training CLI in this process with
     the kernels' counts set to 0 just before it; after the run each rank
     prints, on a line that starts with CHILD_COUNTS, its rank, the process
-    group's backend, whether FSDP2 wrapped the model, and its counts."""
+    group's backend, whether FSDP2 wrapped the model and in how many units
+    (each block and the root), and its counts."""
     import os
 
     import torch.distributed as dist
@@ -1807,9 +1879,15 @@ def train_child(argv: list[str]) -> int:
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
     fm.LAUNCHES = fm.BWD_LAUNCHES = 0
     run = train_main(argv)
+    from torch.distributed.fsdp import FSDPModule
+
+    from linnaeus_tpu_torch.parallel.model import fsdp_units
+
     row = {"rank": int(os.environ.get("RANK", "0")),
            "backend": dist.get_backend() if dist.is_initialized() else None,
            "fsdp": hasattr(next(run.model.parameters()), "to_local"),
+           "fsdp_units": sum(isinstance(m, FSDPModule) for m in run.model.modules()),
+           "blocks_and_root": len(fsdp_units(run.model)),
            "launches": kernel_counts(fa, fm)}
     print(CHILD_COUNTS + json.dumps(row), flush=True)
     return 0
@@ -1876,6 +1954,70 @@ dist.destroy_process_group()
     return bad[0][-800:] if bad else None
 
 
+# the port's shard_plan for mFormerV1_sm at IMG px, 64 rows a data rank:
+# (mode, mesh, global batch, microbatches). pp: the stage count is the model
+# axis and must divide stage 3's depth, which is 5 in mFormerV1_sm; 8
+# microbatches (at least the stage count, dividing 64)
+SHARD_PLANS = (("dp", {"data": 8}, 512, 0), ("fsdp", {"data": 8}, 512, 0),
+               ("tp", {"data": 4, "model": 2}, 256, 0), ("pp", {"data": 4, "model": 5}, 256, 8))
+
+
+def shard_plan_phase(dev, card) -> dict:
+    """tools/shard_plan.py for each of SHARD_PLANS: rank 0's bytes, its
+    step's collectives over the fake process group, the partner rows it
+    fetches at each mixup group level of the default config and the steps'
+    peak on the card. Checks the two data-parallel repairs: no image row is
+    all-gathered under dp (a rank takes only its mixing partners' rows, by
+    all-to-all), and FSDP2's largest gather is one unit's (a block), not the
+    model's."""
+    import torch.distributed as dist
+
+    from linnaeus_tpu_torch.tools.shard_plan import build_plan
+
+    check(not dist.is_initialized(), "shard_plan needs this process without a process group")
+    t_phase = time.perf_counter()
+    row = IMG * IMG * 3  # one uint8 image
+    plans = {}
+    for mode, mesh, batch, micro in SHARD_PLANS:
+        t0 = time.perf_counter()
+        p = build_plan("mFormerV1_sm", mesh, mode, batch, IMG, device=str(dev),
+                       microbatches=micro)
+        census = p["collectives_per_step"]
+        print(f"[{card}] shard_plan mFormerV1_sm {IMG}px {mode} {mesh} global batch {batch}: "
+              f"parameters {p['param_bytes_per_device'] / 1e6:.2f} of "
+              f"{p['param_bytes_total'] / 1e6:.2f} MB a rank ({p['params_sharded']} of "
+              f"{p['params_total_leaves']} leaves sharded), optimizer "
+              f"{p['opt_ema_bytes_per_device'] / 1e6:.2f} MB; the step's peak "
+              f"{p['memory_analysis']['per_device_total'] / 2**30:.3f} GiB; collectives "
+              f"{json.dumps(census)}"
+              + (f"; largest FSDP2 unit {p['largest_unit_bytes'] / 1e6:.2f} MB"
+                 if mode == "fsdp" else "")
+              + "; partner rows fetched a step by mixup group level (the census is "
+              f"{p['group_level']}'s): "
+              + ", ".join(f"{lvl} {v['rows']} ({v['bytes'] / 1e6:.2f} MB)"
+                          for lvl, v in p["partner_fetch"].items())
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        plans[mode] = p
+        gc.collect()
+        torch.cuda.empty_cache()
+    dp = plans["dp"]["collectives_per_step"]
+    check(dp["all-gather"]["bytes"] < row, f"dp all-gathers {dp['all-gather']['bytes']} bytes: "
+          "image rows")
+    check(dp.get("all-to-all", {"bytes": 0})["bytes"] % row == 0,
+          "dp's partner fetch moves whole image rows")
+    fetch = plans["dp"]["partner_fetch"]
+    check(all(v["rows"] <= plans["dp"]["batch_per_device"] for v in fetch.values()),
+          f"dp fetches at most a partner a row of its own: {fetch}")
+    fsdp = plans["fsdp"]
+    check(fsdp["collectives_per_step"]["all-gather"]["max_bytes"] <= fsdp["largest_unit_bytes"]
+          < fsdp["param_bytes_total"], "FSDP2's largest gather is one unit's")
+    for mode in ("send", "recv"):
+        check(plans["pp"]["collectives_per_step"].get(mode, {"count": 0})["count"] > 0,
+              f"pp's {mode}")
+    print(f"shard_plan phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return plans
+
+
 def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
     """Phase 7i (module docstring): (a) the CLI under torch.distributed.run at
     world size 1 over NCCL with PARAM_SHARDING 'replicated' and 'fsdp' against
@@ -1924,6 +2066,7 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     rows = {"one": _run_rows(run_dir("one"))}
+    child_rows = {}
     for mode in ("replicated", "fsdp"):
         cfg_path = multi_yaml(d, trainer, mode)
         # MULTI_HOST: at world size 1 the process group starts only when asked
@@ -1933,7 +2076,13 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
         check(list(ranks) == [0] and ranks[0]["backend"] == "nccl"
               and ranks[0]["fsdp"] == (mode == "fsdp"),
               f"{mode}: one rank over NCCL, FSDP2 {mode == 'fsdp'}: {ranks}\n{tail}")
+        units = ranks[0]["fsdp_units"]
+        check(units == (ranks[0]["blocks_and_root"] if mode == "fsdp" else 0) and
+              (mode != "fsdp" or units > 1),
+              f"{mode}: FSDP2 wraps each block and the root ({ranks[0]['blocks_and_root']} "
+              f"units), not {units}")
         launched[mode] = ranks[0]["launches"]
+        child_rows[mode] = ranks[0]
         for key, n in launched[mode].items():
             check(n > 0, f"{key} was not launched in the {mode} run under torch.distributed.run")
         runs[mode] = secs
@@ -1953,11 +2102,14 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
               f"{mode}: first-step loss rel {d_loss} (tol {TRAIN_LOSS_RTOL}), norm rel {d_norm} "
               f"(tol {TRAIN_GRAD_NORM_RTOL})")
         prof, timing = extra["profile"], extra["timing"]
+        check(same, f"{mode}: the losses and pre-clip norms of {MULTI_STEPS} steps are not the "
+              f"one-process CLI's bit for bit")
         summary[mode] = {"bits_equal": same, "first_loss_rel": d_loss, "first_norm_rel": d_norm,
                          "worst_loss_rel": worst, "seconds": runs[mode],
                          "median_step_ms": timing and timing["median_step_ms"],
                          "profile": prof, "launches": launched[mode]}
-        print(f"[{card}] phase 7i(a) torch.distributed.run world 1 nccl, PARAM_SHARDING {mode}: "
+        print(f"[{card}] phase 7i(a) torch.distributed.run world 1 nccl, PARAM_SHARDING {mode} "
+              f"(FSDP2 units {child_rows[mode]['fsdp_units']}): "
               f"{MULTI_STEPS} steps, losses and pre-clip norms equal to the one-process CLI's "
               f"bit for bit: {same}; first step loss rel {d_loss:.3e}, norm rel {d_norm:.3e}; "
               f"worst step loss rel {worst:.3e}; step {fmt(timing and timing['median_step_ms'])} "
@@ -4149,6 +4301,9 @@ def main() -> int:
         for mode, counts in multi["launches"].items():
             for key, n in counts.items():
                 check(n > 0, f"{key} was not launched in phase 7i's {mode} run")
+        # 7j. tools/shard_plan: what a rank holds and moves under dp, fsdp,
+        # tp and pp on their meshes
+        shard_plan_phase(dev, card)
         shutil.rmtree(trainer["dir"], ignore_errors=True)
         # 7f. phase 1 to phase 2: the receipt data, the CLI with the kernels
         # on and off and their receipts, PPO abstention fine-tuning from the

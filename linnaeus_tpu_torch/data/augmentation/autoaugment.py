@@ -16,8 +16,10 @@ small copy of the discrete draws (sub-policy, gates, flip, erase) per
 batch; nothing loops over the images.
 
 Randomness. ``draw_augmentation`` makes every draw of a batch from one
-``torch.Generator``; ``apply_augmentation`` applies a given set of draws,
-which is how a test hands in the TPU package's own.
+``torch.Generator`` (the erasing's pixel fill from a seed an image drawn
+from it, and only for the images that erase); ``apply_augmentation``
+applies a given set of draws, which is how a test hands in the TPU
+package's own.
 """
 
 from __future__ import annotations
@@ -58,8 +60,10 @@ def draw_augmentation(n: int, H: int, W: int, table: PolicyTable | None,
     policy (n,) sub-policy index; gates (n, slots) bool, each op's table
     probability; op_u (n, slots) uniform, each op's random value (its sign
     or sigma, ops.op_value); jitter (n, 3) factors; flip (n,) bool; erase
-    (n,) bool; erase_boxes (n, count, 4) (y0, x0, h, w); erase_fill
-    (n, count, H, W, 3) (pixel mode; zeros otherwise)."""
+    (n,) bool; erase_boxes (n, count, 4) (y0, x0, h, w); erase_seed (n,)
+    int64, pixel mode only: each image's seed of its (count, H, W, 3) fill
+    (:func:`erase_fill`), which is drawn only for the images that erase.
+    Without it the boxes are filled with zeros."""
     kw = {"generator": generator, "device": device}
     out: dict[str, torch.Tensor] = {}
     if table is not None:
@@ -76,10 +80,23 @@ def draw_augmentation(n: int, H: int, W: int, table: PolicyTable | None,
     out["erase_boxes"] = A.erase_boxes(torch.rand(n * count, 4, **kw), H, W, area_range,
                                        aspect_range).reshape(n, count, 4)
     if erase_pixel:
-        out["erase_fill"] = torch.randn(n, count, H, W, 3, **kw) * 0.2 + 0.5
-    else:
-        out["erase_fill"] = torch.zeros(n, count, H, W, 3, device=device)
+        out["erase_seed"] = torch.randint(0, 2**62, (n,), **kw)
     return out
+
+
+def erase_fill(seeds: np.ndarray, count: int, H: int, W: int, device) -> torch.Tensor:
+    """The pixel-mode fill (len(seeds), count, H, W, 3) of the images with
+    these seeds (host int64): each image's normal(0.5, 0.2) pixels from a
+    generator of its own seed, so a subset of a batch draws only its own."""
+    return torch.stack([
+        torch.randn(count, H, W, 3, device=device,
+                    generator=torch.Generator(device=device).manual_seed(int(s)))
+        for s in seeds]) * 0.2 + 0.5
+
+
+def take_rows(draws: AugDraws, rows: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The draws of the images ``rows`` of the batch the draws were made for."""
+    return {k: v[rows] for k, v in draws.items()}
 
 
 def _run_on(img: torch.Tensor, rows: np.ndarray, fn: Callable) -> None:
@@ -95,14 +112,16 @@ def apply_augmentation(images: torch.Tensor, draws: AugDraws, table: PolicyTable
     """Augment a batch (B, H, W, 3) float32 in [0, 1] with ``draws``
     (``draw_augmentation``'s keys); returns a new tensor."""
     img = images.clone()
-    flags = [draws["flip"], draws["erase"]]
+    seeded = "erase_fill" not in draws and "erase_seed" in draws
+    flags = [draws["flip"], draws["erase"]] + ([draws["erase_seed"]] if seeded else [])
+    k = len(flags)
     if table is not None:
         flags += [draws["policy"], *draws["gates"].unbind(1)]
     host = torch.stack([f.to(torch.int64) for f in flags], 1).cpu().numpy()
     flip, erase = host[:, 0].astype(bool), host[:, 1].astype(bool)
 
     if table is not None:
-        policy, gates = host[:, 2], host[:, 3:].astype(bool)
+        policy, gates = host[:, k], host[:, k + 1:].astype(bool)
         for j in range(table.slots):
             names = table.ops[policy, j]
             mags = torch.as_tensor(table.mag[policy, j])
@@ -120,12 +139,21 @@ def apply_augmentation(images: torch.Tensor, draws: AugDraws, table: PolicyTable
         img = A.color_jitter(img, draws["jitter"])
     _run_on(img, np.nonzero(flip)[0], lambda sub, idx: sub.flip(2))
 
+    count = max(int(erase_count), 1)
+    erasing = np.nonzero(erase)[0]
+
     def erase_all(sub, idx):
-        for i in range(max(int(erase_count), 1)):
-            sub = A.random_erasing(sub, draws["erase_boxes"][idx, i], draws["erase_fill"][idx, i])
+        if "erase_fill" in draws:  # handed in (the TPU package's draws)
+            fill = draws["erase_fill"][idx]
+        elif seeded:
+            fill = erase_fill(host[erasing, 2], count, sub.shape[1], sub.shape[2], sub.device)
+        else:
+            fill = sub.new_zeros((sub.shape[0], count, 1, 1, 1))
+        for i in range(count):
+            sub = A.random_erasing(sub, draws["erase_boxes"][idx, i], fill[:, i])
         return sub
 
-    _run_on(img, np.nonzero(erase)[0], erase_all)
+    _run_on(img, erasing, erase_all)
     return img
 
 
@@ -141,21 +169,27 @@ def make_train_augment(
 ) -> Callable:
     """The batched train pipeline (autoaugment -> colour jitter -> flip ->
     erase). Returns ``augment(images, generator=None, draws=None)``: the
-    draws are made from ``generator`` unless given."""
+    draws are made from ``generator`` unless given; ``augment.draw(n, H, W,
+    generator, device)`` makes the draws of a batch of ``n`` alone. Each
+    image's result depends on its own row of the draws only (``take_rows``)."""
     table = PolicyTable(policy_name) if policy_name else None
     jitter = float(color_jitter or 0.0)
+
+    def draw(n: int, H: int, W: int, generator: torch.Generator | None,
+             device) -> dict[str, torch.Tensor]:
+        return draw_augmentation(
+            n, H, W, table, jitter, random_erase_count, random_erase_mode == "pixel",
+            random_erase_area, random_erase_aspect, hflip_prob, random_erase_prob,
+            generator, device)
 
     def augment(images: torch.Tensor, generator: torch.Generator | None = None,
                 draws: AugDraws | None = None) -> torch.Tensor:
         if draws is None:
             n, H, W, _ = images.shape
-            draws = draw_augmentation(
-                n, H, W, table, jitter, random_erase_count, random_erase_mode == "pixel",
-                random_erase_area, random_erase_aspect, hflip_prob, random_erase_prob,
-                generator, images.device)
+            draws = draw(n, H, W, generator, images.device)
         return apply_augmentation(images, draws, table, random_erase_count)
 
-    augment.table = table
+    augment.table, augment.draw = table, draw
     return augment
 
 

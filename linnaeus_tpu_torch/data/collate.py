@@ -106,7 +106,7 @@ def _mixable_mask(group_ids, perm, targets, cfg: MixConfig) -> torch.Tensor:
     return mask
 
 
-def _mix_targets(targets, perm, lam, mask):
+def mix_targets(targets, perm, lam, mask):
     out = {}
     for t, tgt in targets.items():
         tgt = tgt.float()
@@ -115,7 +115,7 @@ def _mix_targets(targets, perm, lam, mask):
     return out
 
 
-def _hard_pick_meta(meta, perm, mask, chunk_bounds, generator, picks):
+def hard_pick_meta(meta, perm, mask, chunk_bounds, generator=None, picks=None):
     """Chunk-level hard pick between a sample's metadata and its partner's."""
     if meta is None or not chunk_bounds:
         return meta
@@ -138,6 +138,82 @@ def _draw(draws: Draws | None, key: str):
     return None if draws is None or key not in draws else draws[key]
 
 
+class MixPlan(NamedTuple):
+    """Who mixes with whom, and how: ``perm`` each row's partner, ``mask``
+    the rows that mix, ``lam`` the targets' weight (mixup: the images' too),
+    ``box`` the cut box (y1, y2, x1, x2) of cutmix, None for mixup."""
+
+    perm: torch.Tensor
+    mask: torch.Tensor
+    lam: torch.Tensor
+    box: tuple | None
+
+
+def plan_mixing(
+    group_ids: torch.Tensor,
+    targets: dict[str, torch.Tensor],
+    cfg: MixConfig,
+    cutmix: bool,
+    size: tuple[int, int],
+    generator: torch.Generator | None = None,
+    draws: Draws | None = None,
+    gate: torch.Tensor | None = None,
+) -> MixPlan:
+    """The partners, the mix mask and lam of a batch of images of ``size``
+    (H, W); draws perm_noise, lam, then cy and cx (cutmix), in that order."""
+    dev = group_ids.device
+    perm = ingroup_permutation(group_ids, generator, _draw(draws, "perm_noise"))
+    mask = _mixable_mask(group_ids, perm, targets, cfg)
+    if gate is not None:
+        mask = mask & gate
+    lam = _draw(draws, "lam")
+    if lam is None:
+        lam = _sample_beta(cfg.cutmix_alpha if cutmix else cfg.mixup_alpha, dev, generator)
+    if not cutmix:
+        return MixPlan(perm, mask, lam, None)
+    H, W = size
+    if cfg.cutmix_minmax is not None:
+        lo, hi = float(cfg.cutmix_minmax[0]), float(cfg.cutmix_minmax[1])
+        lam = lo + (hi - lo) * lam
+    cy, cx = _draw(draws, "cy"), _draw(draws, "cx")
+    if cy is None or cx is None:
+        if generator is None:
+            raise ValueError("collate: pass a torch.Generator or the random draws themselves")
+        cy = torch.randint(0, H, (), generator=generator, device=dev)
+        cx = torch.randint(0, W, (), generator=generator, device=dev)
+    y1, y2, x1, x2 = _rand_bbox(H, W, lam, cy, cx)
+    # adjusted lam = 1 - actual box area fraction
+    lam_adj = 1.0 - ((y2 - y1) * (x2 - x1)).float() / float(H * W)
+    return MixPlan(perm, mask, lam_adj, (y1, y2, x1, x2))
+
+
+def mix_images(images: torch.Tensor, partner: torch.Tensor, mask: torch.Tensor,
+               plan: MixPlan) -> torch.Tensor:
+    """``images`` (B, H, W, C) mixed with ``partner`` (each row's partner
+    image) where ``mask``: interpolated by lam (mixup) or the partner's box
+    pasted (cutmix)."""
+    B = images.shape[0]
+    if plan.box is None:
+        im_mask = mask.reshape((B,) + (1,) * (images.dim() - 1))
+        mixed_images = plan.lam * images + (1.0 - plan.lam) * partner
+        return torch.where(im_mask, mixed_images.to(images.dtype), images)
+    y1, y2, x1, x2 = plan.box
+    rows = torch.arange(images.shape[1], device=images.device)[None, :, None, None]
+    cols = torch.arange(images.shape[2], device=images.device)[None, None, :, None]
+    in_box = (rows >= y1) & (rows < y2) & (cols >= x1) & (cols < x2)
+    return torch.where(mask.reshape(B, 1, 1, 1) & in_box, partner, images)
+
+
+def _selective(cutmix, images, targets, meta, group_ids, cfg, generator, draws, gate):
+    plan = plan_mixing(group_ids, targets, cfg, cutmix, tuple(images.shape[1:3]), generator,
+                       draws, gate)
+    images = mix_images(images, images[plan.perm], plan.mask, plan)
+    targets = mix_targets(targets, plan.perm, plan.lam, plan.mask)
+    meta = hard_pick_meta(meta, plan.perm, plan.mask, cfg.chunk_bounds, generator,
+                           _draw(draws, "meta_pick"))
+    return images, targets, meta, plan.mask
+
+
 def selective_mixup(
     images: torch.Tensor,
     targets: dict[str, torch.Tensor],
@@ -150,22 +226,7 @@ def selective_mixup(
 ):
     """Returns (images, targets, meta, mixed_mask). ``gate`` is an optional
     bool scalar tensor and-ed into the mask (the scheduled mix decision)."""
-    dev = images.device
-    B = images.shape[0]
-    perm = ingroup_permutation(group_ids, generator, _draw(draws, "perm_noise"))
-    mask = _mixable_mask(group_ids, perm, targets, cfg)
-    if gate is not None:
-        mask = mask & gate
-    lam = _draw(draws, "lam")
-    if lam is None:
-        lam = _sample_beta(cfg.mixup_alpha, dev, generator)
-    im_mask = mask.reshape((B,) + (1,) * (images.dim() - 1))
-    mixed_images = lam * images + (1.0 - lam) * images[perm]
-    images = torch.where(im_mask, mixed_images.to(images.dtype), images)
-    targets = _mix_targets(targets, perm, lam, mask)
-    meta = _hard_pick_meta(meta, perm, mask, cfg.chunk_bounds, generator,
-                           _draw(draws, "meta_pick"))
-    return images, targets, meta, mask
+    return _selective(False, images, targets, meta, group_ids, cfg, generator, draws, gate)
 
 
 def _rand_bbox(h: int, w: int, lam, cy, cx):
@@ -194,39 +255,7 @@ def selective_cutmix(
 ):
     """CutMix variant: paste the partner's box; targets are weighted by the
     true box area. Images are (B, H, W, C)."""
-    dev = images.device
-    B, H, W = images.shape[0], images.shape[1], images.shape[2]
-    perm = ingroup_permutation(group_ids, generator, _draw(draws, "perm_noise"))
-    mask = _mixable_mask(group_ids, perm, targets, cfg)
-    if gate is not None:
-        mask = mask & gate
-    lam = _draw(draws, "lam")
-    if lam is None:
-        lam = _sample_beta(cfg.cutmix_alpha, dev, generator)
-    if cfg.cutmix_minmax is not None:
-        lo, hi = float(cfg.cutmix_minmax[0]), float(cfg.cutmix_minmax[1])
-        lam = lo + (hi - lo) * lam
-    cy, cx = _draw(draws, "cy"), _draw(draws, "cx")
-    if cy is None or cx is None:
-        if generator is None:
-            raise ValueError("collate: pass a torch.Generator or the random draws themselves")
-        cy = torch.randint(0, H, (), generator=generator, device=dev)
-        cx = torch.randint(0, W, (), generator=generator, device=dev)
-    y1, y2, x1, x2 = _rand_bbox(H, W, lam, cy, cx)
-
-    rows = torch.arange(H, device=dev)[None, :, None, None]
-    cols = torch.arange(W, device=dev)[None, None, :, None]
-    in_box = (rows >= y1) & (rows < y2) & (cols >= x1) & (cols < x2)
-    im_mask = mask.reshape(B, 1, 1, 1) & in_box
-    images = torch.where(im_mask, images[perm], images)
-
-    # adjusted lam = 1 - actual box area fraction
-    box_area = ((y2 - y1) * (x2 - x1)).float()
-    lam_adj = 1.0 - box_area / float(H * W)
-    targets = _mix_targets(targets, perm, lam_adj, mask)
-    meta = _hard_pick_meta(meta, perm, mask, cfg.chunk_bounds, generator,
-                           _draw(draws, "meta_pick"))
-    return images, targets, meta, mask
+    return _selective(True, images, targets, meta, group_ids, cfg, generator, draws, gate)
 
 
 def apply_mixing(
@@ -255,9 +284,13 @@ def apply_mixing(
     if gate_draw is None:
         gate_draw = _uniform((), images.device, generator)
     gate = gate_draw < mix_prob
-    cutmix = cfg.cutmix_enabled and (not cfg.mixup_enabled or bool(use_cutmix))
-    mix = selective_cutmix if cutmix else selective_mixup
+    mix = selective_cutmix if uses_cutmix(cfg, use_cutmix) else selective_mixup
     return mix(images, soft, meta, group_ids, cfg, generator, draws, gate)
+
+
+def uses_cutmix(cfg: MixConfig, use_cutmix: bool) -> bool:
+    """Whether a step mixes by cutmix (else by mixup)."""
+    return cfg.cutmix_enabled and (not cfg.mixup_enabled or bool(use_cutmix))
 
 
 def apply_meta_masking(

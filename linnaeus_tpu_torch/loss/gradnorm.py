@@ -22,8 +22,8 @@ rank's; the re-forward's logits and the targets are gathered over the data
 axis, so each loss is the global batch's, and each rank's share of a
 task's trunk gradient is summed over the model axis (for the
 ``model_split`` parameters) and the data axis, and its norm is the whole
-gradient's (parallel/model.py::grad_norm: a share's squares summed over
-its axis). Under FSDP the trunk's parameters are shards: the task's
+gradient's (parallel/model.py::grad_norm: the squares of a share's norm
+summed over its axis). Under FSDP the trunk's parameters are shards: the task's
 gradient is taken by ``backward`` (FSDP2 sums the shards' gradients over
 the data axis).
 """

@@ -14,24 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from linnaeus_tpu_torch.parallel.ops import draw_rows
+
 INIT_STD = 0.02  # trunc_normal(std=0.02), the ViT/ConvNeXt init
-
-
-def draw_rows(draw, shape, device, generator, group=None, dim: int = 0) -> torch.Tensor:
-    """``draw(shape, generator=..., device=...)`` (``torch.rand`` /
-    ``torch.randn``) for this rank's rows along ``dim``. With a data group
-    (parallel/: the global batch split over ranks) every rank draws the
-    global batch's tensor from the same generator state and keeps its own
-    rows, so the draws are those of the one-process run."""
-    if group is None:
-        return draw(shape, generator=generator, device=device)
-    import torch.distributed as dist
-
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    full = list(shape)
-    full[dim] *= n
-    return draw(full, generator=generator, device=device).narrow(dim, r * shape[dim],
-                                                                 shape[dim])
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:

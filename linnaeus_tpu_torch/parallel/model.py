@@ -24,9 +24,9 @@ plain Parameter tagged ``share`` (:class:`Share`: the axis, every rank's
 entries, the whole shape): its gradient, its optimizer moments and its EMA
 are this rank's share alone. :func:`whole_state_dict` gathers them into
 the one-process layout (checkpoints), :func:`own_share` cuts a whole tensor
-down again (resume), :func:`grad_norm` sums the shares' squares over the
-axis (the clip, GradNorm). Under pipelining every rank keeps the whole
-tower and a stage differentiates only its own layers: :func:`shard_model`
+down again (resume), :func:`grad_norm` sums the squares of the shares'
+norms over the axis (the clip, GradNorm). Under pipelining every rank keeps
+the whole tower and a stage differentiates only its own layers: :func:`shard_model`
 returns the names of those parameters, whose gradients the train step sums
 over the model axis (train/step.py).
 """
@@ -162,28 +162,28 @@ def whole_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def grad_norm(pairs, data_group) -> torch.Tensor:
-    """The L2 norm of the whole gradient, given (parameter, gradient) pairs:
-    the squares of FSDP2's shards summed over the data axis and of the
-    model axis's shares over that axis, the rest once (without either,
-    torch's ``get_total_norm`` of the gradients as they are)."""
+    """The L2 norm of the whole gradient, given (parameter, gradient) pairs.
+    Each gradient's norm is taken where it lives (FSDP2's shard, the model
+    axis's share or the whole tensor) in one fused ``_foreach_norm``; the
+    squares of the shards' norms are summed over the data axis, those of
+    the shares over the model axis, the rest taken once. Where neither axis
+    has more than one rank this is torch's ``get_total_norm`` of the local
+    tensors, so a model under FSDP2 on one rank gives the one-process bits."""
     pairs = [(p, g) for p, g in pairs if g is not None]
-    fsdp = [g.to_local() if hasattr(g, "to_local") else g for p, g in pairs
-            if hasattr(p, "to_local")]
-    shares = [(g, p.share.group) for p, g in pairs if getattr(p, "share", None) is not None]
-    rest = [g for p, g in pairs if not hasattr(p, "to_local") and getattr(p, "share", None) is None]
-    if not fsdp and not shares:
-        return torch.nn.utils.get_total_norm(rest, norm_type=2.0)
-    sq = torch.zeros((), dtype=torch.float32, device=pairs[0][1].device)
-    for part, group in ((fsdp, data_group), ([g for g, _ in shares],
-                                              shares[0][1] if shares else None)):
-        if part:
-            total = torch.stack([g.float().square().sum() for g in part]).sum()
-            if group is not None:
-                torch.distributed.all_reduce(total, group=group)
-            sq = sq + total
-    if rest:
-        sq = sq + torch.nn.utils.get_total_norm(rest, norm_type=2.0).square()
-    return sq.sqrt()
+    local = [g.to_local() if hasattr(g, "to_local") else g for _, g in pairs]
+    axes = [data_group if hasattr(p, "to_local")
+            else getattr(getattr(p, "share", None), "group", None) for p, _ in pairs]
+    axes = [a if group_size(a) > 1 else None for a in axes]
+    if all(a is None for a in axes):
+        return torch.nn.utils.get_total_norm(local, norm_type=2.0)
+    norms = torch._foreach_norm(local)
+    total = None
+    for group in {id(a): a for a in axes}.values():
+        part = torch.stack([n.float() for n, a in zip(norms, axes) if a is group]).square().sum()
+        if group is not None:
+            torch.distributed.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return total.sqrt()
 
 
 def shard_model(model: nn.Module, mesh: Mesh, mode: str = "replicated",
@@ -262,15 +262,30 @@ def check_parallel(config, mesh: Mesh, model: nn.Module) -> None:
                          "tp, ep")
 
 
+def fsdp_units(model: nn.Module) -> list[nn.Module]:
+    """The modules FSDP2 wraps, innermost first: each block of
+    ``model.stages`` (mFormerV1's ConvNeXt and RoPE blocks), then the root,
+    which holds the rest (stem, downsampling, heads). Under pipelining the
+    towers read their blocks' parameters through ``torch.func.functional_call``
+    (models/mformer_v1.py::_pipelined), which must see whole tensors: the
+    root alone, as for a model without ``stages``."""
+    if getattr(model, "pipeline_stages", 0) > 1:
+        return [model]
+    return [blk for stage in getattr(model, "stages", ()) for blk in stage] + [model]
+
+
 def apply_fsdp(model: nn.Module, mesh: Mesh) -> None:
-    """FSDP2 ``fully_shard`` of ``model`` over the data axis, each parameter
-    sharded along the torch axis of the Flax axis the TPU package's plan
-    picks (its largest divisible one); a parameter the plan replicates is
-    sharded along axis 0 (FSDP2 pads an uneven shard; the numbers are the
-    same). Gradients are summed over the axis, not averaged: the step's loss
-    is the global batch's on every rank. No MixedPrecisionPolicy: the
-    layers' own bfloat16 casts of the float32 parameters stay as they are.
-    Without a process group (one process) nothing is sharded."""
+    """FSDP2 ``fully_shard`` of ``model`` over the data axis, a unit a block
+    (:func:`fsdp_units`): a rank gathers one block's parameters at a time
+    for its forward and its backward and reduce-scatters that block's
+    gradients, not the whole model's at once. Each parameter is sharded
+    along the torch axis of the Flax axis the TPU package's plan picks (its
+    largest divisible one); a parameter the plan replicates is sharded along
+    axis 0 (FSDP2 pads an uneven shard; the numbers are the same). Gradients
+    are summed over the axis, not averaged: the step's loss is the global
+    batch's on every rank. No MixedPrecisionPolicy: the layers' own
+    bfloat16 casts of the float32 parameters stay as they are. Without a
+    process group (one process) nothing is sharded."""
     if mesh.device_mesh is None:
         return
     from torch.distributed.fsdp import fully_shard
@@ -281,11 +296,12 @@ def apply_fsdp(model: nn.Module, mesh: Mesh) -> None:
     plan = fsdp_param_sharding(mesh, model)
     dims = {id(p): plan[n].torch_axis for n, p in model.named_parameters()
             if plan[n] is not None}
-    fully_shard(model, mesh=mesh.device_mesh[DATA_AXIS],
-                shard_placement_fn=lambda p: Shard(dims.get(id(p), 0)))
-    setter = getattr(model, "set_gradient_divide_factor", None) or getattr(
-        model, "set_reduce_scatter_divide_factor")
-    setter(1.0)
-    if hasattr(model, "set_force_sum_reduction_for_comms"):
-        # a plain SUM (gloo has no pre-multiplied sum; NCCL takes either)
-        model.set_force_sum_reduction_for_comms(True)
+    for unit in fsdp_units(model):
+        fully_shard(unit, mesh=mesh.device_mesh[DATA_AXIS],
+                    shard_placement_fn=lambda p: Shard(dims.get(id(p), 0)))
+        setter = getattr(unit, "set_gradient_divide_factor", None) or getattr(
+            unit, "set_reduce_scatter_divide_factor")
+        setter(1.0)
+        if hasattr(unit, "set_force_sum_reduction_for_comms"):
+            # a plain SUM (gloo has no pre-multiplied sum; NCCL takes either)
+            unit.set_force_sum_reduction_for_comms(True)

@@ -135,6 +135,48 @@ class DistributedContext:
         return f"DistributedContext(rank={self.rank}, world={self.world_size})"
 
 
+def draw_rows(draw, shape, device, generator, group=None, dim: int = 0) -> torch.Tensor:
+    """``draw(shape, generator=..., device=...)`` (``torch.rand`` /
+    ``torch.randn``) for this rank's rows along ``dim``. With a data group
+    (the global batch split over ranks) every rank draws the global batch's
+    tensor from the same generator state and keeps its own rows, so the
+    draws are those of the one-process run: the draw is the global batch's,
+    the work on what is drawn is this rank's rows'."""
+    if group_size(group) == 1:
+        return draw(shape, generator=generator, device=device)
+    n, r = group_size(group), group_rank(group)
+    full = list(shape)
+    full[dim] *= n
+    return draw(full, generator=generator, device=device).narrow(dim, r * shape[dim],
+                                                                 shape[dim])
+
+
+def fetch_rows(x: torch.Tensor, need: list, group: Group) -> torch.Tensor:
+    """Rows of the global batch by index. ``x`` is this rank's rows (rank q
+    holds the global rows [q n, (q + 1) n)); ``need[q]`` the global rows
+    rank q asks for, the same lists on every rank. Returns the rows
+    ``need[this rank]`` in that order. Only rows that live on another rank
+    move, in one ``all_to_all_single``; when no rank needs another's rows no
+    collective runs at all."""
+    P, me, n = group_size(group), group_rank(group), x.shape[0]
+    need = [np.asarray(q, dtype=np.int64) for q in need]
+    mine, owner = need[me], need[me] // n
+    local = np.nonzero(owner == me)[0]
+    out = x.new_empty((len(mine),) + tuple(x.shape[1:]))
+    out[torch.from_numpy(local).to(x.device)] = x[torch.from_numpy(mine[local] - me * n)
+                                                  .to(x.device)]
+    if all(bool((q // n == r).all()) for r, q in enumerate(need)):
+        return out
+    sends = [q[q // n == me] - me * n if r != me else q[:0] for r, q in enumerate(need)]
+    froms = [np.nonzero(owner == r)[0] if r != me else local[:0] for r in range(P)]
+    send = x[torch.from_numpy(np.concatenate(sends)).to(x.device)].contiguous()
+    recv = x.new_empty((sum(len(f) for f in froms),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(recv, send, [len(f) for f in froms], [len(q) for q in sends],
+                           group=group)
+    out[torch.from_numpy(np.concatenate(froms)).to(x.device)] = recv
+    return out
+
+
 # ------------------------------------------------------------------ autograd
 def _gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     n = group_size(group)

@@ -112,7 +112,7 @@ class BenchStep:
         return self.step(self.state, self.data, self.scalars)[1]
 
     def gradnorm(self) -> dict:
-        return self.gradnorm_step(self.state)[1]
+        return self.gradnorm_step(self.state, self.data, self.scalars)[1]
 
     def __call__(self) -> dict:
         metrics = self.train()

@@ -9,8 +9,8 @@ on-device augmentation (AUG.*, when AUG.SINGLE_AUG_DEVICE is 'device'), the
 loss functions (LOSS.*), mixing (SCHEDULE.MIX), the clip, accumulation, the
 optimizer with its parameter groups and schedules (OPTIMIZER.*,
 LR_SCHEDULER.*), the EMA (TRAIN.EMA) and GradNorm's update
-(LOSS.GRAD_WEIGHTING.TASK), whose step keeps the collated batch it
-re-forwards (``keep_collated``). With ``pretrained`` it loads the
+(LOSS.GRAD_WEIGHTING.TASK), whose step collates the train step's batch
+again to re-forward it (``train_step.collated``). With ``pretrained`` it loads the
 configured pretrained weights (MODEL.PRETRAINED*, utils/pretrained.py) into
 the model before the optimizer and the EMA are built from it.
 """
@@ -165,7 +165,7 @@ def build_training(
             accumulation_steps=max(int(accumulation_steps), 1),
             phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
             has_meta=meta_dim > 0, lr_schedule=schedules["default"],
-            num_classes=dict(num_classes), augment_fn=augment, keep_collated=gradnorm_on,
+            num_classes=dict(num_classes), augment_fn=augment,
             moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01)) if moe_on else 0.0),
             moe_z_weight=(float(moe.get("ROUTER_Z_LOSS_WEIGHT", 0.001)) if moe_on else 0.0),
             ema_decay=float(ema.DECAY) if ema_on else 0.0,
@@ -189,6 +189,6 @@ def build_training(
             accum_steps=max(int(gw.get("GRADNORM_ACCUM_STEPS", 1) or 1), 1),
             remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
             mesh=mesh, model_split=split,
-        ))
+        ), train_step)
     return TrainParts(model, state, train_step, gradnorm_step, augment, train_criteria,
                       val_criteria, schedules, mix_cfg, meta_dim, optimizer_and_step, reports)

@@ -13,8 +13,10 @@ train/build.py::build_training, the same function ``tools/train_bench.py``
 builds its config step with. The model is drawn from ``MISC.SEED`` and every
 random draw of a step comes from the state's generator, seeded with it too.
 Schedule values enter each step as operands computed on the host. GradNorm's
-update re-forwards the collated batch the step just consumed, which the step
-keeps (``keep_collated``).
+update re-forwards the collated batch the step just consumed, collated again
+from the same batch and scalars with the generator states the step saved
+(``train_step.collated``), as the TPU package regenerates it from the step's
+key.
 
 MODEL.PRETRAINED* loads pretrained weights (utils/pretrained.py) into the
 model after it is built and before the optimizer and the EMA exist, unless
@@ -108,16 +110,6 @@ def combo_to_mask(combo: list[str] | None, bounds_by_name: dict, meta_dim: int):
     return mask
 
 
-def check_trainer_options(config) -> None:
-    """Raise by name for what a config may ask of the Trainer that the port
-    does not run (the parallel branches are checked with the data)."""
-    if config.ENV.OUTPUT.BUCKET.get("ENABLED", False) or config.ENV.OUTPUT.BUCKET.get(
-            "SYNC_ON_CHECKPOINT", False):
-        raise NotImplementedError(
-            "ENV.OUTPUT.BUCKET: remote output sync (utils/remote_sync.py) is not part of "
-            "the port")
-
-
 def _cuda_event(device: torch.device):
     if device.type != "cuda":
         return None
@@ -136,7 +128,6 @@ class Trainer:
         self.is_main = is_main_process()
         self.config = config
         self.skip_validation = skip_validation
-        check_trainer_options(config)
         ab = config.DATA.AUTOBATCH
         if ab.get("ENABLED", False) or ab.get("ENABLED_VAL", False):
             device_memory_bytes(self.device)  # the probe needs a card: raises without one
@@ -484,7 +475,6 @@ class Trainer:
         scalars = ScheduleScalars.zeros(self.meta_dim, device=self.device)
 
         def run_trial(bs: int) -> None:
-            self.state.last_collated = None  # a trial that ran out of memory may have left it
             batch = self._zeros_batch(bs)
             # the batches the loader copies to the card ahead of the step
             ahead = [self._zeros_batch(bs)
@@ -492,8 +482,7 @@ class Trainer:
             for _ in range(int(ab.STEPS_PER_TRIAL)):
                 self.state, _metrics = self._train_step(self.state, batch, scalars)
             if self._gradnorm_update is not None:
-                self.state, _metrics = self._gradnorm_update(self.state)
-            self.state.last_collated = None
+                self.state, _metrics = self._gradnorm_update(self.state, batch, scalars)
             del ahead
 
         old_bs = int(self.config.DATA.BATCH_SIZE)
@@ -634,7 +623,23 @@ class Trainer:
             self.progress.end_epoch()
         self._save_checkpoint()
         self.ckpt_writer.wait()
+        self._sync_outputs()
         logger.info("Training complete")
+
+    def _sync_outputs(self) -> None:
+        """The output directory to the B2 bucket (utils/remote_sync.py), at
+        training end and, under ENV.OUTPUT.BUCKET.SYNC_ON_CHECKPOINT, after
+        each checkpoint, from rank 0. No-op unless ENV.OUTPUT.BUCKET.ENABLED;
+        a failed upload is logged, as in the TPU package, and training goes
+        on."""
+        if not self.is_main or not self.config.ENV.OUTPUT.BUCKET.get("ENABLED", False):
+            return
+        from linnaeus_tpu_torch.utils.remote_sync import sync_to_bucket
+
+        try:
+            sync_to_bucket(self.config, self.config.ENV.OUTPUT.DIRS.EXP_BASE)
+        except Exception as e:  # a remote outage must not end the run
+            logger.error(f"Remote output sync failed: {e}")
 
     def _profile(self, step: int) -> None:
         """DEBUG.PROFILE.START_STEP / END_STEP: torch.profiler over the
@@ -708,7 +713,7 @@ class Trainer:
             gn_host = None
             if self.ops_schedule.should_update_gradnorm(self.progress.global_step):
                 if self._gradnorm_update is not None:
-                    self.state, gn_metrics = self._gradnorm_update(self.state)
+                    self.state, gn_metrics = self._gradnorm_update(self.state, batch, scalars)
                     gn_host = {k: v.detach().cpu().numpy() for k, v in gn_metrics.items()}
             self.step_times.append({
                 "step": self.progress.global_step, "gradnorm": gn_host is not None,
@@ -1066,6 +1071,9 @@ class Trainer:
                    "BATCH_SIZE_VAL": int(self.config.DATA.BATCH_SIZE_VAL),
                    "BASE_LR": float(self.config.LR_SCHEDULER.BASE_LR)},
         )
+        if self.config.ENV.OUTPUT.BUCKET.get("SYNC_ON_CHECKPOINT", False):
+            self.ckpt_writer.wait()  # upload only finalized files
+            self._sync_outputs()
         sc = self.config.SCHEDULE.CHECKPOINT
         ckpt.manage_checkpoints(
             self.ckpt_dir,

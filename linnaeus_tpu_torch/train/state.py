@@ -6,13 +6,14 @@ updates in place: the model (float32 parameters), the optimizer with its
 moments, the step counter, the GradNorm state, the ``torch.Generator`` that
 every random draw of a step comes from (so a run is reproducible from its
 seed), optionally an exponential moving average of the parameters, and,
-for the GradNorm update, the collated tensors the last train step consumed.
+for the GradNorm update, the generator's state before each collate of the
+last train step, from which that step's batch is collated again.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping, NamedTuple
+from typing import Callable, Mapping
 
 import torch
 from torch import nn
@@ -23,17 +24,6 @@ from linnaeus_tpu_torch.models.blocks.moe import MoEMlp
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
 
 Schedule = Callable[[int], float]
-
-
-class Collated(NamedTuple):
-    """What a train step's forward consumed, after [0, 1] conversion,
-    augmentation, mixing and meta-masking: images in the model's compute
-    dtype (its first op casts to it, so the forward is the same), soft
-    targets by task, and the metadata or None."""
-
-    images: torch.Tensor
-    targets: dict[str, torch.Tensor]
-    meta: torch.Tensor | None
 
 
 @dataclass
@@ -51,9 +41,10 @@ class TrainState:
     lr_schedule: Schedule | Mapping[str, Schedule] | None = None
     # exponential moving average of the parameters by name (None: disabled)
     ema_params: dict[str, torch.Tensor] | None = None
-    # the collated tensors of the last train step (train/step.py, kept when
-    # GradNorm is to re-forward them), else None
-    last_collated: Collated | None = None
+    # the generator's state before each microbatch's collate in the last
+    # train step (a few bytes each), from which the GradNorm re-forward
+    # collates that step's batch again (train/step.py); None before a step
+    collate_rng: list[torch.Tensor] | None = None
 
     def group_lr(self, group: Mapping, step: int) -> float:
         """The rate of optimizer param group ``group`` at ``step``."""

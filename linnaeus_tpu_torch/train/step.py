@@ -30,32 +30,36 @@ TPU package's step.
 
 The GradNorm re-forward. The TPU package re-derives the collated tensors of
 the last step by regenerating that step's key and preprocessing the same
-batch again. The port keeps the collated tensors themselves instead
-(``keep_collated``, ``TrainState.last_collated``): the images in the
-model's compute dtype, which is all its first op reads, the soft targets
-and the metadata. At 384 px and B = 64 in bfloat16 that is 57 MB of images
-(113 MB in float32) and 0.4 MB of targets for four tasks of 1530 classes,
-held from one step to the next; no augmentation or mixing runs twice.
+batch again. The port does the same: a train step saves the generator's
+state before each microbatch's collate (``TrainState.collate_rng``, 16 bytes
+a microbatch on the card), and ``train_step.collated`` collates the same
+batch again from those states, so no collated tensor is held from one step
+to the next (at 384 px and B = 64 that was 57 MB of bfloat16 images).
 
 Gradient accumulation runs the microbatches in a Python loop, summing the
 gradients on the parameters.
 
-More than one rank (``mesh``, parallel/mesh.py). Every rank computes what
-the one-process step computes on the global batch, as the TPU package's
-step does under ``jit`` over its mesh: each rank is handed its rows; the
-step gathers the global (micro)batch over the data axis and collates it on
-every rank alike (augmentation, mixing partners that may sit on another
-rank, meta-masking: one generator, the same draws everywhere); the forward
-runs on this rank's rows (the model's draws and BatchNorm statistics are
-the global batch's, parallel/model.py); the logits are gathered back
-(``gather_rows``), so the loss, its global denominators and every metric
-are the global batch's, the same bits on every rank; the backward leaves
-each rank its rows' share of the gradients, which are summed over the data
-axis (one flat all-reduce in a fixed order; under FSDP2 its reduce-scatter,
-summing), and, for the parameters ``model_split`` names (the pipeline's
-towers), over the model axis first. The clip's norm is the whole
-gradient's (parallel/model.py::grad_norm: FSDP2's shards and the model
-axis's shares summed over their axes).
+More than one rank (``mesh``, parallel/mesh.py). Every rank computes its
+share of what the one-process step computes on the global batch, as the TPU
+package's step does under ``jit`` over its mesh: each rank is handed its
+rows; the step gathers the small parts of the global (micro)batch (targets,
+metadata, group ids) and makes the global batch's draws on every rank alike
+(one generator, the same draws everywhere); each rank collates its chunk of
+the (micro)batch: it fetches only the raw images it needs from the ranks
+that hold them (its chunk under accumulation, its chunk's mixing partners
+that sit elsewhere; parallel/ops.py::fetch_rows), augments those with their
+rows of the global draws and mixes (``make_preprocess_fn``'s ``rows``). The
+forward runs on this rank's rows (the model's draws and BatchNorm
+statistics are the global batch's, parallel/model.py); the loss sums its
+per-task sums and counts over the data axis (loss/hierarchical.py), so the
+loss is the global batch's, the same on every rank, and so are the metrics,
+whose counts are summed over the axis too. The backward leaves each rank
+its rows' share of the gradients, which are summed over the data axis (one
+flat all-reduce in a fixed order; under FSDP2 its reduce-scatter, summing),
+and, for the parameters ``model_split`` names (the pipeline's towers), over
+the model axis first. The clip's norm is the whole gradient's
+(parallel/model.py::grad_norm: the squares of the norms of FSDP2's shards
+and the model axis's shares summed over their axes). A data axis of one rank is the one-process step.
 
 MoE. With ``moe_aux_weight`` or ``moe_z_weight`` above zero the step asks
 the model for its MoE statistics (``model(..., moe_stats=True)``: the
@@ -84,18 +88,35 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import torch
 
+import numpy as np
+
+from linnaeus_tpu_torch.data.augmentation.autoaugment import take_rows
 from linnaeus_tpu_torch.data.collate import (
     MixConfig,
+    _sample_beta,
+    _uniform,
     apply_meta_masking,
     apply_mixing,
     apply_partial_meta_masking,
+    hard_pick_meta,
+    mix_images,
+    mix_targets,
+    plan_mixing,
+    uses_cutmix,
 )
 from linnaeus_tpu_torch.loss.basic import one_hot
 from linnaeus_tpu_torch.loss.hierarchical import weighted_hierarchical_loss
 from linnaeus_tpu_torch.parallel.model import grad_norm
-from linnaeus_tpu_torch.parallel.ops import all_reduce_, gather_rows, split_rows
+from linnaeus_tpu_torch.parallel.ops import (
+    all_reduce_,
+    fetch_rows,
+    gather_rows,
+    group_rank,
+    group_size,
+    split_rows,
+)
 
-from .state import Collated, TrainState
+from .state import TrainState
 
 Draws = Mapping[str, Any]
 MOE_KEYS = ("moe_aux", "moe_z", "moe_drop_frac")
@@ -155,14 +176,18 @@ def _topk_correct(logits: torch.Tensor, targets: torch.Tensor, k: int) -> torch.
     return ((topk == true_idx[:, None]).any(dim=-1) & _valid_mask(targets)).sum()
 
 
-def _accuracy_metrics(outputs, targets, prefix="") -> dict[str, torch.Tensor]:
-    m = {}
-    for task, logits in outputs.items():
-        tgt = targets[task]
-        n = _valid_mask(tgt).sum().float().clamp_min(1.0)
-        m[f"{prefix}acc1/{task}"] = _topk_correct(logits, tgt, 1) / n
-        m[f"{prefix}acc3/{task}"] = _topk_correct(logits, tgt, min(3, logits.shape[-1])) / n
-    return m
+def _count_metrics(outputs, targets) -> dict[str, torch.Tensor]:
+    """Top-1 and top-3 hits and valid rows by task, as float32 counts."""
+    out = {}
+    for t, logits in outputs.items():
+        tgt = targets[t]
+        out[f"correct1/{t}"] = _topk_correct(logits, tgt, 1).float()
+        out[f"correct3/{t}"] = _topk_correct(logits, tgt, min(3, logits.shape[-1])).float()
+        out[f"valid/{t}"] = _valid_mask(tgt).sum().float()
+    return out
+
+
+BATCH_KEYS = ("images", "targets", "aux", "group_ids")
 
 
 def split_microbatches(batch: dict, accum: int, has_meta: bool = True) -> list[dict]:
@@ -172,14 +197,12 @@ def split_microbatches(batch: dict, accum: int, has_meta: bool = True) -> list[d
     def split(x):
         return x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))
 
-    stacks = {
-        "images": split(batch["images"]),
-        "targets": {t: split(v) for t, v in batch["targets"].items()},
-    }
-    if batch.get("aux") is not None and has_meta:
-        stacks["aux"] = split(batch["aux"])
-    if batch.get("group_ids") is not None:
-        stacks["group_ids"] = split(batch["group_ids"])
+    stacks = {}
+    for k in BATCH_KEYS:
+        v = batch.get(k)
+        if v is None or (k == "aux" and not has_meta):
+            continue
+        stacks[k] = {t: split(x) for t, x in v.items()} if isinstance(v, dict) else split(v)
     return [
         {k: ({t: v[i] for t, v in s.items()} if isinstance(s, dict) else s[i])
          for k, s in stacks.items()}
@@ -200,6 +223,11 @@ def _ensure_soft(targets, num_classes):
     return out
 
 
+def _to_unit(images: torch.Tensor) -> torch.Tensor:
+    """uint8 host pipeline -> on-device [0, 1] float"""
+    return images if images.is_floating_point() else images.float() * (1.0 / 255.0)
+
+
 def make_preprocess_fn(
     mix_cfg: MixConfig,
     has_meta: bool = True,
@@ -209,35 +237,125 @@ def make_preprocess_fn(
     """On-device collate: [0, 1] conversion -> augmentation -> mixing ->
     meta-masking, the TPU package's order. ``augment_fn`` is the pipeline of
     data/augmentation/autoaugment.py (``augment(images, generator,
-    draws)``) or None. Returns ``preprocess(batch, scalars, generator,
-    draws) -> (images, targets, meta, mixed_mask)``."""
+    draws)``, ``augment.draw``) or None. Returns ``preprocess(batch,
+    scalars, generator, draws) -> (images, targets, meta, mixed_mask)``.
 
-    def preprocess(batch, scalars: ScheduleScalars, generator=None, draws: Draws | None = None):
-        draws = draws or {}
-        images = batch["images"]
-        if not images.is_floating_point():
-            # uint8 host pipeline -> on-device [0, 1] float
-            images = images.float() * (1.0 / 255.0)
+    Every draw is made first, in a fixed order (``preprocess.draw``), then
+    applied. ``preprocess.rows(batch, images, offset, group, ...)`` is the
+    same collate over a data group: ``batch`` holds the global (micro)batch's
+    targets, metadata and group ids, ``images`` this rank's raw rows of the
+    whole global batch, ``offset`` where the (micro)batch starts in it; it
+    returns this rank's chunk of what ``preprocess`` returns for the global
+    (micro)batch, augmenting only that chunk and the mixing partners it
+    fetched from other ranks (parallel/ops.py::fetch_rows)."""
+    mixing = mix_cfg.mixup_enabled or mix_cfg.cutmix_enabled
+
+    def draw(n, size, meta_on, scalars, generator, device, draws=None) -> dict:
+        """Every draw of collating ``n`` images of ``size`` (H, W); those
+        in ``draws`` are taken as given."""
+        out = dict(draws or {})
+
+        def take(key, fn):
+            if key not in out:
+                out[key] = fn()
+
         if augment_fn is not None:
-            images = augment_fn(images.float(), generator, draws.get("augment")).to(images.dtype)
+            take("augment", lambda: augment_fn.draw(n, *size, generator, device))
+        if mixing:
+            cutmix = uses_cutmix(mix_cfg, scalars.use_cutmix)
+            take("gate", lambda: _uniform((), device, generator))
+            take("perm_noise", lambda: _uniform((n,), device, generator))
+            take("lam", lambda: _sample_beta(
+                mix_cfg.cutmix_alpha if cutmix else mix_cfg.mixup_alpha, device, generator))
+            if cutmix and ("cy" not in out or "cx" not in out):
+                out["cy"] = torch.randint(0, size[0], (), generator=generator, device=device)
+                out["cx"] = torch.randint(0, size[1], (), generator=generator, device=device)
+            if meta_on and mix_cfg.chunk_bounds:
+                take("meta_pick", lambda: torch.stack(
+                    [_uniform((n,), device, generator) < 0.5 for _ in mix_cfg.chunk_bounds]))
+        if meta_on:
+            take("meta_coins", lambda: _uniform((n,), device, generator))
+            take("partial_coins", lambda: _uniform((n,), device, generator))
+        return out
+
+    def mask_meta(meta, scalars, draws):
+        if meta is None:
+            return None
+        meta, masked_flags = apply_meta_masking(meta, scalars.meta_mask_prob,
+                                                coins=draws["meta_coins"])
+        return apply_partial_meta_masking(meta, scalars.partial_mask_prob,
+                                          scalars.partial_combo_mask, masked_flags,
+                                          coins=draws["partial_coins"])
+
+    def parts(batch, n, device):
         targets = _ensure_soft(batch["targets"], num_classes)
         meta = batch.get("aux") if has_meta else None
         group_ids = batch.get("group_ids")
         if group_ids is None:
-            group_ids = torch.zeros(images.shape[0], dtype=torch.int32, device=images.device)
+            group_ids = torch.zeros(n, dtype=torch.int32, device=device)
+        return targets, meta, group_ids
+
+    def preprocess(batch, scalars: ScheduleScalars, generator=None, draws: Draws | None = None):
+        images = _to_unit(batch["images"])
+        targets, meta, group_ids = parts(batch, images.shape[0], images.device)
+        draws = draw(images.shape[0], tuple(images.shape[1:3]), meta is not None, scalars,
+                     generator, images.device, draws)
+        if augment_fn is not None:
+            images = augment_fn(images.float(), None, draws["augment"]).to(images.dtype)
         images, targets, meta, mixed_mask = apply_mixing(
             images, targets, meta, group_ids, mix_cfg,
-            scalars.mix_prob, scalars.use_cutmix, generator, draws,
+            scalars.mix_prob, scalars.use_cutmix, None, draws,
         )
-        if meta is not None:
-            meta, masked_flags = apply_meta_masking(
-                meta, scalars.meta_mask_prob, generator, draws.get("meta_coins"))
-            meta = apply_partial_meta_masking(
-                meta, scalars.partial_mask_prob, scalars.partial_combo_mask,
-                masked_flags, generator, draws.get("partial_coins"),
-            )
-        return images, targets, meta, mixed_mask
+        return images, targets, mask_meta(meta, scalars, draws), mixed_mask
 
+    def rows(batch, images, offset, group, scalars: ScheduleScalars, generator=None,
+             draws: Draws | None = None):
+        P, me = group_size(group), group_rank(group)
+        device = images.device
+        n = next(iter(batch["targets"].values())).shape[0]
+        if n % P:
+            raise ValueError(f"collate: {n} rows do not split over {P} data ranks")
+        chunk = n // P
+        targets, meta, group_ids = parts(batch, n, device)
+        size = tuple(images.shape[1:3])
+        draws = draw(n, size, meta is not None, scalars, generator, device, draws)
+        targets = {t: v.float() for t, v in targets.items()}
+        own = torch.arange(me * chunk, (me + 1) * chunk, device=device)
+        need = [np.arange(q * chunk, (q + 1) * chunk) for q in range(P)]
+        plan = None
+        if mixing:
+            gate = draws["gate"] < scalars.mix_prob
+            plan = plan_mixing(group_ids, targets, mix_cfg,
+                               uses_cutmix(mix_cfg, scalars.use_cutmix), size, None, draws, gate)
+            perm, mask = plan.perm.cpu().numpy(), plan.mask.cpu().numpy()
+            for q, mine in enumerate(need):  # each rank's chunk, then its partners elsewhere
+                partners = np.unique(perm[mine][mask[mine]])
+                need[q] = np.concatenate([mine, partners[(partners // chunk) != q]])
+            targets = {t: v[own] for t, v in
+                       mix_targets(targets, plan.perm, plan.lam, plan.mask).items()}
+            meta = hard_pick_meta(meta, plan.perm, plan.mask, mix_cfg.chunk_bounds,
+                                  picks=draws.get("meta_pick"))
+        else:
+            targets = {t: v[own] for t, v in targets.items()}
+        meta = mask_meta(meta, scalars, draws)
+        fetched = _to_unit(fetch_rows(images, [q + offset for q in need], group))
+        if augment_fn is not None:
+            picked = torch.from_numpy(need[me]).to(device)
+            fetched = augment_fn(fetched.float(), None,
+                                 take_rows(draws["augment"], picked)).to(fetched.dtype)
+        out = fetched[:chunk]
+        if plan is None:
+            mixed = torch.zeros(chunk, dtype=torch.bool, device=device)
+        else:
+            where = np.zeros(n, dtype=np.int64)
+            where[need[me]] = np.arange(len(need[me]))
+            mine = need[me][:chunk]
+            partner = where[np.where(mask[mine], perm[mine], mine)]
+            mixed = plan.mask[own]
+            out = mix_images(out, fetched[torch.from_numpy(partner).to(device)], mixed, plan)
+        return out, targets, None if meta is None else meta[own], mixed
+
+    preprocess.draw, preprocess.rows = draw, rows
     return preprocess
 
 
@@ -257,7 +375,6 @@ def make_train_step(
     moe_z_weight: float = 0.0,
     ema_decay: float = 0.0,
     augment_fn: Callable | None = None,
-    keep_collated: bool = False,
     mesh=None,
     model_split: Sequence[str] = (),
 ):
@@ -270,13 +387,16 @@ def make_train_step(
     is updated in place. ``draws`` is one dict, or one per microbatch.
     ``lr_schedule`` only reports the rate in the metrics; the rate that is
     applied is ``state.lr_schedule``'s. ``augment_fn`` augments the images
-    after their [0, 1] conversion. ``keep_collated`` leaves what the forward
-    consumed in ``state.last_collated`` for the GradNorm step. ``mesh``:
-    the batch is this rank's rows (module docstring); ``model_split`` the
-    parameters whose gradients are summed over the model axis.
+    after their [0, 1] conversion. ``mesh``: the batch is this rank's rows
+    (module docstring); ``model_split`` the parameters whose gradients are
+    summed over the model axis. ``train_step.collated(state, batch,
+    scalars, draws=None)`` regenerates what the last step's forwards
+    consumed (the GradNorm re-forward's batch).
     """
     accum = max(int(accumulation_steps), 1)
     data_group = None if mesh is None else mesh.group("data")
+    if group_size(data_group) == 1:
+        data_group = None
     model_group = None if mesh is None else mesh.group("model")
     model_split = frozenset(model_split)
     collect_moe = moe_aux_weight > 0.0 or moe_z_weight > 0.0
@@ -284,24 +404,55 @@ def make_train_step(
     preprocess = make_preprocess_fn(mix_cfg, has_meta=has_meta, num_classes=num_classes,
                                     augment_fn=augment_fn)
 
-    def forward_backward(state, batch, scalars, draws, kept):
+    def microbatches(batch, scalars, draws):
+        """(targets, draws, collate) of each microbatch: ``collate(generator)``
+        gives (images, targets, meta, mixed_mask) of this rank's rows, the
+        targets are the microbatch's raw ones (the global batch's over a
+        data group)."""
+        if draws is None:
+            per_micro = [None] * accum
+        else:
+            per_micro = [draws] if isinstance(draws, Mapping) else list(draws)
+        if data_group is None:
+            micro = [batch] if accum == 1 else split_microbatches(batch, accum, has_meta)
+            return [(mb["targets"], d, lambda g, mb=mb, d=d: preprocess(mb, scalars, g, d))
+                    for mb, d in zip(micro, per_micro)]
+        small = gather_batch({k: batch.get(k) for k in BATCH_KEYS[1:]}, data_group)
+        micro = [small] if accum == 1 else split_microbatches(small, accum, has_meta)
+        n = len(next(iter(small["targets"].values()))) // accum
+        return [(mb["targets"], d, lambda g, mb=mb, d=d, i=i: preprocess.rows(
+                    mb, batch["images"], i * n, data_group, scalars, g, d))
+                for i, (mb, d) in enumerate(zip(micro, per_micro))]
+
+    def collated(state: TrainState, batch: dict, scalars: ScheduleScalars,
+                 draws: Draws | Sequence[Draws] | None = None):
+        """(images in the model's compute dtype, soft targets, meta) that
+        the last train step's forwards consumed, regenerated from the same
+        batch, scalars and draws and the generator states that step saved
+        before each microbatch's collate; microbatches joined."""
+        if state.collate_rng is None:
+            raise ValueError("collated: no train step has run on this state")
+        gen = torch.Generator(device=state.generator.device)
+        out = []
+        for (_, _, collate), rng in zip(microbatches(batch, scalars, draws), state.collate_rng):
+            gen.set_state(rng)
+            images, targets, meta, _ = collate(gen)
+            out.append((images.to(state.model.dtype), targets, meta))
+        images = torch.cat([o[0] for o in out])
+        targets = {t: torch.cat([o[1][t] for o in out]) for t in out[0][1]}
+        meta = None if out[0][2] is None else torch.cat([o[2] for o in out])
+        return images, targets, meta
+
+    def forward_backward(state, collate, raw_targets, scalars, draws):
         """Collate, forward, loss and backward of one (micro)batch; the
-        gradients are added onto the parameters' ``.grad``; with
-        ``keep_collated`` the collated tensors are appended to ``kept``."""
-        images, targets, meta, mixed_mask = preprocess(batch, scalars, state.generator, draws)
-        # this rank's rows of the collated global batch
-        images_in = split_rows(images, data_group).detach()
-        meta_in = None if meta is None else split_rows(meta, data_group).detach()
-        if keep_collated:
-            kept.append(Collated(images_in.to(state.model.dtype),
-                                 {t: split_rows(v, data_group) for t, v in targets.items()},
-                                 meta_in))
+        gradients are added onto the parameters' ``.grad``."""
+        state.collate_rng.append(state.generator.get_state())
+        images, targets, meta, mixed_mask = collate(state.generator)
         moe = None
         if collect_moe and hasattr(state.model, "moe_num_experts"):
-            outputs, moe = state.model(images_in, meta_in, moe_stats=True)
+            outputs, moe = state.model(images, meta, moe_stats=True)
         else:
-            outputs = state.model(images_in, meta_in)
-        outputs = {t: gather_rows(v, data_group) for t, v in outputs.items()}
+            outputs = state.model(images, meta)
         total, components = weighted_hierarchical_loss(
             outputs, targets, criteria, state.gradnorm.task_weights,
             scalars.null_mask_prob, state.generator, (draws or {}).get("null_coins"),
@@ -309,14 +460,17 @@ def make_train_step(
             phase1_mask_null=phase1_mask_null,
             apply_class_weights=apply_class_weights,
             task_keys=task_keys,
+            group=data_group,
         )
         if moe is not None:
             # the reported total is the optimised one, aux terms included
             total = total + moe_aux_weight * moe["moe_aux"] + moe_z_weight * moe["moe_z"]
             components = dict(components, **{k: v.detach() for k, v in moe.items()})
         total.backward()
-        outputs = {t: v.detach() for t, v in outputs.items()}
-        return total.detach(), outputs, components, mixed_mask
+        # accuracy counts against the raw targets (before mixing)
+        counts = _count_metrics({t: v.detach() for t, v in outputs.items()}, raw_targets)
+        counts["mixed"] = mixed_mask.float().sum()
+        return total.detach(), components, counts
 
     def train_step(state: TrainState, batch: dict, scalars: ScheduleScalars,
                    draws: Draws | Sequence[Draws] | None = None):
@@ -329,63 +483,41 @@ def make_train_step(
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        batch = gather_batch(batch, data_group)
+        state.collate_rng = []
 
-        metrics: dict[str, torch.Tensor | float] = {}
-        kept: list[Collated] = []
-        if accum == 1:
-            if draws is not None and not isinstance(draws, Mapping):
-                (draws,) = draws
-            total, outputs, components, mixed_mask = forward_backward(
-                state, batch, scalars, draws, kept)
+        total = 0.0
+        stats: dict[str, torch.Tensor | float] = {}
+        rows = 0
+        for mb_targets, mb_draws, collate in microbatches(batch, scalars, draws):
+            raw = mb_targets if data_group is None else {
+                t: split_rows(v, data_group) for t, v in mb_targets.items()}
+            mb_total, mb_comp, counts = forward_backward(state, collate, raw, scalars, mb_draws)
+            total = total + mb_total
+            rows += len(next(iter(mb_targets.values())))
+            for k, v in counts.items():
+                stats[k] = stats.get(k, 0.0) + v
+            for k in MOE_KEYS:
+                if k in mb_comp:
+                    stats[k] = stats.get(k, 0.0) + mb_comp[k]
             for t in task_keys:
-                metrics[f"loss/{t}"] = components["tasks"][t].detach()
-            metrics.update(_accuracy_metrics(outputs, batch["targets"]))
-            metrics["mixed_frac"] = mixed_mask.float().mean()
-            metrics.update({k: components[k] for k in MOE_KEYS if k in components})
-        else:
-            micro = split_microbatches(batch, accum, has_meta)
-            per_micro = list(draws) if draws is not None else [None] * accum
-            total = 0.0
-            stats: dict[str, torch.Tensor | float] = {}
-
-            def add(key, value):
-                stats[key] = stats.get(key, 0.0) + value
-
-            for mb, mb_draws in zip(micro, per_micro):
-                mb_total, mb_out, mb_comp, mb_mixed = forward_backward(
-                    state, mb, scalars, mb_draws, kept)
-                total = total + mb_total
-                add("mixed", mb_mixed.float().sum())
-                if collect_moe:
-                    for k in MOE_KEYS:
-                        add(k, mb_comp.get(k, 0.0))
-                # accuracy counts against the raw microbatch targets
-                # (before mixing), like the accum == 1 path
-                for t in task_keys:
-                    raw = mb["targets"][t]
-                    add(f"loss/{t}", mb_comp["tasks"][t].detach())
-                    add(f"correct1/{t}", _topk_correct(mb_out[t], raw, 1).float())
-                    add(f"correct3/{t}",
-                        _topk_correct(mb_out[t], raw, min(3, mb_out[t].shape[-1])).float())
-                    add(f"valid/{t}", _valid_mask(raw).sum().float())
+                stats[f"loss/{t}"] = stats.get(f"loss/{t}", 0.0) + mb_comp["tasks"][t].detach()
+        if accum > 1:
             torch._foreach_div_([local(p.grad) for p in params if p.grad is not None], accum)
             total = total / accum
-            metrics["mixed_frac"] = stats["mixed"] / float(batch["images"].shape[0])
-            if collect_moe:
-                for k in MOE_KEYS:
-                    metrics[k] = stats[k] / accum
-            for t in task_keys:
-                metrics[f"loss/{t}"] = stats[f"loss/{t}"] / accum
-                denom = stats[f"valid/{t}"].clamp_min(1.0)
-                metrics[f"acc1/{t}"] = stats[f"correct1/{t}"] / denom
-                metrics[f"acc3/{t}"] = stats[f"correct3/{t}"] / denom
-
-        if keep_collated:
-            state.last_collated = kept[0] if len(kept) == 1 else Collated(
-                torch.cat([k.images for k in kept]),
-                {t: torch.cat([k.targets[t] for k in kept]) for t in kept[0].targets},
-                None if kept[0].meta is None else torch.cat([k.meta for k in kept]))
+        if data_group is not None:  # the counts of every rank's rows
+            keys = [k for k in stats if not k.startswith(("loss/", "moe_"))]
+            summed = torch.stack([stats[k] for k in keys])
+            torch.distributed.all_reduce(summed, group=data_group)
+            stats.update(zip(keys, summed))
+        metrics: dict[str, torch.Tensor | float] = {"mixed_frac": stats["mixed"] / float(rows)}
+        for k in MOE_KEYS:
+            if k in stats:
+                metrics[k] = stats[k] / accum
+        for t in task_keys:
+            metrics[f"loss/{t}"] = stats[f"loss/{t}"] / accum
+            denom = stats[f"valid/{t}"].clamp_min(1.0)
+            metrics[f"acc1/{t}"] = stats[f"correct1/{t}"] / denom
+            metrics[f"acc3/{t}"] = stats[f"correct3/{t}"] / denom
 
         if mesh is not None:
             reduce_gradients(model, model_split, data_group, model_group)
@@ -417,6 +549,7 @@ def make_train_step(
             metrics["lr"] = lr_schedule(step_before)
         return state, metrics
 
+    train_step.collated = collated
     return train_step
 
 
@@ -455,21 +588,20 @@ def reduce_gradients(model, model_split, data_group, model_group) -> None:
     all_reduce_(plain, data_group)
 
 
-def make_gradnorm_step(update: Callable) -> Callable:
+def make_gradnorm_step(update: Callable, train_step: Callable) -> Callable:
     """The GradNorm update on what the last train step consumed:
-    ``gradnorm_step(state) -> (state, metrics)`` runs ``update``
-    (loss/gradnorm.py::make_gradnorm_update_fn) on
-    ``state.last_collated`` (a train step built with ``keep_collated``) and
-    writes the new task weights into ``state.gradnorm``. Under accumulation
-    the collated microbatches are re-forwarded as one batch, as the TPU
-    package's Trainer concatenates them."""
+    ``gradnorm_step(state, batch, scalars, draws=None) -> (state,
+    metrics)`` regenerates the collated tensors of ``train_step``'s last
+    call on ``batch`` (``train_step.collated``: the same draws, from the
+    generator states that step saved), runs ``update``
+    (loss/gradnorm.py::make_gradnorm_update_fn) on them and writes the new
+    task weights into ``state.gradnorm``. Under accumulation the collated
+    microbatches are re-forwarded as one batch, as the TPU package's
+    Trainer concatenates them."""
 
-    def gradnorm_step(state: TrainState):
-        if state.last_collated is None:
-            raise ValueError(
-                "gradnorm_step: no collated batch; build the train step with keep_collated=True "
-                "and take a step first")
-        images, targets, meta = state.last_collated
+    def gradnorm_step(state: TrainState, batch: dict, scalars: ScheduleScalars,
+                      draws: Draws | Sequence[Draws] | None = None):
+        images, targets, meta = train_step.collated(state, batch, scalars, draws)
         state.gradnorm, metrics = update(state.model, images, targets, meta, state.gradnorm)
         return state, metrics
 

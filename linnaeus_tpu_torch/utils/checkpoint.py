@@ -350,7 +350,7 @@ def restore_snapshot(state, saved: dict[str, Any]) -> None:
             "Checkpoint carries ema_params but EMA is disabled; the stored EMA "
             "buffers are dropped"
         )
-    state.last_collated = None
+    state.collate_rng = None
 
 
 def list_checkpoints(checkpoint_dir: str) -> list[str]:

@@ -33,8 +33,10 @@ export's way down: each bank's mean in the dense layout. A bank ``wi`` is
 (E, D, F) in the Flax layout and a dense ``fc1.weight`` (F, D), so each
 expert is the transpose of the dense weight, bit for bit.
 
-``hf://`` or ``b2://`` paths raise by name (remote checkpoints are not part
-of the port).
+A ``b2://bucket/key`` path is fetched once into a local cache through
+utils/remote_sync.py (b2sdk and the ``B2_APP_KEY_ID`` / ``B2_APP_KEY``
+credentials, as in the TPU package); ``hf://`` raises by name (the port
+downloads nothing from a model hub).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from torch import nn
 
 from linnaeus_tpu_torch.utils.logging import get_main_logger
+from linnaeus_tpu_torch.utils.remote_sync import resolve_checkpoint_path
 
 logger = get_main_logger()
 
@@ -58,12 +61,9 @@ def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
     dropped. Official checkpoints carry non-tensor objects beside the
     weights (an argparse namespace, optimizer state), so the file is read
     with ``weights_only=False``, as in the TPU package: load only files you
-    trust."""
-    if str(path).startswith(("hf://", "b2://")):
-        raise NotImplementedError(
-            f"pretrained path {path!r}: hf:// and b2:// checkpoints are not part of the "
-            "port (no downloads); give a local file")
-    obj = torch.load(path, map_location="cpu", weights_only=False)
+    trust. A ``b2://`` path is fetched into the local cache first
+    (utils/remote_sync.py::resolve_checkpoint_path)."""
+    obj = torch.load(resolve_checkpoint_path(str(path)), map_location="cpu", weights_only=False)
     for key in ("state_dict", "model", "module"):
         if isinstance(obj, dict) and key in obj and isinstance(obj[key], dict):
             obj = obj[key]
@@ -472,10 +472,10 @@ def load_pretrained(config, model: nn.Module) -> dict[str, Report]:
     if not paths:
         return {}
     for key, path in paths.items():
-        if path.startswith(("hf://", "b2://")):
-            raise NotImplementedError(
-                f"MODEL.{key} {path!r}: hf:// and b2:// checkpoints (utils/remote_sync.py) are "
-                "not part of the port; give a local file")
+        try:
+            paths[key] = resolve_checkpoint_path(path)
+        except (NotImplementedError, RuntimeError) as e:
+            raise type(e)(f"MODEL.{key} {path!r}: {e}") from e
     cn_path, rv_path = paths.get("PRETRAINED_CONVNEXT"), paths.get("PRETRAINED_ROPEVIT")
     source = config.MODEL.get("PRETRAINED_SOURCE")
     if not source:

@@ -234,6 +234,28 @@ def test_pipeline_draws_itself_and_stays_in_range():
     assert torch.equal(imgs, torch.tensor(_images(4, 16)))  # the input is left alone
 
 
+@pytest.mark.parametrize("mode", ["pixel", "const"])
+def test_erasing_of_some_rows_is_those_rows_of_the_batch(mode):
+    """A data rank augments its rows with their rows of the global draws
+    (take_rows): the pixel fill is drawn for the erasing rows alone, from
+    each row's seed, and the draws hold nothing the size of an image."""
+    imgs = torch.tensor(_images(5, 12))
+    augment = taa.make_train_augment(random_erase_prob=0.6, random_erase_mode=mode,
+                                     random_erase_count=2)
+    draws = augment.draw(12, H, W, torch.Generator().manual_seed(3), "cpu")
+    assert max(v.numel() for v in draws.values()) < H * W
+    assert ("erase_seed" in draws) == (mode == "pixel")
+    whole = augment(imgs, None, draws)
+    rows = torch.tensor([7, 2, 9, 4, 11])
+    part = augment(imgs[rows], None, taa.take_rows(draws, rows))
+    assert bool(draws["erase"][rows].any())
+    assert torch.equal(part, whole[rows])
+    if mode == "pixel":
+        fill = taa.erase_fill(np.array([5, 5, 6]), 2, H, W, "cpu")
+        assert torch.equal(fill[0], fill[1]) and not torch.equal(fill[0], fill[2])
+        assert abs(float(fill.mean()) - 0.5) < 0.01 and abs(float(fill.std()) - 0.2) < 0.01
+
+
 def test_factory_returns_none_when_all_disabled():
     for conf in (tconf, None):
         cfg = conf.get_default_config() if conf else get_default_config()

@@ -119,13 +119,13 @@ def patch_port(monkeypatch, found: dict, tried: list, gradnorm: list | None = No
     monkeypatch.setattr(tloop, "device_memory_bytes", lambda device: 10**12)
     make_gradnorm_step = tbuild.make_gradnorm_step
 
-    def counted(update):
-        step = make_gradnorm_step(update)
+    def counted(update, train_step):
+        step = make_gradnorm_step(update, train_step)
 
-        def gradnorm_step(state):
+        def gradnorm_step(state, batch, scalars):
             if gradnorm is not None:
-                gradnorm.append(int(state.last_collated[0].shape[0]))
-            return step(state)
+                gradnorm.append(int(batch["images"].shape[0]))
+            return step(state, batch, scalars)
 
         return gradnorm_step
 

@@ -235,6 +235,24 @@ def _reshard(payload, mesh):
             "fresh_optimizer": len(state.optimizer.state) == 0, "step": state.step}
 
 
+def _regen(payload, mesh):
+    """One replicated step on this rank's rows, the generator drawing (the
+    partners sit on the other rank); the batch collated again
+    (``train_step.collated``) against what the forward consumed."""
+    from linnaeus_tpu_torch.parallel.mesh import shard_batch
+
+    state, step = _port_state(payload, mesh, "replicated")
+    seen = []
+    hook = state.model.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].detach().clone(), args[1].clone())))
+    batch = shard_batch(payload["batch"], mesh)
+    _, m = step(state, batch, payload["scalars"])
+    hook.remove()
+    images, _, meta = step.collated(state, batch, payload["scalars"])
+    return {"same": torch.equal(images, seen[0][0]) and torch.equal(meta, seen[0][1]),
+            "rows": images.shape[0], "mixed_frac": float(m["mixed_frac"])}
+
+
 def dp_body(rank, world, out):
     from linnaeus_tpu_torch.parallel.mesh import create_mesh
 
@@ -252,6 +270,7 @@ def dp_body(rank, world, out):
         "accum": _run(payload, mesh, "replicated", accum=2, steps=1),
         "v0": _run(payload, mesh, "replicated", v0=True, steps=1),
         "gradnorm": {mode: _gradnorm(payload, mesh, mode) for mode in ("replicated", "fsdp")},
+        "regen": _regen(payload, mesh),
     }
 
 
@@ -381,6 +400,14 @@ def test_gradnorm_update_on_two_ranks_matches_jax(ranks, inputs):
                    params)
 
 
+def test_gradnorm_batch_collated_again_on_two_ranks(ranks):
+    """The GradNorm re-forward's batch, collated again on each rank from the
+    step's saved generator states, partners fetched from the other rank
+    again: bit for bit the rank's rows the step's forward consumed."""
+    for res in ranks:
+        assert res["regen"] == {"same": True, "rows": ts.B // 2, "mixed_frac": 1.0}
+
+
 def test_muon_under_fsdp_orthogonalises_the_whole_update(ranks):
     """Muon's Newton-Schulz runs on each parameter's whole update (float32
     here, as tests/test_torch_moe_step.py holds it to JAX's): gathered from
@@ -398,3 +425,44 @@ def test_reshard_train_state_keeps_the_parameters(ranks):
     for res in ranks:
         assert res["reshard"] == {"same": True, "sharded": True, "ema_sharded": True,
                                   "fresh_optimizer": True, "step": 1}
+
+
+def test_grad_norm_under_fsdp_on_one_rank_is_the_one_process_bits(tmp_path):
+    """parallel/model.py::grad_norm, which the clip and GradNorm read: FSDP2
+    on one rank (a unit a block, each leaf sharded along its plan's axis)
+    gives torch's ``get_total_norm`` of the one-process gradients to the
+    bit; on one process it is that ``get_total_norm``."""
+    import copy
+
+    import torch.distributed as dist
+
+    from linnaeus_tpu_torch.models.build import build_model
+    from linnaeus_tpu_torch.parallel.mesh import create_mesh
+    from linnaeus_tpu_torch.parallel.model import apply_fsdp, grad_norm
+
+    spec = {"CONVNEXT": {"DEPTHS": [1, 1, 1, 1], "DIMS": [8, 16, 32, 64]},
+            "ROPE": {"DEPTHS": [1, 1], "DIMS": [32, 64], "NUM_HEADS": [2, 2]},
+            "DROP_PATH_RATE": 0.0}
+    model = build_model(spec, 32, {"taxa_L10": 11, "taxa_L20": 5},
+                        (("TEMPORAL", 2), ("SPATIAL", 3)), device="cpu")
+    sharded = copy.deepcopy(model)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(size=(4, 32, 32, 3)).astype(np.float32))
+    aux = torch.tensor(rng.normal(size=(4, 5)).astype(np.float32))
+
+    def backward(m):
+        sum(v.square().mean() for v in m(x, aux).values()).backward()
+        return [(p, p.grad) for p in m.parameters()]
+
+    want = torch.nn.utils.get_total_norm([g for _, g in backward(model)], norm_type=2.0)
+    assert torch.equal(grad_norm([(p, p.grad) for p in model.parameters()], None), want)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = create_mesh(device_type="cpu")
+        apply_fsdp(sharded, mesh)
+        pairs = backward(sharded)
+        assert all(hasattr(g, "to_local") for _, g in pairs)
+        assert torch.equal(grad_norm(pairs, mesh.group("data")), want)
+    finally:
+        dist.destroy_process_group()

@@ -251,12 +251,14 @@ def test_nothing_configured_loads_nothing_and_what_waits_raises(initial, tmp_pat
     before = {k: v.clone() for k, v in model.state_dict().items()}
     assert tpre.load_pretrained(t_default(), model) == {}
     assert_same_weights(model, before)
-    for key, value, match in (
-        ("PRETRAINED", "hf://org/repo/w.pth", r"MODEL\.PRETRAINED 'hf://"),
-        ("PRETRAINED_ROPEVIT", "b2://bucket/w.pth", r"MODEL\.PRETRAINED_ROPEVIT 'b2://"),
+    for key, value, error, match in (
+        ("PRETRAINED", "hf://org/repo/w.pth", NotImplementedError, r"MODEL\.PRETRAINED 'hf://"),
+        # b2:// resolves through utils/remote_sync.py, which needs b2sdk (absent here)
+        ("PRETRAINED_ROPEVIT", "b2://bucket/w.pth", RuntimeError,
+         r"MODEL\.PRETRAINED_ROPEVIT 'b2://.*b2sdk"),
     ):
         _, cfg = configs(**{key: value})
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             tpre.load_pretrained(cfg, model)
     _, cfg = configs(PRETRAINED=str(tmp_path / "w.pth"), PRETRAINED_SOURCE="other")
     with pytest.raises(ValueError, match="Unknown MODEL.PRETRAINED_SOURCE 'other'"):

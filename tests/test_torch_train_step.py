@@ -436,20 +436,21 @@ def _gradnorm_setup(accum, zero_aux):
     _, _, _, state = _setup(accum=accum)
     _, taug = _augmenters()
     step = make_train_step({t: t_stce for t in TASKS}, TASKS, tc.MixConfig(chunk_bounds=BOUNDS),
-                           accumulation_steps=accum, augment_fn=taug, keep_collated=True)
+                           accumulation_steps=accum, augment_fn=taug)
     trunk = [n for n, _ in state.model.named_parameters() if not n.startswith(("head", "meta_"))]
     update = tgn.make_gradnorm_update_fn({t: t_stce for t in TASKS}, TASKS, trunk, alpha=1.5,
                                          zero_aux_info=zero_aux, remat=True)
-    return state, step, make_gradnorm_step(update)
+    return state, step, make_gradnorm_step(update, step)
 
 
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("zero_aux", [True, False])
 def test_gradnorm_reforwards_what_the_step_consumed(accum, zero_aux):
     """The GradNorm step's re-forward sees the augmented, mixed and
-    meta-masked tensors of the last train step (microbatches joined), in
-    the compute dtype, with the metadata zeroed under ZERO_AUX_INFO; its
-    criteria see the mixed soft targets."""
+    meta-masked tensors of the last train step (microbatches joined),
+    collated again from the step's batch and saved generator states, bit for
+    bit, in the compute dtype, with the metadata zeroed under ZERO_AUX_INFO;
+    its criteria see the mixed soft targets."""
     state, step, gradnorm_step = _gradnorm_setup(accum, zero_aux)
     seen = []
     hook = state.model.register_forward_pre_hook(
@@ -458,11 +459,11 @@ def test_gradnorm_reforwards_what_the_step_consumed(accum, zero_aux):
                                               kwargs.get("gradnorm_mode", False))),
         with_kwargs=True)
     _, t_scalars = _scalars("mixed_masked")
-    _, m = step(state, _tree(_uint8_batch(), torch.tensor), t_scalars,
-                draws=None if accum == 1 else [None] * accum)
+    batch = _tree(_uint8_batch(), torch.tensor)
+    _, m = step(state, batch, t_scalars, draws=None if accum == 1 else [None] * accum)
     consumed = seen[:]
     seen.clear()
-    state, gm = gradnorm_step(state)
+    state, gm = gradnorm_step(state, batch, t_scalars)
     hook.remove()
     images = torch.cat([c[0] for c in consumed])
     meta = torch.cat([c[1] for c in consumed])

@@ -476,7 +476,7 @@ OPTIONS = {
 
 @time_limit(120)
 @pytest.mark.parametrize("option", OPTIONS)
-def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F811
+def test_unported_options_raise_by_name(data_dir, tmp_path, option, monkeypatch):  # noqa: F811
     value, name = OPTIONS[option]
     cfg = port_config(make_config(data_dir, tmp_path / "out", epochs=1))
     node = cfg
@@ -498,6 +498,24 @@ def test_unported_options_raise_by_name(data_dir, tmp_path, option):  # noqa: F8
         trainer = Trainer(cfg, device="cpu")
         trainer.close()
         assert type(trainer.model).__name__ == "MFormerV0"
+        return
+    if option == "ENV.OUTPUT.BUCKET.ENABLED":
+        # ported since (utils/remote_sync.py, tests/test_torch_remote_sync.py):
+        # the Trainer syncs the experiment's outputs at the end of training
+        import linnaeus_tpu_torch.utils.remote_sync as rs
+
+        calls = []
+        monkeypatch.setattr(rs, "sync_to_bucket", lambda c, d: calls.append(d) or True)
+        trainer = Trainer(cfg, device="cpu")
+        trainer.close()
+        trainer._sync_outputs()
+        assert calls == [cfg.ENV.OUTPUT.DIRS.EXP_BASE]
+        return
+    if option == "MODEL.PRETRAINED_CONVNEXT":
+        # ported since: a b2:// path resolves through utils/remote_sync.py,
+        # which needs b2sdk (absent here), as in the TPU package
+        with pytest.raises(RuntimeError, match=r"MODEL\.PRETRAINED_CONVNEXT 'b2://.*b2sdk"):
+            Trainer(cfg, device="cpu").close()
         return
     if option == "MODEL.MOE.ENABLED":
         # ported since: the Trainer builds the MoE model and its step carries the

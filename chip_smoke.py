@@ -2307,7 +2307,7 @@ def v0_forward(dev, card) -> dict:
     the forward under torch.profiler, peak memory; the logits against an
     fp32 forward of the same weights."""
     from linnaeus_tpu_torch.models.build import build_model
-    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+    from linnaeus_tpu_torch.utils.device import busy_window, profile_events, profiled_device_rows
 
     nc = dict(TASKS)
     gc.collect()
@@ -2334,7 +2334,7 @@ def v0_forward(dev, card) -> dict:
                 model(x, aux)
             torch.cuda.synchronize()
     rows = profiled_device_rows(prof)
-    busy = sum(ms_ for _, ms_, _ in rows) / 3
+    busy = busy_window(profile_events(prof))[0] / 3
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     ref = build_model(v0_config(bf16=False), nc, device=dev, seed=V0_SEED)
     ref.load_state_dict(model.state_dict())
@@ -2758,7 +2758,7 @@ def moe_serve(dev, card, fa, fm) -> dict:
     peak; bf16 against fp32 logits of the same weights."""
     from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
     from linnaeus_tpu_torch.models.build import build_model
-    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+    from linnaeus_tpu_torch.utils.device import busy_window, profile_events
 
     cfg = serving_config()
     gc.collect()
@@ -2797,7 +2797,7 @@ def moe_serve(dev, card, fa, fm) -> dict:
         out32 = model(x, aux)
         model.dtype = torch.bfloat16
     fwd = {k: sum(v) / len(v) for k, v in times.items()}
-    busy = sum(ms_ for _, ms_, _ in profiled_device_rows(prof)) / 3
+    busy = busy_window(profile_events(prof))[0] / 3
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     err = max(max_err(out[t], out32[t]) for t in TASKS)
     agree = {t: (out[t].argmax(-1) == out32[t].argmax(-1)).float().mean().item() for t in TASKS}
@@ -2830,7 +2830,7 @@ def moe_steps(dev, card, fa, fm) -> dict:
     (The dense step against the MoE one, each in a process of its own:
     ``train_bench`` and ``train_bench --moe``, PERF.md.)"""
     from linnaeus_tpu_torch.tools import train_bench
-    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+    from linnaeus_tpu_torch.utils.device import busy_window, profile_events
 
     def counts():
         return kernel_counts(fa, fm)
@@ -2871,7 +2871,7 @@ def moe_steps(dev, card, fa, fm) -> dict:
                 for _ in range(2):
                     run()
                 torch.cuda.synchronize()
-            busy = sum(ms_ for _, ms_, _ in profiled_device_rows(prof)) / 2
+            busy = busy_window(profile_events(prof))[0] / 2
         print(f"[{card}] mFormerV1_sm_moe {IMG}px B={BATCH} bf16 train step (train_bench --moe), "
               f"kernels {name}: {ms:.2f} ms a step (CUDA events over {MOE_STEPS} steps), peak "
               f"{peak:.2f} GiB; loss " + " ".join(f"{v:.4f}" for v in losses)
@@ -3328,7 +3328,7 @@ def receipt_phase(dev, card, fa, fm, fb) -> dict:
     from linnaeus_tpu_torch.rl import PPOConfig, train_abstention_ppo
     from linnaeus_tpu_torch.rl import train_abstention
     from linnaeus_tpu_torch.tools import e2e_train_bench
-    from linnaeus_tpu_torch.utils.device import profiled_device_rows
+    from linnaeus_tpu_torch.utils.device import busy_window, profile_events
 
     start = time.perf_counter()
     shapes = check_receipt_shapes(dev, fa, fm)
@@ -3402,7 +3402,7 @@ def receipt_phase(dev, card, fa, fm, fb) -> dict:
                              steps_per_rollout=RL_ROLLOUT)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms = sum(ms for _, ms, _ in profiled_device_rows(prof))
+    busy_ms = busy_window(profile_events(prof))[0]
     run.close()
     phase2 = {k: v - before[k] for k, v in _launch_counts(fa, fm, fb).items()}
     print(f"[{card}] phase 2 (PPO, mFormerV1_sm {IMG} px bf16 from the kernels-on "
@@ -4160,6 +4160,7 @@ def main() -> int:
     from linnaeus_tpu_torch.ops import flash_attention as fa
     from linnaeus_tpu_torch.ops import fused_dwconv_mlp as fb
     from linnaeus_tpu_torch.ops import fused_mlp as fm
+    from linnaeus_tpu_torch.utils import tracing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4173,12 +4174,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # 1. build
-    start = time.perf_counter()
     _kernels.library()
-    built = _kernels.build_seconds
-    print(f"kernel build: {'%.1f s (nvcc)' % built if built is not None else 'reused'}; "
-          f"library ready in {time.perf_counter() - start:.1f} s: {_kernels.library_path()}",
-          flush=True)
+    spans = tracing.summary()
+    built = spans.get("setup/kernels/build")
+    print(f"kernel build: {'%.1f s (nvcc)' % (built['host_ms'] / 1e3) if built else 'reused'}; "
+          f"library ready in {spans['setup/kernels']['host_ms'] / 1e3:.1f} s: "
+          f"{_kernels.library_path()}", flush=True)
 
     # 2. each kernel against its plain version at the model's shapes
     rec = check_kernels(dev, fa, fm)

@@ -6,7 +6,9 @@ linked into one shared library with a plain C interface, at first use,
 loaded with ctypes. The library is written to ``build/linnaeus_tpu_torch/``
 in the checkout, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a
-failed build raises: there is no fallback.
+failed build raises: there is no fallback. The load is the
+``setup/kernels`` span and a build inside it ``setup/kernels/build``, both
+recorded whether tracing is on or not (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from linnaeus_tpu_torch.utils.tracing import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "linnaeus_tpu_torch"
@@ -34,8 +37,6 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# seconds the nvcc run took in this process; None until a build ran here
-build_seconds: float | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,11 +93,9 @@ def _run(cmd: list[str], proc: subprocess.Popen | None = None) -> str:
 
 def _build(out: Path, extra_flags: tuple[str, ...] = ()) -> str:
     """Compile every source (in parallel) and link ``out``; returns nvcc's output."""
-    global build_seconds
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    start = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = out.with_name(f"{tag}.{src.stem}.o")
@@ -114,7 +113,6 @@ def _build(out: Path, extra_flags: tuple[str, ...] = ()) -> str:
             proc.wait()
             obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - start
     return log
 
 
@@ -122,13 +120,10 @@ def resource_usage() -> str:
     """Build the sources once more with ``-Xptxas -v`` into a scratch
     library and return nvcc's report (registers, shared memory and spills
     of every kernel)."""
-    global build_seconds
     scratch = BUILD_DIR / "libkernels-ptxas-report.so"
-    kept = build_seconds  # the report's build is not the library's
     try:
         return _build(scratch, ("-Xptxas", "-v"))
     finally:
-        build_seconds = kept
         scratch.unlink(missing_ok=True)
 
 
@@ -137,17 +132,19 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.is_file():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.lt_error_string.argtypes = [ctypes.c_int]
-            lib.lt_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with span("setup/kernels", always=True):
+                path = library_path()
+                if not path.is_file():
+                    with span("setup/kernels/build", always=True):
+                        _build(path)
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.lt_error_string.argtypes = [ctypes.c_int]
+                lib.lt_error_string.restype = ctypes.c_char_p
+                _lib = lib
         return _lib
 
 

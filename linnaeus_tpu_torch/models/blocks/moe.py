@@ -34,7 +34,9 @@ dropped choices. They leave the model through its forward's return value
 (models/mformer_v1.py), never through module state, so a checkpointed
 block's recompute adds no second copy. Router noise (``noise_std`` > 0, in
 units of 1/E, training mode only) draws from ``generator``, which
-``create_train_state`` sets to the step's generator.
+``create_train_state`` sets to the step's generator. ``forward`` is the
+``MoEMlp.forward`` span (utils/tracing.py), which ``tools/profile_step.py``
+reads.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from linnaeus_tpu_torch.utils.tracing import span
 
 from .common import Dropout, draw_rows, gelu, trunc_normal_
 
@@ -118,6 +122,10 @@ class MoEMlp(nn.Module):
                 trunc_normal_(p, init)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, MoEStats]:
+        with span("MoEMlp.forward"):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, MoEStats]:
         B, N, D = x.shape
         E, K, dt = self.num_experts, self.top_k, x.dtype
         C = capacity(N, E, K, self.capacity_factor)

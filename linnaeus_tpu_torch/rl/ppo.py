@@ -15,12 +15,12 @@ in eval mode (no dropout or drop path), as JAX passes
 
 from __future__ import annotations
 
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from linnaeus_tpu_torch.utils import tracing
 from linnaeus_tpu_torch.utils.logging import get_main_logger
 
 logger = get_main_logger()
@@ -172,7 +172,8 @@ def train_abstention_ppo(
     last update's metrics, as in JAX. ``timings``, when given, gets one
     record an iteration too: the rollout's milliseconds an action (host
     clock: every action is read back to the host) and the update's
-    milliseconds an epoch (CUDA events on the card, else the host clock)."""
+    milliseconds an epoch (CUDA events on the card, else the host clock),
+    from the ``ppo/rollout`` and ``ppo/update`` spans (utils/tracing.py)."""
     from .policies import sample_actions
 
     device = next(policy.parameters()).device
@@ -207,9 +208,8 @@ def train_abstention_ppo(
 
     history = []
     for it in range(num_iterations):
-        t0 = time.perf_counter()
-        rollout = collect_rollout(env, act_fn, steps_per_rollout)
-        rollout_ms = 1000.0 * (time.perf_counter() - t0) / steps_per_rollout
+        with tracing.span("ppo/rollout", always=True):
+            rollout = collect_rollout(env, act_fn, steps_per_rollout)
         adv, ret = compute_gae_and_returns(
             rollout["rewards"], rollout["values"], rollout["dones"],
             cfg.gamma, cfg.gae_lambda,
@@ -222,18 +222,13 @@ def train_abstention_ppo(
             "advantages": torch.as_tensor(adv, device=device),
             "returns": torch.as_tensor(ret, device=device),
         }
-        if on_card:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        t0 = time.perf_counter()
-        for _ in range(cfg.epochs):
-            metrics = update(batch)
-        if on_card:
-            end.record()
-            end.synchronize()
-            update_ms = start.elapsed_time(end) / cfg.epochs
-        else:
-            update_ms = 1000.0 * (time.perf_counter() - t0) / cfg.epochs
+        with tracing.span("ppo/update", always=True):
+            for _ in range(cfg.epochs):
+                metrics = update(batch)
+        (rollout_span,), (update_span,) = tracing.take("ppo/rollout"), tracing.take("ppo/update")
+        rollout_ms = 1000.0 * (rollout_span.end - rollout_span.start) / steps_per_rollout
+        update_ms = (update_span.device_ms if on_card else
+                     1000.0 * (update_span.end - update_span.start)) / cfg.epochs
         mean_reward = float(rollout["rewards"].mean())
         history.append({"iteration": it, "mean_reward": mean_reward,
                         **{k: float(v) for k, v in metrics.items()}})

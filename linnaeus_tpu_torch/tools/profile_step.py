@@ -6,16 +6,17 @@ window of the card:
 
 * ``step``: ``tools/train_bench.py::profile`` of the train step (mFormerV1_sm,
   or mFormerV1_sm_moe with ``--moe``): device ms per step by kernel name
-  (``utils/device.py::profiled_device_rows``), the device-busy time and the
-  idle share under the profiler;
+  (``utils/device.py::profiled_device_rows``), the device-busy time (the
+  union of the device's operations) and the idle share under the profiler;
 * ``moe_forward`` (``--moe``): the MoE layers' forward alone. Each
-  ``MoEMlp`` forward runs inside a ``record_function`` range opened and closed
-  by forward hooks that this tool installs; every kernel the card ran inside
-  such a range is summed by name and classed as a matrix product (the
-  router's float32 projection and the experts' two batched products: the
-  cuBLAS kernels) or the rest (the router's softmax and sort, the slot
-  positions, the dispatch into the slot buffer, the GELU, the gather and
-  weighted sum with the gates, the statistics);
+  ``MoEMlp`` forward is the model's own ``MoEMlp.forward`` span
+  (utils/tracing.py), a ``record_function`` range while the profiler
+  records; every kernel the card ran inside such a range is summed by
+  name and classed as a matrix product (the router's float32 projection
+  and the experts' two batched products: the cuBLAS kernels) or the rest
+  (the router's softmax and sort, the slot positions, the dispatch into
+  the slot buffer, the GELU, the gather and weighted sum with the gates,
+  the statistics);
 * ``moe_vs_dense`` (``--moe``): the step's kernels against the same step of
   the dense mFormerV1_sm (same seed, batch and kernels), by name: what the
   three MoE layers add or take away per step, backward included.
@@ -52,7 +53,7 @@ def moe_forward_breakdown(batch: int = 64, img: int = 384, kernels: bool = True,
     docstring), over ``steps`` forwards of mFormerV1_sm_moe after two
     warm-ups; ``training`` runs them as the train step does (training mode,
     gradients recorded), else in inference mode."""
-    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import ProfilerActivity
 
     from linnaeus_tpu_torch.models.blocks.moe import MoEMlp
     from linnaeus_tpu_torch.tools import train_bench
@@ -61,17 +62,6 @@ def moe_forward_breakdown(batch: int = 64, img: int = 384, kernels: bool = True,
     run, state = train_bench.build_step(batch, img, kernels, device=device, moe=True)
     model = state.model.train(training)
     layers = [m for m in model.modules() if isinstance(m, MoEMlp)]
-    ranges: list = []
-
-    def enter(module, args):
-        ranges.append(record_function("MoEMlp.forward"))
-        ranges[-1].__enter__()
-
-    def leave(module, args, out):
-        ranges.pop().__exit__(None, None, None)
-
-    hooks = [h for m in layers for h in (m.register_forward_pre_hook(enter),
-                                          m.register_forward_hook(leave))]
     g = torch.Generator(device=device).manual_seed(2)
     x = torch.randn(batch, img, img, 3, generator=g, device=device)
     aux = torch.randn(batch, sum(d for _, d in train_bench.META_COMPONENTS), generator=g,
@@ -81,18 +71,14 @@ def moe_forward_breakdown(batch: int = 64, img: int = 384, kernels: bool = True,
         with torch.set_grad_enabled(training), torch.inference_mode(not training):
             model(x, aux)
 
-    try:
-        for _ in range(2):
+    for _ in range(2):
+        forward()
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
             forward()
         torch.cuda.synchronize(device)
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                forward()
-            torch.cuda.synchronize(device)
-    finally:
-        for h in hooks:
-            h.remove()
     events = [e for e in prof.events() if "cuda" in str(e.device_type).lower()]
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.name == "MoEMlp.forward"]

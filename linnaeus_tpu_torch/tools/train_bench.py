@@ -60,7 +60,12 @@ from linnaeus_tpu_torch.optim.schedules import build_schedule
 from linnaeus_tpu_torch.train.build import build_training
 from linnaeus_tpu_torch.train.state import TrainState, create_train_state
 from linnaeus_tpu_torch.train.step import MOE_KEYS, ScheduleScalars, make_train_step
-from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
+from linnaeus_tpu_torch.utils.device import (
+    busy_window,
+    profile_events,
+    profiled_device_rows,
+    resolve_device,
+)
 
 NUM_CLASSES = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
 META_COMPONENTS = (("TEMPORAL", 2), ("SPATIAL", 3), ("ELEVATION", 6))
@@ -294,12 +299,15 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
     ``forward_only``: forwards of the same model in inference mode on a
     random float batch) after two
     warm-up steps (torch.profiler, CPU + CUDA activities): per-step wall
-    time under the profiler, device-busy time, the idle share, the ``top``
-    kernels, and under ``port_kernels`` every row of the port's own kernels
-    (K1 forward, fused backward, the split dQ and dK/dV backward, K2) however
-    small. Tracing the host slows it, so the wall time and the
-    idle share here are the profiled run's: for the idle share of a plain
-    run, hold ``device_busy_ms_per_step`` against ``measure``'s step time."""
+    time under the profiler, device-busy time (the union of the device's
+    operations) and the idle share over the span from the first one's start
+    to the last one's end, both on the trace's clock
+    (utils/device.py::busy_window), the ``top`` kernels, and under
+    ``port_kernels`` every row of the port's own kernels (K1 forward, fused
+    backward, the split dQ and dK/dV backward, K2) however small. Tracing
+    the host slows it, so the wall time and the idle share here are the
+    profiled run's: for the idle share of a plain run, hold
+    ``device_busy_ms_per_step`` against ``measure``'s step time."""
     from torch.profiler import ProfilerActivity
 
     device = resolve_device(build_kw.pop("device", None))
@@ -326,14 +334,14 @@ def profile(batch: int = 64, img: int = 384, kernels: bool = True, steps: int = 
     if trace_path:
         prof.export_chrome_trace(trace_path)
     rows = [(key, ms / steps, count / steps) for key, ms, count in profiled_device_rows(prof)]
-    busy = sum(r[1] for r in rows)
+    busy_ms, window_ms = busy_window(profile_events(prof))
     as_dict = lambda r: {"name": r[0][:100], "ms_per_step": r[1],  # noqa: E731
                          "launches_per_step": r[2]}
     return {
         "kernels": kernels, "forward_only": forward_only, "steps": steps,
         "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy,
-        "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_busy_ms_per_step": busy_ms / steps,
+        "idle_share": 1.0 - busy_ms / window_ms if window_ms > 0 else None,
         "top": [as_dict(r) for r in rows[:top]],
         "port_kernels": [as_dict(r) for r in rows
                          if any(f"{name}<" in r[0] or f"{name}(" in r[0] for name in PORT_KERNELS)],

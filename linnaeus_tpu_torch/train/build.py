@@ -37,6 +37,7 @@ from linnaeus_tpu_torch.utils.param_filters import (
     trunk_mask_from_exclude,
 )
 from linnaeus_tpu_torch.utils.pretrained import Report, load_pretrained
+from linnaeus_tpu_torch.utils.tracing import span
 
 from .state import TrainState, create_train_state
 from .step import make_gradnorm_step, make_train_step
@@ -110,85 +111,89 @@ def build_training(
     ``pretrained`` loads MODEL.PRETRAINED* into the model first. ``mesh``
     (parallel/mesh.py) puts the model on the ranks by PARALLEL (the checks,
     the ring, the pipeline, the TP / EP shares, FSDP2) before the optimizer
-    and the EMA are built on it, and the steps reduce over it."""
-    tasks = tuple(config.DATA.TASK_KEYS_H5)
-    if tuple(num_classes) != tasks:
-        raise ValueError(f"DATA.TASK_KEYS_H5 {list(tasks)} must name the tasks of "
-                         f"num_classes {list(num_classes)}")
-    if remat is not None or remat_policy is not None:
-        config = config.clone()
-        config.defrost()
+    and the EMA are built on it, and the steps reduce over it. The call is
+    the ``setup/build_training`` span, recorded whether tracing is on or
+    not (utils/tracing.py)."""
+    with span("setup/build_training", always=True):
+        tasks = tuple(config.DATA.TASK_KEYS_H5)
+        if tuple(num_classes) != tasks:
+            raise ValueError(f"DATA.TASK_KEYS_H5 {list(tasks)} must name the tasks of "
+                             f"num_classes {list(num_classes)}")
+        if remat is not None or remat_policy is not None:
+            config = config.clone()
+            config.defrost()
+            gc = config.TRAIN.GRADIENT_CHECKPOINTING
+            if remat is not None:
+                gc.ENABLED_NORMAL_STEPS = gc.ENABLED_GRADNORM_STEPS = bool(remat)
+            if remat_policy is not None:
+                gc.POLICY = remat_policy
         gc = config.TRAIN.GRADIENT_CHECKPOINTING
-        if remat is not None:
-            gc.ENABLED_NORMAL_STEPS = gc.ENABLED_GRADNORM_STEPS = bool(remat)
-        if remat_policy is not None:
-            gc.POLICY = remat_policy
-    gc = config.TRAIN.GRADIENT_CHECKPOINTING
-    model = build_model(config, dict(num_classes), taxonomy_tree, device=device, seed=seed)
-    reports = load_pretrained(config, model) if pretrained else {}
-    split: list[str] = []
-    if mesh is not None:
-        par = config.PARALLEL
-        mode = str(par.get("PARAM_SHARDING", "replicated"))
-        check_parallel(config, mesh, model)
-        replicate(model, mesh)
-        pipe = par.get("PIPELINE", {})
-        split = shard_model(model, mesh, mode, bool(par.get("SEQUENCE_PARALLEL", False)),
-                            int(pipe.get("STAGES", 1) or 1), int(pipe.get("MICROBATCHES", 0) or 0))
-        if mode == "fsdp":
-            apply_fsdp(model, mesh)
-    schedules = build_group_schedules(config, total_steps, steps_per_epoch)
-    gw = config.LOSS.GRAD_WEIGHTING.TASK
-    if init_task_weights is None:
-        init_task_weights = list(gw.get("INIT_WEIGHTS") or []) or None
-    ema = config.TRAIN.get("EMA", {})
-    ema_on = bool(ema.get("ENABLED", False))
-    train_criteria, val_criteria = prepare_loss_functions(
-        config, dict(num_classes), taxonomy_tree, device=device)
-    augment = None
-    if str(config.AUG.SINGLE_AUG_DEVICE) == "device":
-        # the 'cpu' path augments in the loader (data/build.py)
-        augment = AugmentationPipelineFactory.create(config)
-    gradnorm_on = str(gw.TYPE) == "gradnorm" and bool(gw.get("GRADNORM_ENABLED", True))
-    meta_dim = total_meta_dim(config)
-    mix_cfg = mix_config(config)
-    if accumulation_steps is None:
-        accumulation_steps = int(config.TRAIN.ACCUMULATION_STEPS)
-    moe = config.MODEL.get("MOE", {})
-    moe_on = bool(moe.get("ENABLED", False))
+        model = build_model(config, dict(num_classes), taxonomy_tree, device=device, seed=seed)
+        reports = load_pretrained(config, model) if pretrained else {}
+        split: list[str] = []
+        if mesh is not None:
+            par = config.PARALLEL
+            mode = str(par.get("PARAM_SHARDING", "replicated"))
+            check_parallel(config, mesh, model)
+            replicate(model, mesh)
+            pipe = par.get("PIPELINE", {})
+            split = shard_model(model, mesh, mode, bool(par.get("SEQUENCE_PARALLEL", False)),
+                                int(pipe.get("STAGES", 1) or 1),
+                                int(pipe.get("MICROBATCHES", 0) or 0))
+            if mode == "fsdp":
+                apply_fsdp(model, mesh)
+        schedules = build_group_schedules(config, total_steps, steps_per_epoch)
+        gw = config.LOSS.GRAD_WEIGHTING.TASK
+        if init_task_weights is None:
+            init_task_weights = list(gw.get("INIT_WEIGHTS") or []) or None
+        ema = config.TRAIN.get("EMA", {})
+        ema_on = bool(ema.get("ENABLED", False))
+        train_criteria, val_criteria = prepare_loss_functions(
+            config, dict(num_classes), taxonomy_tree, device=device)
+        augment = None
+        if str(config.AUG.SINGLE_AUG_DEVICE) == "device":
+            # the 'cpu' path augments in the loader (data/build.py)
+            augment = AugmentationPipelineFactory.create(config)
+        gradnorm_on = str(gw.TYPE) == "gradnorm" and bool(gw.get("GRADNORM_ENABLED", True))
+        meta_dim = total_meta_dim(config)
+        mix_cfg = mix_config(config)
+        if accumulation_steps is None:
+            accumulation_steps = int(config.TRAIN.ACCUMULATION_STEPS)
+        moe = config.MODEL.get("MOE", {})
+        moe_on = bool(moe.get("ENABLED", False))
 
-    def optimizer_and_step(schedules: dict[str, Callable]):
-        optimizer = build_optimizer(config, schedules["default"], model, schedules)
-        train_step = make_train_step(
-            train_criteria, tasks, mix_cfg,
-            clip_grad=float(config.TRAIN.CLIP_GRAD or 0.0),
-            accumulation_steps=max(int(accumulation_steps), 1),
-            phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
-            has_meta=meta_dim > 0, lr_schedule=schedules["default"],
-            num_classes=dict(num_classes), augment_fn=augment,
-            moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01)) if moe_on else 0.0),
-            moe_z_weight=(float(moe.get("ROUTER_Z_LOSS_WEIGHT", 0.001)) if moe_on else 0.0),
-            ema_decay=float(ema.DECAY) if ema_on else 0.0,
-            mesh=mesh, model_split=split,
+        def optimizer_and_step(schedules: dict[str, Callable]):
+            optimizer = build_optimizer(config, schedules["default"], model, schedules)
+            train_step = make_train_step(
+                train_criteria, tasks, mix_cfg,
+                clip_grad=float(config.TRAIN.CLIP_GRAD or 0.0),
+                accumulation_steps=max(int(accumulation_steps), 1),
+                phase1_mask_null=bool(config.TRAIN.PHASE1_MASK_NULL_LOSS),
+                has_meta=meta_dim > 0, lr_schedule=schedules["default"],
+                num_classes=dict(num_classes), augment_fn=augment,
+                moe_aux_weight=(float(moe.get("AUX_LOSS_WEIGHT", 0.01)) if moe_on else 0.0),
+                moe_z_weight=(float(moe.get("ROUTER_Z_LOSS_WEIGHT", 0.001)) if moe_on else 0.0),
+                ema_decay=float(ema.DECAY) if ema_on else 0.0,
+                mesh=mesh, model_split=split,
+            )
+            return optimizer, train_step
+
+        optimizer, train_step = optimizer_and_step(schedules)
+        state = create_train_state(
+            model, optimizer, num_tasks=len(tasks),
+            generator=torch.Generator(device=device).manual_seed(seed),
+            init_task_weights=init_task_weights, lr_schedule=schedules, ema=ema_on,
         )
-        return optimizer, train_step
-
-    optimizer, train_step = optimizer_and_step(schedules)
-    state = create_train_state(
-        model, optimizer, num_tasks=len(tasks),
-        generator=torch.Generator(device=device).manual_seed(seed),
-        init_task_weights=init_task_weights, lr_schedule=schedules, ema=ema_on,
-    )
-    gradnorm_step = None
-    if gradnorm_on:
-        trunk = trunk_mask_from_exclude(model, resolve_gradnorm_exclude(gw))
-        gradnorm_step = make_gradnorm_step(make_gradnorm_update_fn(
-            train_criteria, tasks, [n for n, keep in trunk.items() if keep],
-            alpha=float(gw.ALPHA), zero_aux_info=bool(gw.ZERO_AUX_INFO),
-            use_linear_heads=bool(gw.USE_LINEAR_HEADS_FOR_GRADNORM_REFORWARD),
-            accum_steps=max(int(gw.get("GRADNORM_ACCUM_STEPS", 1) or 1), 1),
-            remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
-            mesh=mesh, model_split=split,
-        ), train_step)
-    return TrainParts(model, state, train_step, gradnorm_step, augment, train_criteria,
-                      val_criteria, schedules, mix_cfg, meta_dim, optimizer_and_step, reports)
+        gradnorm_step = None
+        if gradnorm_on:
+            trunk = trunk_mask_from_exclude(model, resolve_gradnorm_exclude(gw))
+            gradnorm_step = make_gradnorm_step(make_gradnorm_update_fn(
+                train_criteria, tasks, [n for n, keep in trunk.items() if keep],
+                alpha=float(gw.ALPHA), zero_aux_info=bool(gw.ZERO_AUX_INFO),
+                use_linear_heads=bool(gw.USE_LINEAR_HEADS_FOR_GRADNORM_REFORWARD),
+                accum_steps=max(int(gw.get("GRADNORM_ACCUM_STEPS", 1) or 1), 1),
+                remat=bool(gc.get("ENABLED_GRADNORM_STEPS", False)),
+                mesh=mesh, model_split=split,
+            ), train_step)
+        return TrainParts(model, state, train_step, gradnorm_step, augment, train_criteria,
+                          val_criteria, schedules, mix_cfg, meta_dim, optimizer_and_step, reports)

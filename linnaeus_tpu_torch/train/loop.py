@@ -55,13 +55,18 @@ mFormerV1 does: its BatchNorm running statistics are buffers of the model,
 so the step updates them, and checkpoints, resume and AutoBatch's snapshot
 carry them with the model's state_dict (train/step.py).
 
-Each loop iteration (a train step and, when due, the GradNorm update) is
-bracketed by CUDA events and host clock readings (``step_times``, the
-current epoch's); at the epoch's end they are summed up into
-``epoch_timings[epoch]``. The span between an iteration's two events is
-not device-busy time: it holds every gap in which the device waits for the
-host's next launch. The device-busy share comes from the torch.profiler
-window of DEBUG.PROFILE (``profile_summary``).
+Each loop iteration (a train step and, when due, the GradNorm update, the
+``trainer/gradnorm`` span) is the ``trainer/iteration`` span of
+utils/tracing.py, recorded whether tracing is on or not: host clock
+readings and, on CUDA, two events on the stream. At the epoch's end the
+Trainer takes the epoch's iterations from the recorder and sums them up
+into ``epoch_timings[epoch]``. The stream's time between an iteration's two
+events is not device-busy time: it holds every gap in which the device
+waits for the host's next launch. The torch.profiler window of
+DEBUG.PROFILE (``profile_summary``) gives the device-busy share (the union
+of the device's operations on the trace's clock), the spans the window
+recorded (the train step's phases among them: train/step.py) and the
+device's idle time by the span the host was in.
 """
 
 from __future__ import annotations
@@ -86,8 +91,14 @@ from linnaeus_tpu_torch.ops_schedule.training_progress import TrainingStage
 from linnaeus_tpu_torch.optim.build import lr_dict_for_logging
 from linnaeus_tpu_torch.parallel.mesh import create_mesh, initialize_multi_host, is_main_process
 from linnaeus_tpu_torch.utils import checkpoint as ckpt
+from linnaeus_tpu_torch.utils import tracing
 from linnaeus_tpu_torch.utils.debug import check_debug_flag
-from linnaeus_tpu_torch.utils.device import profiled_device_rows, resolve_device
+from linnaeus_tpu_torch.utils.device import (
+    busy_window,
+    idle_by_span,
+    profile_events,
+    resolve_device,
+)
 from linnaeus_tpu_torch.utils.logging import get_main_logger
 from linnaeus_tpu_torch.utils.meta import compute_meta_chunk_bounds_by_name, total_meta_dim
 from linnaeus_tpu_torch.utils.pretrained import pretrained_paths
@@ -110,12 +121,23 @@ def combo_to_mask(combo: list[str] | None, bounds_by_name: dict, meta_dim: int):
     return mask
 
 
-def _cuda_event(device: torch.device):
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event(enable_timing=True)
-    event.record(torch.cuda.current_stream(device))
-    return event
+def profile_window_summary(events, spans: dict, steps: int, wall_ms: float) -> dict:
+    """A profiled window of ``steps`` steps from its events
+    (utils/device.py::profile_events) and the recorder's summary of the
+    spans it recorded (utils/tracing.py::summary): its wall and device-busy
+    ms a step, the idle share on the trace's clock, each span's calls and
+    host and device ms a step, and the device's idle ms by span."""
+    busy_ms, window_ms = busy_window(events)
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "idle_share": 1.0 - busy_ms / window_ms if window_ms > 0 else None,
+        "spans": {name: {"calls": v["calls"], "host_ms_per_step": v["host_ms"] / steps,
+                         "device_ms_per_step": (None if v["device_ms"] is None
+                                                else v["device_ms"] / steps)}
+                  for name, v in spans.items()},
+        "idle_ms_by_span": idle_by_span(events, set(spans)),
+    }
 
 
 class Trainer:
@@ -299,7 +321,8 @@ class Trainer:
                 f"linear_heads={gw.USE_LINEAR_HEADS_FOR_GRADNORM_REFORWARD}"
             )
 
-        # timing of the run (module docstring)
+        # timing of the run (module docstring): the current epoch's steps
+        # and whether each ran a GradNorm update
         self.step_times: list[dict] = []
         self.epoch_timings: dict[int, dict] = {}
         self.validation_seconds: list[tuple[str, float]] = []
@@ -645,10 +668,8 @@ class Trainer:
         """DEBUG.PROFILE.START_STEP / END_STEP: torch.profiler over the
         steps after START_STEP up to END_STEP, its chrome trace written under
         the logs directory. On CUDA the window starts and ends with the
-        device idle, and ``profile_summary`` holds its steps, its wall and
-        device-busy milliseconds a step (the sum of the device rows) and the
-        idle share. Tracing the host slows it, so these are the profiled
-        loop's."""
+        device idle, and ``profile_summary`` is ``profile_window_summary``
+        of it. Tracing the host slows it, so these are the profiled loop's."""
         prof = self.config.DEBUG.PROFILE
         start, end = int(prof.get("START_STEP", 0) or 0), int(prof.get("END_STEP", 0) or 0)
         if end <= start:
@@ -670,13 +691,9 @@ class Trainer:
             path = f"{self.config.ENV.OUTPUT.DIRS.LOGS}/profile_steps_{start}_{end}.json"
             self._profiler.export_chrome_trace(path)
             if self.device.type == "cuda":
-                busy_ms = sum(ms for _, ms, _ in profiled_device_rows(self._profiler)) / (
-                    end - start)
-                self.profile_summary = {
-                    "steps": end - start, "wall_ms_per_step": wall_ms,
-                    "device_busy_ms_per_step": busy_ms,
-                    "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-                }
+                self.profile_summary = profile_window_summary(
+                    profile_events(self._profiler), tracing.summary(since=self._profile_t0),
+                    end - start, wall_ms)
                 logger.info(f"profiled steps {start + 1}-{end}: {self.profile_summary}")
             self._profiler = None
             logger.info(f"Wrote torch profiler trace for steps {start}-{end} to {path}")
@@ -706,20 +723,20 @@ class Trainer:
                             combo_to_mask(combo, self.bounds_by_name, self.meta_dim)),
                 device=self.device,
             )
-            host_start, start_event = time.perf_counter(), _cuda_event(self.device)
-            self.state, step_metrics = self._train_step(self.state, batch, scalars)
-            self.progress.increment_step()
-            n_seen += int(batch["images"].shape[0])
-            gn_host = None
-            if self.ops_schedule.should_update_gradnorm(self.progress.global_step):
-                if self._gradnorm_update is not None:
-                    self.state, gn_metrics = self._gradnorm_update(self.state, batch, scalars)
-                    gn_host = {k: v.detach().cpu().numpy() for k, v in gn_metrics.items()}
-            self.step_times.append({
-                "step": self.progress.global_step, "gradnorm": gn_host is not None,
-                "host_start": host_start, "start_event": start_event,
-                "end_event": _cuda_event(self.device),
-            })
+            with tracing.span("trainer/iteration", always=True):
+                self.state, step_metrics = self._train_step(self.state, batch, scalars)
+                self.progress.increment_step()
+                n_seen += int(batch["images"].shape[0])
+                gn_host = None
+                if self.ops_schedule.should_update_gradnorm(self.progress.global_step):
+                    if self._gradnorm_update is not None:
+                        with tracing.span("trainer/gradnorm"):
+                            self.state, gn_metrics = self._gradnorm_update(
+                                self.state, batch, scalars)
+                            gn_host = {k: v.detach().cpu().numpy()
+                                       for k, v in gn_metrics.items()}
+            self.step_times.append({"step": self.progress.global_step,
+                                    "gradnorm": gn_host is not None})
             if check_debug_flag(self.config, "DEBUG.TRAINING_LOOP"):
                 logger.debug(
                     f"[TRAINING_LOOP] step={self.progress.global_step} "
@@ -809,16 +826,18 @@ class Trainer:
         )
 
     def _epoch_timing(self, wall_s: float) -> dict:
-        """The epoch's timing from ``step_times`` (the device is idle): its
-        steps and GradNorm updates, its first step, its wall seconds, the
-        median host interval from one step's start to the next (a step as
-        the loop takes it: the batch's wait, the launches, the GradNorm
-        update when due), and on CUDA the milliseconds between each
-        iteration's two events on the stream (the event span, the device's
-        waits for the host included), the median of those without a GradNorm
-        update, and their sum over the wall time."""
+        """The epoch's timing from ``step_times`` and its ``trainer/iteration``
+        spans, taken from the recorder (the device is idle): its steps and
+        GradNorm updates, its first step, its wall seconds, the median host
+        interval from one step's start to the next (a step as the loop takes
+        it: the batch's wait, the launches, the GradNorm update when due),
+        and on CUDA the milliseconds between each iteration's two events on
+        the stream (the event span, the device's waits for the host
+        included), the median of those without a GradNorm update, and their
+        sum over the wall time."""
         rows = self.step_times
-        starts = [r["host_start"] for r in rows]
+        spans = tracing.take("trainer/iteration")
+        starts = [s.start for s in spans]
         out = {
             "steps": len(rows),
             "first_step": rows[0]["step"] if rows else None,
@@ -827,8 +846,8 @@ class Trainer:
             "median_step_ms": (1000.0 * statistics.median(np.diff(starts))
                                if len(starts) > 1 else None),
         }
-        if rows and rows[0]["start_event"] is not None:
-            span_ms = [r["start_event"].elapsed_time(r["end_event"]) for r in rows]
+        if spans and self.device.type == "cuda":
+            span_ms = [s.device_ms for s in spans]
             plain = [ms for ms, r in zip(span_ms, rows) if not r["gradnorm"]]
             out.update({
                 "event_span_ms_total": float(sum(span_ms)),

@@ -39,6 +39,13 @@ to the next (at 384 px and B = 64 that was 57 MB of bfloat16 images).
 Gradient accumulation runs the microbatches in a Python loop, summing the
 gradients on the parameters.
 
+Spans (utils/tracing.py; off unless a profiler records): ``train_step``
+around the call; inside it ``train_step/collate``, ``/forward``, ``/loss``
+(the MoE terms included) and ``/backward`` once a microbatch,
+``train_step/grad_sync`` (with a mesh: the counts' all-reduce and the
+gradients' sums), ``train_step/clip`` (both global norms and the scale) and
+``train_step/update`` (the optimizer and the EMA).
+
 More than one rank (``mesh``, parallel/mesh.py). Every rank computes its
 share of what the one-process step computes on the global batch, as the TPU
 package's step does under ``jit`` over its mesh: each rank is handed its
@@ -115,6 +122,7 @@ from linnaeus_tpu_torch.parallel.ops import (
     group_size,
     split_rows,
 )
+from linnaeus_tpu_torch.utils.tracing import span
 
 from .state import TrainState
 
@@ -447,26 +455,30 @@ def make_train_step(
         """Collate, forward, loss and backward of one (micro)batch; the
         gradients are added onto the parameters' ``.grad``."""
         state.collate_rng.append(state.generator.get_state())
-        images, targets, meta, mixed_mask = collate(state.generator)
+        with span("train_step/collate"):
+            images, targets, meta, mixed_mask = collate(state.generator)
         moe = None
-        if collect_moe and hasattr(state.model, "moe_num_experts"):
-            outputs, moe = state.model(images, meta, moe_stats=True)
-        else:
-            outputs = state.model(images, meta)
-        total, components = weighted_hierarchical_loss(
-            outputs, targets, criteria, state.gradnorm.task_weights,
-            scalars.null_mask_prob, state.generator, (draws or {}).get("null_coins"),
-            class_weights=class_weights,
-            phase1_mask_null=phase1_mask_null,
-            apply_class_weights=apply_class_weights,
-            task_keys=task_keys,
-            group=data_group,
-        )
-        if moe is not None:
-            # the reported total is the optimised one, aux terms included
-            total = total + moe_aux_weight * moe["moe_aux"] + moe_z_weight * moe["moe_z"]
-            components = dict(components, **{k: v.detach() for k, v in moe.items()})
-        total.backward()
+        with span("train_step/forward"):
+            if collect_moe and hasattr(state.model, "moe_num_experts"):
+                outputs, moe = state.model(images, meta, moe_stats=True)
+            else:
+                outputs = state.model(images, meta)
+        with span("train_step/loss"):
+            total, components = weighted_hierarchical_loss(
+                outputs, targets, criteria, state.gradnorm.task_weights,
+                scalars.null_mask_prob, state.generator, (draws or {}).get("null_coins"),
+                class_weights=class_weights,
+                phase1_mask_null=phase1_mask_null,
+                apply_class_weights=apply_class_weights,
+                task_keys=task_keys,
+                group=data_group,
+            )
+            if moe is not None:
+                # the reported total is the optimised one, aux terms included
+                total = total + moe_aux_weight * moe["moe_aux"] + moe_z_weight * moe["moe_z"]
+                components = dict(components, **{k: v.detach() for k, v in moe.items()})
+        with span("train_step/backward"):
+            total.backward()
         # accuracy counts against the raw targets (before mixing)
         counts = _count_metrics({t: v.detach() for t, v in outputs.items()}, raw_targets)
         counts["mixed"] = mixed_mask.float().sum()
@@ -474,6 +486,10 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: dict, scalars: ScheduleScalars,
                    draws: Draws | Sequence[Draws] | None = None):
+        with span("train_step"):
+            return one_step(state, batch, scalars, draws)
+
+    def one_step(state, batch, scalars, draws):
         model = state.model
         model.train()
         if hasattr(model, "reshard"):
@@ -504,11 +520,14 @@ def make_train_step(
         if accum > 1:
             torch._foreach_div_([local(p.grad) for p in params if p.grad is not None], accum)
             total = total / accum
-        if data_group is not None:  # the counts of every rank's rows
-            keys = [k for k in stats if not k.startswith(("loss/", "moe_"))]
-            summed = torch.stack([stats[k] for k in keys])
-            torch.distributed.all_reduce(summed, group=data_group)
-            stats.update(zip(keys, summed))
+        if mesh is not None:
+            with span("train_step/grad_sync"):
+                if data_group is not None:  # the counts of every rank's rows
+                    keys = [k for k in stats if not k.startswith(("loss/", "moe_"))]
+                    summed = torch.stack([stats[k] for k in keys])
+                    torch.distributed.all_reduce(summed, group=data_group)
+                    stats.update(zip(keys, summed))
+                reduce_gradients(model, model_split, data_group, model_group)
         metrics: dict[str, torch.Tensor | float] = {"mixed_frac": stats["mixed"] / float(rows)}
         for k in MOE_KEYS:
             if k in stats:
@@ -519,25 +538,26 @@ def make_train_step(
             metrics[f"acc1/{t}"] = stats[f"correct1/{t}"] / denom
             metrics[f"acc3/{t}"] = stats[f"correct3/{t}"] / denom
 
-        if mesh is not None:
-            reduce_gradients(model, model_split, data_group, model_group)
         # the parameters are float32, so are their gradients: the clip and
         # the update run in float32
-        grads = [local(p.grad) for p in params if p.grad is not None]
-        pre_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
-        if clip_grad and clip_grad > 0:
-            scale = (clip_grad / (pre_clip_norm + 1e-6)).clamp(max=1.0)
-            torch._foreach_mul_(grads, scale)
-        post_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
+        with span("train_step/clip"):
+            grads = [local(p.grad) for p in params if p.grad is not None]
+            pre_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
+            if clip_grad and clip_grad > 0:
+                scale = (clip_grad / (pre_clip_norm + 1e-6)).clamp(max=1.0)
+                torch._foreach_mul_(grads, scale)
+            post_clip_norm = grad_norm([(p, p.grad) for p in params], data_group)
 
         step_before = state.step
-        state.apply_gradients()
-        if ema_decay and ema_decay > 0:
-            if state.ema_params is None:
-                raise ValueError("ema_decay > 0 needs create_train_state(..., ema=True)")
-            with torch.no_grad():
-                for name, p in model.named_parameters():
-                    state.ema_params[name].mul_(ema_decay).add_(p.detach(), alpha=1.0 - ema_decay)
+        with span("train_step/update"):
+            state.apply_gradients()
+            if ema_decay and ema_decay > 0:
+                if state.ema_params is None:
+                    raise ValueError("ema_decay > 0 needs create_train_state(..., ema=True)")
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        state.ema_params[name].mul_(ema_decay).add_(p.detach(),
+                                                                    alpha=1.0 - ema_decay)
 
         metrics.update({
             "loss": total,

@@ -575,8 +575,8 @@ def test_the_cli_needs_a_card_unless_told_otherwise(data_dir, tmp_path):  # noqa
 
 
 def test_profiled_device_rows_keep_lambda_kernels_and_drop_annotations():
-    """The device-busy sum counts every kernel, those whose demangled names
-    hold a lambda's '#' too, and leaves out the user-annotation ranges
+    """The rows by kernel name keep every kernel, those whose demangled
+    names hold a lambda's '#' too, and leave out the user-annotation ranges
     (``Optimizer.step#AdamW.step``, ``ProfilerStep#3``) that cover kernels
     with rows of their own."""
     from types import SimpleNamespace

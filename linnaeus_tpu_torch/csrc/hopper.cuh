@@ -14,9 +14,11 @@
 // have any number of rows that is a multiple of eight. An operand wider
 // than 64 columns (K2's C = 96 .. 192) is a "wide tile": 64-row atoms of 64
 // columns side by side, kTileBytes apart, each addressed by a descriptor of
-// its own; a width that is not a multiple of 64 is padded with zero columns
-// (`load_wide_rows_async`), which a product along the width skips k-step by
-// k-step and a product across it computes and throws away.
+// its own or, read MN-major with N across the atoms, by one descriptor that
+// steps from atom to atom (`descriptor_across`); a width that is not a
+// multiple of 64 is padded with zero columns (the tensor map's fill), which
+// a product along the width skips k-step by k-step and a product across it
+// computes and throws away.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,24 +82,6 @@ __device__ __forceinline__ void load_rows_async(uint32_t tile, const __nv_bfloat
     const bool live = r0 + r < N;
     const __nv_bfloat16* src = base + (live ? r0 + r : 0) * stride_n + c * 8;
     cp_async_16(tile + swizzled(r, c), src, live);
-  }
-}
-
-// Rows r0 .. r0 + 63 of a row-major (R, 8 * chunks) bf16 matrix, rows
-// `stride` elements apart, into a wide tile of kAtoms atoms, by all the
-// block's threads; rows past R and the 16-byte chunks past `chunks` arrive
-// as zeros.
-template <int kAtoms>
-__device__ __forceinline__ void load_wide_rows_async(uint32_t tile, const __nv_bfloat16* base,
-                                                     long long stride, long long r0,
-                                                     long long R, int chunks) {
-  constexpr int kPerRow = kAtoms * 8;
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += blockDim.x) {
-    const int r = i / kPerRow;
-    const int c = i % kPerRow;
-    const bool live = r0 + r < R && c < chunks;
-    const __nv_bfloat16* src = base + (live ? (r0 + r) * stride + c * 8 : 0);
-    cp_async_16(tile + (c >> 3) * kTileBytes + swizzled(r, c & 7), src, live);
   }
 }
 
@@ -174,6 +158,12 @@ __device__ __forceinline__ void take_registers() {
 // from __syncthreads' own: `id` in 1 .. 15.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting: the other side of a
+// hand-off waits there with named_barrier (`threads` counts both sides).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A 64 x 64 tile of bf16 pairs held as a wgmma accumulator fragment, written
@@ -271,6 +261,39 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       ", %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24)
+      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)), "n"(kTransA), "n"(kTransB));
+}
+
+// As wgmma_ss_n64 for a 64 x 32 product: d[4 j + 2 half + e], j < 4. A
+// product that keeps half the registers of the 64-column one, for a
+// warpgroup whose accumulators already fill most of its registers.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                             bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8)
+      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)), "n"(kTransA), "n"(kTransB));
+}
+
+// And for a 64 x 16 product: d[4 j + 2 half + e], j < 2.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b,
+                                             bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : HP_ACC8(d, 0)
       : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)), "n"(kTransA), "n"(kTransB));
 }
 
@@ -384,6 +407,91 @@ __device__ __forceinline__ void wgmma_rs_wide<256>(float* d, const uint32_t* a, 
       "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
       "}\n"
       : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56), HP_ACC8(d, 64), HP_ACC8(d, 72), HP_ACC8(d, 80), HP_ACC8(d, 88), HP_ACC8(d, 96), HP_ACC8(d, 104), HP_ACC8(d, 112), HP_ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Matrix descriptor of a wide tile read MN-major as the B operand of a
+// product whose N runs across the tile's atoms (wgmma_rs_across): as
+// `descriptor`, with the leading-dimension offset set to the distance from
+// one 64-column block of N to the next, kTileBytes.
+__device__ __forceinline__ uint64_t descriptor_across(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(kTileBytes >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x kN, float32) += A B with A (64 x 16 bf16) from registers, as
+// wgmma_rs_wide, and B a wide tile read MN-major: its 16 rows of the k-step
+// run along the inner dimension and its kN columns, atom after atom
+// (descriptor_across), along N. The product across a row tile's width C of
+// K2's backward (dh0 += da1 W1c, dW1c += da1^T h0, G^T += h1^T dout): one
+// instruction as wide as C a k-step. kN: 64, 96, 128 or 192.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs_across(float* d, const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_across<64>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_across<96>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_across<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_across<192>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "
+      "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_ACC8(d, 0), HP_ACC8(d, 8), HP_ACC8(d, 16), HP_ACC8(d, 24), HP_ACC8(d, 32), HP_ACC8(d, 40), HP_ACC8(d, 48), HP_ACC8(d, 56), HP_ACC8(d, 64), HP_ACC8(d, 72), HP_ACC8(d, 80), HP_ACC8(d, 88)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

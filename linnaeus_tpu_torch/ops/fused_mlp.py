@@ -15,9 +15,12 @@ the tensor cores where they can: in bfloat16 with C a multiple of 32 every
 product is a ``wgmma`` from swizzled shared-memory tiles filled by
 asynchronous copies. The forward is one persistent kernel (LN by the block,
 the weight chunks through a ring, GELU in registers between the two
-products); the backward is two passes of two warpgroups a block that split
-the work by side, after a prologue kernel that writes LN(y) and dout * gamma
-once as bfloat16 (M, C) into the workspace. float32 (no tensor-core product
+products); the backward is a prologue that writes LN(y) and dout * gamma
+once as bfloat16 (M, C) into the workspace, then a pass over row tiles
+(dh0, dy and the vector sums) and a pass over hidden chunks (dW1, db1 and
+G = dout^T h1, from which dW2 and dgamma follow), both warp-specialised
+behind rings of TMA loads, five products of M C 4C a tile and chunk where
+the forward recomputed in the tile has six. float32 (no tensor-core product
 keeps its 1e-5 and 2e-5 bars) and the other widths run float32 FMAs on the
 CUDA cores. :func:`forward_kernel` and :func:`backward_kernel` hold those
 rules, and :func:`kernel_takes` says which widths the kernels take at all;
@@ -278,18 +281,9 @@ def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     dy = torch.empty_like(y2)
     dls, dlb, db2, dg = (torch.empty(C, **f32) for _ in range(4))
     dw1, db1, dw2 = torch.empty((Hd, C), **f32), torch.empty(Hd, **f32), torch.empty((C, Hd), **f32)
-    # one persistent block per SM in the row pass; in the weight pass the
-    # SMs are shared out among the 64-column hidden chunks. Both routes'
-    # blocks (256 threads, 97 .. 215 KB of shared memory, up to 255
-    # registers a thread) fit one to an SM.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = (M + 63) // 64
-    chunks = (Hd + 63) // 64
-    row_blocks = min(tiles, sms)
-    slabs = max(1, min(tiles, sms // chunks))
-    floats = row_blocks * 4 * C + slabs * (2 * Hd * C + Hd)
-    if backward_kernel(C, y2.dtype, Hd) == "wgmma":
-        floats += M * C + 2 * M  # LN(y) and dout * gamma in bfloat16, mean and rstd
+    row_blocks, slabs, floats = _bwd_geometry(
+        M, C, Hd, backward_kernel(C, y2.dtype, Hd),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     workspace = torch.empty(floats, **f32)
     pointers = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
     lib = _kernels.library()
@@ -303,6 +297,26 @@ def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return dy, dls, dlb, dw1, db1, dw2, db2, dg
+
+
+def _bwd_geometry(M: int, C: int, Hd: int, route: str, sms: int) -> tuple[int, int, int]:
+    """(row_blocks, slabs, workspace floats) of the backward on ``sms`` SMs.
+    Every block fits one to an SM. The row pass is persistent: one block per
+    SM, over row tiles of 64 rows a consumer (two consumers a block on the
+    tensor cores). In the weight pass the SMs are shared out among the
+    64-column hidden chunks, a block of a chunk taking a slab of the row
+    tiles. The workspace holds the row blocks' column sums and each slab's
+    weight gradients; on the tensor cores also LN(y) and dout * gamma in
+    bfloat16 and the rows' mean and rstd."""
+    tiles = (M + 63) // 64
+    slabs = max(1, min(tiles, sms // ((Hd + 63) // 64)))
+    if route == "wgmma":
+        row_blocks = min((M + 127) // 128, sms)
+        floats = M * C + 2 * M + row_blocks * 3 * C
+    else:
+        row_blocks = min(tiles, sms)
+        floats = row_blocks * 4 * C
+    return row_blocks, slabs, floats + slabs * (2 * Hd * C + Hd)
 
 
 def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:

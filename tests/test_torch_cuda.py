@@ -19,7 +19,10 @@ CUDA cores at its 2e-5. K2's forward and backward and K3's MLP tail run on
 the tensor cores in bfloat16 at widths that are multiples of 32 (up to 256,
 192 and 192) and on the CUDA cores otherwise; the C side's reports of those
 routes are held against the Python rules, the tensor-core forward around
-its 64-row tile and 64-column atom edges, and a ConvNeXt block left to
+its 64-row tile and 64-column atom edges, the tensor-core backward at the
+shapes of a 384 px train step at B = 128 (the same bits twice too) and at
+hidden widths of one, three and five chunks, ptxas's report on the
+backward's source free of serialised `wgmma`, and a ConvNeXt block left to
 choose its route at the lg and xl presets' widths. K1 and K2 inside the
 non-reentrant checkpoints of per-block rematerialisation, under each
 policy, give the gradients of the run without it (to the backward bars,
@@ -566,8 +569,63 @@ def test_k2_backward_route_reported_by_the_library_is_the_python_rule(dev, dtype
     assert fm.backward_kernel(C, dtype) == ("wgmma" if wide else "cuda_cores")
 
 
+# the shapes of K2's calls in a train step of mFormerV1_sm at 384 px, B = 128
+K2_CELL_SHAPES = [(128 * 96 * 96, 96), (128 * 48 * 48, 192)]
+
+
+@pytest.mark.parametrize("M,C", K2_CELL_SHAPES)
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k2_bf16_backward_matches_plain_at_the_train_steps_shapes(dev, M, C, approximate):
+    args = _k2_args(dev, M, C, torch.bfloat16, seed=M + C)
+    y, x, ln_w, ln_b, w1, b1, w2, b2, gamma = args
+    before = fm.BWD_LAUNCHES
+    got = fm._launch_bwd(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, approximate)
+    torch.cuda.synchronize()
+    assert fm.BWD_LAUNCHES == before + 1
+    want = fm.fused_convnext_mlp_bwd_reference(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6,
+                                               approximate)
+    names = ("dy", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("C", [96, 192])
+@pytest.mark.parametrize("hidden", [64, 192, 320])
+def test_k2_bf16_backward_takes_any_whole_hidden_chunks(dev, C, hidden):
+    """Hidden widths of one, three and five 64-column chunks: the weight
+    pass's blocks of one chunk each, an odd count of them included."""
+    args = _k2_args(dev, 64 * 150 + 7, C, torch.bfloat16, hidden=hidden)
+    y, x, ln_w, ln_b, w1, b1, w2, b2, gamma = args
+    got = fm._launch_bwd(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, True)
+    torch.cuda.synchronize()
+    want = fm.fused_convnext_mlp_bwd_reference(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6,
+                                               True)
+    for name, a, b in zip(("dy", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma"),
+                          got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16], name
+
+
+def test_k2_backward_build_keeps_every_wgmma_asynchronous(dev):
+    """ptxas's report on the tensor-core backward's source names no
+    serialised `wgmma` (C7520 and its kin: a product issued on a path it
+    takes for divergent, too few registers for the pipeline)."""
+    from linnaeus_tpu_torch import _kernels
+
+    # the file's functions carry its name in their mangled names
+    report = [line for line in _kernels.resource_usage().splitlines()
+              if "fused_mlp_bwd_wgmma_cu" in line]
+    assert any("mlp_bwd_rows_wgmma_kernel" in line for line in report)
+    assert any("mlp_bwd_weights_wgmma_kernel" in line for line in report)
+    assert not [line for line in report if "C7520" in line]
+    serialised = [line for line in report
+                  if "wgmma.mma_async instructions are serialized" in line]
+    assert not serialised, serialised
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,C", [(1000, 96), (64 * 150 + 7, 192), (70, 40)])
+@pytest.mark.parametrize("M,C", [(1000, 96), (64 * 150 + 7, 192), (70, 40)] + K2_CELL_SHAPES)
 def test_k2_backward_is_the_same_bits_twice(dev, dtype, M, C):
     g = torch.Generator(device=dev).manual_seed(C)
     y, dout = (torch.randn(M, C, generator=g, device=dev).to(dtype) for _ in range(2))

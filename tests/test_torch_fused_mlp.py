@@ -194,79 +194,86 @@ def _kernel_gelu_grad(a, approximate, tanh):
 def _emulate_two_pass_backward(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate,
                                row_blocks=3, slabs=2):
     """The tensor-core route: a prologue that makes h0 = round(LN(y)) and
-    d2 = round(dout gamma) once; a row pass over 64-row tiles (zero rows past
-    M, C padded with zero columns to whole 64-column atoms for the products
-    across C) and 64-column hidden chunks, its four column sums kept per
-    block; a weight pass per hidden chunk on transposed chunk activations,
-    its patches kept per slab; slabs and blocks summed in order. The fast
-    tanh belongs to the bfloat16 kernels; float32 operands (which on the card
-    keep the CUDA-core kernels) take the exact one."""
+    d2 = round(dout gamma) once; a row pass over blocks of two 64-row tiles
+    (zero rows past M) and 64-column hidden chunks, taken 32 columns at a
+    time where the width across C is 128 or more, with dh0 accumulated
+    across C padded to the product's width (64 at C = 32, 192 at C = 160)
+    and three column sums kept per block (dh0 n, dh0, dout); a weight pass
+    per hidden chunk and slab of row tiles on transposed chunk activations,
+    accumulating G^T = h1^T dout and dW1c, 32 tile rows at a time where the
+    row pass takes 32 columns; then dW2 = gamma G, db2 = gamma sum dout,
+    dgamma = sum_j W2 G + b2 sum dout, slabs and blocks summed in order.
+    No a2 product. The fast tanh belongs to the bfloat16 kernels; float32
+    operands (which on the card keep the CUDA-core kernels) take the exact
+    one."""
     dt = y.dtype
     tanh = _fast_tanh if dt == torch.bfloat16 else torch.tanh
     M, C = y.shape
     Hd = w1.shape[0]
-    CP = -(-C // 64) * 64
+    N = 64 if C <= 64 else 96 if C == 96 else 128 if C <= 128 else 192  # width across C
+    sub = 32 if N >= 128 else 64
     rd = lambda t: t.to(dt).float()  # noqa: E731
     yf = y.float()
     mean = yf.mean(-1, keepdim=True)
     rstd = torch.rsqrt((yf - mean).square().mean(-1, keepdim=True) + eps)
-    tiles = -(-M // 64)
+    tiles = -(-M // 128) * 2  # whole blocks of two tiles
     pad_rows = lambda t: torch.nn.functional.pad(t, (0, 0, 0, tiles * 64 - M))  # noqa: E731
-    pad_cols = lambda t: torch.nn.functional.pad(t, (0, CP - C))  # noqa: E731
+    pad_cols = lambda t: torch.nn.functional.pad(t, (0, N - C))  # noqa: E731
     h0 = pad_rows(rd((yf - mean) * rstd * ln_w + ln_b))
     d2 = pad_rows(rd(dout.float() * gamma))
     yp, dop, mean, rstd = (pad_rows(t) for t in (yf, dout.float(), mean, rstd))
     live = (torch.arange(tiles * 64) < M)[:, None]
     w1f, w2f = w1.float(), w2.float()
-    w1p = pad_cols(w1f)                                              # [hidden][c]
-    w2p = torch.nn.functional.pad(w2f, (0, 0, 0, CP - C))            # [c][hidden]
+    w1p = pad_cols(w1f)  # [hidden][c], zero columns past C
 
     dy = torch.zeros(tiles * 64, C)
-    part = torch.zeros(row_blocks, 4, C)
+    part = torch.zeros(row_blocks, 3, C)
     for t in range(tiles):
         rows = slice(t * 64, (t + 1) * 64)
-        a2, dh0 = torch.zeros(64, CP), torch.zeros(64, CP)
-        for hc in range(0, Hd, 64):
-            ch = slice(hc, hc + 64)
-            a1 = h0[rows] @ w1f[ch].t() + b1[ch]                     # inner C, no padding
+        dh0 = torch.zeros(64, N)
+        for hc in range(0, Hd, sub):
+            ch = slice(hc, hc + sub)
+            a1 = h0[rows] @ w1f[ch].t() + b1[ch]  # inner C, no padding
             dh1 = d2[rows] @ w2f[:, ch]
-            a2 += rd(_kernel_gelu(a1, approximate, tanh)) @ w2p[:, ch].t()  # across the padded C
             dh0 += rd(dh1 * _kernel_gelu_grad(a1, approximate, tanh)) @ w1p[ch]
-        a2, dh0 = a2[:, :C], dh0[:, :C]
+        dh0 = dh0[:, :C]
         n = (yp[rows] - mean[rows]) * rstd[rows]
-        block = part[t % row_blocks]
+        block = part[(t // 2) % row_blocks]
         block[0] += (dh0 * n).sum(0)
         block[1] += dh0.sum(0)
-        block[2] += (dop[rows] * gamma).sum(0)
-        block[3] += (dop[rows] * (a2 + b2)).sum(0)
+        block[2] += dop[rows].sum(0)
         dn = dh0 * ln_w
         dy[rows] = rstd[rows] * (dn - dn.sum(-1, keepdim=True) / C
                                  - n * ((dn * n).sum(-1, keepdim=True) / C))
     assert bool((torch.where(live, 0.0, dy) == 0).all())  # zero rows give zero dy
-    dls, dlb, db2, dg = (sum(part[r, k] for r in range(row_blocks)) for k in range(4))
+    dls, dlb, sum_dout = (sum(part[r, k] for r in range(row_blocks)) for k in range(3))
 
-    ws_w1, ws_w2 = torch.zeros(slabs, Hd, CP), torch.zeros(slabs, Hd, CP)
+    ws_w1, ws_g = torch.zeros(slabs, Hd, N), torch.zeros(slabs, Hd, N)
     ws_b1 = torch.zeros(slabs, Hd)
     for hc in range(0, Hd, 64):
         ch = slice(hc, hc + 64)
         for s in range(slabs):
             for t in range(s, tiles, slabs):
-                rows = slice(t * 64, (t + 1) * 64)
-                a1t = w1f[ch] @ h0[rows].t() + b1[ch, None]          # [hidden][row]
-                dh1t = w2f[:, ch].t() @ d2[rows].t()
-                da1t = dh1t * _kernel_gelu_grad(a1t, approximate, tanh)
-                ws_w2[s, ch] += rd(_kernel_gelu(a1t, approximate, tanh)) @ pad_cols(d2[rows])
-                ws_w1[s, ch] += rd(da1t) @ pad_cols(h0[rows])
-                ws_b1[s, ch] += da1t.sum(1)
+                for r0 in range(t * 64, (t + 1) * 64, sub):
+                    rows = slice(r0, r0 + sub)
+                    a1t = w1f[ch] @ h0[rows].t() + b1[ch, None]  # [hidden][row]
+                    dh1t = w2f[:, ch].t() @ d2[rows].t()
+                    da1t = dh1t * _kernel_gelu_grad(a1t, approximate, tanh)
+                    ws_g[s, ch] += rd(_kernel_gelu(a1t, approximate, tanh)) @ pad_cols(dop[rows])
+                    ws_w1[s, ch] += rd(da1t) @ pad_cols(h0[rows])
+                    ws_b1[s, ch] += da1t.sum(1)
     dw1 = sum(ws_w1[s] for s in range(slabs))[:, :C]
-    dw2 = sum(ws_w2[s] for s in range(slabs))[:, :C].t()
+    g = sum(ws_g[s] for s in range(slabs))[:, :C].t()  # G = dout^T h1, (C, Hd)
     db1 = sum(ws_b1[s] for s in range(slabs))
+    dw2 = gamma[:, None] * g
+    db2 = gamma * sum_dout
+    dg = (w2f * g).sum(1) + b2 * sum_dout
     return dy[:M].to(dt), dls, dlb, dw1, db1, dw2, db2, dg
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("approximate", [True, False])
-@pytest.mark.parametrize("M,C", [(70, 32), (200, 96), (130, 192)])
+@pytest.mark.parametrize("M,C", [(70, 32), (200, 96), (130, 192), (200, 64), (130, 160)])
 def test_two_pass_tensor_core_backward_stays_inside_the_kernel_bar(dtype, approximate, M, C):
     a = _inputs(M, C, dtype, seed=M + C)
     y, dout = _torch(a["y"], dtype), _torch(a["x"], dtype)

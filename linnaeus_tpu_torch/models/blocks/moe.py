@@ -34,9 +34,17 @@ dropped choices. They leave the model through its forward's return value
 (models/mformer_v1.py), never through module state, so a checkpointed
 block's recompute adds no second copy. Router noise (``noise_std`` > 0, in
 units of 1/E, training mode only) draws from ``generator``, which
-``create_train_state`` sets to the step's generator. ``forward`` is the
-``MoEMlp.forward`` span (utils/tracing.py), which ``tools/profile_step.py``
-reads.
+``create_train_state`` sets to the step's generator.
+
+Tracing (utils/tracing.py, off by default): ``forward`` is the
+``MoEMlp.forward`` span, which ``tools/profile_step.py`` reads, and holds
+four: ``/route`` (the router product, softmax, sort, queue positions and
+the statistics), ``/dispatch`` (the slot buffer's ``index_put``),
+``/experts`` (the two batched products and the GELU) and ``/combine``.
+While tracing is on, each call also counts, per expert, the choices routed
+to it before capacity, the kept ones and the dropped ones (a (3, E) int64
+tensor, ``count``ed under ``MoEMlp.counts/<trace_name>``, never read
+inside the step); off, it launches no work for them.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from linnaeus_tpu_torch.utils import tracing
 from linnaeus_tpu_torch.utils.tracing import span
 
 from .common import Dropout, draw_rows, gelu, trunc_normal_
@@ -112,6 +121,7 @@ class MoEMlp(nn.Module):
         # the slot buffer's rows of one rank are contiguous along its axis 1
         self.drop1.batch_dim = self.drop2.batch_dim = 1
         self.generator: torch.Generator | None = None  # the router noise's
+        self.trace_name = "MoEMlp"  # its counters' name; the model names its layers
         # parallel/: the data group (global statistics and draws) and the
         # model group the expert banks split over (expert parallelism)
         self.data_group = None
@@ -129,38 +139,53 @@ class MoEMlp(nn.Module):
         B, N, D = x.shape
         E, K, dt = self.num_experts, self.top_k, x.dtype
         C = capacity(N, E, K, self.capacity_factor)
-        logits = x.float() @ self.router.float()  # (B, N, E)
-        if self.noise_std > 0.0 and self.training:
-            noise = draw_rows(torch.randn, logits.shape, logits.device, self.generator,
-                              self.data_group)
-            logits = logits + noise * (self.noise_std / E)
-        probs, gates, experts, slots, keep = route(logits, K, C)
+        with span("MoEMlp.forward/route"):
+            logits = x.float() @ self.router.float()  # (B, N, E)
+            if self.noise_std > 0.0 and self.training:
+                noise = draw_rows(torch.randn, logits.shape, logits.device, self.generator,
+                                  self.data_group)
+                logits = logits + noise * (self.noise_std / E)
+            probs, gates, experts, slots, keep = route(logits, K, C)
+            stats = self._stats(logits, probs, experts, keep)
+            if tracing.on():
+                routed = experts[..., None] == torch.arange(E, device=x.device)
+                counts = torch.stack([routed.sum(dim=(0, 1, 2)),
+                                      (routed & keep[..., None]).sum(dim=(0, 1, 2))])
+                tracing.count(f"MoEMlp.counts/{self.trace_name}",
+                              torch.cat([counts, counts[:1] - counts[1:]]))
 
-        # dispatch: choice (b, n, k) -> row experts * B C + b C + slot; every
-        # dropped choice -> the extra last row
-        rows = experts * (B * C) + torch.arange(B, device=x.device)[:, None, None] * C + slots
-        rows = torch.where(keep, rows, torch.full_like(rows, E * B * C)).reshape(-1)
-        tokens = x[:, :, None, :].expand(B, N, K, D).reshape(B * N * K, D)
-        buf = x.new_zeros(E * B * C + 1, D).index_put((rows,), tokens)
-        xe = buf[:-1].view(E, B * C, D)
+        with span("MoEMlp.forward/dispatch"):
+            # choice (b, n, k) -> row experts * B C + b C + slot; every
+            # dropped choice -> the extra last row
+            rows = experts * (B * C) + torch.arange(B, device=x.device)[:, None, None] * C + slots
+            rows = torch.where(keep, rows, torch.full_like(rows, E * B * C)).reshape(-1)
+            tokens = x[:, :, None, :].expand(B, N, K, D).reshape(B * N * K, D)
+            buf = x.new_zeros(E * B * C + 1, D).index_put((rows,), tokens)
+            xe = buf[:-1].view(E, B * C, D)
 
-        ye = self._experts(xe) if self.expert_group is None else self._expert_parallel(xe)
+        with span("MoEMlp.forward/experts"):
+            ye = self._experts(xe) if self.expert_group is None else self._expert_parallel(xe)
 
-        # combine: each token's k outputs weighted by its gates (in the compute
-        # dtype, as the TPU package casts them), zero where dropped, summed in
-        # float32 and rounded once; an elementwise sum, since a batched product
-        # of B N (1, K) x (K, D) matrices is a pathological GEMM
-        picked = ye.reshape(E * B * C, D).index_select(0, rows.clamp_max(E * B * C - 1))
-        weights = torch.where(keep, gates, torch.zeros_like(gates)).to(dt)
-        y = (weights.float()[..., None] * picked.view(B, N, K, D).float()).sum(dim=2).to(dt)
+        with span("MoEMlp.forward/combine"):
+            # each token's k outputs weighted by its gates (in the compute
+            # dtype, as the TPU package casts them), zero where dropped, summed
+            # in float32 and rounded once; an elementwise sum, since a batched
+            # product of B N (1, K) x (K, D) matrices is a pathological GEMM
+            picked = ye.reshape(E * B * C, D).index_select(0, rows.clamp_max(E * B * C - 1))
+            weights = torch.where(keep, gates, torch.zeros_like(gates)).to(dt)
+            y = (weights.float()[..., None] * picked.view(B, N, K, D).float()).sum(dim=2).to(dt)
+        return y, stats
 
-        # the auxiliary statistics, float32
+    def _stats(self, logits, probs, experts, keep) -> MoEStats:
+        """The layer's auxiliary statistics, float32."""
+        B, N, E = logits.shape
+        K = experts.shape[-1]
         if self.data_group is None:
             f = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
             aux = E * (f * probs.mean(dim=(0, 1))).sum()
             z = torch.logsumexp(logits, dim=-1).square().mean()
             drop_frac = 1.0 - keep.sum().float() / float(B * N * K)
-            return y, MoEStats(aux, z, drop_frac)
+            return MoEStats(aux, z, drop_frac)
         # the global batch's: this rank's sums gathered from every rank and
         # added in rank order (the loss that reads them is the same on every
         # rank, so each rank's sums take their slice of its gradient)
@@ -173,7 +198,7 @@ class MoEMlp(nn.Module):
         sums = gather_rows(sums[None], self.data_group).sum(dim=0)
         count = float(B * N * group_size(self.data_group))
         aux = E * ((sums[:E] / count) * (sums[E:2 * E] / count)).sum()
-        return y, MoEStats(aux, sums[2 * E] / count, 1.0 - sums[2 * E + 1] / (count * K))
+        return MoEStats(aux, sums[2 * E] / count, 1.0 - sums[2 * E + 1] / (count * K))
 
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
         """The banks this module holds on their (e, S, D) slot rows, as

@@ -64,7 +64,7 @@ from linnaeus_tpu_torch.models.blocks.convnext import (
     ConvNeXtDownsampleLayer,
     ConvNeXtStem,
 )
-from linnaeus_tpu_torch.models.blocks.moe import MoEStats
+from linnaeus_tpu_torch.models.blocks.moe import MoEMlp, MoEStats
 from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
 from linnaeus_tpu_torch.models.factory import AGGREGATION_REGISTRY, register_model
 from linnaeus_tpu_torch.models.heads.heads import MultiTaskHeads
@@ -178,6 +178,9 @@ class MFormerV1(nn.Module):
             for s, grid in ((0, self.grid3), (1, self.grid4))
         ]
         self.stages = nn.ModuleList(conv_stages + rope_stages)
+        for name, module in self.stages.named_modules(prefix="stages"):
+            if isinstance(module, MoEMlp):
+                module.trace_name = name  # its counters' name (blocks/moe.py)
         self.downsample_layers = nn.ModuleList(
             ConvNeXtDownsampleLayer(convnext_dims[i], convnext_dims[i + 1])
             for i in range(3)

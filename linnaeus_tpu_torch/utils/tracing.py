@@ -19,8 +19,14 @@ with no setting) and inside ``enabled()``. An on span
 it is for work that runs once a process (``setup/...``) and for the
 Trainer's iterations, which it always timed. ``summary()`` synchronizes
 once and gives, by name, the calls and the host and device milliseconds
-(totals and medians a call); ``take(name)`` hands over the records of one
-name and forgets them; ``reset()`` clears the recorder.
+(totals and medians a call); ``records()`` gives every record, timed;
+``take(name)`` hands over the records of one name and forgets them;
+``reset()`` clears the recorder.
+
+``count(name, value)`` keeps a tensor of counts on its device, unread, when
+tracing is on (``on()``), and nothing when it is off; a caller that has
+work to do to make the value asks ``on()`` first, so that off it launches
+nothing. ``counters()`` reads every kept value in one transfer.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 _profiling = torch._C._autograd._profiler_enabled
 _by_hand = 0
 _records: list[tuple] = []  # (name, parent, start s, end s, (start, end) events or None)
+_counts: list[tuple] = []  # (name, host clock s, tensor on its device)
 _local = threading.local()
 _OFF = contextlib.nullcontext()
 
@@ -87,13 +94,26 @@ class _Span:
         return False
 
 
+def on() -> bool:
+    """Whether tracing is on: a torch profiler records, or inside
+    ``enabled()``."""
+    return _by_hand > 0 or _profiling()
+
+
 def span(name: str, always: bool = False):
     """A context that records ``name`` when tracing is on (module
     docstring), or with ``always`` whether on or not."""
-    on = _by_hand > 0 or _profiling()
-    if not (on or always):
+    recording = on()
+    if not (recording or always):
         return _OFF
-    return _Span(name, on)
+    return _Span(name, recording)
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep ``value`` under ``name`` when tracing is on, as it is (no
+    copy to the host, no synchronisation); nothing when off."""
+    if on():
+        _counts.append((name, time.perf_counter(), value.detach()))
 
 
 @contextlib.contextmanager
@@ -124,13 +144,36 @@ def take(name: str) -> list[Record]:
     return _finished(taken)
 
 
+def records(since: float | None = None) -> list[Record]:
+    """Every record that started at or after ``since``, in order, timed
+    (one synchronisation), the recorder left as it was."""
+    return _finished([r for r in list(_records) if since is None or r[2] >= since])
+
+
+def counters(since: float | None = None) -> dict[str, torch.Tensor]:
+    """By name, the values ``count`` kept at or after ``since``, stacked
+    in call order on the host as float64 (calls, *shape); read in one
+    transfer."""
+    rows = [(name, value) for name, at, value in list(_counts) if since is None or at >= since]
+    if not rows:
+        return {}
+    flat = torch.cat([v.reshape(-1).to(torch.float64) for _, v in rows]).cpu()
+    by_name: dict[str, list[torch.Tensor]] = {}
+    at = 0
+    for name, value in rows:
+        n = value.numel()
+        by_name.setdefault(name, []).append(flat[at:at + n].view(value.shape))
+        at += n
+    return {name: torch.stack(values) for name, values in by_name.items()}
+
+
 def summary(since: float | None = None) -> dict[str, dict]:
     """By span name: ``calls``, ``parent`` (its first call's), ``host_ms``
     (total), ``host_ms_median`` (a call), ``device_ms`` (total) and
     ``device_ms_median`` (a call; both None where CUDA was not in use), of
     the spans that started at or after ``since`` (``time.perf_counter``)."""
     by_name: dict[str, list[Record]] = {}
-    for r in _finished([r for r in list(_records) if since is None or r[2] >= since]):
+    for r in records(since):
         by_name.setdefault(r.name, []).append(r)
     out = {}
     for name, rows in by_name.items():
@@ -144,5 +187,6 @@ def summary(since: float | None = None) -> dict[str, dict]:
 
 
 def reset() -> None:
-    """Forget every record."""
+    """Forget every record and every count."""
     _records.clear()
+    _counts.clear()

@@ -2,7 +2,9 @@
 tests/test_torch_train_step.py: off, a span touches neither the profiler
 nor CUDA; under a profiler the train step's phases nest inside it in order
 and are counted once a step (once a microbatch where they repeat); tracing
-changes no number of the step; set-up spans are recorded with tracing off.
+changes no number of the step; set-up spans are recorded with tracing off;
+an MoE layer's four sub-spans nest in its span, and its per-expert counters
+cover every choice on, and launch nothing off.
 Also the device's busy time as the union of its operations
 (utils/device.py) and the Trainer's profiled-window summary, on fake
 events."""
@@ -229,3 +231,86 @@ def test_idle_gaps_go_to_the_innermost_span_over_their_middle():
                                           "device_ms_per_step": 6.0}
     assert out["spans"]["train_step/loss"]["device_ms_per_step"] is None
     assert out["idle_ms_by_span"]["between spans"] == 2.0
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The aten operations run inside it, in order (the profiler's own
+    range operations left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names: list[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not str(func).startswith("profiler."):
+            self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _moe_layer_and_tokens():
+    from linnaeus_tpu_torch.models.blocks.moe import MoEMlp
+    from linnaeus_tpu_torch.models.build import build_model
+
+    model = build_model(_tiny_config(moe=True), NC, device="cpu", seed=0)
+    layers = [m for m in model.modules() if isinstance(m, MoEMlp)]
+    x = torch.randn(2, 20, layers[0].router.shape[0], generator=torch.Generator().manual_seed(1))
+    return model, layers, x
+
+
+def test_moe_layer_off_records_nothing_and_launches_no_counting_work(monkeypatch):
+    _, layers, x = _moe_layer_and_tokens()
+    with torch.no_grad():
+        with _Ops() as off:
+            y_off, _ = layers[0](x)
+        with tracing.enabled(), _Ops() as on:
+            y_on, _ = layers[0](x)
+    assert torch.equal(y_off, y_on)
+    # on, one block of counting operations more, the rest the same and in order
+    extra = len(on.names) - len(off.names)
+    at = next(i for i, (a, b) in enumerate(zip(off.names, on.names)) if a != b)
+    assert extra > 0 and on.names[:at] + on.names[at + extra:] == off.names
+    assert "aten.eq.Tensor" in on.names[at:at + extra] and "aten.eq.Tensor" not in off.names
+    tracing.reset()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("called with tracing off")
+
+    monkeypatch.setattr(tracing, "count", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    with torch.no_grad():
+        layers[0](x)
+    assert tracing.summary() == {} and tracing.counters() == {}
+
+
+def test_moe_sub_spans_nest_in_the_layer_and_its_counters_cover_every_choice():
+    from linnaeus_tpu_torch.models.blocks.moe import capacity, route
+
+    model, layers, _ = _moe_layer_and_tokens()
+    x, aux = torch.rand(2, IMG, IMG, 3), torch.randn(2, sum(d for _, d in model.meta_components))
+    with torch.no_grad(), tracing.enabled():
+        model(x, aux)
+    spans = tracing.summary()
+    assert spans["MoEMlp.forward"]["calls"] == len(layers) >= 2
+    for part in ("route", "dispatch", "experts", "combine"):
+        name = f"MoEMlp.forward/{part}"
+        assert (spans[name]["calls"], spans[name]["parent"]) == (len(layers), "MoEMlp.forward")
+    counts = tracing.counters()
+    names = [n for n, m in model.named_modules() if m in layers]
+    assert sorted(counts) == sorted(f"MoEMlp.counts/{n}" for n in names)
+    for name, layer in zip(names, layers):
+        c = counts[f"MoEMlp.counts/{name}"]  # (calls, [routed, kept, dropped], experts)
+        assert c.shape == (1, 3, layer.num_experts)
+        N = model.extra_token_num + (IMG // (16 if name.startswith("stages.2") else 32)) ** 2
+        assert float(c[0, 0].sum()) == 2 * N * layer.top_k
+        assert torch.equal(c[0, 1] + c[0, 2], c[0, 0])
+    # the counts are the routing's own: the first layer's, recomputed
+    first = layers[0]
+    seen = []
+    hook = first.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    with torch.no_grad():
+        model(x, aux)
+    hook.remove()
+    cap = capacity(seen[0].shape[1], first.num_experts, first.top_k, first.capacity_factor)
+    _, _, experts, _, keep = route(seen[0] @ first.router, first.top_k, cap)
+    kept = torch.bincount(experts[keep], minlength=first.num_experts).double()
+    assert torch.equal(counts[f"MoEMlp.counts/{names[0]}"][0, 1], kept)

@@ -16,8 +16,13 @@ as a yardstick of several calls, and its backward, through autograd, beside
 K2's backward). It checks the width rule of the ConvNeXt
 block: left to choose, a block runs at the lg and xl presets' widths through
 the route the rule names, and told to fuse past the kernels' widths it
-raises by name. Then it serves mFormerV1_sm at
-384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler with
+raises by name. It holds drop path's per-sample scale at the 384 px train
+step's shapes (B = 128): the scale-add kernel forward and backward at the
+RoPE residuals against its plain version (a dropped sample bit for bit;
+timed with no sample dropped against its byte bound and the eager chain it
+replaced; the host time of one residual through drop_path_add and through
+that chain), and K2 with the scale, forward and its eight gradients. Then
+it serves mFormerV1_sm at 384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler with
 its default options but for the batch size, so with the
 hierarchical-consistency pass on against a seeded taxonomy tree over the
 four tasks: three predict requests of 1, 7 and 64 images, with launch
@@ -208,12 +213,24 @@ K1_SHAPES_LARGE = [(BATCH, 1028, 6, 64), (BATCH, 260, 12, 64)]
 K3_SHAPES = [(BATCH, 96, 96, 96), (BATCH, 48, 48, 192), (2, 9, 11, 96)]
 # K2: stage 1 (B*96*96 rows, C=96) and stage 2 (B*48*48 rows, C=192)
 K2_SHAPES = [(BATCH * 96 * 96, 96), (BATCH * 48 * 48, 192), (70, 96)]
+# drop path's per-sample scale at the 384 px train step's shapes, B = 128
+# (benchmark/traffic/train384.json): the RoPE residuals of stages 3 and 4,
+# K2's rows of stages 1 and 2
+DROP_PATH_BATCH = 128
+DROP_PATH_SHAPES = [(DROP_PATH_BATCH, 580, 384), (DROP_PATH_BATCH, 148, 768)]
+K2_SCALED_SHAPES = [(DROP_PATH_BATCH * 96 * 96, 96), (DROP_PATH_BATCH * 48 * 48, 192)]
+# the scale-add kernel's one FMA against the plain version's product and
+# sum, relative to the largest output: a rounding of the output's dtype
+SCALE_ADD_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
 # the TPU kernel tests' bars against their own plain versions
 K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 K1_STAGE3, K1_STAGE4 = 5, 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
 K1_PER_FORWARD = K1_STAGE3 + K1_STAGE4
 K2_PER_FORWARD = 3 + 3  # ConvNeXt blocks of stages 1 and 2
+# scale-add launches a forward (and as many backward): the attention and
+# MLP residuals of every RoPE block under drop path (all of them at 0.05)
+DROP_PATH_PER_FORWARD = 2 * K1_PER_FORWARD
 # backward kernels against their plain versions, relative to each gradient's
 # largest magnitude: fp32 runs the same math in another summation order;
 # in bf16 a rounding of P, dS, h1 or da1 that
@@ -449,6 +466,180 @@ def check_kernels(dev, fa, fm) -> dict:
                             rec["K2"].update(timed)
                         else:
                             rec["K2"]["other_shapes"].append(timed)
+    return rec
+
+
+def host_us_per_call(fn, calls: int = 300) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls, after 20
+    warm-up calls: at shapes whose device work takes a few microseconds
+    the device keeps up, and this is the Python, autograd and launch cost."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - start) / calls
+
+
+def check_drop_path_kernels(dev, fm) -> dict:
+    """Drop path's per-sample scale at the 384 px train step's shapes
+    (B = 128). The scale-add kernel (ops/drop_path.py), forward and
+    backward at the RoPE residuals, against its plain version: a dropped
+    sample's output is its residual and its gradient zero, bit for bit;
+    the backward is the plain version's bits; two launches give the same
+    bits. It is timed with no sample dropped, so that every byte of its
+    bound (3T forward, 2T backward) moves, beside the plain version and
+    the eager chain it replaced (a division, a zero tensor, a broadcast
+    ``where`` and the add; its backward by autograd). Then the host time of
+    one residual forward and backward at a small shape, through
+    ``drop_path_add`` and through that eager chain, and K2 with the scale,
+    forward and its eight gradients, against its plain version. Returns
+    the scale-add kernel's record and K2's scaled rows."""
+    from linnaeus_tpu_torch.models.blocks.common import DropPath, drop_path_add
+    from linnaeus_tpu_torch.ops import drop_path as dpk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    keep = 0.95  # the cell's rate 0.05
+
+    def drop_scale(B):  # every seventh sample dropped
+        u = torch.rand(B, generator=g, device=dev)
+        u[::7] = 0.99
+        return dpk.SampleScale(u, keep)
+
+    def dropped(scale):
+        return [b for b, k in enumerate((scale.u < scale.keep).tolist()) if not k]
+
+    def eager(residual, branch, mask):  # the parent's route
+        return residual + torch.where(mask, branch / keep, torch.zeros_like(branch))
+
+    rec = {"max_abs_err": 0.0, "other_shapes": [], "k2_scaled": []}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in DROP_PATH_SHAPES:
+            residual, branch, dout = (torch.randn(shape, generator=g, device=dev).to(dt)
+                                      for _ in range(3))
+            scale = drop_scale(shape[0])
+            out, d_branch = dpk._launch(residual, branch, scale), dpk._launch_bwd(dout, scale)
+            same = (torch.equal(out, dpk._launch(residual, branch, scale))
+                    and torch.equal(d_branch, dpk._launch_bwd(dout, scale)))
+            want = dpk.scale_add_reference(residual, branch, scale)
+            err = rel_err(out, want)
+            bwd_bits = torch.equal(d_branch, dpk.scale_samples_reference(dout, scale))
+            gone = dropped(scale)
+            kept_out = all(torch.equal(out[b], residual[b]) and not d_branch[b].any()
+                           for b in gone)
+            print(f"drop path scale-add {str(dt)[6:]} {shape}: max rel err {err:.3e} (tol "
+                  f"{SCALE_ADD_TOL[dt]:g}); backward the plain version's bits: {bwd_bits}; "
+                  f"{len(gone)} dropped samples their residual and no gradient: {kept_out}; "
+                  f"bit-identical over two launches: {same}", flush=True)
+            check(err <= SCALE_ADD_TOL[dt], f"scale-add {dt} {shape} error {err}")
+            check(bwd_bits, f"scale-add backward {dt} {shape} differs from its plain version")
+            check(bool(gone) and kept_out, f"scale-add {dt} {shape}: a dropped sample")
+            check(same, f"scale-add {dt} {shape} differs between two launches")
+            if dt != torch.bfloat16:
+                continue
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_err(out, want))
+            full = dpk.SampleScale(torch.zeros_like(scale.u), keep)  # every sample kept
+            ms, spread = cuda_ms_median(lambda: dpk._launch(residual, branch, full))
+            bwd_ms, bwd_spread = cuda_ms_median(lambda: dpk._launch_bwd(dout, full))
+            plain_ms = cuda_ms(lambda: dpk.scale_add_reference(residual, branch, full))
+            mask = torch.ones((shape[0],) + (1,) * (len(shape) - 1), dtype=torch.bool, device=dev)
+            eager_ms = cuda_ms_median(lambda: eager(residual, branch, mask))[0]
+            leaf = branch.detach().requires_grad_()
+            summed = eager(residual, leaf, mask)
+            eager_bwd_ms = cuda_ms_median(
+                lambda: torch.autograd.grad(summed, leaf, dout, retain_graph=True))[0]
+            del leaf, summed
+            T = residual.numel() * residual.element_size()
+            fwd_bound, bwd_bound = bound(0, 3 * T, dt), bound(0, 2 * T, dt)
+            print(f"   no sample dropped: kernel {ms:.4f} ms forward (spread {spread:.4f}; "
+                  f"{ms / fwd_bound['bound_ms']:.2f}x its bound of 3T, "
+                  f"{fwd_bound['bound_ms']:.4f} ms), {bwd_ms:.4f} ms backward (spread "
+                  f"{bwd_spread:.4f}; {bwd_ms / bwd_bound['bound_ms']:.2f}x its bound of 2T, "
+                  f"{bwd_bound['bound_ms']:.4f} ms); plain {plain_ms:.3f} ms; the eager chain "
+                  f"{eager_ms:.4f} ms forward, {eager_bwd_ms:.4f} ms backward", flush=True)
+            timed = dict(ms=ms, ms_spread=spread, bwd_ms=bwd_ms, bwd_ms_spread=bwd_spread,
+                         plain_ms=plain_ms, library_ms=None, eager_ms=eager_ms,
+                         eager_bwd_ms=eager_bwd_ms, bwd_bound_ms=bwd_bound["bound_ms"],
+                         dropped_share=0.0, shape=list(shape), **fwd_bound)
+            if shape == DROP_PATH_SHAPES[0]:
+                check(ms <= 1.5 * fwd_bound["bound_ms"] and bwd_ms <= 1.5 * bwd_bound["bound_ms"],
+                      f"scale-add at {shape}: {ms:.4f} / {bwd_ms:.4f} ms against bounds "
+                      f"{fwd_bound['bound_ms']:.4f} / {bwd_bound['bound_ms']:.4f} ms")
+                rec.update(timed)
+            else:
+                rec["other_shapes"].append(timed)
+            del residual, branch, dout, out, d_branch, want
+
+    # host time of one residual, forward and backward, where the device work
+    # is a few microseconds: the helper against the parent's eager chain
+    block = DropPath(1.0 - keep).train()
+    block.generator = torch.Generator(device=dev).manual_seed(SEED)
+    small = [torch.randn(8, 16, 64, generator=g, device=dev).bfloat16().requires_grad_()
+             for _ in range(2)]
+    cot = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
+
+    def helper():
+        drop_path_add(small[0], small[1], block).backward(cot)
+
+    def parent():
+        mask = torch.rand((8, 1, 1), generator=block.generator, device=dev) < keep
+        eager(small[0], small[1], mask).backward(cot)
+
+    host = {"helper": [], "eager": []}
+    for name, fn in (("helper", helper), ("eager", parent), ("eager", parent),
+                     ("helper", helper)):
+        host[name].append(host_us_per_call(fn))
+    rec["host_us"] = {k: sum(v) / len(v) for k, v in host.items()}
+    print(f"host time of one residual, forward and backward (8x16x64 bf16): drop_path_add "
+          f"{rec['host_us']['helper']:.1f} us, the parent's eager chain "
+          f"{rec['host_us']['eager']:.1f} us (each the mean of two runs of 300 calls; runs "
+          f"{host})", flush=True)
+
+    # K2 with the scale at the train step's rows, forward and eight gradients
+    for M, C in K2_SCALED_SHAPES:
+        dt = torch.bfloat16
+        y, x, dout = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(3))
+        vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
+        ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
+        w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
+        w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
+        scale = drop_scale(DROP_PATH_BATCH)
+        params = (ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, True)
+        out = fm._launch(y, x, *params, scale=scale)
+        grads = fm._launch_bwd(y, dout, *params, scale=scale)
+        same = (torch.equal(out, fm._launch(y, x, *params, scale=scale))
+                and all(torch.equal(a, b) for a, b in
+                        zip(grads, fm._launch_bwd(y, dout, *params, scale=scale))))
+        want = fm.fused_convnext_mlp_reference(y, x, *params, scale=scale)
+        err = max_err(out, want)
+        del want
+        want_grads = fm.fused_convnext_mlp_bwd_reference(y, dout, *params, scale=scale)
+        bwd_err = max(rel_err(a, b) for a, b in zip(grads, want_grads))
+        del want_grads
+        rows = M // DROP_PATH_BATCH
+        gone = dropped(scale)
+        kept_out = all(torch.equal(out[b * rows:(b + 1) * rows], x[b * rows:(b + 1) * rows])
+                       and not grads[0][b * rows:(b + 1) * rows].any() for b in gone)
+        ms, spread = cuda_ms_median(lambda: fm._launch(y, x, *params, scale=scale), iters=20)
+        bwd_ms, bwd_spread = cuda_ms_median(
+            lambda: fm._launch_bwd(y, dout, *params, scale=scale), iters=10)
+        print(f"K2 with the drop-path scale bf16 (M,C)={(M, C)} B={DROP_PATH_BATCH}: forward "
+              f"max|err| {err:.3e} (tol {K2_TOL[dt]:g}), backward max rel err {bwd_err:.3e} "
+              f"over the eight gradients (tol {BWD_TOL[dt]:g}); {len(gone)} dropped samples "
+              f"their residual and no dy: {kept_out}; bit-identical over two launches: {same}; "
+              f"forward {ms:.4f} ms (spread {spread:.4f}), backward {bwd_ms:.4f} ms (spread "
+              f"{bwd_spread:.4f})", flush=True)
+        check(err <= K2_TOL[dt], f"K2 scaled {(M, C)} error {err}")
+        check(bwd_err <= BWD_TOL[dt], f"K2 scaled backward {(M, C)} error {bwd_err}")
+        check(bool(gone) and kept_out, f"K2 scaled {(M, C)}: a dropped sample")
+        check(same, f"K2 scaled {(M, C)} differs between two launches")
+        rec["k2_scaled"].append(dict(shape=[M, C], max_abs_err=err, bwd_max_rel_err=bwd_err,
+                                     ms=ms, ms_spread=spread, bwd_ms=bwd_ms,
+                                     bwd_ms_spread=bwd_spread))
+        del y, x, dout, out, grads
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -771,12 +962,17 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
     then the same steps from the same seed with them off; returns the launch
     counts. K1's backward is one call of its dQ and dK/dV kernels a block at
     every length (stage 3 at 512 px holds 1028 tokens, where the TPU package
-    too takes its split pair)."""
+    too takes its split pair). Under the preset's drop path each RoPE
+    residual launches the scale-add kernel forward and backward with the
+    kernels on, and runs in plain PyTorch with them off."""
+    from linnaeus_tpu_torch.models.blocks.rope_mhsa import RoPE2DMHSABlock
+    from linnaeus_tpu_torch.ops import drop_path as dpk
     from linnaeus_tpu_torch.tools import train_bench
 
     def counts():
         return {"K1": fa.LAUNCHES, "K1_bwd": fa.BWD_LAUNCHES, "K1_dq": fa.DQ_LAUNCHES,
-                "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES}
+                "K1_dkv": fa.DKV_LAUNCHES, "K2": fm.LAUNCHES, "K2_bwd": fm.BWD_LAUNCHES,
+                "drop_path_add": dpk.LAUNCHES, "drop_path_add_bwd": dpk.BWD_LAUNCHES}
 
     results = {}
     for name, kernels in (("on", True), ("off", False)):
@@ -789,6 +985,11 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
         fm.LAUNCHES = fm.BWD_LAUNCHES = 0
+        dpk.LAUNCHES = dpk.BWD_LAUNCHES = 0
+        scaled = 2 * sum(1 for m in state.model.modules()
+                         if isinstance(m, RoPE2DMHSABlock) and m.drop_path.rate > 0)
+        if img == IMG:
+            check(scaled == DROP_PATH_PER_FORWARD, f"{scaled} RoPE residuals under drop path")
         first = run()  # also warms up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -827,7 +1028,8 @@ def train_phase(dev, card, fa, fm, img: int = IMG) -> dict:
         n = len(history)
         want = ({"K1": n * K1_PER_FORWARD, "K1_bwd": n * K1_PER_FORWARD,
                  "K1_dq": n * K1_PER_FORWARD, "K1_dkv": n * K1_PER_FORWARD,
-                 "K2": n * K2_PER_FORWARD, "K2_bwd": n * K2_PER_FORWARD} if kernels
+                 "K2": n * K2_PER_FORWARD, "K2_bwd": n * K2_PER_FORWARD,
+                 "drop_path_add": n * scaled, "drop_path_add_bwd": n * scaled} if kernels
                 else dict.fromkeys(launched, 0))
         check(launched == want, f"train launch counts {launched}, expected {want}")
         results[name] = {"loss": losses[0], "grad_norm": pre[0], "launches": launched,
@@ -2706,8 +2908,8 @@ def v0_phase(dev, card, fa, fm, trainer: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
-    print(f"phase 7e (mFormerV0_sm) took {seconds:.1f} s; no kernel launched (none is on "
-          f"mFormerV0's path)", flush=True)
+    print(f"phase 7e (mFormerV0_sm) took {seconds:.1f} s; none of the seven launched (none "
+          f"is on mFormerV0's path)", flush=True)
     return {"forward": forward, "train": {k: v for k, v in run.items() if k != "second"},
             "metaformer": tally, "serve": served, "seconds": seconds}
 
@@ -4187,6 +4389,7 @@ def main() -> int:
     rec_split = check_split_backward(dev, fa)
     rec_block = check_block_kernel(dev, fb)
     check_width_rule(dev, fm)
+    rec_dp = check_drop_path_kernels(dev, fm)
 
     # 3. serve mFormerV1_sm through the handler with its default options
     # (the hierarchical-consistency pass on), kernels on
@@ -4360,6 +4563,17 @@ def main() -> int:
                         "receipt_shapes": receipt["shapes"].get(key, []),
                         "shape": r["shape"],
                         "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
+    # the scale-add kernel replaces no TPU kernel; its launches over the
+    # 384 px train steps (none with the kernels off), forward and backward
+    check(trained["drop_path_add"] > 0, "kernel drop_path_add was not launched on its path")
+    kernels.append({"name": "drop_path_add", "route": "cuda",
+                    "source": "linnaeus_tpu_torch/csrc/drop_path_add.cu", "replaces": None,
+                    "launches": trained["drop_path_add"],
+                    "bwd_launches": trained["drop_path_add_bwd"],
+                    "launches_512px": trained_large["drop_path_add"], "dtype": "bfloat16",
+                    **{k: v for k, v in rec_dp.items() if k != "k2_scaled"}})
+    kernels[[k["name"] for k in kernels].index("fused_convnext_mlp_fwd")]["scaled"] = (
+        rec_dp["k2_scaled"])
     print(f"chip_smoke.py took {time.perf_counter() - script_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

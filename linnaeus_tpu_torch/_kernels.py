@@ -44,15 +44,17 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "lt_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
-    "lt_fused_mlp_fwd": [_P] * 10 + [_L, _I, _I, _F, _I, _I, _P],
+    "lt_fused_mlp_fwd": [_P] * 11 + [_L, _I, _I, _F, _I, _I, _F, _F, _L, _P],
     "lt_fused_mlp_fwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
-    "lt_fused_mlp_bwd": [_P] * 3 + [_L, _I, _I, _F, _I, _I, _I, _I, _P],
+    "lt_fused_mlp_bwd": [_P] * 3 + [_L, _I, _I, _F, _I, _I, _I, _I, _P, _F, _F, _L, _P],
     "lt_fused_mlp_bwd_route": [_I, _I, _I],  # returns 1 (wgmma) or 0, not an error
     "lt_flash_attention_bwd_delta": [_P] * 3 + [_I] * 4 + [_P, _I, _P],
     "lt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _F, _I, _P],
     "lt_fused_convnext_block_fwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     "lt_fused_convnext_block_fwd_route": [_I, _I, _I],  # returns 1 (wgmma tail) or 0
+    "lt_drop_path_add_fwd": [_P] * 4 + [_F, _F, _L, _L, _I, _P],
+    "lt_drop_path_add_bwd": [_P] * 3 + [_F, _F, _L, _L, _I, _P],
 }
 
 

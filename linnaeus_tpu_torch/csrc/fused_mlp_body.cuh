@@ -8,7 +8,7 @@
 // its own copy.
 #pragma once
 
-#include "common.cuh"
+#include "drop_path.cuh"
 
 namespace {
 

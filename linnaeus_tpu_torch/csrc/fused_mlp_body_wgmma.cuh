@@ -68,6 +68,7 @@ struct MlpFwdArgs {
   int C, Hd;
   float eps;
   bool approximate;
+  SampleScale scale;  // u null: no drop-path scale
   cudaStream_t stream;
 };
 
@@ -358,14 +359,25 @@ __device__ __forceinline__ void tail_consume(uint32_t h0_tile, const TailRing& r
 // caller stores whole 16-byte pieces. With `has_residual` the tile holds the
 // residual's rows (copied there by the caller's `at_last_chunk`, landed and
 // published by a barrier); each thread reads and overwrites the places of
-// its own fragment. The padded columns are left alone.
-template <int kAtoms>
+// its own fragment. The padded columns are left alone. kScaled (K2 in
+// training under drop path; the residual is then always there): residual +
+// s * (acc + b2) * gamma as one FMA, s the scale of the row's sample
+// (`scale`, the tile's first row `row0`); a dropped sample's rows are their
+// residual.
+template <int kAtoms, bool kScaled = false>
 __device__ __forceinline__ void finish_in_tile(const float (&acc)[kAtoms][32], uint8_t* tile,
                                                bool has_residual, const float* __restrict__ b2,
-                                               const float* __restrict__ gamma, int C) {
+                                               const float* __restrict__ gamma, int C,
+                                               const lt::SampleScale& scale = lt::SampleScale{},
+                                               long long row0 = 0) {
   const int lane = threadIdx.x & 31;
   const int row = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // and row + 8
   const int col = 2 * (lane & 3);
+  float s[2] = {1.f, 1.f};
+  if constexpr (kScaled) {
+    s[0] = scale.of_unit(row0 + row);
+    s[1] = scale.of_unit(row0 + row + 8);
+  }
 #pragma unroll
   for (int a = 0; a < kAtoms; ++a)
 #pragma unroll
@@ -379,7 +391,12 @@ __device__ __forceinline__ void finish_in_tile(const float (&acc)[kAtoms][32], u
         uint8_t* p = tile + a * hp::kTileBytes + hp::swizzled(row + 8 * half, j) + (lane & 3) * 4;
         float v0 = (acc[a][4 * j + 2 * half] + bb.x) * gm.x;
         float v1 = (acc[a][4 * j + 2 * half + 1] + bb.y) * gm.y;
-        if (has_residual) {
+        if constexpr (kScaled) {
+          const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+          const float sr = s[half];
+          v0 = sr == 0.f ? res.x : fmaf(v0, sr, res.x);
+          v1 = sr == 0.f ? res.y : fmaf(v1, sr, res.y);
+        } else if (has_residual) {
           const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
           v0 += res.x;
           v1 += res.y;

@@ -546,13 +546,20 @@ cudaError_t dispatch(const lt::MlpBwdArgs& a) {
 // dgamma. `workspace` is float32 of at least
 //   row_blocks * 4 * C + slabs * (2 * Hd * C + Hd)
 // elements, and M * C + 2 * M more where `lt_fused_mlp_bwd_route` says 1,
-// and needs no initialising: `row_blocks` blocks run the row pass and
-// `slabs` blocks per hidden chunk run the weight pass.
+// and `lt::scaled_dout_floats` more where `u` is not null, and needs no
+// initialising: `row_blocks` blocks run the row pass and `slabs` blocks per
+// hidden chunk run the weight pass. `u` not null: the gradients of the
+// branch that drop path's per-sample scale (drop_path.cuh) multiplies, over
+// samples of `rows_per_sample` rows, M a whole number of them.
 extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
                                 void* workspace, long long M, int C, int Hd,
                                 float eps, int approximate, int row_blocks,
-                                int slabs, int dtype, void* stream) {
+                                int slabs, int dtype, const void* u, float keep,
+                                float inv_keep, long long rows_per_sample, void* stream) {
   if (M < 1 || C < 1 || C > kMaxC || Hd < 1 || row_blocks < 1 || slabs < 1)
+    return cudaErrorInvalidValue;
+  if (dtype != lt::kFloat32 && dtype != lt::kBFloat16) return cudaErrorInvalidValue;
+  if (u != nullptr && (rows_per_sample < 1 || M % rows_per_sample != 0))
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
@@ -583,7 +590,26 @@ extern "C" int lt_fused_mlp_bwd(const void* const* in, void* const* out,
   a.row_blocks = row_blocks;
   a.slabs = slabs;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.scale = lt::SampleScale{};
+  a.ds = nullptr;
+  if (u != nullptr) {
+    a.scale.u = static_cast<const float*>(u);
+    a.scale.keep = keep;
+    a.scale.inv_keep = inv_keep;
+    a.scale.per = rows_per_sample;
+    a.scale.samples = M / rows_per_sample;
+    a.ds = workspace;
+    a.workspace = g(workspace) + lt::scaled_dout_floats(M, C, dtype);
+  }
+  // the tensor-core route's prologue writes ds itself
   if (lt::mlp_bwd_takes_wgmma(C, Hd, dtype)) return lt::mlp_bwd_wgmma(a);
+  if (u != nullptr) {
+    lt::SampleScale by_element = a.scale;
+    by_element.per = rows_per_sample * C;
+    const cudaError_t err = lt::scale_samples(a.dout, a.ds, by_element, dtype, a.stream);
+    if (err != cudaSuccess) return err;
+    a.dout = a.ds;
+  }
   switch (dtype) {
     case lt::kFloat32:
       return dispatch<float>(a);

@@ -5,7 +5,7 @@
 // internal linkage: each source compiles its own copy.
 #pragma once
 
-#include "common.cuh"
+#include "drop_path.cuh"
 
 namespace lt {
 
@@ -23,8 +23,20 @@ struct MlpBwdArgs {
   float eps;
   bool approximate;
   int row_blocks, slabs;
+  // training under drop path (u not null): the gradients are those of
+  // s * branch, taken from ds = round(s * dout) (M, C) in y's dtype, which
+  // the first launch writes at the head of the workspace and every later
+  // pass reads in dout's place
+  SampleScale scale;
+  void* ds;
   cudaStream_t stream;
 };
+
+// float32 elements of the workspace that ds takes, whole 16-byte pieces
+inline long long scaled_dout_floats(long long M, int C, int dtype) {
+  const long long bytes = M * C * (dtype == kFloat32 ? 4 : 2);
+  return (bytes + 15) / 16 * 4;
+}
 
 // The rule of K2's backward: bfloat16 with C a multiple of 32 up to 192 and
 // whole 64-column hidden chunks takes the tensor-core kernels; everything

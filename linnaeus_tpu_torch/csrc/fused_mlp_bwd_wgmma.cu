@@ -35,7 +35,11 @@
 //   0. `mlp_bwd_prologue_kernel`, half a warp or a warp a row: h0 = round(LN(y)) and
 //      d2 = round(dout * gamma) once, as bf16 (M, C) in the workspace, with
 //      the rows' mean and rstd, so that both passes take their row tiles
-//      whole from the Tensor Memory Accelerator.
+//      whole from the Tensor Memory Accelerator. In training under drop
+//      path it first writes ds = round(s * dout) (s the row's sample's
+//      scale, drop_path.cuh) beside them, and everything after reads ds in
+//      dout's place: one more (M, C) write, where the eager scale was a
+//      pass of its own that read dout and wrote as much.
 //   1. `mlp_bwd_rows_wgmma_kernel`: dh0, then dy through the LayerNorm and
 //      the column sums of dh0 n, dh0 and dout. A consumer warpgroup owns a
 //      64-row tile; per hidden chunk:
@@ -127,14 +131,16 @@ constexpr int kConsumerRegs = 232;  // 2 x 232 + 40 <= 512 a lane of each sub-pa
 // h0 = round(LN(y)), d2 = round(dout * gamma) and the rows' (mean, rstd).
 // A lane owns eight columns of a row; up to 128 columns a row takes half a
 // warp and a warp two rows, wider rows the warp: the block's rows are
-// blockIdx.x * 8 * kPer + (warp * kPer + sub).
-template <int kC>
+// blockIdx.x * 8 * kPer + (warp * kPer + sub). kScaled (training under drop
+// path): first ds = round(s * dout), s the row's sample's scale, written to
+// `ds` for the passes to read in dout's place, and d2 = round(ds * gamma).
+template <int kC, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
     mlp_bwd_prologue_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
                             const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                             const float* __restrict__ gamma, bf16* __restrict__ h0,
                             bf16* __restrict__ d2, float* __restrict__ stats, long long M,
-                            float eps) {
+                            float eps, const lt::SampleScale scale, bf16* __restrict__ ds) {
   constexpr int kLanes = kC <= 128 ? 16 : 32;  // lanes of a row
   constexpr int kPer = 32 / kLanes;            // rows of a warp
   const int lane = threadIdx.x % kLanes;
@@ -176,6 +182,18 @@ __global__ void __launch_bounds__(kThreads)
     stats[2 * r + 1] = rstd;
   }
   if (!owner) return;
+  if constexpr (kScaled) {
+    const float sr = scale.of_unit(r);
+    uint4 s_out;
+    uint32_t* sp32 = reinterpret_cast<uint32_t*>(&s_out);
+#pragma unroll
+    for (int i = 0; i < 8; i += 2)
+      sp32[i / 2] = hp::pack_bf16(sr == 0.f ? 0.f : g[i] * sr, sr == 0.f ? 0.f : g[i + 1] * sr);
+    *reinterpret_cast<uint4*>(ds + r * kC + c0) = s_out;
+    const bf16* sb = reinterpret_cast<const bf16*>(&s_out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = __bfloat162float(sb[i]);
+  }
   uint4 h_out, d_out;
   uint32_t* hp32 = reinterpret_cast<uint32_t*>(&h_out);
   uint32_t* dp32 = reinterpret_cast<uint32_t*>(&d_out);
@@ -941,12 +959,21 @@ cudaError_t launch(const lt::MlpBwdArgs& a) {
   float* ws_g = ws_w1 + a.slabs * wsize;
   float* ws_b1 = ws_g + a.slabs * wsize;
   const bf16* y = static_cast<const bf16*>(a.y);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
+  // under drop path the passes read ds = round(s * dout), which the
+  // prologue writes, in dout's place
+  const bool scaled = a.scale.u != nullptr;
+  bf16* ds = static_cast<bf16*>(a.ds);
+  const bf16* dout = scaled ? ds : static_cast<const bf16*>(a.dout);
 
   constexpr int kRowsABlock = kWarps * (kC <= 128 ? 2 : 1);
-  mlp_bwd_prologue_kernel<kC><<<static_cast<unsigned>((a.M + kRowsABlock - 1) / kRowsABlock),
-                                kThreads, 0, a.stream>>>(y, dout, a.ln_w, a.ln_b, a.gamma, h0,
-                                                         d2, stats, a.M, a.eps);
+  const unsigned prologue_blocks = static_cast<unsigned>((a.M + kRowsABlock - 1) / kRowsABlock);
+  if (scaled)
+    mlp_bwd_prologue_kernel<kC, true><<<prologue_blocks, kThreads, 0, a.stream>>>(
+        y, static_cast<const bf16*>(a.dout), a.ln_w, a.ln_b, a.gamma, h0, d2, stats, a.M,
+        a.eps, a.scale, ds);
+  else
+    mlp_bwd_prologue_kernel<kC, false><<<prologue_blocks, kThreads, 0, a.stream>>>(
+        y, dout, a.ln_w, a.ln_b, a.gamma, h0, d2, stats, a.M, a.eps, a.scale, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

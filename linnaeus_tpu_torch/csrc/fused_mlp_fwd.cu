@@ -40,7 +40,8 @@ __host__ __device__ inline size_t smem_floats(int C) {
 }
 
 // CPT: output columns per thread; thread column tx owns columns tx + 16 j.
-template <typename T, int CPT>
+// kScaled: training under drop path (drop_path.cuh), residual + s * branch.
+template <typename T, int CPT, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_kernel(const T* __restrict__ y, const T* __restrict__ x,
                      const float* __restrict__ ln_w,
@@ -48,7 +49,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ b1, const T* __restrict__ w2,
                      const float* __restrict__ b2,
                      const float* __restrict__ gamma, T* __restrict__ out,
-                     long long M, int C, int Hd, float eps, bool approximate) {
+                     long long M, int C, int Hd, float eps, bool approximate,
+                     const lt::SampleScale scale) {
   extern __shared__ float smem[];
   const int ldh = C + 1;
   float* h0 = smem;                  // kBM x ldh
@@ -75,29 +77,37 @@ __global__ void __launch_bounds__(kThreads)
   float acc[4][CPT];
   mlp_tail<T, CPT>(h0, act, wt, w1, b1, w2, C, Hd, approximate, acc);
 
-  // 4. (acc + b2) * gamma [+ residual], one cast to T
+  // 4. (acc + b2) * gamma [+ residual], one cast to T; kScaled: residual +
+  // s (acc + b2) * gamma as one FMA, a dropped sample's rows their residual
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long gr = row0 + ty * 4 + i;
     if (gr >= M) continue;
+    float s = 1.f;
+    if constexpr (kScaled) s = scale.of_unit(gr);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = tx + 16 * j;
       if (c >= C) continue;
       float t = (acc[i][j] + b2[c]) * gamma[c];
-      if (x != nullptr) t += lt::to_float(x[gr * C + c]);
+      if constexpr (kScaled) {
+        const float res = lt::to_float(x[gr * C + c]);
+        t = s == 0.f ? res : fmaf(t, s, res);
+      } else if (x != nullptr) {
+        t += lt::to_float(x[gr * C + c]);
+      }
       out[gr * C + c] = lt::from_float<T>(t);
     }
   }
 }
 
-template <typename T, int CPT>
+template <typename T, int CPT, bool kScaled>
 cudaError_t launch(const void* y, const void* x, const float* ln_w,
                    const float* ln_b, const void* w1, const float* b1,
                    const void* w2, const float* b2, const float* gamma,
                    void* out, long long M, int C, int Hd, float eps,
-                   bool approximate, cudaStream_t stream) {
-  auto kernel = fused_mlp_kernel<T, CPT>;
+                   bool approximate, const lt::SampleScale& scale, cudaStream_t stream) {
+  auto kernel = fused_mlp_kernel<T, CPT, kScaled>;
   const size_t bytes = smem_floats(C) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -106,20 +116,20 @@ cudaError_t launch(const void* y, const void* x, const float* ln_w,
   kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(x), ln_w, ln_b,
       static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, gamma,
-      static_cast<T*>(out), M, C, Hd, eps, approximate);
+      static_cast<T*>(out), M, C, Hd, eps, approximate, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kScaled>
 cudaError_t dispatch(const void* y, const void* x, const float* ln_w,
                      const float* ln_b, const void* w1, const float* b1,
                      const void* w2, const float* b2, const float* gamma,
                      void* out, long long M, int C, int Hd, float eps,
-                     bool approximate, cudaStream_t s) {
+                     bool approximate, const lt::SampleScale& scale, cudaStream_t s) {
   const int cpt = (C + 15) / 16;
 #define LT_LAUNCH(N)                                                          \
-  return launch<T, N>(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, Hd, \
-                      eps, approximate, s)
+  return launch<T, N, kScaled>(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, out,  \
+                               M, C, Hd, eps, approximate, scale, s)
   if (cpt <= 2) LT_LAUNCH(2);
   if (cpt <= 4) LT_LAUNCH(4);
   if (cpt <= 6) LT_LAUNCH(6);
@@ -129,17 +139,44 @@ cudaError_t dispatch(const void* y, const void* x, const float* ln_w,
 #undef LT_LAUNCH
 }
 
+template <typename T>
+cudaError_t dispatch_scaled_or_not(const void* y, const void* x, const float* ln_w,
+                                   const float* ln_b, const void* w1, const float* b1,
+                                   const void* w2, const float* b2, const float* gamma,
+                                   void* out, long long M, int C, int Hd, float eps,
+                                   bool approximate, const lt::SampleScale& scale,
+                                   cudaStream_t s) {
+  return scale.u != nullptr
+             ? dispatch<T, true>(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, Hd, eps,
+                                 approximate, scale, s)
+             : dispatch<T, false>(y, x, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, Hd, eps,
+                                  approximate, scale, s);
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). `x` may be null (no
-// residual). Hd is the hidden width (4C for ConvNeXt).
+// residual). Hd is the hidden width (4C for ConvNeXt). `u` null: no scale;
+// otherwise drop path's per-sample scale (drop_path.cuh) over samples of
+// `rows_per_sample` rows, M a whole number of them, and `x` is required.
 extern "C" int lt_fused_mlp_fwd(const void* y, const void* x, const void* ln_w,
                                 const void* ln_b, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
-                                const void* gamma, void* out, long long M,
-                                int C, int Hd, float eps, int approximate,
-                                int dtype, void* stream) {
+                                const void* gamma, void* out, const void* u,
+                                long long M, int C, int Hd, float eps, int approximate,
+                                int dtype, float keep, float inv_keep,
+                                long long rows_per_sample, void* stream) {
   if (M < 1 || C < 1 || C > kMaxC || Hd < 1) return cudaErrorInvalidValue;
+  lt::SampleScale scale{};
+  if (u != nullptr) {
+    if (x == nullptr || rows_per_sample < 1 || M % rows_per_sample != 0)
+      return cudaErrorInvalidValue;
+    scale.u = static_cast<const float*>(u);
+    scale.keep = keep;
+    scale.inv_keep = inv_keep;
+    scale.per = rows_per_sample;
+    scale.samples = M / rows_per_sample;
+  }
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   if (lt::mlp_fwd_takes_wgmma(C, Hd, dtype)) {
@@ -159,17 +196,19 @@ extern "C" int lt_fused_mlp_fwd(const void* y, const void* x, const void* ln_w,
     a.Hd = Hd;
     a.eps = eps;
     a.approximate = approximate != 0;
+    a.scale = scale;
     a.stream = s;
     return lt::mlp_fwd_wgmma(a);
   }
   switch (dtype) {
     case lt::kFloat32:
-      return dispatch<float>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2, f(b2),
-                             f(gamma), out, M, C, Hd, eps, approximate != 0, s);
+      return dispatch_scaled_or_not<float>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2, f(b2),
+                                           f(gamma), out, M, C, Hd, eps, approximate != 0,
+                                           scale, s);
     case lt::kBFloat16:
-      return dispatch<__nv_bfloat16>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2,
-                                     f(b2), f(gamma), out, M, C, Hd, eps,
-                                     approximate != 0, s);
+      return dispatch_scaled_or_not<__nv_bfloat16>(y, x, f(ln_w), f(ln_b), w1, f(b1), w2,
+                                                   f(b2), f(gamma), out, M, C, Hd, eps,
+                                                   approximate != 0, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

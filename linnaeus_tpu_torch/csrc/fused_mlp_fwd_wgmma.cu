@@ -38,7 +38,10 @@
 //     under the last chunk's GELU and product; (acc + b2) * gamma + residual
 //     in float32 from the fragment, one cast, back into the same tile, and
 //     out of it to device memory in 16-byte stores. Rows past M are
-//     zero-filled on load and not stored.
+//     zero-filled on load and not stored. In training under drop path
+//     (`kScaled`, drop_path.cuh) the branch is scaled by its sample's
+//     s = (u < keep) / keep inside the same FMA: residual + s (acc + b2)
+//     gamma, a dropped sample's rows their residual.
 //
 // The output is a function of the operands alone (no atomics, a fixed order
 // of sums): the same bits from run to run.
@@ -68,7 +71,7 @@ struct FwdWgmma {
   static constexpr size_t kSmemBytes = 1024 + kTilesBytes + Tail::ring_bytes(kStages);
 };
 
-template <int kN, int kGroups>
+template <int kN, int kGroups, bool kScaled>
 __global__ void __launch_bounds__((kGroups + 1) * hp::kWarpgroup, 1)
     fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                            const __grid_constant__ CUtensorMap w2_map,
@@ -76,7 +79,8 @@ __global__ void __launch_bounds__((kGroups + 1) * hp::kWarpgroup, 1)
                            const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                            const float* __restrict__ b1, const float* __restrict__ b2,
                            const float* __restrict__ gamma, bf16* __restrict__ out, long long M,
-                           int C, int Hd, float eps, bool approximate) {
+                           int C, int Hd, float eps, bool approximate,
+                           const lt::SampleScale scale) {
   using P = FwdWgmma<kN, kGroups>;
   constexpr int kAtoms = P::kAtoms;
   using L = LnLanes<kAtoms>;
@@ -174,10 +178,11 @@ __global__ void __launch_bounds__((kGroups + 1) * hp::kWarpgroup, 1)
           hp::cp_async_commit();
         });
 
-    // 4. (acc + b2) * gamma [+ residual] in float32, one cast, in the tile
+    // 4. (acc + b2) * gamma [+ residual] in float32, one cast, in the tile;
+    // kScaled: residual + s (acc + b2) * gamma
     hp::cp_async_wait_all();
     sync_group();
-    finish_in_tile<kAtoms>(acc, tile, x != nullptr, b2, gamma, C);
+    finish_in_tile<kAtoms, kScaled>(acc, tile, x != nullptr, b2, gamma, C, scale, row0);
     sync_group();
     for (int i = in_group; i < kBM * chunks16; i += hp::kWarpgroup) {
       const int r = i / chunks16;
@@ -191,10 +196,10 @@ __global__ void __launch_bounds__((kGroups + 1) * hp::kWarpgroup, 1)
 }
 
 // Persistent blocks, one an SM.
-template <int kN, int kGroups>
+template <int kN, int kGroups, bool kScaled>
 cudaError_t launch(const lt::MlpFwdArgs& a) {
   using P = FwdWgmma<kN, kGroups>;
-  auto kernel = fused_mlp_wgmma_kernel<kN, kGroups>;
+  auto kernel = fused_mlp_wgmma_kernel<kN, kGroups, kScaled>;
   static int sms = 0;
   if (sms == 0) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,8 +220,13 @@ cudaError_t launch(const lt::MlpFwdArgs& a) {
   kernel<<<blocks, P::kBlock, P::kSmemBytes, a.stream>>>(
       w1_map, w2_map, static_cast<const bf16*>(a.y), static_cast<const bf16*>(a.x), a.ln_w,
       a.ln_b, a.b1, a.b2, a.gamma, static_cast<bf16*>(a.out), a.M, a.C, a.Hd, a.eps,
-      a.approximate);
+      a.approximate, a.scale);
   return cudaGetLastError();
+}
+
+template <int kN, int kGroups>
+cudaError_t launch_scaled_or_not(const lt::MlpFwdArgs& a) {
+  return a.scale.u != nullptr ? launch<kN, kGroups, true>(a) : launch<kN, kGroups, false>(a);
 }
 
 }  // namespace
@@ -226,9 +236,9 @@ cudaError_t lt::mlp_fwd_wgmma(const lt::MlpFwdArgs& a) {
   // the second product's width: C, or the next width that has an instruction
   // and the consumer warpgroups an SM's registers and shared memory hold:
   // three up to 128 columns, two past that
-  if (a.C <= 64) return launch<64, 3>(a);
-  if (a.C == 96) return launch<96, 3>(a);
-  if (a.C <= 128) return launch<128, 3>(a);
-  if (a.C <= 192) return launch<192, 2>(a);
-  return launch<256, 2>(a);
+  if (a.C <= 64) return launch_scaled_or_not<64, 3>(a);
+  if (a.C == 96) return launch_scaled_or_not<96, 3>(a);
+  if (a.C <= 128) return launch_scaled_or_not<128, 3>(a);
+  if (a.C <= 192) return launch_scaled_or_not<192, 2>(a);
+  return launch_scaled_or_not<256, 2>(a);
 }

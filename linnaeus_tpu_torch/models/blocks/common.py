@@ -1,6 +1,6 @@
 """Shared small blocks: dtype-following layers, a BatchNorm with Flax's
-semantics, Mlp, DropPath, Dropout, ResNormLayer, MetaHead and the parameter
-init.
+semantics, Mlp, DropPath and the residual add that applies it, Dropout,
+ResNormLayer, MetaHead and the parameter init.
 
 Port of linnaeus_tpu/models/blocks/common.py. Parameters are kept in
 float32, as the TPU package keeps them; the layers here cast their weights
@@ -14,7 +14,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from linnaeus_tpu_torch.ops.drop_path import (
+    SampleScale,
+    scale_add,
+    scale_add_reference,
+    scale_samples_reference,
+)
 from linnaeus_tpu_torch.parallel.ops import draw_rows
+from linnaeus_tpu_torch.utils import tracing
 
 INIT_STD = 0.02  # trunc_normal(std=0.02), the ViT/ConvNeXt init
 
@@ -157,12 +164,47 @@ class DropPath(nn.Module):
         self.data_group = None  # parallel/: draw the global batch's mask
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` times this forward's per-sample scale, in plain PyTorch. The
+        model's residuals apply the scale inside their add instead
+        (``drop_path_add``)."""
+        scale = self._scale(x)
+        return x if scale is None else scale_samples_reference(x, scale)
+
+    def _scale(self, x: torch.Tensor) -> SampleScale | None:
+        """The per-sample scale of one forward over ``x``, from uniforms
+        drawn one a sample, or None where drop path is the identity (eval,
+        rate 0) and nothing is drawn."""
         if not self.training or self.rate <= 0.0:
-            return x
-        keep = 1.0 - self.rate
+            return None
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = draw_rows(torch.rand, shape, x.device, self.generator, self.data_group) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        u = draw_rows(torch.rand, shape, x.device, self.generator, self.data_group)
+        return SampleScale(u.reshape(-1), 1.0 - self.rate)
+
+    def sample_scale(self, x: torch.Tensor) -> SampleScale | None:
+        """This forward's per-sample scale for a residual add that applies it
+        itself (``drop_path_add``, K2): the draw of ``forward``, the same
+        uniforms from the same generator. While tracing is on the draws are
+        kept as ``drop_path/scaled``, one count a scaled residual, with no
+        launch of its own."""
+        scale = self._scale(x)
+        if scale is not None:
+            tracing.count("drop_path/scaled", scale.u)
+        return scale
+
+
+def drop_path_add(residual: torch.Tensor, branch: torch.Tensor,
+                  drop_path: DropPath, kernel: bool = True) -> torch.Tensor:
+    """``residual + drop_path(branch)``. In training at a rate above 0 the
+    branch's per-sample scale is applied inside the add: one pass forward
+    and one backward (ops/drop_path.py, a kernel on the card), or the same
+    sum in plain PyTorch where the calling block's own kernels are off
+    (``kernel`` False). Otherwise the plain sum."""
+    scale = drop_path.sample_scale(branch)
+    if scale is None:
+        return residual + branch
+    if not kernel:
+        return scale_add_reference(residual, branch, scale)
+    return scale_add(residual, branch, scale)
 
 
 class Dropout(nn.Module):

@@ -6,7 +6,8 @@ block's MLP tail reads contiguous (B*H*W, C) rows; each convolution sees an
 NCHW view of the same memory (channels-last strides) and its output is
 viewed back. Block = 7x7 depthwise conv -> LN -> Linear(4C) -> GELU ->
 Linear(C) -> layer scale -> drop-path residual; the tail from LN on can run
-as the K2 kernel (ops/fused_mlp.py).
+as the K2 kernel (ops/fused_mlp.py), which in training under drop path
+applies the per-sample scale inside its own residual add.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp, kernel_takes
 
-from .common import Conv2d, DropPath, LayerNorm, Linear, gelu
+from .common import Conv2d, DropPath, LayerNorm, Linear, drop_path_add, gelu
 
 
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -67,24 +68,23 @@ class ConvNeXtBlock(nn.Module):
         y = self.pwconv2(gelu(self.pwconv1(y), self.act_exact))
         if self.gamma is not None:
             y = y * self.gamma.to(y.dtype)
-        return residual + self.drop_path(y)
+        # the plain route past K2's widths keeps the scale-add kernel; told
+        # not to fuse, the block runs no kernel at all
+        return drop_path_add(residual, y, self.drop_path, kernel=self.fused_mlp is not False)
 
     def _fused_tail(self, y: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         dt = y.dtype
-        # an active drop-path scales the branch before the residual add, so
-        # the kernel then skips its own add
-        plain_residual = not self.training or self.drop_path.rate == 0.0
-        out = fused_convnext_mlp(
-            y, residual if plain_residual else None,
+        # an active drop-path's per-sample scale goes into the kernel's own
+        # residual add (None in eval and at rate 0)
+        return fused_convnext_mlp(
+            y, residual,
             self.norm.weight, self.norm.bias,
             self.pwconv1.weight.to(dt), self.pwconv1.bias,
             self.pwconv2.weight.to(dt), self.pwconv2.bias,
             self.gamma,
             eps=self.norm.eps, approximate_gelu=not self.act_exact,
+            scale=self.drop_path.sample_scale(y),
         )
-        if plain_residual:
-            return out
-        return residual + self.drop_path(out)
 
 
 class ConvNeXtDownsampleLayer(nn.Module):

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, Conv2d, DropPath
+from .common import BatchNorm, Conv2d, DropPath, drop_path_add
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -113,5 +113,5 @@ class MBConvBlock(nn.Module):
             x = squeeze_excite(x, self._se_reduce, self._se_expand)
         x = self._bn2(conv1x1(self._project_conv, x))
         if self.stride == 1 and self.input_filters == self.output_filters:
-            x = self.drop_connect(x) + inputs
+            x = drop_path_add(inputs, x, self.drop_connect)
         return x

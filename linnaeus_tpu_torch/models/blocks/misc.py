@@ -13,7 +13,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.models.attention.zoo import DifferentialAttention
 
-from .common import Conv2d, DropPath, LayerNorm, Mlp, conv_nhwc, gelu
+from .common import Conv2d, DropPath, LayerNorm, Mlp, conv_nhwc, drop_path_add, gelu
 
 
 class DiffTransformerBlock(nn.Module):
@@ -29,8 +29,8 @@ class DiffTransformerBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = drop_path_add(x, self.attn(self.norm1(x)), self.drop_path)
+        return drop_path_add(x, self.mlp(self.norm2(x)), self.drop_path)
 
 
 class ProgressivePatchEmbed(nn.Module):

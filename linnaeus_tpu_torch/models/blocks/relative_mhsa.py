@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import Conv2d, Dropout, DropPath, LayerNorm, Linear, Mlp, conv_nhwc
+from .common import Conv2d, Dropout, DropPath, LayerNorm, Linear, Mlp, conv_nhwc, drop_path_add
 
 
 def build_relative_position_index(h: int, w: int, extra: int) -> np.ndarray:
@@ -143,5 +143,5 @@ class RelativeMHSABlock(nn.Module):
             x, _, _ = self.patch_embed(x)
             if extra_tokens is not None:
                 x = torch.cat([extra_tokens, x], dim=1)
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = drop_path_add(x, self.attn(self.norm1(x)), self.drop_path)
+        return drop_path_add(x, self.mlp(self.norm2(x)), self.drop_path)

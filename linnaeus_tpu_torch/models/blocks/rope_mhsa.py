@@ -18,7 +18,7 @@ from torch import nn
 from linnaeus_tpu_torch.ops import rope
 from linnaeus_tpu_torch.ops.attention import scaled_dot_product_attention
 
-from .common import Dropout, DropPath, LayerNorm, Linear, Mlp
+from .common import Dropout, DropPath, LayerNorm, Linear, Mlp, drop_path_add
 from .moe import MoEMlp, MoEStats
 
 ROPE_FIDELITIES = ("rotate", "reference_cos")
@@ -159,8 +159,10 @@ class RoPE2DMHSABlock(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor | tuple[torch.Tensor, MoEStats]:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
+        # the block's kernels (K1) off: the residuals too in plain PyTorch
+        kernel = self.attn.use_flash_attn
+        x = drop_path_add(x, self.attn(self.norm1(x)), self.drop_path, kernel)
         if not self.use_moe:
-            return x + self.drop_path(self.mlp(self.norm2(x)))
+            return drop_path_add(x, self.mlp(self.norm2(x)), self.drop_path, kernel)
         y, stats = self.mlp(self.norm2(x))
-        return x + self.drop_path(y), stats
+        return drop_path_add(x, y, self.drop_path, kernel), stats

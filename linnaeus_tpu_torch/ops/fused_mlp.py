@@ -34,6 +34,12 @@ returns dy, the residual's gradient (dout itself) and the seven parameter
 gradients. CUDA tensors launch the kernels or raise; CPU tensors run
 :func:`fused_convnext_mlp_reference` and
 :func:`fused_convnext_mlp_bwd_reference`, the plain PyTorch versions.
+
+In training under drop path the block hands its per-sample ``scale``
+(ops/drop_path.py): every route then computes residual + s[b] (branch) in
+the same epilogue, rounded once, and a backward that starts from
+ds = round(s[b] dout), which the tensor-core route's prologue writes beside
+its other workspace rows; the residual's gradient stays dout.
 """
 
 from __future__ import annotations
@@ -44,6 +50,12 @@ import torch
 import torch.nn.functional as F
 
 from linnaeus_tpu_torch import _kernels
+from linnaeus_tpu_torch.ops.drop_path import (
+    MAX_SAMPLES,
+    SampleScale,
+    scale_add_reference,
+    scale_samples_reference,
+)
 
 MAX_WIDTH = 256  # widest C of both forward kernels (the column split; the tiles)
 MAX_WIDTH_BWD = 192  # widest C whose backward tiles fit an SM's shared memory
@@ -67,13 +79,16 @@ def fused_convnext_mlp_reference(
     eps: float,
     approximate: bool,
     dtype: torch.dtype | None = None,
+    scale: SampleScale | None = None,
 ) -> torch.Tensor:
     """Plain version on (M, C) rows, cast for cast as the TPU package's
     ``_xla_reference``: LN in float32 rounded to y's dtype, both products
     accumulated in float32, GELU in float32 rounded to y's dtype, then bias,
     gamma and the residual in float32 and one cast to y's dtype. The
     vectors are float32. ``dtype`` takes the place of y's dtype where y is
-    an unrounded float32 intermediate of a wider fusion (K3)."""
+    an unrounded float32 intermediate of a wider fusion (K3). With
+    ``scale`` (the residual then required) the sum is residual + s[b]
+    (bias and gamma applied), a sample's rows a B-th of M."""
     dt = y2.dtype if dtype is None else dtype
     yf = y2.float()
     mean = yf.mean(dim=-1, keepdim=True)
@@ -83,6 +98,8 @@ def fused_convnext_mlp_reference(
     h1 = F.gelu(h1, approximate="tanh" if approximate else "none").to(dt)
     out = torch.matmul(h1.float(), w2.float().t())
     out = (out + b2) * gamma
+    if scale is not None:
+        return scale_add_reference(x2, out, scale).to(dt)
     if x2 is not None:
         out = x2.float() + out
     return out.to(dt)
@@ -152,6 +169,7 @@ def fused_convnext_mlp_bwd_reference(
     gamma: torch.Tensor,
     eps: float,
     approximate: bool,
+    scale: SampleScale | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain version of the backward kernel on (M, C) rows, cast for cast as
     the TPU package's ``_bwd_kernel``: the forward recomputed with h0 and h1
@@ -160,8 +178,12 @@ def fused_convnext_mlp_bwd_reference(
     accumulated in float32, the vector gradients summed from the unrounded
     values. Returns (dy in y's dtype, then float32 d ln_w, d ln_b,
     dw1 (4C, C), db1, dw2 (C, 4C), db2, dgamma). The residual's gradient is
-    dout itself and is not computed here."""
+    dout itself and is not computed here. With ``scale`` the gradients are
+    those of the scaled branch: dout is first ds = s[b] dout, rounded to y's
+    dtype, as the kernels round it."""
     dt = y2.dtype
+    if scale is not None:
+        dout = scale_samples_reference(dout.to(dt), scale)
     yf = y2.float()
     mean = yf.mean(dim=-1, keepdim=True)
     var = (yf - mean).square().mean(dim=-1, keepdim=True)
@@ -192,28 +214,32 @@ def fused_convnext_mlp_bwd_reference(
 
 
 class _FusedConvNeXtMlp(torch.autograd.Function):
-    """(y2, x2 or None, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate)
-    -> out, on (M, C) rows with float32 vectors."""
+    """(y2, x2 or None, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate,
+    u or None, keep) -> out, on (M, C) rows with float32 vectors; u and keep
+    make drop path's per-sample scale."""
 
     @staticmethod
-    def forward(ctx, y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
+    def forward(ctx, y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate, u, keep):
+        scale = None if u is None else SampleScale(u, keep)
         run = fused_convnext_mlp_reference if y2.device.type == "cpu" else _launch
-        out = run(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate)
-        ctx.save_for_backward(y2, ln_w, ln_b, w1, b1, w2, b2, gamma)
+        out = run(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate, scale=scale)
+        ctx.save_for_backward(y2, ln_w, ln_b, w1, b1, w2, b2, gamma, u)
         ctx.eps, ctx.approximate, ctx.has_residual = eps, approximate, x2 is not None
+        ctx.keep = keep
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        y2, ln_w, ln_b, w1, b1, w2, b2, gamma = ctx.saved_tensors
+        y2, ln_w, ln_b, w1, b1, w2, b2, gamma, u = ctx.saved_tensors
+        scale = None if u is None else SampleScale(u, ctx.keep)
         run = fused_convnext_mlp_bwd_reference if y2.device.type == "cpu" else _launch_bwd
         dout = dout.contiguous()
         dy, dls, dlb, dw1, db1, dw2, db2, dg = run(
-            y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, ctx.eps, ctx.approximate
+            y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, ctx.eps, ctx.approximate, scale=scale
         )
         dx = dout if ctx.has_residual else None
         return (dy, dx, dls, dlb, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg,
-                None, None)
+                None, None, None, None)
 
 
 def fused_convnext_mlp(
@@ -229,38 +255,55 @@ def fused_convnext_mlp(
     *,
     eps: float = 1e-6,
     approximate_gelu: bool = True,
+    scale: SampleScale | None = None,
 ) -> torch.Tensor:
     """LN -> Linear(4C) -> GELU -> Linear(C) -> x gamma [-> + residual] over
     ``y`` of shape (..., C); ``residual=None`` skips the add. ``w1`` is
     (4C, C) and ``w2`` (C, 4C) in y's dtype; the vectors are cast to
-    float32. Differentiable in every tensor operand; the weight gradients
-    are computed in float32 and returned in the weights' dtype. CPU tensors
-    take the plain versions; CUDA tensors launch the kernels or raise."""
+    float32. ``scale``: drop path's per-sample scale of a training block
+    (y's leading dimension the batch), residual + s[b] (branch); it needs
+    the residual. Differentiable in every tensor operand; the weight
+    gradients are computed in float32 and returned in the weights' dtype.
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
+    raise."""
     shape = y.shape
     C = shape[-1]
     y2 = y.reshape(-1, C)
     x2 = None if residual is None else residual.reshape(-1, C)
+    if scale is not None and (x2 is None or y2.shape[0] % scale.u.shape[0]):
+        raise ValueError("fused_convnext_mlp: a drop-path scale needs the residual and "
+                         "whole samples of rows")
     if gamma is None:
         gamma = torch.ones(C, dtype=torch.float32, device=y.device)
     ln_w, ln_b, b1f, b2f, g = (t.float() for t in (ln_scale, ln_bias, b1, b2, gamma))
+    u, keep = (None, 1.0) if scale is None else (scale.u, float(scale.keep))
     out = _FusedConvNeXtMlp.apply(
-        y2, x2, ln_w, ln_b, w1, b1f, w2, b2f, g, float(eps), bool(approximate_gelu)
+        y2, x2, ln_w, ln_b, w1, b1f, w2, b2f, g, float(eps), bool(approximate_gelu), u, keep
     )
     return out.reshape(shape)
 
 
-def _launch(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
+def _scale_operands(scale: SampleScale | None, M: int) -> tuple:
+    """(u's pointer or None, keep, 1 / keep, rows a sample) for the C side."""
+    if scale is None:
+        return None, 1.0, 1.0, 1
+    return scale.u.data_ptr(), float(scale.keep), scale.inverse, M // scale.u.shape[0]
+
+
+def _launch(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate, scale=None):
     M, C = y2.shape
     Hd = w1.shape[0]
-    _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, scale)
     out = torch.empty_like(y2)
+    u, keep, inverse, rows_per_sample = _scale_operands(scale, M)
     lib = _kernels.library()
     err = lib.lt_fused_mlp_fwd(
         y2.data_ptr(), None if x2 is None else x2.data_ptr(),
         ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), out.data_ptr(), u,
         M, C, Hd, float(eps), int(approximate),
-        _kernels.DTYPE_CODES[y2.dtype], _kernels.stream_handle(y2.device),
+        _kernels.DTYPE_CODES[y2.dtype], keep, inverse, rows_per_sample,
+        _kernels.stream_handle(y2.device),
     )
     _kernels.check(err, "fused_convnext_mlp")
     global LAUNCHES
@@ -268,14 +311,14 @@ def _launch(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     return out
 
 
-def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
+def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate, scale=None):
     M, C = y2.shape
     Hd = w1.shape[0]
     if C > MAX_WIDTH_BWD:
         raise ValueError(
             f"fused_convnext_mlp backward: width C={C} is outside 1..{MAX_WIDTH_BWD}"
         )
-    _check_operands(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    _check_operands(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, scale)
     dev = y2.device
     f32 = {"dtype": torch.float32, "device": dev}
     dy = torch.empty_like(y2)
@@ -284,6 +327,9 @@ def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
     row_blocks, slabs, floats = _bwd_geometry(
         M, C, Hd, backward_kernel(C, y2.dtype, Hd),
         torch.cuda.get_device_properties(dev).multi_processor_count)
+    u, keep, inverse, rows_per_sample = _scale_operands(scale, M)
+    if scale is not None:  # ds = round(s dout), ahead of the rest
+        floats += scaled_dout_floats(M, C, y2.dtype)
     workspace = torch.empty(floats, **f32)
     pointers = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
     lib = _kernels.library()
@@ -291,7 +337,8 @@ def _launch_bwd(y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, approximate):
         pointers((y2, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)),
         pointers((dy, dls, dlb, dw1, db1, dw2, db2, dg)),
         workspace.data_ptr(), M, C, Hd, float(eps), int(approximate),
-        row_blocks, slabs, _kernels.DTYPE_CODES[y2.dtype], _kernels.stream_handle(dev),
+        row_blocks, slabs, _kernels.DTYPE_CODES[y2.dtype], u, keep, inverse, rows_per_sample,
+        _kernels.stream_handle(dev),
     )
     _kernels.check(err, "fused_convnext_mlp_bwd")
     global BWD_LAUNCHES
@@ -319,7 +366,13 @@ def _bwd_geometry(M: int, C: int, Hd: int, route: str, sms: int) -> tuple[int, i
     return row_blocks, slabs, floats + slabs * (2 * Hd * C + Hd)
 
 
-def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
+def scaled_dout_floats(M: int, C: int, dtype: torch.dtype) -> int:
+    """float32 elements of the backward's workspace that ds takes, whole
+    16-byte pieces (``lt::scaled_dout_floats``)."""
+    return (M * C * (torch.finfo(dtype).bits // 8) + 15) // 16 * 4
+
+
+def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma, scale=None) -> None:
     M, C = y2.shape
     Hd = w1.shape[0]
     if y2.device.type != "cuda":
@@ -359,3 +412,12 @@ def _check_operands(y2, x2, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
                 f"fused_convnext_mlp: {name} is misaligned for the bfloat16 kernels: its "
                 f"first element lies {t.data_ptr() % 16} bytes past a 16-byte boundary"
             )
+    if scale is not None:
+        u = scale.u
+        B = u.shape[0] if u.dim() == 1 else 0
+        if (u.dtype != torch.float32 or not 1 <= B <= MAX_SAMPLES or M % B
+                or not u.is_contiguous() or u.device != y2.device):
+            raise ValueError(
+                f"fused_convnext_mlp: the drop-path draws are {tuple(u.shape)} {u.dtype} on "
+                f"{u.device}; expected (B,) float32 on {y2.device}, contiguous, B in "
+                f"1..{MAX_SAMPLES} dividing the {M} rows")

@@ -176,6 +176,105 @@ def test_convnext_block_fused_tail_under_grad_with_drop_path():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4)
 
 
+def _parent_drop_path(drop_path, x):
+    """DropPath.forward as it was before drop path became a per-sample scale:
+    a division, a zero tensor and a ``where`` over the broadcast mask."""
+    from linnaeus_tpu_torch.parallel.ops import draw_rows
+
+    if not drop_path.training or drop_path.rate <= 0.0:
+        return x
+    keep = 1.0 - drop_path.rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = draw_rows(torch.rand, shape, x.device, drop_path.generator,
+                     drop_path.data_group) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def _parent_convnext_forward(block, x, fused):
+    """ConvNeXtBlock.forward as it was before drop path moved into the
+    residual add: DropPath.forward on the branch, then the add (the fused
+    tail then skipped its own residual add)."""
+    from linnaeus_tpu_torch.models.blocks.common import gelu
+    from linnaeus_tpu_torch.models.blocks.convnext import _conv_nhwc
+    from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp
+
+    y = _conv_nhwc(block.dwconv, x)
+    if fused:
+        active = block.training and block.drop_path.rate != 0.0
+        out = fused_convnext_mlp(
+            y, None if active else x, block.norm.weight, block.norm.bias,
+            block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight, block.pwconv2.bias,
+            block.gamma, eps=block.norm.eps, approximate_gelu=not block.act_exact)
+        return x + _parent_drop_path(block.drop_path, out) if active else out
+    y = block.pwconv2(gelu(block.pwconv1(block.norm(y)), block.act_exact)) * block.gamma
+    return x + _parent_drop_path(block.drop_path, y)
+
+
+def _parent_rope_forward(block, x):
+    x = x + _parent_drop_path(block.drop_path, block.attn(block.norm1(x)))
+    return x + _parent_drop_path(block.drop_path, block.mlp(block.norm2(x)))
+
+
+def _drop_path_blocks(rate):
+    torch.manual_seed(5)
+    return {
+        "convnext_fused": ConvNeXtBlock(8, drop_path=rate, layer_scale_init_value=0.5,
+                                        fused_mlp=True),
+        "convnext_plain": ConvNeXtBlock(8, drop_path=rate, layer_scale_init_value=0.5,
+                                        fused_mlp=False),
+        "rope": RoPE2DMHSABlock(16, img_grid_size=(4, 3), extra_token_num=2, num_heads=2,
+                                drop_path=rate),
+    }
+
+
+def _run_both(kind, block, x):
+    """(this forward, the parent's forward), each from a fresh generator of
+    one seed, and the generator's state after each."""
+    outs, states = [], []
+    for parent in (False, True):
+        block.drop_path.generator = torch.Generator().manual_seed(23)
+        with torch.no_grad():
+            if kind == "rope":
+                out = _parent_rope_forward(block, x) if parent else block(x)
+            else:
+                out = (_parent_convnext_forward(block, x, kind == "convnext_fused") if parent
+                       else block(x))
+        outs.append(out)
+        states.append(block.drop_path.generator.get_state())
+    return outs, states
+
+
+@pytest.mark.parametrize("kind", ["convnext_fused", "convnext_plain", "rope"])
+def test_blocks_in_training_draw_the_parents_uniforms(kind):
+    """At rate 0.5 in training the scaled residual takes the same uniforms
+    from the same generator as DropPath.forward did (the generator ends in
+    the same state), keeps the same samples and gives the eager sum."""
+    block = _drop_path_blocks(0.5)[kind].train()
+    x = torch.randn((8, 14, 16) if kind == "rope" else (8, 5, 5, 8),
+                    generator=torch.Generator().manual_seed(1))
+    (got, want), (after, parent_after) = _run_both(kind, block, x)
+    assert torch.equal(after, parent_after)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if kind != "rope":  # a dropped sample of a ConvNeXt block is its input
+        dropped = [torch.equal(got[i], x[i]) for i in range(8)]
+        assert dropped == [torch.equal(want[i], x[i]) for i in range(8)]
+        assert any(dropped) and not all(dropped)
+
+
+@pytest.mark.parametrize("kind", ["convnext_fused", "convnext_plain", "rope"])
+@pytest.mark.parametrize("rate,training", [(0.5, False), (0.0, True)])
+def test_blocks_without_a_scale_are_the_parents_bits(kind, rate, training):
+    """Eval, and rate 0 in training, take no scale: the parent's formula bit
+    for bit, and nothing drawn."""
+    block = _drop_path_blocks(rate)[kind].train(training)
+    x = torch.randn((3, 14, 16) if kind == "rope" else (3, 5, 5, 8),
+                    generator=torch.Generator().manual_seed(2))
+    (got, want), (after, parent_after) = _run_both(kind, block, x)
+    assert torch.equal(got, want)
+    assert torch.equal(after, torch.Generator().manual_seed(23).get_state())
+    assert torch.equal(parent_after, after)
+
+
 # ------------------------------------------------- where the scores are stored
 # fp32: both settings are the same float32 math. bf16: with fp32_softmax=False
 # both sides round q * scale and the scores to bf16 at the same places, so the

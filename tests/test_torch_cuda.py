@@ -28,7 +28,11 @@ non-reentrant checkpoints of per-block rematerialisation, under each
 policy, give the gradients of the run without it (to the backward bars,
 with one more forward launch per block), the recompute takes the first
 forward's route, and GradNorm's per-task norms with the kernels on and off
-agree within the bf16 backward bar.
+agree within the bf16 backward bar. Under drop path's per-sample scale, K2
+(every route, the train step's shapes at B = 128 included) and the
+scale-add kernel are held to their plain versions, a dropped sample's rows
+to the residual bit for bit, two calls to the same bits, and a tiny model
+in training launches both.
 """
 
 import copy
@@ -37,7 +41,9 @@ import numpy as np
 import pytest
 import torch
 
+from linnaeus_tpu_torch.models.blocks.common import DropPath
 from linnaeus_tpu_torch.models.build import build_model
+from linnaeus_tpu_torch.ops import drop_path as dpk
 from linnaeus_tpu_torch.ops import flash_attention as fa
 from linnaeus_tpu_torch.ops import fused_dwconv_mlp as fb
 from linnaeus_tpu_torch.ops import fused_mlp as fm
@@ -892,3 +898,202 @@ def test_moe_model_trains_on_the_card_with_the_kernels(dev):
     for name, p in model.named_parameters():
         if ".mlp." in name and name.rsplit(".", 1)[-1] in ("router", "wi", "wo"):
             assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
+
+
+# ------------------------------------------------------------------ drop path
+
+
+def _drop_scale(dev, B, seed, keep=0.9):
+    """Seeded uniforms for B samples, every seventh sample dropped."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(B, generator=g, device=dev)
+    u[::7] = 0.99
+    return dpk.SampleScale(u, keep)
+
+
+def _dropped(scale):
+    return [b for b, kept in enumerate((scale.u < scale.keep).tolist()) if not kept]
+
+
+def _k2_scaled_case(dev, dtype, M, C, B, approximate):
+    args = _k2_args(dev, M, C, dtype, seed=M + C)
+    y, x, params = args[0], args[1], args[2:]
+    scale = _drop_scale(dev, B, seed=C)
+    dout = torch.randn(M, C, generator=torch.Generator(device=dev).manual_seed(M),
+                       device=dev).to(dtype)
+    before = (fm.LAUNCHES, fm.BWD_LAUNCHES)
+    out = fm._launch(y, x, *params, 1e-6, approximate, scale=scale)
+    grads = fm._launch_bwd(y, dout, *params, 1e-6, approximate, scale=scale)
+    torch.cuda.synchronize()
+    assert (fm.LAUNCHES, fm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fm.fused_convnext_mlp_reference(y, x, *params, 1e-6, approximate, scale=scale)
+    assert _max_err(out, want) <= K2_TOL[dtype]
+    want_grads = fm.fused_convnext_mlp_bwd_reference(y, dout, *params, 1e-6, approximate,
+                                                     scale=scale)
+    names = ("dy", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
+    for name, a, b in zip(names, grads, want_grads):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+    rows = M // B
+    for b in _dropped(scale):  # a dropped sample: its residual, and no gradient to y
+        assert torch.equal(out[b * rows:(b + 1) * rows], x[b * rows:(b + 1) * rows])
+        assert not grads[0][b * rows:(b + 1) * rows].any()
+    return out, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,B", [(140, 16, 2), (1000, 96, 8), (300, 192, 3), (960, 40, 15),
+                                   (64 * 150, 64, 10)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k2_scaled_matches_plain(dev, dtype, M, C, B, approximate):
+    """Every route takes the scale: the tensor-core kernels in bf16 at
+    widths of 32, the CUDA-core kernels for float32 and odd widths; samples
+    of rows that are no multiple of a 64-row tile."""
+    _k2_scaled_case(dev, dtype, M, C, B, approximate)
+
+
+@pytest.mark.parametrize("M,C", K2_CELL_SHAPES)
+def test_k2_scaled_matches_plain_at_the_train_steps_shapes(dev, M, C):
+    """The train step's calls at B = 128: the forward and all eight
+    gradients; two calls give the same bits."""
+    out, grads = _k2_scaled_case(dev, torch.bfloat16, M, C, 128, True)
+    again, grads_again = _k2_scaled_case(dev, torch.bfloat16, M, C, 128, True)
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+
+
+def test_k2_scaled_function_gives_dout_to_the_residual(dev):
+    args = _k2_args(dev, 2 * 9 * 9, 96, torch.bfloat16)
+    leaves = [t.requires_grad_() for t in args]
+    y, x = (t.view(2, 9, 9, 96) for t in leaves[:2])
+    scale = _drop_scale(dev, 2, seed=4)
+    out = fm.fused_convnext_mlp(y, x, *leaves[2:], scale=scale)
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    assert torch.equal(leaves[1].grad, dout.view(-1, 96))
+    with pytest.raises(ValueError, match="needs the residual"):
+        fm.fused_convnext_mlp(y, None, *leaves[2:], scale=scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 580, 384), (128, 148, 768), (3, 7, 5), (9, 33),
+                                   (20, 4, 6)])
+def test_scale_add_matches_plain(dev, dtype, shape):
+    """16-byte pieces where a sample's length allows (the RoPE blocks'
+    shapes at B = 128), single elements otherwise; the backward is one
+    rounding of s * dout, the same bits as the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    residual, branch, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                              for _ in range(3))
+    scale = _drop_scale(dev, shape[0], seed=shape[1])
+    before = (dpk.LAUNCHES, dpk.BWD_LAUNCHES)
+    out = dpk._launch(residual, branch, scale)
+    d_branch = dpk._launch_bwd(dout, scale)
+    torch.cuda.synchronize()
+    assert (dpk.LAUNCHES, dpk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = dpk.scale_add_reference(residual, branch, scale)
+    # one FMA against the plain version's product and sum
+    assert _rel_err(out, want) <= (1e-6 if dtype == torch.float32 else 1e-2)
+    assert torch.equal(d_branch, dpk.scale_samples_reference(dout, scale))
+    for b in _dropped(scale):
+        assert torch.equal(out[b], residual[b]) and not d_branch[b].any()
+    assert torch.equal(out, dpk._launch(residual, branch, scale))
+    assert torch.equal(d_branch, dpk._launch_bwd(dout, scale))
+
+
+def test_scale_add_rejects_what_it_does_not_take(dev):
+    """``scale_add`` checks its operands once, before the launch."""
+    x = torch.randn(4, 8, device=dev)
+    scale = _drop_scale(dev, 4, seed=0)
+    with pytest.raises(ValueError, match="draws"):
+        dpk.scale_add(x, x, dpk.SampleScale(scale.u.cpu(), 0.9))
+    with pytest.raises(ValueError, match="draws"):
+        dpk.scale_add(x, x, dpk.SampleScale(scale.u[:3], 0.9))
+    with pytest.raises(ValueError, match="differ"):
+        dpk.scale_add(x, x.bfloat16(), scale)
+    with pytest.raises(ValueError, match="differ"):
+        dpk.scale_add(x, x.cpu(), scale)
+    with pytest.raises(TypeError):
+        dpk.scale_add(x.half(), x.half(), scale)
+    wide = torch.zeros(dpk.MAX_SAMPLES + 1, 1, device=dev)
+    with pytest.raises(ValueError, match="outside"):
+        dpk.scale_add(wide, wide, _drop_scale(dev, dpk.MAX_SAMPLES + 1, seed=0))
+    launched = dpk.LAUNCHES
+    strided = torch.randn(8, 4, device=dev).t()  # made contiguous, then launched
+    got = dpk.scale_add(strided, strided, _drop_scale(dev, 4, seed=1))
+    assert dpk.LAUNCHES == launched + 1
+    want = dpk.scale_add_reference(strided.contiguous(), strided.contiguous(),
+                                   _drop_scale(dev, 4, seed=1))
+    assert _rel_err(got, want) <= 1e-6
+
+
+def test_tiny_model_under_drop_path_launches_both_kernels(dev):
+    """A train step at rate 0.5: K2 forward and backward once a ConvNeXt
+    block (the first at rate 0 without a scale), the scale-add kernel once
+    a RoPE residual each way; two runs of one seed give the same bits."""
+    spec = {
+        "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [32, 64, 128, 256]},
+        "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
+        "DROP_PATH_RATE": 0.5,
+    }
+    nc = {"taxa_L10": 11}
+    net = build_model(spec, 64, nc, (("TEMPORAL", 2),), dtype=torch.bfloat16,
+                      use_flash_attn=True, device=dev).train()
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(6, 64, 64, 3)).astype(np.float32), device=dev)
+    m = torch.tensor(rng.normal(size=(6, 2)).astype(np.float32), device=dev)
+
+    def step():
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for mod in net.modules():
+            if isinstance(mod, DropPath):
+                mod.generator = gen
+        net.zero_grad(set_to_none=True)
+        loss = net(x, m)["taxa_L10"].float().square().mean()
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in net.parameters()]
+
+    before = (fm.LAUNCHES, fm.BWD_LAUNCHES, dpk.LAUNCHES, dpk.BWD_LAUNCHES)
+    first = step()
+    torch.cuda.synchronize()
+    took = tuple(a - b for a, b in zip(
+        (fm.LAUNCHES, fm.BWD_LAUNCHES, dpk.LAUNCHES, dpk.BWD_LAUNCHES), before))
+    assert took == (3, 3, 4, 4)
+    second = step()
+    assert torch.isfinite(first[0]) and torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+def test_tiny_model_with_its_kernels_off_launches_none_under_drop_path(dev):
+    """K1 and K2 off (the train step's plain arm): the scaled residuals run
+    in plain PyTorch, and neither K2 nor the scale-add kernel is launched;
+    the gradients match the kernels' route."""
+    spec = {
+        "CONVNEXT": {"DEPTHS": [2, 1, 1, 1], "DIMS": [32, 64, 128, 256]},
+        "ROPE": {"DEPTHS": [1, 1], "DIMS": [128, 256], "NUM_HEADS": [2, 4]},
+        "DROP_PATH_RATE": 0.5,
+    }
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(6, 64, 64, 3)).astype(np.float32), device=dev)
+    m = torch.tensor(rng.normal(size=(6, 2)).astype(np.float32), device=dev)
+    grads, launched = [], []
+    for kernels in (True, False):
+        net = build_model(spec, 64, {"taxa_L10": 11}, (("TEMPORAL", 2),), dtype=torch.float32,
+                          use_flash_attn=kernels, fused_convnext_mlp=None if kernels else False,
+                          device=dev, seed=3).train()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for mod in net.modules():
+            if isinstance(mod, DropPath):
+                mod.generator = gen
+        before = (fm.LAUNCHES, fm.BWD_LAUNCHES, dpk.LAUNCHES, dpk.BWD_LAUNCHES)
+        net(x, m)["taxa_L10"].float().square().mean().backward()
+        torch.cuda.synchronize()
+        launched.append(tuple(a - b for a, b in zip(
+            (fm.LAUNCHES, fm.BWD_LAUNCHES, dpk.LAUNCHES, dpk.BWD_LAUNCHES), before)))
+        grads.append([p.grad for p in net.parameters()])
+    assert launched == [(3, 3, 4, 4), (0, 0, 0, 0)]
+    # as test_tiny_model_trains_kernels_on_vs_off holds them
+    floor = 1e-6 * max(r.abs().max().item() for r in grads[1])
+    for a, b in zip(*grads):
+        assert _max_err(a, b) <= 1e-3 * b.abs().max().item() + floor
+

@@ -146,6 +146,45 @@ def test_plain_k2_backward_matches_pallas_backward(monkeypatch, dtype, approxima
 
 
 @pytest.mark.parametrize("approximate", [True, False])
+def test_plain_k2_with_a_drop_path_scale_matches_the_eager_formula(approximate):
+    """The Function (plain route) with drop path's per-sample scale against
+    the formula it replaces, residual + where(mask, branch / keep, 0) over
+    K2 without its residual, and autograd through it, in float32: the
+    output (a dropped sample's rows the residual, bit for bit) and the nine
+    gradients."""
+    B, rows, C = 5, 14, 24
+    names = ("y", "x", "ls", "lb", "w1", "b1", "w2", "b2", "g")
+    a = {k: torch.tensor(v) for k, v in _inputs(B * rows, C, "float32", seed=3).items()}
+    a["w1"], a["w2"] = a["w1"].t().contiguous(), a["w2"].t().contiguous()
+    u, keep = torch.tensor([0.3, 0.8, 0.1, 0.95, 0.5]), 0.7
+    kept = (u < keep).repeat_interleave(rows)[:, None]
+    cot = torch.randn(B * rows, C, generator=torch.Generator().manual_seed(1))
+
+    got_t = {k: a[k].clone().requires_grad_() for k in names}
+    got = tfm.fused_convnext_mlp(*(got_t[k] for k in names), approximate_gelu=approximate,
+                                 scale=tfm.SampleScale(u, keep))
+    (got * cot).sum().backward()
+    want_t = {k: a[k].clone().requires_grad_() for k in names}
+    branch = tfm.fused_convnext_mlp(want_t["y"], None, *(want_t[k] for k in names[2:]),
+                                    approximate_gelu=approximate)
+    want = want_t["x"] + torch.where(kept, branch / keep, torch.zeros_like(branch))
+    (want * cot).sum().backward()
+
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0, atol=1e-6)
+    assert kept.any() and not kept.all()
+    dropped = ~kept[:, 0]
+    assert torch.equal(got.detach()[dropped], a["x"][dropped])
+    for k in names:
+        ref = want_t[k].grad
+        tol = 1e-5 * max(ref.abs().max().item(), 1.0)
+        np.testing.assert_allclose(got_t[k].grad.numpy(), ref.numpy(), rtol=0, atol=tol,
+                                   err_msg=k)
+    assert torch.equal(got_t["x"].grad, cot)  # the residual's gradient is dout
+    assert not got_t["y"].grad[dropped].any()
+    assert tfm.LAUNCHES == 0 and tfm.BWD_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("approximate", [True, False])
 def test_plain_k2_backward_reference_equals_autograd_of_plain_forward(approximate):
     a = {k: torch.tensor(v) for k, v in _inputs(70, 24, "float32", seed=2).items()}
     w1, w2 = a["w1"].t().contiguous(), a["w2"].t().contiguous()
@@ -421,10 +460,11 @@ class _Recorder:
     def __init__(self):
         self.calls = 0
 
-    def __call__(self, y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, *, eps, approximate_gelu):
+    def __call__(self, y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, *, eps, approximate_gelu,
+                 scale=None):
         self.calls += 1
         return tfm.fused_convnext_mlp(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps=eps,
-                                      approximate_gelu=approximate_gelu)
+                                      approximate_gelu=approximate_gelu, scale=scale)
 
 
 @pytest.mark.parametrize("dim", [96, 192, 256, 384, 512])

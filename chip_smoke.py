@@ -4,27 +4,20 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
-nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/ and holds
-each one (K1 forward and backward, the backward's dQ and dK/dV kernels
-also alone; K2 forward and backward; K3, the fused ConvNeXt block) against its
-plain PyTorch version at the shapes its path gives it, in float32 and in
-bfloat16 (all of K1, K2 and K3's MLP tail then run on the tensor cores, in
-float32 on the CUDA cores; K1's and K2's times are medians of three repeats,
-with the spread; K2 must give the same bits twice, forward and backward; the
-bf16 library chain LN -> linear -> GELU -> linear is timed beside K2 and K3
-as a yardstick of several calls, and its backward, through autograd, beside
-K2's backward). It checks the width rule of the ConvNeXt
-block: left to choose, a block runs at the lg and xl presets' widths through
-the route the rule names, and told to fuse past the kernels' widths it
-raises by name. It holds drop path's per-sample scale at the 384 px train
-step's shapes (B = 128): the scale-add kernel forward and backward at the
-RoPE residuals against its plain version (a dropped sample bit for bit;
-timed with no sample dropped against its byte bound and the eager chain it
-replaced; the host time of one residual through drop_path_add and through
-that chain), and K2 with the scale, forward and its eight gradients. Then
-it serves mFormerV1_sm at 384 px in bf16 (seeded random weights) through LinnaeusInferenceHandler with
-its default options but for the batch size, so with the
-hierarchical-consistency pass on against a seeded taxonomy tree over the
+nvcc. It builds the CUDA kernels from linnaeus_tpu_torch/csrc/, holds
+each one in bf16 at the shapes its paths give it to its plain PyTorch
+version at its bar (ops/kernel_bars.py, the card tests' bars) and times it
+(phase 2: one table of kernel_rows; K1 forward and backward, the
+backward's dQ and dK/dV kernels also alone; K2 forward and backward, also
+with drop path's scale; K3, the fused ConvNeXt block; the scale-add kernel
+forward and backward): the median of three repeats with the spread, beside
+its plain version, its least time on the card (benchmark/roofline.py) and
+the library call or bf16 chain of library calls that does the same work.
+tests/test_torch_cuda.py (pytest -m cuda) holds the kernels at the tile
+and length edges and in float32.
+Then it serves mFormerV1_sm at 384 px in bf16 (seeded random weights)
+through LinnaeusInferenceHandler with its default options but for the
+batch size, so with the hierarchical-consistency pass on against a seeded taxonomy tree over the
 four tasks: three predict requests of 1, 7 and 64 images, with launch
 counters proving every forward went through both forward kernels and every
 result held to the tree. Then it serves a bundle from disk: it writes
@@ -132,11 +125,9 @@ phase 7c's dataset with the statistics at every step, the handler serves
 the checkpoint directory with the checkpoint's model's logits bit for bit,
 and tools/export_torch.py exports it to the reference layout, which loads
 strict into mFormerV1_sm.
-Then (phase 7f) it goes from phase 1 to phase 2 on the receipt data: K1's
-forward and K2's forward at the rollout's one image (B = 1) and K1's fused
-backward and K2's forward and backward at the PPO update's batch of 128
-rollout steps, each against its plain version at the kernel bars, timed
-beside its bound and the library call; then the counts from zero:
+Then (phase 7f) it goes from phase 1 to phase 2 on the receipt data (the
+kernels at the rollout's one image and the PPO update's 128 are phase 2's
+rows), the launches counted from zero:
 tools/e2e_train_bench.generate_dataset writes 1,024 learnable 384 px
 samples of 125 species with a tenth null (JPEGs, .npz labels); the CLI trains
 configs/experiments/tpu_trainrun_synth_384.yaml on them for 2 epochs (cut
@@ -169,7 +160,7 @@ two gloo ranks on the one card each taking 32 rows of the B=64 step (the
 first step within the train bars); estimate_model_complexity of
 mFormerV1_sm at 384 px (params exactly the stored table's, FLOPs within
 5%, the activation MB printed beside the stored one); and F10: K1's
-backward twice on the same operands, bit for bit, and its time. Then
+backward twice on the same operands, bit for bit. Then
 (phase 7j) tools/shard_plan for mFormerV1_sm at 384 px, 64 rows a data
 rank, under dp (data 8), fsdp (data 8), tp (data 4, model 2) and pp (data 4,
 model 5): rank 0's bytes, its step's collectives over the fake process
@@ -178,7 +169,8 @@ config ('mixed-pairs' batches of scale_receipt's labels) and the steps'
 peak; no image row all-gathered under dp, FSDP2's largest gather one
 unit's. Then it runs tools/fused_block_ab (K3 against the library convolution + K2 and
 against the plain chain, forward and train). It prints its own time, one
-JSON line about the seven kernels, and as its last line
+JSON line with each kernel's launches on its path and phase 2's rows, and
+as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -199,43 +191,37 @@ import time
 import numpy as np
 import torch
 
+# the card's peaks and the kernels' least times; the benchmark's tests read
+# PEAK_FLOPS and PEAK_BYTES_PER_S here too
+from benchmark.roofline import (  # noqa: F401
+    PEAK_BYTES_PER_S, PEAK_FLOPS, bound, k1_bound, k2_bound, k3_bound)
+from linnaeus_tpu_torch.ops import kernel_bars
+from linnaeus_tpu_torch.ops.kernel_bars import max_err
+
 SEED = 0
 IMG = 384
 BATCH = 64
 TASKS = {"taxa_L10": 1000, "taxa_L20": 400, "taxa_L30": 100, "taxa_L40": 30}
-# K1: stage 3 (24x24 + 4 extra tokens, 6 heads) and stage 4 (12x12 + 4, 12 heads)
-K1_SHAPES = [(BATCH, 580, 6, 64), (BATCH, 148, 12, 64), (2, 37, 3, 64)]
-# at 512 px: stage 3 (32x32 + 4, past 1024, where the TPU package splits its
-# backward) and stage 4 (16x16 + 4)
+# phase 2's rows. K1: stage 3 (24x24 + 4 extra tokens, 6 heads) and stage 4
+# (12x12 + 4, 12 heads); at 512 px stage 3 (32x32 + 4, past 1024, where the
+# TPU package splits its backward) and stage 4 (16x16 + 4)
+K1_SHAPES = [(BATCH, 580, 6, 64), (BATCH, 148, 12, 64)]
 IMG_LARGE = 512
 K1_SHAPES_LARGE = [(BATCH, 1028, 6, 64), (BATCH, 260, 12, 64)]
-# K3: stage 1 and stage 2 of the 384 px model, and a small odd image
-K3_SHAPES = [(BATCH, 96, 96, 96), (BATCH, 48, 48, 192), (2, 9, 11, 96)]
-# K2: stage 1 (B*96*96 rows, C=96) and stage 2 (B*48*48 rows, C=192)
-K2_SHAPES = [(BATCH * 96 * 96, 96), (BATCH * 48 * 48, 192), (70, 96)]
-# drop path's per-sample scale at the 384 px train step's shapes, B = 128
-# (benchmark/traffic/train384.json): the RoPE residuals of stages 3 and 4,
-# K2's rows of stages 1 and 2
+# K2: rows an image and width of stage 1 (96x96, C=96) and stage 2 (48x48, 192)
+K2_PER_IMAGE = [(96 * 96, 96), (48 * 48, 192)]
+# K3: stage 1 and stage 2 of the 384 px model
+K3_SHAPES = [(BATCH, 96, 96, 96), (BATCH, 48, 48, 192)]
+# drop path's per-sample scale at the 384 px train step's B = 128
+# (benchmark/traffic/train384.json): the RoPE residuals of stages 3 and 4
 DROP_PATH_BATCH = 128
 DROP_PATH_SHAPES = [(DROP_PATH_BATCH, 580, 384), (DROP_PATH_BATCH, 148, 768)]
-K2_SCALED_SHAPES = [(DROP_PATH_BATCH * 96 * 96, 96), (DROP_PATH_BATCH * 48 * 48, 192)]
-# the scale-add kernel's one FMA against the plain version's product and
-# sum, relative to the largest output: a rounding of the output's dtype
-SCALE_ADD_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
-# the TPU kernel tests' bars against their own plain versions
-K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 K1_STAGE3, K1_STAGE4 = 5, 2  # RoPE blocks of mFormerV1_sm's stages 3 and 4
 K1_PER_FORWARD = K1_STAGE3 + K1_STAGE4
 K2_PER_FORWARD = 3 + 3  # ConvNeXt blocks of stages 1 and 2
 # scale-add launches a forward (and as many backward): the attention and
 # MLP residuals of every RoPE block under drop path (all of them at 0.05)
 DROP_PATH_PER_FORWARD = 2 * K1_PER_FORWARD
-# backward kernels against their plain versions, relative to each gradient's
-# largest magnitude: fp32 runs the same math in another summation order;
-# in bf16 a rounding of P, dS, h1 or da1 that
-# falls the other way moves a sum by a bf16 step (2**-8) or two
-BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 3
 # first train step, kernels on vs off, same seed and draws: the loss is a
 # float32 mean over 64 samples of logits that differ by bf16 roundings; the
@@ -243,9 +229,6 @@ TRAIN_STEPS = 3
 # the two routes
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_NORM_RTOL = 1e-2
-# NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
 # whole-forward bars for kernels on vs off (random-init logits stay below
 # ~1 in magnitude): fp32 runs the same math in another summation order;
 # bf16 (8-bit mantissa, 2**-8 relative) rounds at other places (p per
@@ -261,8 +244,7 @@ def check(ok: bool, what: str) -> None:
 
 def cuda_ms_median(fn, iters: int = 50, repeats: int = 3) -> tuple[float, float]:
     """(median, spread) of ``repeats`` mean device times of ``fn`` over
-    ``iters`` calls each, after one warm-up: the timing of K1's kernels and
-    of the library call beside them, which take well under a millisecond.
+    ``iters`` calls each, after one warm-up: the timing of phase 2's rows.
     The spread is the largest repeat minus the smallest."""
     fn()
     torch.cuda.synchronize()
@@ -284,645 +266,169 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return cuda_ms_median(fn, iters, repeats=1)[0]
 
 
-def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return (a.float() - b.float()).abs().max().item()
+def timed(fn, repeats: int = 3, budget_ms: float = 25.0) -> tuple[float, float, int]:
+    """(median, spread, calls a repeat) of ``cuda_ms_median`` over as many
+    calls a repeat as fill about ``budget_ms`` of device time, 3 to 50."""
+    iters = int(min(50, max(3, budget_ms / max(cuda_ms(fn, iters=1), 1e-3))))
+    return (*cuda_ms_median(fn, iters, repeats), iters)
 
 
-def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: the larger of the operations over
-    its peak rate for ``dtype`` and the bytes (each input read once, each
-    output written once) over its memory rate."""
-    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    return {"bound_ms": max(by_ops, by_bytes),
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
-
-
-def k1_bound(shape, dtype, kind) -> dict:
-    """``kind``: False/"fwd", True/"bwd" (the whole backward: its least work
-    is the one-pass kernel's five products), "dq" or "dkv"."""
-    B, N, H, D = shape
-    elems, size = B * N * H * D, torch.finfo(dtype).bits // 8
-    product = 2 * B * H * N * N * D  # one N x N x D matrix product per head
-    stats = B * H * N * 4
-    if kind in (True, "bwd"):  # S, dP, dV, dQ, dK; reads q k v o dO lse, writes dq dk dv
-        return bound(5 * product, 8 * elems * size + stats, dtype)
-    if kind == "dq":  # S, dP, dQ; reads q k v dO lse delta, writes dq
-        return bound(3 * product, 5 * elems * size + 2 * stats, dtype)
-    if kind == "dkv":  # S, dP, dV, dK; reads q k v dO lse delta, writes dk dv
-        return bound(4 * product, 6 * elems * size + 2 * stats, dtype)
-    return bound(2 * product, 4 * elems * size + stats, dtype)
-
-
-def k2_bound(shape, dtype, backward: bool) -> dict:
-    M, C = shape
-    size = torch.finfo(dtype).bits // 8
-    weights = 2 * 4 * C * C
-    vectors = (4 * C + 4 * C) * 4
-    if backward:  # the forward's two products again and four for the gradients;
-        # reads y dout and the parameters, writes dy and float32 gradients
-        return bound(6 * 2 * M * C * 4 * C,
-                     3 * M * C * size + weights * size + vectors + weights * 4 + vectors, dtype)
-    return bound(2 * 2 * M * C * 4 * C, 3 * M * C * size + weights * size + vectors, dtype)
-
-
-def k3_bound(shape, dtype) -> dict:
-    """The two products and the 49 taps; x read once, out written once, the
-    parameters once."""
-    B, H, W, C = shape
-    M, size = B * H * W, torch.finfo(dtype).bits // 8
-    params = 2 * 4 * C * C * size + (49 * C + 5 * C + 4 * C) * 4
-    return bound(2 * 2 * M * C * 4 * C + 2 * 49 * M * C, 2 * M * C * size + params, dtype)
-
-
-def sdpa_ms(q, k, v, do=None) -> float:
-    """Time of the one PyTorch call for K1's function on the same operands,
-    forward, or backward through torch.autograd.grad when ``do`` is given:
-    the yardstick, used nowhere in the port. Timed as K1's kernels are."""
+def sdpa_call(q, k, v, do=None):
+    """The one PyTorch call for K1's function on the same operands, forward,
+    or backward through torch.autograd.grad when ``do`` is given: the
+    yardstick, used nowhere in the port."""
     import torch.nn.functional as F
 
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if do is None:
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        return cuda_ms_median(lambda: F.scaled_dot_product_attention(qh, kh, vh))[0]
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh)
+    qh, kh, vh = (t.detach().requires_grad_() for t in (qh, kh, vh))
     out = F.scaled_dot_product_attention(qh, kh, vh)
     doh = do.transpose(1, 2)
-    return cuda_ms_median(
-        lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))[0]
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
 
 
-def mlp_chain_ms(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma) -> float:
-    """Time of K2's function as a chain of PyTorch's own operators in y's
-    dtype on the same operands (layer_norm, linear, gelu, linear, scale and
-    add: several calls and an (M, 4C) intermediate in device memory): the
-    yardstick where no single call exists, used nowhere in the port. Timed
-    as K2 is."""
+def mlp_chain(y, residual, params, dout=None):
+    """K2's function as a chain of PyTorch's own operators in y's dtype on
+    the same operands (layer_norm, linear, gelu, linear, scale and add:
+    several calls and an (M, 4C) intermediate in device memory), or, when
+    ``dout`` is given, its eight gradients through torch.autograd.grad: the
+    yardstick where no single call exists, used nowhere in the port."""
     import torch.nn.functional as F
 
     dt = y.dtype
-    lw, lb, b1c, b2c, g = (t.to(dt) for t in (ln_w, ln_b, b1, b2, gamma))
+    ln_w, ln_b, w1, b1, w2, b2, gamma = (t.to(dt) for t in params)
 
-    def chain():
-        h = F.layer_norm(y, (y.shape[-1],), lw, lb, 1e-6)
-        h = F.linear(F.gelu(F.linear(h, w1, b1c), approximate="tanh"), w2, b2c)
-        return residual + h * g
+    def chain(y, ln_w, ln_b, w1, b1, w2, b2, gamma):
+        h = F.layer_norm(y, (y.shape[-1],), ln_w, ln_b, 1e-6)
+        return F.linear(F.gelu(F.linear(h, w1, b1), approximate="tanh"), w2, b2) * gamma
 
-    return cuda_ms_median(chain, iters=20)[0]
-
-
-def mlp_chain_bwd_ms(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma) -> float:
-    """Time of K2's backward as autograd of the same chain of PyTorch's
-    own operators in y's dtype (layer_norm, linear, gelu, linear, scale):
-    the eight gradients K2's backward gives, through torch.autograd.grad,
-    the forward's saved activations in device memory. The yardstick where
-    no single call exists, used nowhere in the port. Timed as K2 is."""
-    import torch.nn.functional as F
-
-    dt = y.dtype
-    ins = [t.detach().to(dt).requires_grad_() for t in (y, ln_w, ln_b, w1, b1, w2, b2, gamma)]
-    yy, lw, lb, w1c, b1c, w2c, b2c, g = ins
-    h = F.layer_norm(yy, (yy.shape[-1],), lw, lb, 1e-6)
-    out = F.linear(F.gelu(F.linear(h, w1c, b1c), approximate="tanh"), w2c, b2c) * g
-    return cuda_ms_median(lambda: torch.autograd.grad(out, ins, dout, retain_graph=True),
-                          iters=10)[0]
+    if dout is None:
+        return lambda: residual + chain(y, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    ins = [t.detach().requires_grad_() for t in (y, ln_w, ln_b, w1, b1, w2, b2, gamma)]
+    out = chain(*ins)
+    return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
 
 
-def check_kernels(dev, fa, fm) -> dict:
-    """Each kernel against its plain version; returns per-kernel records."""
-    from linnaeus_tpu_torch import _kernels
-
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rec = {"K1": {"max_abs_err": 0.0, "other_shapes": []},
-           "K2": {"max_abs_err": 0.0, "other_shapes": []}}
-    for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in K1_SHAPES + K1_SHAPES_LARGE:
-            # q, k, v as strided views of one qkv projection output
-            q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
-            out, lse = fa.flash_attention_fwd(q, k, v)
-            ref, ref_lse = fa.flash_attention_reference(q, k, v)
-            err = max(max_err(out, ref), max_err(lse, ref_lse))
-            ms, spread = cuda_ms_median(lambda: fa.flash_attention_fwd(q, k, v))
-            plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
-            print(f"K1 flash_attention_fwd {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: "
-                  f"max|err| {err:.3e} (tol {K1_TOL[dt]:g}), kernel {ms:.4f} ms "
-                  f"(median of 3 x 50 calls, spread {spread:.4f}), plain {plain_ms:.3f} ms",
-                  flush=True)
-            check(err <= K1_TOL[dt], f"K1 {dt} {(B, N, H, D)} error {err}")
-            if dt == torch.bfloat16:
-                rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], err)
-                if B == BATCH:
-                    lib_ms = sdpa_ms(q, k, v)
-                    print(f"   F.scaled_dot_product_attention on the same operands: "
-                          f"{lib_ms:.4f} ms", flush=True)
-                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
-                                 library_ms=lib_ms, **k1_bound((B, N, H, D), dt, False))
-                    if N == 580:
-                        rec["K1"].update(timed)
-                    else:
-                        rec["K1"]["other_shapes"].append(timed)
-        for M, C in K2_SHAPES:
-            y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
-            vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
-            ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
-            w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
-            w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
-            route = fm.forward_kernel(C, dt)
-            reported = _kernels.library().lt_fused_mlp_fwd_route(C, 4 * C, _kernels.DTYPE_CODES[dt])
-            check(fm.KERNELS[1 - reported] == route,
-                  f"K2 forward route: the library reports {reported}, the rule says {route}")
-            check(route == ("wgmma" if dt == torch.bfloat16 else "cuda_cores"),
-                  f"K2 forward {dt} C={C} takes {route}")
-            iters = 50 if route == "wgmma" else 5
-            for residual, approx in ((x, True), (None, True), (x, False)):
-                args = (y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma)
-                out = fm.fused_convnext_mlp(*args, approximate_gelu=approx)
-                again = fm.fused_convnext_mlp(*args, approximate_gelu=approx)
-                ref = fm.fused_convnext_mlp_reference(*args, 1e-6, approx)
-                err = max_err(out, ref)
-                same = torch.equal(out, again)
-                del again, ref
-                ms, spread = cuda_ms_median(
-                    lambda: fm.fused_convnext_mlp(*args, approximate_gelu=approx), iters=iters)
-                plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_reference(*args, 1e-6, approx))
-                print(f"K2 fused_convnext_mlp {str(dt)[6:]} (M,C)={(M, C)} "
-                      f"residual={residual is not None} gelu={'tanh' if approx else 'erf'} "
-                      f"({route}): max|err| {err:.3e} (tol {K2_TOL[dt]:g}), bit-identical over "
-                      f"two launches: {same}, kernel {ms:.4f} ms (median of 3 x {iters} calls, "
-                      f"spread {spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
-                check(torch.isfinite(out).all().item(), f"K2 {dt} {(M, C)} finite")
-                check(err <= K2_TOL[dt], f"K2 {dt} {(M, C)} error {err}")
-                check(same, f"K2 {dt} {(M, C)} differs between two launches")
-                if dt == torch.bfloat16:
-                    rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], err)
-                    if M > 70 and residual is not None and approx:
-                        chain_ms = mlp_chain_ms(y, residual, ln_w, ln_b, w1, b1, w2, b2, gamma)
-                        print(f"   the bf16 library chain (layer_norm, linear, gelu, linear, "
-                              f"scale and add: several calls) on the same operands: "
-                              f"{chain_ms:.4f} ms", flush=True)
-                        timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[M, C],
-                                     library_ms=None, library_chain_ms=chain_ms,
-                                     **k2_bound((M, C), dt, False))
-                        if C == 96:
-                            rec["K2"].update(timed)
-                        else:
-                            rec["K2"]["other_shapes"].append(timed)
-    return rec
-
-
-def host_us_per_call(fn, calls: int = 300) -> float:
-    """Host microseconds a call of ``fn`` over ``calls`` calls, after 20
-    warm-up calls: at shapes whose device work takes a few microseconds
-    the device keeps up, and this is the Python, autograd and launch cost."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return 1e6 * (time.perf_counter() - start) / calls
-
-
-def check_drop_path_kernels(dev, fm) -> dict:
-    """Drop path's per-sample scale at the 384 px train step's shapes
-    (B = 128). The scale-add kernel (ops/drop_path.py), forward and
-    backward at the RoPE residuals, against its plain version: a dropped
-    sample's output is its residual and its gradient zero, bit for bit;
-    the backward is the plain version's bits; two launches give the same
-    bits. It is timed with no sample dropped, so that every byte of its
-    bound (3T forward, 2T backward) moves, beside the plain version and
-    the eager chain it replaced (a division, a zero tensor, a broadcast
-    ``where`` and the add; its backward by autograd). Then the host time of
-    one residual forward and backward at a small shape, through
-    ``drop_path_add`` and through that eager chain, and K2 with the scale,
-    forward and its eight gradients, against its plain version. Returns
-    the scale-add kernel's record and K2's scaled rows."""
-    from linnaeus_tpu_torch.models.blocks.common import DropPath, drop_path_add
-    from linnaeus_tpu_torch.ops import drop_path as dpk
-
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    keep = 0.95  # the cell's rate 0.05
-
-    def drop_scale(B):  # every seventh sample dropped
-        u = torch.rand(B, generator=g, device=dev)
-        u[::7] = 0.99
-        return dpk.SampleScale(u, keep)
-
-    def dropped(scale):
-        return [b for b, k in enumerate((scale.u < scale.keep).tolist()) if not k]
-
-    def eager(residual, branch, mask):  # the parent's route
-        return residual + torch.where(mask, branch / keep, torch.zeros_like(branch))
-
-    rec = {"max_abs_err": 0.0, "other_shapes": [], "k2_scaled": []}
-    for dt in (torch.float32, torch.bfloat16):
-        for shape in DROP_PATH_SHAPES:
-            residual, branch, dout = (torch.randn(shape, generator=g, device=dev).to(dt)
-                                      for _ in range(3))
-            scale = drop_scale(shape[0])
-            out, d_branch = dpk._launch(residual, branch, scale), dpk._launch_bwd(dout, scale)
-            same = (torch.equal(out, dpk._launch(residual, branch, scale))
-                    and torch.equal(d_branch, dpk._launch_bwd(dout, scale)))
-            want = dpk.scale_add_reference(residual, branch, scale)
-            err = rel_err(out, want)
-            bwd_bits = torch.equal(d_branch, dpk.scale_samples_reference(dout, scale))
-            gone = dropped(scale)
-            kept_out = all(torch.equal(out[b], residual[b]) and not d_branch[b].any()
-                           for b in gone)
-            print(f"drop path scale-add {str(dt)[6:]} {shape}: max rel err {err:.3e} (tol "
-                  f"{SCALE_ADD_TOL[dt]:g}); backward the plain version's bits: {bwd_bits}; "
-                  f"{len(gone)} dropped samples their residual and no gradient: {kept_out}; "
-                  f"bit-identical over two launches: {same}", flush=True)
-            check(err <= SCALE_ADD_TOL[dt], f"scale-add {dt} {shape} error {err}")
-            check(bwd_bits, f"scale-add backward {dt} {shape} differs from its plain version")
-            check(bool(gone) and kept_out, f"scale-add {dt} {shape}: a dropped sample")
-            check(same, f"scale-add {dt} {shape} differs between two launches")
-            if dt != torch.bfloat16:
-                continue
-            rec["max_abs_err"] = max(rec["max_abs_err"], max_err(out, want))
-            full = dpk.SampleScale(torch.zeros_like(scale.u), keep)  # every sample kept
-            ms, spread = cuda_ms_median(lambda: dpk._launch(residual, branch, full))
-            bwd_ms, bwd_spread = cuda_ms_median(lambda: dpk._launch_bwd(dout, full))
-            plain_ms = cuda_ms(lambda: dpk.scale_add_reference(residual, branch, full))
-            mask = torch.ones((shape[0],) + (1,) * (len(shape) - 1), dtype=torch.bool, device=dev)
-            eager_ms = cuda_ms_median(lambda: eager(residual, branch, mask))[0]
-            leaf = branch.detach().requires_grad_()
-            summed = eager(residual, leaf, mask)
-            eager_bwd_ms = cuda_ms_median(
-                lambda: torch.autograd.grad(summed, leaf, dout, retain_graph=True))[0]
-            del leaf, summed
-            T = residual.numel() * residual.element_size()
-            fwd_bound, bwd_bound = bound(0, 3 * T, dt), bound(0, 2 * T, dt)
-            print(f"   no sample dropped: kernel {ms:.4f} ms forward (spread {spread:.4f}; "
-                  f"{ms / fwd_bound['bound_ms']:.2f}x its bound of 3T, "
-                  f"{fwd_bound['bound_ms']:.4f} ms), {bwd_ms:.4f} ms backward (spread "
-                  f"{bwd_spread:.4f}; {bwd_ms / bwd_bound['bound_ms']:.2f}x its bound of 2T, "
-                  f"{bwd_bound['bound_ms']:.4f} ms); plain {plain_ms:.3f} ms; the eager chain "
-                  f"{eager_ms:.4f} ms forward, {eager_bwd_ms:.4f} ms backward", flush=True)
-            timed = dict(ms=ms, ms_spread=spread, bwd_ms=bwd_ms, bwd_ms_spread=bwd_spread,
-                         plain_ms=plain_ms, library_ms=None, eager_ms=eager_ms,
-                         eager_bwd_ms=eager_bwd_ms, bwd_bound_ms=bwd_bound["bound_ms"],
-                         dropped_share=0.0, shape=list(shape), **fwd_bound)
-            if shape == DROP_PATH_SHAPES[0]:
-                check(ms <= 1.5 * fwd_bound["bound_ms"] and bwd_ms <= 1.5 * bwd_bound["bound_ms"],
-                      f"scale-add at {shape}: {ms:.4f} / {bwd_ms:.4f} ms against bounds "
-                      f"{fwd_bound['bound_ms']:.4f} / {bwd_bound['bound_ms']:.4f} ms")
-                rec.update(timed)
-            else:
-                rec["other_shapes"].append(timed)
-            del residual, branch, dout, out, d_branch, want
-
-    # host time of one residual, forward and backward, where the device work
-    # is a few microseconds: the helper against the parent's eager chain
-    block = DropPath(1.0 - keep).train()
-    block.generator = torch.Generator(device=dev).manual_seed(SEED)
-    small = [torch.randn(8, 16, 64, generator=g, device=dev).bfloat16().requires_grad_()
-             for _ in range(2)]
-    cot = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
-
-    def helper():
-        drop_path_add(small[0], small[1], block).backward(cot)
-
-    def parent():
-        mask = torch.rand((8, 1, 1), generator=block.generator, device=dev) < keep
-        eager(small[0], small[1], mask).backward(cot)
-
-    host = {"helper": [], "eager": []}
-    for name, fn in (("helper", helper), ("eager", parent), ("eager", parent),
-                     ("helper", helper)):
-        host[name].append(host_us_per_call(fn))
-    rec["host_us"] = {k: sum(v) / len(v) for k, v in host.items()}
-    print(f"host time of one residual, forward and backward (8x16x64 bf16): drop_path_add "
-          f"{rec['host_us']['helper']:.1f} us, the parent's eager chain "
-          f"{rec['host_us']['eager']:.1f} us (each the mean of two runs of 300 calls; runs "
-          f"{host})", flush=True)
-
-    # K2 with the scale at the train step's rows, forward and eight gradients
-    for M, C in K2_SCALED_SHAPES:
-        dt = torch.bfloat16
-        y, x, dout = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(3))
-        vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
-        ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
-        w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
-        w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
-        scale = drop_scale(DROP_PATH_BATCH)
-        params = (ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, True)
-        out = fm._launch(y, x, *params, scale=scale)
-        grads = fm._launch_bwd(y, dout, *params, scale=scale)
-        same = (torch.equal(out, fm._launch(y, x, *params, scale=scale))
-                and all(torch.equal(a, b) for a, b in
-                        zip(grads, fm._launch_bwd(y, dout, *params, scale=scale))))
-        want = fm.fused_convnext_mlp_reference(y, x, *params, scale=scale)
-        err = max_err(out, want)
-        del want
-        want_grads = fm.fused_convnext_mlp_bwd_reference(y, dout, *params, scale=scale)
-        bwd_err = max(rel_err(a, b) for a, b in zip(grads, want_grads))
-        del want_grads
-        rows = M // DROP_PATH_BATCH
-        gone = dropped(scale)
-        kept_out = all(torch.equal(out[b * rows:(b + 1) * rows], x[b * rows:(b + 1) * rows])
-                       and not grads[0][b * rows:(b + 1) * rows].any() for b in gone)
-        ms, spread = cuda_ms_median(lambda: fm._launch(y, x, *params, scale=scale), iters=20)
-        bwd_ms, bwd_spread = cuda_ms_median(
-            lambda: fm._launch_bwd(y, dout, *params, scale=scale), iters=10)
-        print(f"K2 with the drop-path scale bf16 (M,C)={(M, C)} B={DROP_PATH_BATCH}: forward "
-              f"max|err| {err:.3e} (tol {K2_TOL[dt]:g}), backward max rel err {bwd_err:.3e} "
-              f"over the eight gradients (tol {BWD_TOL[dt]:g}); {len(gone)} dropped samples "
-              f"their residual and no dy: {kept_out}; bit-identical over two launches: {same}; "
-              f"forward {ms:.4f} ms (spread {spread:.4f}), backward {bwd_ms:.4f} ms (spread "
-              f"{bwd_spread:.4f})", flush=True)
-        check(err <= K2_TOL[dt], f"K2 scaled {(M, C)} error {err}")
-        check(bwd_err <= BWD_TOL[dt], f"K2 scaled backward {(M, C)} error {bwd_err}")
-        check(bool(gone) and kept_out, f"K2 scaled {(M, C)}: a dropped sample")
-        check(same, f"K2 scaled {(M, C)} differs between two launches")
-        rec["k2_scaled"].append(dict(shape=[M, C], max_abs_err=err, bwd_max_rel_err=bwd_err,
-                                     ms=ms, ms_spread=spread, bwd_ms=bwd_ms,
-                                     bwd_ms_spread=bwd_spread))
-        del y, x, dout, out, grads
-    torch.cuda.empty_cache()
-    return rec
-
-
-def check_width_rule(dev, fm) -> None:
-    """The widths on either side of the kernels' limits. bfloat16 C = 256:
-    the forward kernel takes it (on the tensor cores), the backward does
-    not. A ConvNeXt block left to choose (``fused_mlp=None``) runs forward
-    at 384 and 512 and forward and backward at 256, 384 and 512 through its
-    plain modules, and at 192 through both kernels; told to fuse at 288 it
-    raises a ValueError that names the width."""
-    from linnaeus_tpu_torch.models.blocks.convnext import ConvNeXtBlock
-
-    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+def kernel_rows(dev, fa, fm, fb, dpk):
+    """Phase 2's rows, bf16, one at a time: (launch-counter key, shape,
+    note, the kernel's call, its plain version, (name, call) of its library
+    yardstick or None, its bound). K1 and K2 at the 384 px model's shapes
+    at B = 64, at the PPO update's B = 128 (the cells' batch too) and at
+    the rollout's one image (forward only); K1 at 512 px; K1's dQ and dK/dV
+    kernels alone at B = 64; K2 with drop path's scale (every seventh
+    sample dropped) and the scale-add kernel (no sample dropped, so that
+    every byte of its bound moves) at B = 128; K3 at stages 1 and 2. A
+    kernel adds its rows here."""
     dt = torch.bfloat16
-    for C, fwd, bwd in ((192, True, True), (256, True, False), (288, False, False)):
-        check((fm.kernel_takes(C, dt, False), fm.kernel_takes(C, dt, True)) == (fwd, bwd),
-              f"kernel_takes at C={C}")
-    M, C = 4096, 256
-    y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
-    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
-    args = (y, x, vec(C, 0.1, 1.0), vec(C, 0.1),
-            (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt), vec(4 * C, 0.1),
-            (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt), vec(C, 0.1),
-            vec(C, 0.1, 0.5))
-    err = max_err(fm.fused_convnext_mlp(*args), fm.fused_convnext_mlp_reference(*args, 1e-6, True))
-    print(f"K2 forward at its widest, bfloat16 (M,C)={(M, C)} ({fm.forward_kernel(C, dt)}): "
-          f"max|err| {err:.3e} (tol {K2_TOL[dt]:g})", flush=True)
-    check(err <= K2_TOL[dt] and fm.forward_kernel(C, dt) == "wgmma", f"K2 at C=256: {err}")
-    for dim in (192, 256, 384, 512):
-        for train in (False, True):
-            block = ConvNeXtBlock(dim, layer_scale_init_value=0.5).to(dev)
-            plain = ConvNeXtBlock(dim, layer_scale_init_value=0.5, fused_mlp=False).to(dev)
-            plain.load_state_dict(block.state_dict())
-            xb = torch.randn(2, 12, 12, dim, generator=g, device=dev).to(dt)
-            before = (fm.LAUNCHES, fm.BWD_LAUNCHES)
-            with torch.set_grad_enabled(train):
-                out, ref = block(xb), plain(xb)
-                if train:
-                    out.float().square().sum().backward()
-            torch.cuda.synchronize()
-            took = (fm.LAUNCHES - before[0], fm.BWD_LAUNCHES - before[1])
-            want = fm.kernel_takes(dim, dt, needs_grad=train)
-            err = max_err(out, ref)
-            print(f"ConvNeXtBlock({dim}, fused_mlp=None) bf16 {'forward + backward' if train else 'forward'}: "
-                  f"K2 launches {took} ({'kernels' if want else 'plain modules'}), max|diff| to "
-                  f"the plain modules {err:.3e}", flush=True)
-            check(took == (int(want), int(want and train)), f"block {dim} train={train}: {took}")
-            check(torch.isfinite(out).all().item() and err <= 2 * K2_TOL[dt], f"block {dim}: {err}")
-            check(not train or all(p.grad is not None and torch.isfinite(p.grad).all().item()
-                                   for p in block.parameters()), f"block {dim} gradients")
-    forced = ConvNeXtBlock(288, fused_mlp=True).to(dev)
-    try:
-        with torch.no_grad():
-            forced(torch.randn(1, 8, 8, 288, device=dev))
-    except ValueError as e:
-        print(f"ConvNeXtBlock(288, fused_mlp=True) raises: {e}", flush=True)
-        check("C=288" in str(e), f"the error names the width: {e}")
-    else:
-        check(False, "ConvNeXtBlock(288, fused_mlp=True) did not raise")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, s=1.0, m=0.0):
+        return m + s * torch.randn(*shape, generator=g, device=dev)
+
+    for B, N, H, D in ([(b,) + s[1:] for b in (BATCH, RL_ROLLOUT, 1) for s in K1_SHAPES]
+                       + K1_SHAPES_LARGE):
+        shape, scale = (B, N, H, D), D ** -0.5
+        q, k, v = randn(B, N, 3, H, D).to(dt).unbind(2)  # strided views of one qkv
+        yield ("K1", shape, "", lambda: fa.flash_attention_fwd(q, k, v),
+               lambda: fa.flash_attention_reference(q, k, v), ("sdpa", sdpa_call(q, k, v)),
+               k1_bound(shape, dt, False))
+        if B == 1:
+            continue
+        do = randn(B, N, H, D).to(dt)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        library = ("sdpa", sdpa_call(q, k, v, do))
+        yield ("K1_bwd", shape, "", lambda: fa._launch_bwd(q, k, v, o, lse, do, scale),
+               lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do), library,
+               k1_bound(shape, dt, True))
+        if B != BATCH:
+            continue
+        delta = fa._launch_delta(o, do)
+        yield ("K1_dq", shape, "", lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, scale),
+               lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+               library, k1_bound(shape, dt, "dq"))
+        yield ("K1_dkv", shape, "", lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale),
+               lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+               library, k1_bound(shape, dt, "dkv"))
+    for B, rows, C in [(b, *s) for b in (BATCH, RL_ROLLOUT, 1) for s in K2_PER_IMAGE]:
+        shape = (B * rows, C)
+        y, x, dout = (randn(*shape).to(dt) for _ in range(3))
+        params = (randn(C, s=0.1, m=1.0), randn(C, s=0.1), randn(4 * C, C, s=0.1).to(dt),
+                  randn(4 * C, s=0.1), randn(C, 4 * C, s=0.1).to(dt), randn(C, s=0.1),
+                  randn(C, s=0.1, m=0.5))
+        yield ("K2", shape, "+ residual", lambda: fm.fused_convnext_mlp(y, x, *params),
+               lambda: fm.fused_convnext_mlp_reference(y, x, *params, 1e-6, True),
+               ("chain", mlp_chain(y, x, params)), k2_bound(shape, dt, False))
+        if B == 1:
+            continue
+        yield ("K2_bwd", shape, "", lambda: fm._launch_bwd(y, dout, *params, 1e-6, True),
+               lambda: fm.fused_convnext_mlp_bwd_reference(y, dout, *params, 1e-6, True),
+               ("chain", mlp_chain(y, None, params, dout)), k2_bound(shape, dt, True))
+        if B != DROP_PATH_BATCH:
+            continue
+        u = torch.rand(B, generator=g, device=dev)
+        u[::7] = 0.99  # every seventh sample dropped
+        sample = dpk.SampleScale(u, 0.95)  # the cells' rate 0.05
+        yield ("K2", shape, "+ residual, scaled",
+               lambda: fm._launch(y, x, *params, 1e-6, True, scale=sample),
+               lambda: fm.fused_convnext_mlp_reference(y, x, *params, 1e-6, True, scale=sample),
+               None, k2_bound(shape, dt, False))
+        yield ("K2_bwd", shape, "scaled",
+               lambda: fm._launch_bwd(y, dout, *params, 1e-6, True, scale=sample),
+               lambda: fm.fused_convnext_mlp_bwd_reference(y, dout, *params, 1e-6, True,
+                                                           scale=sample),
+               None, k2_bound(shape, dt, True))
+    for shape in K3_SHAPES:
+        C = shape[-1]
+        x = randn(*shape).to(dt)
+        args = (randn(C, 1, 7, 7, s=0.2), randn(C, s=0.1), randn(C, s=0.1, m=1.0),
+                randn(C, s=0.1), randn(4 * C, C, s=0.1).to(dt), randn(4 * C, s=0.1),
+                randn(C, 4 * C, s=0.1).to(dt), randn(C, s=0.1), randn(C, s=0.1, m=0.5))
+        yield ("K3", shape, "", lambda: fb.fused_convnext_block(x, *args, approximate_gelu=True),
+               lambda: fb.fused_convnext_block_reference(x, *args, 1e-6, True),
+               ("chain", lambda: fb.convnext_block_chain(x, *args, 1e-6, True)),
+               k3_bound(shape, dt))
+    for shape in DROP_PATH_SHAPES:
+        residual, branch, dout = (randn(*shape).to(dt) for _ in range(3))
+        kept = dpk.SampleScale(torch.zeros(shape[0], device=dev), 0.95)
+        T = residual.numel() * residual.element_size()
+        yield ("drop_path_add", shape, "no sample dropped",
+               lambda: dpk._launch(residual, branch, kept),
+               lambda: dpk.scale_add_reference(residual, branch, kept), None, bound(0, 3 * T, dt))
+        yield ("drop_path_add_bwd", shape, "no sample dropped",
+               lambda: dpk._launch_bwd(dout, kept),
+               lambda: dpk.scale_samples_reference(dout, kept), None, bound(0, 2 * T, dt))
 
 
-def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return max_err(a, b) / max(b.float().abs().max().item(), 1e-12)
-
-
-def check_backward_kernels(dev, fa, fm) -> dict:
-    """Each backward kernel against its plain version at the training shapes
-    (and a ragged small one); returns per-kernel records."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    rec = {"K1": {"max_abs_err": 0.0, "other_shapes": []},
-           "K2": {"max_abs_err": 0.0, "other_shapes": []}}
-    for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in K1_SHAPES + K1_SHAPES_LARGE[1:]:
-            q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
-            do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            got = fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5)
-            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
-            err = max(rel_err(a, b) for a, b in zip(got, want))
-            abs_err = max(max_err(a, b) for a, b in zip(got, want))
-            ms, spread = cuda_ms_median(
-                lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5))
-            plain_ms = cuda_ms(
-                lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do), iters=5)
-            print(f"K1 flash_attention_bwd {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: "
-                  f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err| {abs_err:.3e}, "
-                  f"kernel {ms:.4f} ms (median of 3 x 50 calls, spread {spread:.4f}), "
-                  f"plain {plain_ms:.3f} ms", flush=True)
-            check(all(torch.isfinite(t).all().item() for t in got), f"K1 bwd {dt} finite")
-            check(err <= BWD_TOL[dt], f"K1 bwd {dt} {(B, N, H, D)} error {err}")
-            if dt == torch.bfloat16:
-                rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], abs_err)
-                if B == BATCH:
-                    lib_ms = sdpa_ms(q, k, v, do)
-                    print(f"   F.scaled_dot_product_attention on the same operands: backward "
-                          f"{lib_ms:.4f} ms", flush=True)
-                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
-                                 library_ms=lib_ms, **k1_bound((B, N, H, D), dt, True))
-                    if N == 580:
-                        rec["K1"].update(timed)
-                    else:
-                        rec["K1"]["other_shapes"].append(timed)
-        for M, C in K2_SHAPES:
-            y, dout = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
-            vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
-            ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
-            w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
-            w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
-            for approx in (True, False):
-                args = (y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma, 1e-6, approx)
-                got = fm._launch_bwd(*args)
-                again = fm._launch_bwd(*args)
-                want = fm.fused_convnext_mlp_bwd_reference(*args)
-                torch.cuda.synchronize()
-                # both passes sum their slabs in a fixed order: all eight
-                # gradients are the same bits from run to run
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                del again
-                err = max(rel_err(a, b) for a, b in zip(got, want))
-                abs_err = max_err(got[0], want[0])  # dy; the sums over M rows are large
-                del want
-                iters = 10 if fm.backward_kernel(C, dt) == "wgmma" else 3
-                ms, spread = cuda_ms_median(lambda: fm._launch_bwd(*args), iters=iters)
-                plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_bwd_reference(*args), iters=3)
-                print(f"K2 fused_convnext_mlp_bwd {str(dt)[6:]} (M,C)={(M, C)} "
-                      f"gelu={'tanh' if approx else 'erf'} ({fm.backward_kernel(C, dt)}): "
-                      f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err dy| {abs_err:.3e}, "
-                      f"bit-identical over two launches: {same}, kernel {ms:.3f} ms (median of "
-                      f"3 x {iters} calls, spread {spread:.3f}), plain {plain_ms:.3f} ms",
-                      flush=True)
-                check(all(torch.isfinite(t).all().item() for t in got), f"K2 bwd {dt} finite")
-                check(err <= BWD_TOL[dt], f"K2 bwd {dt} {(M, C)} error {err}")
-                check(same, f"K2 bwd {dt} {(M, C)} differs between two launches")
-                if dt == torch.bfloat16:
-                    rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], abs_err)
-                    if M > 70 and approx:
-                        chain_ms = mlp_chain_bwd_ms(y, dout, ln_w, ln_b, w1, b1, w2, b2, gamma)
-                        print(f"   the bf16 library chain's backward (autograd of layer_norm, "
-                              f"linear, gelu, linear) on the same operands: {chain_ms:.4f} ms",
-                              flush=True)
-                        timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[M, C],
-                                     library_ms=None, library_chain_ms=chain_ms,
-                                     **k2_bound((M, C), dt, True))
-                        if C == 96:
-                            rec["K2"].update(timed)
-                        else:
-                            rec["K2"]["other_shapes"].append(timed)
-    return rec
-
-
-def check_split_backward(dev, fa) -> dict:
-    """K1's backward is its dQ and dK/dV kernels (after the delta prologue)
-    at every length: each launched alone against its plain version at the
-    two 384 px stages' shapes, the 512 px stage-3 shape and a ragged small
-    one; dQ bit-identical over two launches; dK and dV of the kernel alone
-    the same bits as the whole backward's. Each kernel's time at the main
-    path's shapes (64, 580, 6, 64), then (64, 148, 12, 64) and (64, 1028,
-    6, 64) under ``other_shapes``. Returns per-kernel records."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    rec = {"dq": {"max_abs_err": 0.0, "other_shapes": []},
-           "dkv": {"max_abs_err": 0.0, "other_shapes": []}}
-    for dt in (torch.float32, torch.bfloat16):
-        for B, N, H, D in (K1_SHAPES[0], K1_SHAPES[1], K1_SHAPES_LARGE[0], K1_SHAPES[2]):
-            scale = D ** -0.5
-            q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
-            do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            delta = fa._launch_delta(o, do)
-            dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
-            dq_again = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale)
-            dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale)
-            whole = fa._launch_bwd(q, k, v, o, lse, do, scale)
-            torch.cuda.synchronize()
-            same = torch.equal(dq, dq_again)
-            same_whole = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), whole))
-            del whole
-            want_delta = fa.attention_delta(o, do)
-            want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, want_delta, scale)
-            want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
-                q, k, v, do, lse, want_delta, scale)
-            errs = {"delta": rel_err(delta, want_delta), "dq": rel_err(dq, want_dq),
-                    "dk": rel_err(dk, want_dk), "dv": rel_err(dv, want_dv)}
-            abs_dq = max_err(dq, want_dq)
-            abs_dkv = max(max_err(dk, want_dk), max_err(dv, want_dv))
-            del want_dq, want_dk, want_dv
-            print(f"K1 dQ and dK/dV kernels {str(dt)[6:]} (B,N,H,D)={(B, N, H, D)}: max rel err "
-                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                  + f" (tol {BWD_TOL[dt]:g}); dQ bit-identical over two launches: {same}; "
-                  f"the kernels alone give the whole backward's bits: {same_whole}", flush=True)
-            check(all(torch.isfinite(t).all().item() for t in (dq, dk, dv)),
-                  f"K1 dQ, dK/dV kernels {dt} finite")
-            check(max(errs.values()) <= BWD_TOL[dt],
-                  f"K1 dQ, dK/dV kernels {dt} {(B, N, H, D)} errors {errs}")
-            check(same, f"dQ differs between two launches, {dt} N={N}")
-            check(same_whole, f"the dQ and dK/dV kernels alone differ from the whole backward, "
-                              f"{dt} N={N}")
-            if dt != torch.bfloat16 or B != BATCH:
-                continue
-            lib_ms = sdpa_ms(q, k, v, do)
-            print(f"   F.scaled_dot_product_attention backward (dq, dk and dv in one call) "
-                  f"on the same operands: {lib_ms:.4f} ms", flush=True)
-            for key, abs_err, run, plain in (
-                ("dq", abs_dq,
-                 lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, scale),
-                 lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)),
-                ("dkv", abs_dkv,
-                 lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, scale),
-                 lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)),
-            ):
-                (ms, spread), plain_ms = cuda_ms_median(run), cuda_ms(plain, iters=3)
-                b = k1_bound((B, N, H, D), dt, key)
-                print(f"   {key} kernel {ms:.4f} ms (median of 3 x 50 calls, spread "
-                      f"{spread:.4f}), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
-                      f"({b['bound_by']})", flush=True)
-                rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], abs_err)
-                timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, N, H, D],
-                             library_ms=lib_ms, **b)
-                if N == 580:
-                    rec[key].update(timed)
-                else:
-                    rec[key]["other_shapes"].append(timed)
-    return rec
-
-
-def check_block_kernel(dev, fb) -> dict:
-    """K3 against its plain version at the two ConvNeXt stages' shapes and a
-    small odd one, the residual always on, both GELUs."""
-    from linnaeus_tpu_torch import _kernels
-
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    rec = {"max_abs_err": 0.0}
-    for dt in (torch.float32, torch.bfloat16):
-        for B, H, W, C in K3_SHAPES:
-            randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
-            x = randn(B, H, W, C).to(dt)
-            args = (0.2 * randn(C, 1, 7, 7), 0.1 * randn(C), 1.0 + 0.1 * randn(C),
-                    0.1 * randn(C), (0.1 * randn(4 * C, C)).to(dt), 0.1 * randn(4 * C),
-                    (0.1 * randn(C, 4 * C)).to(dt), 0.1 * randn(C), 0.5 + 0.1 * randn(C))
-            route = fb.forward_kernel(C, dt)
-            reported = _kernels.library().lt_fused_convnext_block_fwd_route(
-                C, 4 * C, _kernels.DTYPE_CODES[dt])
-            check(fb.fused_mlp.KERNELS[1 - reported] == route,
-                  f"K3 tail route: the library reports {reported}, the rule says {route}")
-            check(route == ("wgmma" if dt == torch.bfloat16 else "cuda_cores"),
-                  f"K3 {dt} C={C} runs its tail on {route}")
-            iters = 20 if route == "wgmma" else 5
-            for approx in (True, False):
-                out = fb.fused_convnext_block(x, *args, approximate_gelu=approx)
-                torch.cuda.synchronize()
-                ref = fb.fused_convnext_block_reference(x, *args, 1e-6, approx)
-                err = max_err(out, ref)
-                del ref
-                ms, spread = cuda_ms_median(
-                    lambda: fb.fused_convnext_block(x, *args, approximate_gelu=approx),
-                    iters=iters)
-                plain_ms = cuda_ms(
-                    lambda: fb.fused_convnext_block_reference(x, *args, 1e-6, approx), iters=2)
-                print(f"K3 fused_convnext_block {str(dt)[6:]} (B,H,W,C)={(B, H, W, C)} "
-                      f"gelu={'tanh' if approx else 'erf'} (tail on {route}): max|err| {err:.3e} "
-                      f"(tol {K2_TOL[dt]:g}), kernel {ms:.4f} ms (median of 3 x {iters} calls, "
-                      f"spread {spread:.4f}), plain {plain_ms:.3f} ms", flush=True)
-                check(torch.isfinite(out).all().item(), f"K3 {dt} finite")
-                check(err <= K2_TOL[dt], f"K3 {dt} {(B, H, W, C)} error {err}")
-                if dt == torch.bfloat16:
-                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                    if not (approx and B == BATCH):
-                        continue
-                    # the block as a chain of PyTorch's own operators in bf16
-                    # (conv2d, layer norm by hand, linear, gelu, linear): the
-                    # yardstick of several calls, as tools/fused_block_ab times it
-                    chain_ms = cuda_ms_median(
-                        lambda: fb.convnext_block_chain(x, *args, 1e-6, approx), iters=10)[0]
-                    print(f"   the bf16 library chain (several calls) on the same operands: "
-                          f"{chain_ms:.4f} ms", flush=True)
-                    timed = dict(ms=ms, ms_spread=spread, plain_ms=plain_ms, shape=[B, H, W, C],
-                                 library_ms=None, library_chain_ms=chain_ms,
-                                 **k3_bound((B, H, W, C), dt))
-                    if (B, H, W, C) == K3_SHAPES[0]:
-                        rec.update(timed)
-                    else:
-                        rec.setdefault("other_shapes", []).append(timed)
-    return rec
+def kernel_table(dev, fa, fm, fb, dpk) -> dict:
+    """Phase 2: each row of ``kernel_rows`` held to its kernel's bar
+    (``ops/kernel_bars.py``, the card tests' bars) against its plain
+    version, then timed with CUDA events; one printed table. Returns the
+    rows by launch-counter key. The card tests (``pytest -m cuda
+    tests/test_torch_cuda.py``) hold the kernels at the tile and length
+    edges and in float32; these rows, at the shapes the main path launches."""
+    print("phase 2, bf16: max error against the plain version (bar), kernel ms (median of 3 "
+          "repeats; spread = largest - smallest), plain ms, bound ms (what sets it), kernel "
+          "over bound, library call or chain ms", flush=True)
+    table = {}
+    for key, shape, note, run, plain, library, b in kernel_rows(dev, fa, fm, fb, dpk):
+        err, bar = kernel_bars.error(key, run(), plain()), kernel_bars.bar(key, torch.bfloat16)
+        check(err <= bar, f"{key} {shape} {note}: error {err} against its plain version (bar "
+              f"{bar:g})")
+        ms, spread, iters = timed(run)
+        plain_ms = timed(plain, repeats=1)[0]
+        lib_name, lib_ms = (library[0], timed(library[1])[0]) if library else (None, None)
+        lib = f"{lib_name} {lib_ms:.4f}" if library else "none"
+        print(f"  {key:<17} {'x'.join(map(str, shape)):<14} {note:<18} err {err:.2e} ({bar:g}) "
+              f"{ms:8.4f} (spread {spread:.4f}, {iters} calls) plain {plain_ms:8.3f}  bound "
+              f"{b['bound_ms']:.4f} ({b['bound_by']}) {ms / b['bound_ms']:6.2f}x  library {lib}",
+              flush=True)
+        table.setdefault(key, []).append(dict(
+            shape=list(shape), note=note, max_err=err, bar=bar, ms=ms, ms_spread=spread,
+            plain_ms=plain_ms, library=lib_name, library_ms=lib_ms, **b))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return table
 
 
 def block_ab_phase(dev, fm, fb) -> int:
@@ -950,7 +456,7 @@ def block_ab_phase(dev, fm, fb) -> int:
     torch.cuda.synchronize()
     errs = {m: max_err(outs[m], outs["plain"]) for m in ("block", "mlp")}
     errs["block vs mlp"] = max_err(outs["block"], outs["mlp"])
-    tol = K2_TOL[torch.bfloat16]
+    tol = kernel_bars.bar("K2", torch.bfloat16)  # the three routes against each other
     print("fused_block_ab, one block forward in bf16, max|diff| " +
           ", ".join(f"{m} {e:.3e}" for m, e in errs.items()) + f" (tol {tol:g})", flush=True)
     check(max(errs.values()) <= tol, f"fused_block_ab modes disagree: {errs}")
@@ -2229,7 +1735,7 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
     resumed in a one-process Trainer; the handler's data_parallel rule;
     (c) two ranks on the one card over gloo, after a probe; (d) the
     complexity estimator on mFormerV1_sm at IMG px; (e) F10: K1's backward
-    twice on the same operands, and its time. Returns the kernels' launches
+    twice on the same operands, the same bits. Returns the kernels' launches
     by run ('one', 'replicated', 'fsdp')."""
     import os
     import shutil
@@ -2443,11 +1949,9 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
           f"convolutions only), activation {cx['activation_memory_mb']:.1f} MB (stored "
           f"{stored['activation_memory_mb']:.1f}, XLA's temporaries) in {cx_s:.1f} s", flush=True)
 
-    # (e) F10: K1's backward twice, bit for bit, and its time at the two
-    # stages' shapes
-    f10 = {}
+    # (e) F10: K1's backward twice, bit for bit, at the two stages' shapes
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
-    for B, N, H, D in K1_SHAPES[:2]:
+    for B, N, H, D in K1_SHAPES:
         q, k, v, do = (torch.randn(B, N, H, D, generator=g, device=dev).to(torch.bfloat16)
                        for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v, D ** -0.5)
@@ -2455,17 +1959,13 @@ def multi_phase(dev, card, fa, fm, trainer: dict) -> dict:
         second = fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5)
         check(all(torch.equal(a, b) for a, b in zip(first, second)),
               f"K1 backward at {(B, N, H, D)}: dQ, dK, dV the same bits over two calls")
-        ms, spread = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, o, lse, do, D ** -0.5))
-        f10[f"{B}x{N}x{H}x{D}"] = {"ms": ms, "ms_spread": spread}
         print(f"[{card}] phase 7i(e) F10: K1 backward bf16 {(B, N, H, D)} the same bits over "
-              f"two calls; the backward (delta, dQ kernel, dK/dV kernel, no workspace) "
-              f"{ms:.4f} ms (spread {spread:.4f})", flush=True)
+              f"two calls", flush=True)
         del q, k, v, do, o, lse, first, second
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"phase 7i took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"launches": launched, "summary": summary, "gloo": gloo, "complexity": cx,
-            "f10": f10}
+    return {"launches": launched, "summary": summary, "gloo": gloo, "complexity": cx}
 
 
 # phase 7e: the mFormerV0 family (mFormerV0_sm) on phase 7c's dataset
@@ -3328,120 +2828,6 @@ RECEIPT_WARMUP_STEPS = 8  # cut from 150 with the steps: 24 of the full run's 89
 # in PERF.md is set from that spread.
 RECEIPT_VAL_RTOL = 1e-2
 RL_ITERATIONS, RL_ROLLOUT, RL_EVAL, RL_PRIOR = 2, 128, 64, 0.2  # iterations cut from 30
-# the shapes no earlier phase launched: the rollout's one image (K1 forward
-# at B=1, K2 forward at 96x96 and 48x48 rows) and the PPO update's whole
-# rollout as one batch (K1 backward and K2 forward and backward at
-# B=128)
-K1_SHAPES_B1 = [(1, 580, 6, 64), (1, 148, 12, 64)]
-K1_SHAPES_B128 = [(RL_ROLLOUT, 580, 6, 64), (RL_ROLLOUT, 148, 12, 64)]
-K2_SHAPES_B1 = [(96 * 96, 96), (48 * 48, 192)]
-K2_SHAPES_B128 = [(RL_ROLLOUT * 96 * 96, 96), (RL_ROLLOUT * 48 * 48, 192)]
-
-
-def _k2_operands(g, dev, M, C, dt):
-    y, x = (torch.randn(M, C, generator=g, device=dev).to(dt) for _ in range(2))
-    vec = lambda n, s, m=0.0: m + s * torch.randn(n, generator=g, device=dev)  # noqa: E731
-    ln_w, ln_b, b1, b2, gamma = vec(C, 0.1, 1.0), vec(C, 0.1), vec(4 * C, 0.1), vec(C, 0.1), vec(C, 0.1, 0.5)
-    w1 = (0.1 * torch.randn(4 * C, C, generator=g, device=dev)).to(dt)
-    w2 = (0.1 * torch.randn(C, 4 * C, generator=g, device=dev)).to(dt)
-    return y, x, (ln_w, ln_b, w1, b1, w2, b2, gamma)
-
-
-def check_receipt_shapes(dev, fa, fm) -> dict:
-    """K1 forward and K2 forward at the rollout's B=1, K1's backward
-    and K2 forward and backward at the PPO update's B=128, bf16, each
-    against its plain version at the kernel bars; times, bounds and the
-    library call. Returns per-kernel lists of timed records."""
-    dt = torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(SEED + 40)
-    rec = {"K1": [], "K1_bwd": [], "K2": [], "K2_bwd": []}
-    for B, N, H, D in K1_SHAPES_B1 + K1_SHAPES_B128:
-        q, k, v = torch.randn(B, N, 3, H, D, generator=g, device=dev).to(dt).unbind(2)
-        out, lse = fa.flash_attention_fwd(q, k, v)
-        ref, ref_lse = fa.flash_attention_reference(q, k, v)
-        err = max(max_err(out, ref), max_err(lse, ref_lse))
-        ms, spread = cuda_ms_median(lambda: fa.flash_attention_fwd(q, k, v))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
-        lib_ms = sdpa_ms(q, k, v)
-        b = k1_bound((B, N, H, D), dt, False)
-        print(f"K1 flash_attention_fwd bf16 (B,N,H,D)={(B, N, H, D)}: max|err| {err:.3e} "
-              f"(tol {K1_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), plain "
-              f"{plain_ms:.3f} ms, F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        check(err <= K1_TOL[dt], f"K1 {(B, N, H, D)} error {err}")
-        rec["K1"].append(dict(shape=[B, N, H, D], max_abs_err=err, ms=ms, ms_spread=spread,
-                              plain_ms=plain_ms, library_ms=lib_ms, **b))
-        if B == 1:
-            continue
-        do = torch.randn(B, N, H, D, generator=g, device=dev).to(dt)
-        got = fa._launch_bwd(q, k, v, out, lse, do, D ** -0.5)
-        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
-        torch.cuda.synchronize()
-        err = max(rel_err(a, w) for a, w in zip(got, want))
-        abs_err = max(max_err(a, w) for a, w in zip(got, want))
-        del want
-        ms, spread = cuda_ms_median(lambda: fa._launch_bwd(q, k, v, out, lse, do, D ** -0.5))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do),
-                           iters=3)
-        lib_ms = sdpa_ms(q, k, v, do)
-        b = k1_bound((B, N, H, D), dt, True)
-        print(f"K1 flash_attention_bwd bf16 (B,N,H,D)={(B, N, H, D)}: max rel err {err:.3e} "
-              f"(tol {BWD_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), plain "
-              f"{plain_ms:.3f} ms, F.scaled_dot_product_attention backward {lib_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        check(all(torch.isfinite(t).all().item() for t in got) and err <= BWD_TOL[dt],
-              f"K1 bwd {(B, N, H, D)} error {err}")
-        rec["K1_bwd"].append(dict(shape=[B, N, H, D], max_abs_err=abs_err, ms=ms,
-                                  ms_spread=spread, plain_ms=plain_ms, library_ms=lib_ms, **b))
-        del q, k, v, out, lse, do, got
-    for M, C in K2_SHAPES_B1 + K2_SHAPES_B128:
-        y, x, params = _k2_operands(g, dev, M, C, dt)
-        args = (y, x, *params)
-        out = fm.fused_convnext_mlp(*args)
-        ref = fm.fused_convnext_mlp_reference(*args, 1e-6, True)
-        err = max_err(out, ref)
-        del ref
-        iters = 50 if M < 100_000 else 10
-        ms, spread = cuda_ms_median(lambda: fm.fused_convnext_mlp(*args), iters=iters)
-        plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_reference(*args, 1e-6, True), iters=3)
-        chain_ms = mlp_chain_ms(y, x, *params)
-        b = k2_bound((M, C), dt, False)
-        print(f"K2 fused_convnext_mlp bf16 (M,C)={(M, C)} residual=True ({fm.forward_kernel(C, dt)}): "
-              f"max|err| {err:.3e} (tol {K2_TOL[dt]:g}), kernel {ms:.4f} ms (spread {spread:.4f}), "
-              f"plain {plain_ms:.3f} ms, the bf16 library chain {chain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        check(torch.isfinite(out).all().item() and err <= K2_TOL[dt], f"K2 {(M, C)} error {err}")
-        rec["K2"].append(dict(shape=[M, C], max_abs_err=err, ms=ms, ms_spread=spread,
-                              plain_ms=plain_ms, library_ms=None, library_chain_ms=chain_ms, **b))
-        del out
-        if M < 100_000:
-            continue
-        bargs = (y, x, *params, 1e-6, True)  # x as dout
-        got = fm._launch_bwd(*bargs)
-        again = fm._launch_bwd(*bargs)
-        want = fm.fused_convnext_mlp_bwd_reference(*bargs)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, w) for a, w in zip(got, again))
-        del again
-        err = max(rel_err(a, w) for a, w in zip(got, want))
-        abs_err = max_err(got[0], want[0])
-        del want
-        ms, spread = cuda_ms_median(lambda: fm._launch_bwd(*bargs), iters=3)
-        plain_ms = cuda_ms(lambda: fm.fused_convnext_mlp_bwd_reference(*bargs), iters=2)
-        b = k2_bound((M, C), dt, True)
-        print(f"K2 fused_convnext_mlp_bwd bf16 (M,C)={(M, C)} ({fm.backward_kernel(C, dt)}): "
-              f"max rel err {err:.3e} (tol {BWD_TOL[dt]:g}), max|err dy| {abs_err:.3e}, "
-              f"bit-identical over two launches: {same}, kernel {ms:.3f} ms (spread {spread:.3f}), "
-              f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
-              flush=True)
-        check(all(torch.isfinite(t).all().item() for t in got) and err <= BWD_TOL[dt] and same,
-              f"K2 bwd {(M, C)} error {err}, same bits {same}")
-        rec["K2_bwd"].append(dict(shape=[M, C], max_abs_err=abs_err, ms=ms, ms_spread=spread,
-                                  plain_ms=plain_ms, library_ms=None, **b))
-        del got, y, x, params
-        gc.collect()
-        torch.cuda.empty_cache()
-    return rec
 
 
 def _launch_counts(fa, fm, fb) -> dict:
@@ -3521,8 +2907,7 @@ def receipt_train(dev, card, d: str, data_opts: list, kernels: bool, fa, fm, fb)
 def receipt_phase(dev, card, fa, fm, fb) -> dict:
     """Phase 7f: the receipt data (hybrid), phase 1 with the kernels on and
     off, phase 2 (PPO abstention fine-tuning) from the kernels-on
-    checkpoint; the kernels at the phase's new shapes before it, the
-    launches counted over the phase from zero. The checks are listed in
+    checkpoint; the launches counted over the phase from zero. The checks are listed in
     the module docstring."""
     import os
     import tempfile
@@ -3533,7 +2918,6 @@ def receipt_phase(dev, card, fa, fm, fb) -> dict:
     from linnaeus_tpu_torch.utils.device import busy_window, profile_events
 
     start = time.perf_counter()
-    shapes = check_receipt_shapes(dev, fa, fm)
     os.environ["CONFIG_DIR"] = os.path.dirname(os.path.abspath(__file__))  # MODEL.BASE paths
     d = tempfile.mkdtemp(prefix="receipt_", dir="build")
     t0 = time.perf_counter()
@@ -3630,7 +3014,7 @@ def receipt_phase(dev, card, fa, fm, fb) -> dict:
     seconds = time.perf_counter() - start
     print(f"phase 7f (phase 1 to phase 2) took {seconds:.1f} s; launches over the phase "
           f"{total}", flush=True)
-    return {"launches": total, "shapes": shapes, "on": on, "off": off, "gap": gap,
+    return {"launches": total, "on": on, "off": off, "gap": gap,
             "rl": receipt, "seconds": seconds}
 
 
@@ -4359,6 +3743,7 @@ def main() -> int:
     from linnaeus_tpu_torch import _kernels
     from linnaeus_tpu_torch.inference.handler import LinnaeusInferenceHandler
     from linnaeus_tpu_torch.inference.model_utils import build_model_for_inference
+    from linnaeus_tpu_torch.ops import drop_path as dpk
     from linnaeus_tpu_torch.ops import flash_attention as fa
     from linnaeus_tpu_torch.ops import fused_dwconv_mlp as fb
     from linnaeus_tpu_torch.ops import fused_mlp as fm
@@ -4383,13 +3768,8 @@ def main() -> int:
           f"library ready in {spans['setup/kernels']['host_ms'] / 1e3:.1f} s: "
           f"{_kernels.library_path()}", flush=True)
 
-    # 2. each kernel against its plain version at the model's shapes
-    rec = check_kernels(dev, fa, fm)
-    rec_bwd = check_backward_kernels(dev, fa, fm)
-    rec_split = check_split_backward(dev, fa)
-    rec_block = check_block_kernel(dev, fb)
-    check_width_rule(dev, fm)
-    rec_dp = check_drop_path_kernels(dev, fm)
+    # 2. each kernel's time beside its plain version, library and bound
+    table = kernel_table(dev, fa, fm, fb, dpk)
 
     # 3. serve mFormerV1_sm through the handler with its default options
     # (the hierarchical-consistency pass on), kernels on
@@ -4426,7 +3806,7 @@ def main() -> int:
 
     # 3b. serve a bundle from disk: load_from_artifacts with a variant file
     # (K1 on, hierarchical heads), then HTTP through tools/serve.make_server
-    bundle = bundle_phase(dev, card, fa, fm)
+    bundle_phase(dev, card, fa, fm)
 
     # 4. the whole forward, kernels on vs off, same weights
     off = build_model_for_inference(cfg, dtype=torch.bfloat16, device=dev,
@@ -4467,7 +3847,7 @@ def main() -> int:
 
     # 7. train at 512 px: stage 3 holds 1028 tokens, where the TPU package
     # takes its split backward pair
-    trained_large = train_phase(dev, card, fa, fm, IMG_LARGE)["on"]["launches"]
+    train_phase(dev, card, fa, fm, IMG_LARGE)
 
     # 7b. train from the default config: AutoAugment, GradNorm's update,
     # remat "dots", the heads' parameter group at 10x, AdamW on cosine;
@@ -4489,14 +3869,14 @@ def main() -> int:
         # 7d. from pretrained files to a served bundle: the example
         # experiment with AutoBatch, one epoch, the bundle tool, serving,
         # --throughput and inspect_checkpoints, on phase 7c's dataset
-        pretrained = pretrained_phase(dev, card, fa, fm, trainer)
+        pretrained_phase(dev, card, fa, fm, trainer)
         # 7e. the mFormerV0 family: mFormerV0_sm's forward, training through
         # the CLI with resume, MetaFormer init and serving from the training
         # checkpoint directory, on phase 7c's dataset
         v0_phase(dev, card, fa, fm, trainer)
         # 7g. mFormerV1_sm_moe: serving, train_bench --moe steps, upcycling
         # from 7d's files through the CLI, serving the checkpoint, the export
-        moe = moe_phase(dev, card, fa, fm, trainer)
+        moe_phase(dev, card, fa, fm, trainer)
         # 7i. more than one GPU at world size 1 over NCCL (replicated, FSDP2)
         # against one process, serving and resuming the sharded run's
         # checkpoint, two ranks on the card over gloo, the complexity
@@ -4511,69 +3891,34 @@ def main() -> int:
         shutil.rmtree(trainer["dir"], ignore_errors=True)
         # 7f. phase 1 to phase 2: the receipt data, the CLI with the kernels
         # on and off and their receipts, PPO abstention fine-tuning from the
-        # kernels-on checkpoint; the kernels at the rollout's and the
-        # update's shapes
-        receipt = receipt_phase(dev, card, fa, fm, fb)
+        # kernels-on checkpoint
+        receipt_phase(dev, card, fa, fm, fb)
 
     # 8. K3's path: the fused-block A/B tool, forward and train
     trained["K3"] = block_ab_phase(dev, fm, fb)
 
+    # launches: over its path's run (the 384 px train steps; the A/B tool
+    # for K3), counted from zero. flash_attention_bwd counts calls of K1's
+    # backward, each one launch of flash_attention_bwd_dq and one of
+    # flash_attention_bwd_dkv; the scale-add kernel replaces no TPU kernel
     kernels = []
-    for r, key, name, src, replaces in (
-        (rec["K1"], "K1", "flash_attention_fwd",
-         "linnaeus_tpu_torch/csrc/flash_attention_fwd.cu", "linnaeus_tpu/ops/flash_attention.py:57"),
-        (rec_bwd["K1"], "K1_bwd", "flash_attention_bwd",
-         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
-         "linnaeus_tpu/ops/flash_attention.py:156"),
-        (rec["K2"], "K2", "fused_convnext_mlp_fwd",
-         "linnaeus_tpu_torch/csrc/fused_mlp_fwd_wgmma.cu", "linnaeus_tpu/ops/fused_mlp.py:39"),
-        (rec_bwd["K2"], "K2_bwd", "fused_convnext_mlp_bwd",
-         "linnaeus_tpu_torch/csrc/fused_mlp_bwd_wgmma.cu", "linnaeus_tpu/ops/fused_mlp.py:155"),
-        (rec_split["dq"], "K1_dq", "flash_attention_bwd_dq",
-         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
-         "linnaeus_tpu/ops/flash_attention.py:112"),
-        (rec_split["dkv"], "K1_dkv", "flash_attention_bwd_dkv",
-         "linnaeus_tpu_torch/csrc/flash_attention_bwd_split.cu",
-         "linnaeus_tpu/ops/flash_attention.py:207"),
-        (rec_block, "K3", "fused_convnext_block_fwd",
-         "linnaeus_tpu_torch/csrc/fused_dwconv_mlp_fwd.cu",
-         "linnaeus_tpu/ops/fused_dwconv_mlp.py:50"),
+    for key, name, src, replaces in (
+        ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:57"),
+        ("K1_bwd", "flash_attention_bwd", "flash_attention_bwd_split.cu", "flash_attention.py:156"),
+        ("K1_dq", "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
+         "flash_attention.py:112"),
+        ("K1_dkv", "flash_attention_bwd_dkv", "flash_attention_bwd_split.cu",
+         "flash_attention.py:207"),
+        ("K2", "fused_convnext_mlp_fwd", "fused_mlp_fwd_wgmma.cu", "fused_mlp.py:39"),
+        ("K2_bwd", "fused_convnext_mlp_bwd", "fused_mlp_bwd_wgmma.cu", "fused_mlp.py:155"),
+        ("K3", "fused_convnext_block_fwd", "fused_dwconv_mlp_fwd.cu", "fused_dwconv_mlp.py:50"),
+        ("drop_path_add", "drop_path_add", "drop_path_add.cu", None),
+        ("drop_path_add_bwd", "drop_path_add_bwd", "drop_path_add.cu", None),
     ):
-        # launches: over its path's run (the 384 px train steps; the A/B tool
-        # for K3), counted from zero; the forwards also served the requests.
-        # flash_attention_bwd counts calls of K1's backward, each one launch
-        # of flash_attention_bwd_dq and one of flash_attention_bwd_dkv
         check(trained[key] > 0, f"kernel {name} was not launched on its path")
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": trained[key], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ms_spread": r.get("ms_spread"),
-                        "library_chain_ms": r.get("library_chain_ms"),
-                        "serving_launches": launches.get(key),
-                        "bundle_launches": bundle["launches"].get(key),
-                        "launches_512px": trained_large.get(key),
-                        "default_cfg_launches": default_cfg["launches"].get(key, 0),
-                        "trainer_launches": trainer["launches"].get(key, 0),
-                        "pretrained_launches": pretrained["launches"].get(key, 0),
-                        "receipt_launches": receipt["launches"].get(key, 0),
-                        "moe_launches": moe["launches"].get(key, 0),
-                        "multi_launches": {mode: counts.get(key, 0) for mode, counts
-                                           in multi["launches"].items()},
-                        "receipt_shapes": receipt["shapes"].get(key, []),
-                        "shape": r["shape"],
-                        "dtype": "bfloat16", "other_shapes": r.get("other_shapes", [])})
-    # the scale-add kernel replaces no TPU kernel; its launches over the
-    # 384 px train steps (none with the kernels off), forward and backward
-    check(trained["drop_path_add"] > 0, "kernel drop_path_add was not launched on its path")
-    kernels.append({"name": "drop_path_add", "route": "cuda",
-                    "source": "linnaeus_tpu_torch/csrc/drop_path_add.cu", "replaces": None,
-                    "launches": trained["drop_path_add"],
-                    "bwd_launches": trained["drop_path_add_bwd"],
-                    "launches_512px": trained_large["drop_path_add"], "dtype": "bfloat16",
-                    **{k: v for k, v in rec_dp.items() if k != "k2_scaled"}})
-    kernels[[k["name"] for k in kernels].index("fused_convnext_mlp_fwd")]["scaled"] = (
-        rec_dp["k2_scaled"])
+        kernels.append({"name": name, "source": f"linnaeus_tpu_torch/csrc/{src}",
+                        "replaces": None if replaces is None else f"linnaeus_tpu/ops/{replaces}",
+                        "launches": trained[key], "timings": table[key]})
     print(f"chip_smoke.py took {time.perf_counter() - script_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,11 +17,7 @@ from torch import nn
 
 from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp, kernel_takes
 
-from .common import Conv2d, DropPath, LayerNorm, Linear, drop_path_add, gelu
-
-
-def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+from .common import Conv2d, DropPath, LayerNorm, Linear, conv_nhwc, drop_path_add, gelu
 
 
 class ConvNeXtBlock(nn.Module):
@@ -56,7 +52,7 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool | None = None) -> torch.Tensor:
         residual = x
-        y = _conv_nhwc(self.dwconv, x)
+        y = conv_nhwc(self.dwconv, x)
         use_fused = self.fused_mlp
         if use_fused is None:
             needs_grad = training if training is not None else torch.is_grad_enabled() and (
@@ -96,7 +92,7 @@ class ConvNeXtDownsampleLayer(nn.Module):
         self.conv = Conv2d(in_dim, out_dim, kernel_size=2, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_nhwc(self.conv, self.norm(x))
+        return conv_nhwc(self.conv, self.norm(x))
 
 
 class ConvNeXtStem(nn.Sequential):
@@ -109,4 +105,4 @@ class ConvNeXtStem(nn.Sequential):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self[1](_conv_nhwc(self[0], x))
+        return self[1](conv_nhwc(self[0], x))

@@ -195,10 +195,10 @@ def _parent_convnext_forward(block, x, fused):
     residual add: DropPath.forward on the branch, then the add (the fused
     tail then skipped its own residual add)."""
     from linnaeus_tpu_torch.models.blocks.common import gelu
-    from linnaeus_tpu_torch.models.blocks.convnext import _conv_nhwc
+    from linnaeus_tpu_torch.models.blocks.common import conv_nhwc
     from linnaeus_tpu_torch.ops.fused_mlp import fused_convnext_mlp
 
-    y = _conv_nhwc(block.dwconv, x)
+    y = conv_nhwc(block.dwconv, x)
     if fused:
         active = block.training and block.drop_path.rate != 0.0
         out = fused_convnext_mlp(

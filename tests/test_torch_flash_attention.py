@@ -18,6 +18,7 @@ from jax.experimental import pallas as pl
 import linnaeus_tpu.ops.flash_attention as jfa
 from linnaeus_tpu.ops.attention import sdpa_bnhd as jax_sdpa_bnhd
 from linnaeus_tpu_torch.ops import flash_attention as tfa
+from linnaeus_tpu_torch.ops import kernel_bars
 from linnaeus_tpu_torch.ops.attention import scaled_dot_product_attention, sdpa_bnhd
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -223,11 +224,11 @@ def test_the_backward_is_the_pair_on_both_sides_of_the_tpu_switch(n):
 # ------------------------------------------- the tensor-core kernels' arithmetic
 # Plain PyTorch emulations of what the bfloat16 kernels compute on the card,
 # tile by tile and cast for cast, held to the plain versions within the bars
-# the card run enforces (chip_smoke.py's K1_TOL and BWD_TOL): the tiling and
+# the card enforces (ops/kernel_bars.py's K1_TOL and BWD_TOL): the tiling and
 # the cast points chosen for the kernels stay inside those bars whatever the
 # card does with them.
-K1_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+K1_TOL = {str(dt).removeprefix("torch."): v for dt, v in kernel_bars.K1_TOL.items()}
+BWD_TOL = {str(dt).removeprefix("torch."): v for dt, v in kernel_bars.BWD_TOL.items()}
 LOG2E = 1.4426950408889634
 MASKED = -1e30
 
